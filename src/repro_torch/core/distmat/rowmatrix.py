@@ -1,0 +1,150 @@
+"""RowMatrix: a row-partitioned dense matrix on one device.
+
+Counterpart of src/repro/core/distmat/rowmatrix.py.  The reference shards
+rows over a TPU mesh and runs each op as a shard_map body with a psum; here
+there is one shard, so each op is its body alone.  `rows` may be padded past
+`n_rows` (a matrix carried over from a multi-device reference keeps its
+padding); padding rows are zero and weigh 0 in every loss.
+
+The Gram goes through the tsgram kernel, the fused gradient through the
+fused_grad kernel and the small-factor product through the gemm kernel
+(kernels/ops: plain torch for CPU tensors).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from repro_torch.kernels import ops as _ops
+from . import types as T
+
+_CHUNKS_ITEM = "ROADMAP queue 1 item 13 (multi-GPU)"
+
+
+def _check_chunks(chunks) -> None:
+    if chunks != 1:
+        raise NotImplementedError(
+            f"chunks={chunks!r}: only 1 until {_CHUNKS_ITEM} lands")
+
+
+@dataclass(frozen=True)
+class RowMatrix(T.DistMatrix):
+    rows: torch.Tensor               # (m_padded, n) on one device
+    n_rows: int                      # true row count (pre-padding)
+
+    # -- construction ------------------------------------------------------
+    @staticmethod
+    def create(rows, *, device="cuda", store_dtype=None) -> "RowMatrix":
+        """`rows` on `device` (the card unless the caller asks for the
+        CPU).  `store_dtype` (float32 or bfloat16) sets the storage type;
+        every op upcasts what it reads and accumulates in f32, so results
+        come back at `out_dtype`."""
+        dev = T.resolve_device(device)
+        rows = T.as_float_tensor(rows, dev)
+        if store_dtype is not None:
+            rows = rows.to(store_dtype)
+        if rows.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"storage must be float32 or bfloat16, got {rows.dtype}")
+        padded, m = T.pad_rows(rows.contiguous(), 1)
+        return RowMatrix(rows=padded, n_rows=m)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n_rows, self.rows.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        """float32 when storage is narrower: low-precision storage never
+        narrows the math the caller sees."""
+        d = self.rows.dtype
+        return torch.float32 if d.itemsize < 4 else d
+
+    def astype_store(self, dtype) -> "RowMatrix":
+        """Recast the storage; identity when the dtype already matches."""
+        if dtype == self.rows.dtype:
+            return self
+        return replace(self, rows=self.rows.to(dtype))
+
+    def _row_mask(self) -> torch.Tensor:
+        """{0,1} mask of true (non-padding) rows."""
+        idx = torch.arange(self.rows.shape[0], device=self.device)
+        return (idx < self.n_rows).to(self.out_dtype)
+
+    # -- matrix ops ----------------------------------------------------------
+    def gram(self, *, chunks: int = 1) -> torch.Tensor:
+        """AᵀA (tsgram kernel).  Padding rows are zero and add nothing."""
+        _check_chunks(chunks)
+        g = _ops.tsgram(self.rows, out_dtype=torch.float32)
+        return g.to(self.out_dtype)
+
+    def _promoted(self, v: torch.Tensor) -> torch.Tensor:
+        return self.rows.to(torch.promote_types(self.rows.dtype, v.dtype))
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """A v → (m_padded,)."""
+        return self._promoted(v) @ v
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        """Aᵀ u for a data-space u (m_padded,) → (n,)."""
+        return self._promoted(u).T @ u
+
+    def fused_grad(self, x: torch.Tensor, smooth, *, chunks: int = 1):
+        """(f(Ax), Aᵀ∇f(Ax), Ax) in ONE streaming pass over A (fused_grad
+        kernel).  `smooth` is a row-separable smooth or its RowSeparable
+        form; its target/weights get padded to the stored row count, with
+        padding rows weighted 0.  Returns (f32 scalar, (n,) gradient,
+        (m_padded,) image)."""
+        _check_chunks(chunks)
+        kind, t, w, prm = T.row_separable_inputs(smooth, self.rows.shape[0],
+                                                 self._row_mask)
+        return _ops.fused_grad(self.rows, torch.as_tensor(x), t, w,
+                               loss=kind, param=prm)
+
+    def multiply_local(self, B: torch.Tensor) -> "RowMatrix":
+        """A @ B for a small B, the `U = A (VΣ⁻¹)` pattern (gemm kernel);
+        the result keeps the storage type, as in the reference."""
+        return replace(self, rows=_ops.gemm(self.rows, B,
+                                            out_dtype=self.rows.dtype))
+
+    def column_stats(self) -> dict[str, torch.Tensor]:
+        """Per-column statistics (MLlib colStats)."""
+        m = self.n_rows
+        mask = self._row_mask()
+        a = self.rows
+        am = a * mask[:, None]
+        s = am.sum(0)
+        sq = (am * am).sum(0)
+        nnz = (am != 0).sum(0)
+        keep = mask[:, None] > 0
+        mn = torch.where(keep, a, torch.inf).amin(0)
+        mx = torch.where(keep, a, -torch.inf).amax(0)
+        mean = s / m
+        var = torch.clamp(sq / m - mean * mean, min=0.0) * (m / max(m - 1, 1))
+        return {"mean": mean, "variance": var, "num_nonzeros": nnz,
+                "min": mn, "max": mx, "norm_l2": torch.sqrt(sq)}
+
+    def frobenius_norm(self) -> torch.Tensor:
+        a = self.rows.float()
+        return torch.sqrt((a * a).sum())
+
+    # -- materialization ----------------------------------------------------
+    def to_local(self) -> torch.Tensor:
+        return self.rows[: self.n_rows]
+
+    # -- linalg entry points (implemented in core.linalg) -------------------
+    def compute_svd(self, k: int, **kw):
+        from repro_torch.core.linalg import svd as _svd
+        return _svd.compute_svd(self, k, **kw)
+
+    def compute_pca(self, k: int, **kw):
+        from repro_torch.core.linalg import svd as _svd
+        return _svd.compute_pca(self, k, **kw)
+
+    def tall_skinny_qr(self):
+        from repro_torch.core.linalg.tsqr import tsqr
+        return tsqr(self)

@@ -1,0 +1,35 @@
+"""Tall-and-skinny QR (paper §3.4, Benson–Gleich–Demmel indirect TSQR).
+
+Counterpart of src/repro/core/linalg/tsqr.py on one device: the map step is
+a local QR keeping R, the reduce step re-factors the (single) stacked R, and
+Q = A R⁻¹ comes back through the gemm kernel, the same "broadcast the small
+factor" pattern as U recovery in the SVD.
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+
+import torch
+
+from repro_torch.core.distmat.rowmatrix import RowMatrix
+from repro_torch.kernels import ops as _ops
+
+
+def _nonneg_diag(R: torch.Tensor) -> torch.Tensor:
+    """Fix the sign convention (R diagonal ≥ 0) for determinism."""
+    d = torch.sign(torch.diagonal(R))
+    d = torch.where(d == 0, 1.0, d)
+    return R * d[:, None]
+
+
+def tsqr(A: RowMatrix) -> tuple[RowMatrix, torch.Tensor]:
+    """Returns (Q as RowMatrix, R (n, n)) with A = Q R."""
+    a = A.rows
+    n = a.shape[1]
+    # Map: local QR, keep R (padding rows are zero and change nothing).
+    local = _nonneg_diag(torch.linalg.qr(a.float(), mode="r")[1])
+    # Reduce: QR of the stacked R factors (one shard here).
+    R = _nonneg_diag(torch.linalg.qr(local, mode="r")[1])
+    r_inv = torch.linalg.solve_triangular(
+        R, torch.eye(n, dtype=R.dtype, device=R.device), upper=True)
+    return replace(A, rows=_ops.gemm(a, r_inv, out_dtype=a.dtype)), R

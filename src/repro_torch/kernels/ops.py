@@ -1,0 +1,66 @@
+"""Public kernel entry points: validation and device dispatch.
+
+Counterpart of src/repro/kernels/ops.py.  A tensor on the CPU goes to the
+kernel's plain torch version; a CUDA tensor goes to the hand-written kernel,
+which raises unless the card is sm_90.  There is no other route: no
+fallback from the kernel to the plain version.  The kernels mask ragged
+edges themselves, so nothing is padded here (the TPU wrappers padded only
+for the (8, 128) tiling).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import fusedgrad as _fg
+from . import gemm as _gemm
+from . import tsgram as _tsgram
+
+KERNELS = {"fused_grad": _fg.fused_grad, "tsgram": _tsgram.tsgram,
+           "gemm": _gemm.gemm}
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
+    return devs.pop().type == "cpu"
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by kernel name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """C = A @ B in f32 accumulation, cast to `out_dtype` (default a.dtype)."""
+    if _on_cpu(a, b):
+        return _gemm.gemm_plain(a, b, out_dtype)
+    return _gemm.gemm(a, b, out_dtype=out_dtype)
+
+
+def tsgram(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """G = AᵀA for tall-skinny A, f32 accumulation, in `out_dtype`."""
+    if _on_cpu(a):
+        return _tsgram.tsgram_plain(a, out_dtype)
+    return _tsgram.tsgram(a, out_dtype=out_dtype)
+
+
+def fused_grad(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+               weights: torch.Tensor, *, loss: str, param: float = 1.0
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(f, g, z) = (Σᵢ wᵢ ℓ((Ax)ᵢ, tᵢ), Aᵀ(w∘ℓ'(Ax, t)), Ax), reading A
+    once.  Returns f32 f (scalar), g (n,) in x.dtype, f32 z (m,)."""
+    if loss not in _fg.LOSSES:
+        raise ValueError(f"loss must be one of {_fg.LOSSES}, got {loss!r}")
+    if _on_cpu(a, x, target, weights):
+        f, g, z = _fg.fused_grad_plain(a, x, target, weights, loss=loss,
+                                       param=param)
+    else:
+        f, g, z = _fg.fused_grad(a, x, target, weights, loss=loss,
+                                 param=param)
+    return f, g.to(x.dtype), z
