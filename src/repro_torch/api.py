@@ -1,15 +1,19 @@
 """repro_torch.api: the request/result surface of the port.
 
-Counterpart of src/repro/api.py's direct call path: `solve(SolveRequest)`
-and `svd(SvdRequest)` run a job at once and return a `Result` whose info
-carries the standard keys
+Counterpart of src/repro/api.py.  The same request dataclasses drive both
+entry paths: the direct call path, where `solve(SolveRequest)` and
+`svd(SvdRequest)` run a job at once, and the serving path, where
+`launch/serve.SolverServer.submit` enqueues them and answers requests that
+share a design matrix with one fused A-pass per group iteration.  Every
+`Result.info` carries the standard keys
 
-  iterations — outer iterations
+  iterations — outer iterations (power iterations for randomized SVD)
   a_passes   — streaming passes over A consumed (the paper's cost unit)
   converged  — whether the stopping test fired before the iteration cap
   plan       — which engine answered ("fused", "fused_affine", "cached",
-               "gram")
-  degraded   — None for a full-quality answer
+               "gram", "randomized", "fused-group", ...)
+  degraded   — None for a full-quality answer, else why it was cut short
+               ("deadline", "max_iterations", "fault", "overloaded")
   precision  — what ran ("f32"; "auto" runs f32 until the planner is
                ported)
 
@@ -30,8 +34,7 @@ import torch
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.core.linalg.svd import compute_svd as _compute_svd
-from repro_torch.core.optim.first_order import (LBFGS_ITEM,
-                                                minimize_first_order)
+from repro_torch.core.optim.first_order import minimize_first_order
 from repro_torch.core.tfocs.linop import LinopMatrix
 from repro_torch.core.tfocs.prox import ProxL1, ProxL2Sq, ProxZero
 from repro_torch.core.tfocs.smooth import (SmoothHuber, SmoothLogLoss,
@@ -42,6 +45,7 @@ from repro_torch.kernels.fusedgrad import LOSSES
 REGS = ("none", "l1", "l2")
 FAULT_TOLERANCE_ITEM = "ROADMAP queue 1 item 14 (fault tolerance and telemetry)"
 LOW_PRECISION_ITEM = "ROADMAP queue 1 item 12 (low precision)"
+DISTMAT_ITEM = "ROADMAP queue 1 item 9 (distmat types and DIMSUM)"
 _ids = itertools.count()
 
 
@@ -82,13 +86,13 @@ class SolveRequest:
     param: float = 1.0            # loss scalar (huber δ)
     reg: str = "none"             # none | l1 | l2
     lam: float = 0.0              # regularizer weight
-    method: str = "gra"           # gra | acc | acc_r | acc_b | acc_rb
+    method: str = "gra"           # gra | acc | acc_r | acc_b | acc_rb | lbfgs
     tol: float = 1e-8
     max_iters: int = 200
     L0: float = 1.0               # initial Lipschitz estimate (1/step)
     x0: Any = None
     precision: str = "auto"       # "auto" and "f32" run f32
-    deadline_s: float | None = None
+    deadline_s: float | None = None   # wall budget, honoured by the server
     checkpoint_dir: str | None = None
     checkpoint_every: int = 10
     resume: bool = False
@@ -124,11 +128,9 @@ class SolveRequest:
                              f"got {self.precision!r}")
         if self.resume and self.checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir")
-        if self.method == "lbfgs":
-            _not_yet("method='lbfgs'", LBFGS_ITEM)
         if self.precision in ("bf16", "psum8"):
             _not_yet(f"precision={self.precision!r}", LOW_PRECISION_ITEM)
-        for name in ("checkpoint_dir", "deadline_s", "telemetry"):
+        for name in ("checkpoint_dir", "telemetry"):
             if getattr(self, name) is not None:
                 _not_yet(name, FAULT_TOLERANCE_ITEM)
         if self.resume:
@@ -141,7 +143,7 @@ class SvdRequest:
     A: Any
     k: int
     compute_u: bool = True
-    mode: str = "auto"            # auto | gram (lanczos, randomized later)
+    mode: str = "auto"            # auto | gram | randomized (lanczos later)
     options: dict = field(default_factory=dict)   # extra compute_svd kwargs
     deadline_s: float | None = None
     telemetry: Any = None
@@ -158,6 +160,24 @@ class SvdRequest:
 
 
 @dataclass
+class SimilarityRequest:
+    """DIMSUM column similarities.  Validated as the reference validates
+    it; the server refuses it until ROADMAP queue 1 item 9 lands."""
+    A: Any
+    threshold: float = 0.0
+    gamma: float | None = None
+    seed: int = 0
+    deadline_s: float | None = None
+    telemetry: Any = None
+    request_id: str = field(default_factory=lambda: _next_id("sim"))
+
+    def __post_init__(self):
+        _check_scalar("threshold", self.threshold, minimum=0.0)
+        _check_scalar("deadline_s", self.deadline_s, minimum=0.0,
+                      exclusive=True, optional=True)
+
+
+@dataclass
 class Result:
     """Answer envelope: `x` for solves, `factors` (U, s, V) for the SVD,
     `info` with the standard keys."""
@@ -165,6 +185,21 @@ class Result:
     factors: tuple | None = None
     info: dict = field(default_factory=dict)
     request_id: str = ""
+
+
+@dataclass
+class Overloaded(Result):
+    """Typed load-shed answer: the server refused the request at submit
+    because its queue bound was reached.  It carries no solution, only
+    `info["degraded"] == "overloaded"`, so clients can tell "retry later"
+    from "failed"."""
+
+    def __post_init__(self):
+        self.info.setdefault("degraded", "overloaded")
+        self.info.setdefault("iterations", 0)
+        self.info.setdefault("a_passes", 0)
+        self.info.setdefault("converged", False)
+        self.info.setdefault("plan", "rejected")
 
 
 def _on_device(A, device) -> RowMatrix | torch.Tensor:
@@ -213,7 +248,10 @@ def solve_prox(req: SolveRequest):
 # -- direct call path ---------------------------------------------------------
 
 def solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
-    """Run one SolveRequest now."""
+    """Run one SolveRequest now.  A wall deadline is honoured by the
+    server's groups; on this path it waits for the elastic executor."""
+    if req.deadline_s is not None:
+        _not_yet("deadline_s on the direct path", FAULT_TOLERANCE_ITEM)
     linop = solve_linop(req)
     smooth = solve_smooth(req, linop)
     prox = solve_prox(req)
@@ -222,6 +260,9 @@ def solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
                                                device=linop.device)
     opts = TfocsOptions(max_iters=req.max_iters, tol=req.tol, L0=req.L0,
                         fused=fused, precision=req.precision)
+    if req.method == "lbfgs" and not isinstance(prox, ProxZero):
+        raise ValueError("method='lbfgs' needs reg='none' (fold the "
+                         "regularizer into a smooth loss)")
     x, info = minimize_first_order(req.method, smooth, linop, prox,
                                    x0=x0, opts=opts)
     info.setdefault("degraded", None)
@@ -241,3 +282,4 @@ def svd(req: SvdRequest) -> Result:
     info.setdefault("precision", "f32")
     return Result(factors=(res.U, res.s, res.V), info=info,
                   request_id=req.request_id)
+

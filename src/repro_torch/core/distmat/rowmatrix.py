@@ -7,8 +7,10 @@ there is one shard, so each op is its body alone.  `rows` may be padded past
 padding); padding rows are zero and weigh 0 in every loss.
 
 The Gram goes through the tsgram kernel, the fused gradient through the
-fused_grad kernel and the small-factor product through the gemm kernel
-(kernels/ops: plain torch for CPU tensors).
+fused_grad kernel (fused_grad_multi for a group of right-hand sides), the
+randomized SVD's projection AᵀQ through the randsketch kernel and the
+small-factor product through the gemm kernel (kernels/ops: plain torch for
+CPU tensors).
 """
 from __future__ import annotations
 
@@ -104,6 +106,38 @@ class RowMatrix(T.DistMatrix):
                                                  self._row_mask)
         return _ops.fused_grad(self.rows, torch.as_tensor(x), t, w,
                                loss=kind, param=prm)
+
+    def fused_grad_multi(self, x: torch.Tensor, smooths):
+        """Request-batched fused gradients: (f, g, z) for a group of k
+        right-hand sides in ONE streaming pass over A (fused_grad_multi
+        kernel).  `x` is (k × n); `smooths` a sequence of k row-separable
+        smooths sharing one loss kind/param, or one smooth with stacked 2-D
+        targets.  Padding rows take the row mask.  Returns ((k,) values,
+        (k × n) gradients, (k × m_padded) images)."""
+        kind, t, w, prm = T.row_separable_batch_inputs(
+            smooths, self.rows.shape[0], self._row_mask)
+        x = torch.atleast_2d(torch.as_tensor(x))
+        return _ops.fused_grad_multi(self.rows, x, t, w, loss=kind,
+                                     param=prm)
+
+    def sketch(self, r: int, *, seed: int = 0) -> "RowMatrix":
+        """Y = A Ω for an (n × r) Gaussian test matrix Ω (randomized range
+        finder), drawn from a torch.Generator on A's device seeded with
+        `seed`: the same seed gives the same Ω.  The product is one plain
+        matmul, as the reference leaves it to XLA outside any kernel."""
+        n = self.rows.shape[1]
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        omega = torch.randn((n, r), generator=gen, device=self.device,
+                            dtype=torch.float32).to(self.rows.dtype)
+        return replace(self, rows=self.rows @ omega)
+
+    def project(self, Q: "RowMatrix", *,
+                out_dtype=torch.float32) -> torch.Tensor:
+        """B = AᵀQ for a row-conforming Q (randsketch kernel), the
+        randomized SVD's projection.  Padding rows are zero in both
+        operands and add nothing."""
+        out = _ops.randsketch(self.rows, Q.rows, out_dtype=torch.float32)
+        return out.to(out_dtype)
 
     def multiply_local(self, B: torch.Tensor) -> "RowMatrix":
         """A @ B for a small B, the `U = A (VΣ⁻¹)` pattern (gemm kernel);

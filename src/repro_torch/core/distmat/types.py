@@ -64,6 +64,46 @@ def row_separable_inputs(smooth, m_pad: int, row_mask_fn: Callable):
     return sep.kind, t, w, float(getattr(sep, "param", 1.0))
 
 
+def row_separable_batch_inputs(smooths, m_pad: int, row_mask_fn: Callable):
+    """Resolve a group of row-separable smooths into multi-RHS fused kernel
+    inputs: (kind, targets (k × m_pad), weights (k × m_pad), param).
+
+    `smooths` is a sequence of k smooths sharing one loss kind and param
+    (what makes them one servable group), or a single smooth whose target
+    and weights are already stacked 2-D (k × m).  Mixed kinds or params
+    raise."""
+    def resolve(s):
+        sep = s if hasattr(s, "kind") else (
+            s.as_row_separable() if hasattr(s, "as_row_separable") else None)
+        if sep is None:
+            raise ValueError("fused_grad_multi needs row-separable smooths")
+        return sep
+
+    if not isinstance(smooths, (list, tuple)):
+        sep = resolve(smooths)
+        t = torch.atleast_2d(torch.as_tensor(sep.target))
+        seps = [sep]
+        ts = list(t)
+        ws = ([None] * t.shape[0] if sep.weights is None
+              else list(torch.atleast_2d(torch.as_tensor(sep.weights))))
+    else:
+        seps = [resolve(s) for s in smooths]
+        ts = [torch.as_tensor(s.target) for s in seps]
+        ws = [None if s.weights is None else torch.as_tensor(s.weights)
+              for s in seps]
+
+    kinds = {s.kind for s in seps}
+    params = {float(getattr(s, "param", 1.0)) for s in seps}
+    if len(kinds) != 1 or len(params) != 1:
+        raise ValueError(
+            f"a fused group must share one loss kind/param, got "
+            f"{sorted(kinds)} / {sorted(params)}")
+    mask = row_mask_fn()
+    t2 = torch.stack([_pad1(t, m_pad) for t in ts])
+    w2 = torch.stack([mask if w is None else _pad1(w, m_pad) for w in ws])
+    return kinds.pop(), t2, w2, params.pop()
+
+
 @dataclass(frozen=True)
 class DistMatrix:
     """Base for distributed matrices."""

@@ -1,12 +1,18 @@
-"""computeSVD / computePCA in Gram mode (paper §3.1.2, tall and skinny).
+"""computeSVD / computePCA (paper §3.1) for a RowMatrix.
 
-Counterpart of src/repro/core/linalg/svd.py for a RowMatrix: one pass over
-A builds AᵀA (tsgram kernel), a local eigh gives Σ² and V, and one more
-pass recovers U = A (VΣ⁻¹) (gemm kernel).  Wide inputs (m < n) go through
-the transpose and swap the factors back.
+Counterpart of src/repro/core/linalg/svd.py, with two of its three modes:
 
-`mode="auto"` picks gram for n ≤ GRAM_THRESHOLD, as the reference planner
-does; the Lanczos and randomized modes wait for their own ports.
+  * gram (§3.1.2, tall and skinny): one pass over A builds AᵀA (tsgram
+    kernel), a local eigh gives Σ² and V, and one more pass recovers
+    U = A (VΣ⁻¹) (gemm kernel);
+  * randomized (core/linalg/randsvd): 2 + 2q passes, the projections
+    through the randsketch kernel; U falls out of the range basis.
+
+Wide inputs (m < n) go through the transpose and swap the factors back.
+`mode="auto"` follows the reference planner's rule for a RowMatrix
+(launch/planner.py, op "svd"): gram for n ≤ gram_threshold, else
+randomized for k ≤ randomized_k_threshold, else Lanczos, which waits for
+its own port.
 """
 from __future__ import annotations
 
@@ -15,14 +21,15 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.distmat.rowmatrix import RowMatrix
+from . import randsvd as _randsvd
 
 # n at which an n×n float32 Gram stops being comfortable to hold and factor.
 GRAM_THRESHOLD = 8192
+# Past the Gram threshold, k at which Lanczos' sequential directions beat
+# the (2 + 2q)-pass sketch.
+RANDOMIZED_K_THRESHOLD = 128
 _MODES = ("auto", "gram", "lanczos", "randomized")
-_WAITING = {
-    "lanczos": "ROADMAP queue 1 item 5a (L-BFGS and Lanczos)",
-    "randomized": "ROADMAP queue 1 item 7 (randomized SVD)",
-}
+LANCZOS_ITEM = "ROADMAP queue 1 item 5a (Lanczos)"
 
 
 @dataclass(frozen=True)
@@ -54,9 +61,23 @@ def _swap_transposed(A: RowMatrix, res: SVDResult,
                      info=dict(res.info or {}, transposed=True))
 
 
+def auto_mode(n: int, k: int, *, gram_threshold: int = GRAM_THRESHOLD,
+              randomized_k_threshold: int = RANDOMIZED_K_THRESHOLD) -> str:
+    """The reference planner's mode for a dense RowMatrix with n columns
+    and k asked triplets."""
+    if n <= gram_threshold:
+        return "gram"
+    if k <= randomized_k_threshold:
+        return "randomized"
+    return "lanczos"
+
+
 def compute_svd(A: RowMatrix, k: int, *, compute_u: bool = True,
                 mode: str = "auto", gram_threshold: int = GRAM_THRESHOLD,
-                rcond: float = 1e-9) -> SVDResult:
+                randomized_k_threshold: int = RANDOMIZED_K_THRESHOLD,
+                oversampling: int = _randsvd.OVERSAMPLING,
+                power_iters: int = _randsvd.POWER_ITERS,
+                rcond: float = 1e-9, seed: int = 0) -> SVDResult:
     if not isinstance(A, RowMatrix):
         raise TypeError(f"compute_svd needs a RowMatrix, got {type(A).__name__}")
     if mode not in _MODES:
@@ -66,17 +87,26 @@ def compute_svd(A: RowMatrix, k: int, *, compute_u: bool = True,
     k = min(k, min(m, n))
     if m < n:
         res = compute_svd(_transpose(A), k, compute_u=True, mode=mode,
-                          gram_threshold=gram_threshold, rcond=rcond)
+                          gram_threshold=gram_threshold,
+                          randomized_k_threshold=randomized_k_threshold,
+                          oversampling=oversampling, power_iters=power_iters,
+                          rcond=rcond, seed=seed)
         return _swap_transposed(A, res, compute_u)
     if mode == "auto":
-        if n > gram_threshold:
-            raise NotImplementedError(
-                f"n={n} > {gram_threshold}: the reference takes the "
-                f"randomized or Lanczos mode, which wait for "
-                f"{_WAITING['randomized']} and {_WAITING['lanczos']}")
-        mode = "gram"
-    if mode != "gram":
-        raise NotImplementedError(f"mode={mode!r} waits for {_WAITING[mode]}")
+        mode = auto_mode(n, k, gram_threshold=gram_threshold,
+                         randomized_k_threshold=randomized_k_threshold)
+    if mode == "lanczos":
+        raise NotImplementedError(
+            f"mode='lanczos' (n={n}, k={k}) waits for {LANCZOS_ITEM}")
+    if mode == "randomized":
+        # Few-pass sketch path: U falls out of the range basis, so there
+        # is no extra pass for it.
+        U, s, V, info = _randsvd.randomized_svd(
+            A, k, oversampling=oversampling, power_iters=power_iters,
+            seed=seed, compute_u=compute_u)
+        info = dict(info, plan="randomized", iterations=power_iters,
+                    a_passes=info["passes_over_A"], converged=True)
+        return SVDResult(U=U, s=s, V=V, info=info)
     G = A.gram().float()
     w, V = torch.linalg.eigh(G)
     w, V = w.flip(0)[:k], V.flip(1)[:, :k]

@@ -2,7 +2,7 @@
 
 Counterpart of src/repro/core/optim/first_order.py.  `gra / acc / acc_r /
 acc_b / acc_rb` are the one engine with flags (core.tfocs.solver); `lbfgs`
-waits for its own port.
+is core.optim.lbfgs, on the same composite.
 """
 from __future__ import annotations
 
@@ -14,8 +14,7 @@ from repro_torch.core.distmat import types as T
 from repro_torch.core.tfocs.prox import ProxZero
 from repro_torch.core.tfocs.solver import TfocsOptions, tfocs
 
-METHODS = ("gra", "acc", "acc_r", "acc_b", "acc_rb")
-LBFGS_ITEM = "ROADMAP queue 1 item 5a (L-BFGS and Lanczos)"
+METHODS = ("gra", "acc", "acc_r", "acc_b", "acc_rb", "lbfgs")
 
 _FLAGS = {
     #            accel  backtracking restart
@@ -31,7 +30,8 @@ def minimize_first_order(method: str, smooth, linop, prox=None, x0=None,
                          opts: TfocsOptions | None = None):
     """Run a paper-named method; returns (x, info)."""
     if method == "lbfgs":
-        raise NotImplementedError(f"method='lbfgs' waits for {LBFGS_ITEM}")
+        from .lbfgs import lbfgs_composite
+        return lbfgs_composite(smooth, linop, prox, x0, opts)
     if method not in _FLAGS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     accel, bt, restart = _FLAGS[method]

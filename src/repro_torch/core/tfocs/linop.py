@@ -1,8 +1,10 @@
 """Linear operators for composite objectives (paper §3.2.2 `LinopMatrix`).
 
 Counterpart of src/repro/core/tfocs/linop.py.  `apply` maps the solver's
-variable into data space, `adjoint` maps back, and `fused_grad` does a
-row-separable smooth's value, gradient and image in one pass over A.
+variable into data space, `adjoint` maps back, `fused_grad` does a
+row-separable smooth's value, gradient and image in one pass over A, and
+`fused_grad_multi` does the same for a group of k right-hand sides in one
+pass.
 """
 from __future__ import annotations
 
@@ -55,6 +57,18 @@ class LinopMatrix:
             sep, self.out_shape[0], self.row_weights)
         return _ops.fused_grad(self.A, x, t, w, loss=kind, param=prm)
 
+    def fused_grad_multi(self, x: torch.Tensor, seps):
+        """(f (k,), g (k × n), z (k × m)) for a group of k right-hand sides
+        in one streaming pass over A; `x` is (k × n), `seps` a sequence of
+        k RowSeparable smooths sharing one loss kind/param, or one smooth
+        with stacked targets."""
+        if isinstance(self.A, RowMatrix):
+            return self.A.fused_grad_multi(x, seps)
+        kind, t, w, prm = T.row_separable_batch_inputs(
+            seps, self.out_shape[0], self.row_weights)
+        return _ops.fused_grad_multi(self.A, torch.atleast_2d(x), t, w,
+                                     loss=kind, param=prm)
+
     def pad_data(self, b: torch.Tensor) -> torch.Tensor:
         """Pad a data-space vector to the padded row count."""
         m = self.out_shape[0]
@@ -99,14 +113,15 @@ class LinopIdentity:
 @dataclass
 class CountingLinop:
     """Wraps an operator and counts its A-passes (apply / adjoint /
-    fused_grad, each one streaming pass over A).
+    fused_grad / fused_grad_multi, each one streaming pass over A, whatever
+    the group width).
 
     The reference counts at trace time, so its counts are the structural
     per-iteration ones.  The port runs eagerly, so these count every call
     at run time: the total equals the solver's info["a_passes"]."""
     base: object
     counts: dict = field(default_factory=lambda: {
-        "apply": 0, "adjoint": 0, "fused_grad": 0})
+        "apply": 0, "adjoint": 0, "fused_grad": 0, "fused_grad_multi": 0})
 
     @property
     def in_shape(self):
@@ -134,6 +149,10 @@ class CountingLinop:
     def fused_grad(self, x, sep):
         self.counts["fused_grad"] += 1
         return self.base.fused_grad(x, sep)
+
+    def fused_grad_multi(self, x, seps):
+        self.counts["fused_grad_multi"] += 1
+        return self.base.fused_grad_multi(x, seps)
 
     def pad_data(self, b):
         return self.base.pad_data(b)

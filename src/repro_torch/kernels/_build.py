@@ -33,12 +33,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # device, m, n, dtype, *bm, *staged, *grid
-    "repro_fused_grad_plan": [_I, _LL, _I, _I, _IP, _IP, _IP],
-    # device, a, dtype, x, t, w, m, n, bm, staged, grid, loss, param,
-    # z, g_part, f_part, g, f, stream
-    "repro_fused_grad": [_I, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _F,
-                         _P, _P, _P, _P, _P, _P],
+    # device, m, n, k, dtype, *bm, *staged, *g_smem, *grid
+    "repro_fused_grad_multi_plan": [_I, _LL, _I, _I, _I, _IP, _IP, _IP,
+                                    _IP],
+    # device, a, dtype, x, t, w, m, n, k, bm, staged, g_smem, grid, loss,
+    # param, z, g_part, f_part, g, f, stream
+    "repro_fused_grad_multi": [_I, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    # device, a, dtype, q, m, n, r, slices, rows_per_slice, part, out,
+    # out_dtype, stream
+    "repro_randsketch": [_I, _P, _I, _P, _LL, _I, _I, _I, _LL, _P, _P, _I,
+                         _P],
     # device, a, dtype, m, n, slices, rows_per_slice, part, out, out_dtype,
     # stream
     "repro_tsgram": [_I, _P, _I, _LL, _I, _I, _LL, _P, _P, _I, _P],

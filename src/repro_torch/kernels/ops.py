@@ -13,10 +13,12 @@ import torch
 
 from . import fusedgrad as _fg
 from . import gemm as _gemm
+from . import randsketch as _randsketch
 from . import tsgram as _tsgram
 
 KERNELS = {"fused_grad": _fg.fused_grad, "tsgram": _tsgram.tsgram,
-           "gemm": _gemm.gemm}
+           "gemm": _gemm.gemm, "fused_grad_multi": _fg.fused_grad_multi,
+           "randsketch": _randsketch.randsketch}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -50,6 +52,16 @@ def tsgram(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     return _tsgram.tsgram(a, out_dtype=out_dtype)
 
 
+def randsketch(a: torch.Tensor, q: torch.Tensor, *,
+               out_dtype=None) -> torch.Tensor:
+    """B = AᵀQ for conforming tall-skinny A (m × n), Q (m × r), f32
+    accumulation, in `out_dtype` (default a.dtype): the randomized SVD's
+    projection."""
+    if _on_cpu(a, q):
+        return _randsketch.randsketch_plain(a, q, out_dtype)
+    return _randsketch.randsketch(a, q, out_dtype=out_dtype)
+
+
 def fused_grad(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
                weights: torch.Tensor, *, loss: str, param: float = 1.0
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -63,4 +75,22 @@ def fused_grad(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
     else:
         f, g, z = _fg.fused_grad(a, x, target, weights, loss=loss,
                                  param=param)
+    return f, g.to(x.dtype), z
+
+
+def fused_grad_multi(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
+                     weights: torch.Tensor, *, loss: str, param: float = 1.0
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Request-batched fused gradients: k right-hand sides answered in ONE
+    streaming pass over A.  x (k, n), target/weights (k, m) → f (k,) f32,
+    g (k, n) in x.dtype, z (k, m) f32.  Slots with zero weights contribute
+    nothing to their own f and g."""
+    if loss not in _fg.LOSSES:
+        raise ValueError(f"loss must be one of {_fg.LOSSES}, got {loss!r}")
+    if _on_cpu(a, x, target, weights):
+        f, g, z = _fg.fused_grad_multi_plain(a, x, target, weights,
+                                             loss=loss, param=param)
+    else:
+        f, g, z = _fg.fused_grad_multi(a, x, target, weights, loss=loss,
+                                       param=param)
     return f, g.to(x.dtype), z

@@ -1,0 +1,392 @@
+"""Solver serving frontend: concurrent matrix jobs, one A-pass per group.
+
+Counterpart of src/repro/launch/serve.py.  When several clients solve
+against the SAME design matrix A (multi-user regression, per-target least
+squares, one-vs-rest logistic), their iterations share each pass over A:
+
+  * ``SolverServer.submit`` enqueues the ``repro_torch.api`` request
+    objects, the same dataclasses the direct call path uses;
+  * solve requests sharing (A, loss, param, reg, engine) form a GROUP
+    served by one ``GroupRunner``: per-request solver state is batched over
+    the request axis and every solver iteration is ONE fused multi-RHS
+    A-pass (the fused_grad_multi kernel via core/optim/batched), so a group
+    of k requests costs the passes per iteration of one;
+  * continuous batching: a fixed number of slots per group, requests
+    admitted and retired BETWEEN solver iterations by editing slot rows,
+    inactive slots frozen by the engines' per-slot masks;
+  * the queue is strictly FIFO: a request that cannot be admitted (its
+    group is full) blocks those behind it, so overload degrades in arrival
+    order.  Joining an active group and opening a new one both take no
+    budget: the reference prices opening with the planner
+    (``budget_s``), which waits for ROADMAP queue 1 item 11.
+
+SVD requests and non-batchable solves (escape-hatch smooths or proxes,
+non-quadratic accelerated requests) run as one-shot jobs through the same
+FIFO queue, via the same ``repro_torch.api`` executors; an SVD wide enough
+for the randomized mode runs it (core/linalg/randsvd, the randsketch
+kernel).  A grouped request's ``deadline_s`` retires it with its best
+iterate once the deadline passes; ``max_pending`` sheds load at submit with
+a typed ``api.Overloaded`` result.
+
+Every answer is an ``api.Result``; for served solves ``info["a_passes"]``
+is the number of GROUP passes taken while the request was resident.  The
+server's counters are always live (``stats``), with ``serve.queue_wait_s``
+and ``serve.latency_s`` histograms; scheduler spans are recorded when the
+server is built under ``telemetry.enable()`` or given a recorder.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any
+
+from repro_torch import api
+from repro_torch.core.optim import elastic as _elastic
+from repro_torch.launch import telemetry as _tel
+
+# Engines the group runner batches; everything else is served one-shot.
+GROUP_METHODS = _elastic.GROUP_METHODS
+PLANNER_ITEM = "ROADMAP queue 1 item 11 (planner)"
+
+# The server's aggregate counters (rendered by SolverServer.stats).
+_STAT_KEYS = ("steps", "a_passes", "admitted", "oneshot", "deferred_steps",
+              "shed", "expired", "remeshes")
+
+
+def group_key(req: api.SolveRequest):
+    """Requests with equal keys can share fused A-passes: same matrix
+    object on the same device, same row-separable loss, same loss scalar,
+    same reg KIND (per-slot lam rides in the batched prox), same engine."""
+    return (id(req.A), str(req.device), req.loss, float(req.param), req.reg,
+            req.method)
+
+
+def batchable(req: Any) -> bool:
+    """Solve requests in the (A, b) form whose engine has a batched group;
+    accelerated groups exist for quadratic losses only."""
+    return (isinstance(req, api.SolveRequest)
+            and req.smooth is None and req.prox is None
+            and req.method in GROUP_METHODS
+            and (req.loss == "quad"
+                 or req.method not in _elastic.ACC_METHODS)
+            and req.checkpoint_dir is None)
+
+
+class GroupRunner:
+    """Continuous-batching executor for one request group.
+
+    Owns `slots` lanes of batched solver state (core/optim/elastic over
+    core/optim/batched) on a shared linop; `admit` writes a request into a
+    free lane, `step` runs one solver iteration for every active lane in
+    ONE fused group A-pass (plus shared backtracking attempts) and returns
+    the lanes that finished as `api.Result`s.  The engines freeze inactive
+    lanes bit for bit, so residents never see their neighbours churn."""
+
+    def __init__(self, linop, kind: str, param: float = 1.0, *,
+                 reg: str = "none", method: str = "gra", slots: int = 8,
+                 mem: int = 10, telemetry: _tel.Recorder | None = None):
+        self.tel = telemetry if telemetry is not None else _tel.NULL
+        self._eg = _elastic.ElasticGroup(linop, kind, param, reg=reg,
+                                         method=method, slots=slots,
+                                         mem=mem, telemetry=telemetry)
+        self.kind, self.param = kind, param
+        self.reg, self.method, self.slots = reg, method, slots
+        self.meta: list[dict | None] = [None] * slots
+
+    # -- delegated solver state (the executor owns it) ------------------------
+
+    @property
+    def linop(self):
+        return self._eg.linop
+
+    @property
+    def state(self):
+        return self._eg.state
+
+    @property
+    def active(self):
+        return self._eg.active
+
+    @property
+    def a_passes(self) -> int:
+        return self._eg.a_passes
+
+    def free_slots(self) -> int:
+        return self._eg.free_slots()
+
+    def busy(self) -> bool:
+        return self._eg.busy()
+
+    def admit(self, req: api.SolveRequest) -> int:
+        """Write `req` into a free slot; costs no pass by itself (the next
+        step's seed recomputes F/G for the whole group in one)."""
+        i = self._eg.admit_slot(req.b, lam=float(req.lam),
+                                tol=float(req.tol), x0=req.x0,
+                                L0=float(req.L0))
+        self.meta[i] = {"req": req, "admit_passes": self.a_passes,
+                        "deadline_at": (time.monotonic() + req.deadline_s
+                                        if req.deadline_s else None)}
+        return i
+
+    # -- the iteration --------------------------------------------------------
+
+    def step(self) -> list[api.Result]:
+        """One solver iteration for every active slot; returns retired
+        lanes."""
+        if not self.busy():
+            return []
+        out = self._expire_deadlines()
+        if not self.busy():
+            return out
+        self._eg.step_iteration()
+        done = self.state.done.cpu().numpy()
+        k = self.state.k.cpu().numpy()
+        for i in range(self.slots):
+            if self.active[i] and (
+                    done[i] or k[i] >= self.meta[i]["req"].max_iters):
+                out.append(self._retire(i, bool(done[i])))
+        return out
+
+    def _expire_deadlines(self) -> list[api.Result]:
+        """Retire residents whose wall deadline passed (best iterate,
+        converged=False, degraded="deadline"), so one slow request cannot
+        hold its slot past its budget."""
+        if not any(m is not None and m["deadline_at"] is not None
+                   for m in self.meta):
+            return []
+        now = time.monotonic()
+        out = []
+        for i in range(self.slots):
+            m = self.meta[i]
+            if self.active[i] and m is not None \
+                    and m["deadline_at"] is not None \
+                    and now > m["deadline_at"]:
+                out.append(self._retire(i, False, degraded="deadline"))
+        return out
+
+    def _retire(self, i: int, converged: bool, *,
+                degraded: str | None = None) -> api.Result:
+        meta = self.meta[i]
+        req = meta["req"]
+        if degraded is None and not converged:
+            degraded = "max_iterations"
+        with self.tel.span("serve.retire", slot=i, converged=converged,
+                           degraded=degraded, request_id=req.request_id):
+            info = {"iterations": int(self.state.k[i]),
+                    # Group passes taken while resident: the amortized cost
+                    # (each pass also served every co-resident request).
+                    "a_passes": self.a_passes - meta["admit_passes"],
+                    "converged": converged, "plan": "fused-group",
+                    "objective": float(self.state.obj[i]),
+                    "slot": i, "degraded": degraded}
+            # A copy: the slot's state rows are rewritten in place on the
+            # next admit.
+            x = self.state.X[i].clone()
+            self._eg.clear_slot(i)
+            self.meta[i] = None
+            return api.Result(x=x, info=info, request_id=req.request_id)
+
+
+class SolverServer:
+    """FIFO request queue + continuous batching.
+
+    ``submit`` enqueues a repro_torch.api request; ``step`` admits what the
+    slots allow, runs one solver iteration per active group, and returns
+    the requests that finished.  ``run`` drives steps until the queue and
+    all groups drain."""
+
+    def __init__(self, *, slots: int = 8, budget_s: float | None = None,
+                 max_pending: int | None = None, elastic_factory=None,
+                 telemetry: _tel.Recorder | None = None):
+        if budget_s is not None:
+            raise NotImplementedError(
+                f"budget_s (planner-priced admission) waits for "
+                f"{PLANNER_ITEM}")
+        if elastic_factory is not None:
+            raise NotImplementedError(
+                f"elastic_factory waits for {_elastic.FAULT_TOLERANCE_ITEM}")
+        self.slots = slots
+        # Load-shedding bound: submits past this queue depth are refused
+        # with a typed api.Overloaded result.
+        self.max_pending = max_pending
+        # Metrics are always on (a private spanless recorder renders the
+        # `stats` view); spans ride along when the server is built under
+        # telemetry.enable() or given an explicit recorder.
+        if telemetry is not None:
+            self.tel = telemetry
+        else:
+            cur = _tel.current()
+            self.tel = cur if cur.enabled else _tel.Recorder(spans=False)
+        self._c = {k: self.tel.counter("serve." + k) for k in _STAT_KEYS}
+        self._h_wait = self.tel.histogram("serve.queue_wait_s")
+        self._h_latency = self.tel.histogram("serve.latency_s")
+        self._queue: list[Any] = []
+        self._runners: dict[Any, GroupRunner] = {}
+        self._results: dict[str, api.Result] = {}
+        self._submit_t: dict[str, float] = {}
+        self._events: list[tuple[str, float, float]] = []
+
+    @property
+    def stats(self) -> dict:
+        """Aggregate server statistics from the typed counters, plus the
+        per-reason ``degraded`` breakdown."""
+        s = {k: c.value for k, c in self._c.items()}
+        s["degraded"] = {
+            lbl.split("=", 1)[1]: v
+            for lbl, v in self.tel.counters("serve.degraded").items()
+            if "=" in lbl}
+        return s
+
+    # -- queue ----------------------------------------------------------------
+
+    def submit(self, req) -> str:
+        if isinstance(req, api.SimilarityRequest):
+            raise NotImplementedError(
+                f"similarity requests wait for {api.DISTMAT_ITEM}")
+        if isinstance(req, api.SolveRequest):
+            if req.smooth is None and req.method == "lbfgs" \
+                    and req.reg != "none":
+                raise ValueError("method='lbfgs' needs reg='none'")
+            if req.deadline_s is not None and not batchable(req):
+                raise NotImplementedError(
+                    "deadline_s on a one-shot solve waits for "
+                    f"{_elastic.FAULT_TOLERANCE_ITEM}")
+        if self.max_pending is not None \
+                and len(self._queue) >= self.max_pending:
+            with self.tel.span("serve.shed", request_id=req.request_id,
+                               pending=len(self._queue)):
+                self._submit_t[req.request_id] = time.perf_counter()
+                self._finish(api.Overloaded(request_id=req.request_id))
+                self._c["shed"].inc()
+            return req.request_id
+        self._queue.append(req)
+        self._submit_t[req.request_id] = time.perf_counter()
+        return req.request_id
+
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def result(self, request_id: str) -> api.Result | None:
+        return self._results.get(request_id)
+
+    def latencies(self) -> list[float]:
+        """Per-request submit→finish wall seconds, in completion order."""
+        return [t1 - t0 for _, t0, t1 in self._events]
+
+    # -- scheduling -----------------------------------------------------------
+
+    def _admit(self) -> list[api.Result]:
+        """FIFO admission.  A request joins its group's runner while it has
+        a free slot, or opens the group; a full group blocks the head of
+        the queue and everything behind it (strict arrival-order
+        degradation).  Returns the results of the one-shot jobs it ran."""
+        done = []
+        while self._queue:
+            req = self._queue[0]
+            expired = self._expire_queued(req)
+            if expired is not None:
+                self._queue.pop(0)
+                self._finish(expired)
+                done.append(expired)
+                continue
+            if batchable(req):
+                key = group_key(req)
+                runner = self._runners.get(key)
+                if runner is not None and runner.busy():
+                    if runner.free_slots() == 0:
+                        break                      # group full → wait
+                    with self.tel.span("serve.admit", mode="join",
+                                       request_id=req.request_id):
+                        runner.admit(req)          # marginal cost: zero
+                else:
+                    with self.tel.span("serve.admit", mode="open",
+                                       request_id=req.request_id):
+                        if runner is None:
+                            runner = GroupRunner(
+                                api.solve_linop(req), req.loss, req.param,
+                                reg=req.reg, method=req.method,
+                                slots=self.slots, telemetry=self.tel)
+                            self._runners[key] = runner
+                        runner.admit(req)
+                self._c["admitted"].inc()
+                self._observe_wait(req)
+                self._queue.pop(0)
+            else:
+                self._queue.pop(0)
+                self._observe_wait(req)
+                with self.tel.span("serve.oneshot",
+                                   request_id=req.request_id):
+                    res = self._run_oneshot(req)
+                self._finish(res)
+                done.append(res)
+                self._c["oneshot"].inc()
+        return done
+
+    def _observe_wait(self, req) -> None:
+        """Queue-wait histogram: submit→dequeue, observed at admission."""
+        t0 = self._submit_t.get(req.request_id)
+        if t0 is not None:
+            self._h_wait.observe(time.perf_counter() - t0)
+
+    def _expire_queued(self, req) -> api.Result | None:
+        """Dequeue-time deadline check: a request whose wall budget was
+        burnt WAITING in the queue is answered degraded at once instead of
+        spending device time on an answer its client has abandoned."""
+        deadline = getattr(req, "deadline_s", None)
+        if deadline is None:
+            return None
+        t0 = self._submit_t.get(req.request_id)
+        if t0 is None or time.perf_counter() - t0 <= deadline:
+            return None
+        self._c["expired"].inc()
+        return api.Result(
+            x=None, info={"iterations": 0, "a_passes": 0,
+                          "converged": False, "plan": "expired",
+                          "degraded": "deadline"},
+            request_id=req.request_id)
+
+    def _run_oneshot(self, req) -> api.Result:
+        if isinstance(req, api.SolveRequest):
+            return api.solve(req)
+        return api.svd(req)
+
+    def _finish(self, res: api.Result) -> None:
+        self._results[res.request_id] = res
+        t0 = self._submit_t.get(res.request_id, time.perf_counter())
+        t1 = time.perf_counter()
+        self._events.append((res.request_id, t0, t1))
+        self._h_latency.observe(t1 - t0)
+        reason = res.info.get("degraded") \
+            if isinstance(res.info, dict) else None
+        if reason:
+            # Per-reason accounting: "overloaded" (shed), "deadline" and
+            # "max_iterations" each count apart.
+            self.tel.counter("serve.degraded", reason=reason).inc()
+
+    # -- the serving loop -----------------------------------------------------
+
+    def step(self) -> list[api.Result]:
+        """One scheduler tick: admit, then one solver iteration per active
+        group; returns the requests that completed this tick."""
+        self._c["steps"].inc()
+        out = self._admit()                # one-shots, already finished
+        if self._queue:
+            self._c["deferred_steps"].inc()
+        for runner in self._runners.values():
+            if runner.busy():
+                before = runner.a_passes
+                retired = runner.step()
+                self._c["a_passes"].inc(runner.a_passes - before)
+                for res in retired:
+                    self._finish(res)
+                out.extend(retired)
+        return out
+
+    def busy(self) -> bool:
+        return bool(self._queue) or any(r.busy()
+                                        for r in self._runners.values())
+
+    def run(self, max_steps: int = 100_000) -> list[api.Result]:
+        out = []
+        while self.busy() and self._c["steps"].value < max_steps:
+            out.extend(self.step())
+        return out

@@ -132,16 +132,17 @@ def test_request_validation_matches_reference(bad):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(method="lbfgs"), "L-BFGS"),
     (dict(precision="bf16"), "low precision"),
     (dict(checkpoint_dir="ckpt"), "fault tolerance"),
     (dict(deadline_s=5.0), "fault tolerance"),
     (dict(telemetry=True), "fault tolerance"),
 ])
 def test_what_waits_for_later_slices_raises(extra, item):
+    """At request construction, or on the direct path for a deadline (the
+    server honours deadlines; tests/test_torch_serve.py)."""
     a, b, _ = _data("quad")
     with pytest.raises(NotImplementedError, match=item):
-        api.SolveRequest(A=a, b=b, device="cpu", **extra)
+        api.solve(api.SolveRequest(A=a, b=b, device="cpu", **extra))
 
 
 def test_svd_request_validation():

@@ -18,7 +18,8 @@ import torch
 from repro.kernels import fusedgrad as jfg
 from repro.kernels import ops as jops
 from repro_torch import convert
-from repro_torch.kernels import _build, fusedgrad, gemm, ops, ref, tsgram
+from repro_torch.kernels import (_build, fusedgrad, gemm, ops, randsketch,
+                                 ref, tsgram)
 
 DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
 SHAPES = [(96, 48), (130, 70)]       # multi-tile, and ragged in m and n
@@ -146,11 +147,18 @@ def test_cpu_tensors_never_reach_the_kernels():
     ops.fused_grad(_t(a), _t(x), _t(t), _t(w), loss="quad")
     ops.tsgram(_t(a))
     ops.gemm(_t(a), _t(x)[:, None])
-    assert ops.launch_counts() == {"fused_grad": 0, "tsgram": 0, "gemm": 0}
+    X, T, W = _t(x)[None], _t(t)[None], _t(w)[None]
+    ops.fused_grad_multi(_t(a), X, T, W, loss="quad")
+    ops.randsketch(_t(a), _t(a)[:, :3])
+    assert ops.launch_counts() == {"fused_grad": 0, "tsgram": 0, "gemm": 0,
+                                   "fused_grad_multi": 0, "randsketch": 0}
     for call in (lambda: fusedgrad.fused_grad(_t(a), _t(x), _t(t), _t(w),
                                               loss="quad"),
                  lambda: tsgram.tsgram(_t(a)),
-                 lambda: gemm.gemm(_t(a), _t(x)[:, None])):
+                 lambda: gemm.gemm(_t(a), _t(x)[:, None]),
+                 lambda: fusedgrad.fused_grad_multi(_t(a), X, T, W,
+                                                    loss="quad"),
+                 lambda: randsketch.randsketch(_t(a), _t(a)[:, :3])):
         with pytest.raises(ValueError, match="need CUDA tensors"):
             call()
 

@@ -187,10 +187,12 @@ def test_fused_gate_and_precision():
 
 
 def test_methods_and_lbfgs():
-    assert METHODS == ("gra", "acc", "acc_r", "acc_b", "acc_rb")
+    assert METHODS == ("gra", "acc", "acc_r", "acc_b", "acc_rb", "lbfgs")
     _, (lin, s), _ = _both("quad")
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        minimize_first_order("lbfgs", s, lin)
+    # lbfgs runs core/optim/lbfgs (tests/test_torch_lbfgs.py).
+    _, info = minimize_first_order("lbfgs", s, lin,
+                                   opts=TfocsOptions(max_iters=3))
+    assert info["plan"] == "fused" and info["iterations"] == 3
     with pytest.raises(ValueError, match="method must be"):
         minimize_first_order("sgd", s, lin)
     # x0 defaults to zeros on the operator's device.
@@ -243,6 +245,8 @@ def test_counting_linop_counts_every_pass():
     c.apply(torch.zeros(N))
     c.adjoint(torch.zeros(M))
     c.fused_grad(torch.zeros(N), s.as_row_separable())
-    assert c.counts == {"apply": 1, "adjoint": 1, "fused_grad": 1}
-    assert c.total() == 3
+    c.fused_grad_multi(torch.zeros(2, N), [s.as_row_separable()] * 2)
+    assert c.counts == {"apply": 1, "adjoint": 1, "fused_grad": 1,
+                        "fused_grad_multi": 1}
+    assert c.total() == 4
     assert c.in_shape == (N,) and c.out_shape == (M,)

@@ -76,11 +76,14 @@ def test_auto_mode_is_gram_up_to_the_threshold():
     assert got.info["mode"] == "gram" and GRAM_THRESHOLD == 8192
     want = jsvd.compute_svd(ref, 3)
     np.testing.assert_allclose(got.s.numpy(), np.asarray(want.s), rtol=1e-4)
+    # Past the threshold the reference planner takes the randomized mode
+    # for small k (tests/test_torch_randsvd.py) and Lanczos for large k.
+    assert compute_svd(port, 3, gram_threshold=16).info["mode"] == \
+        "randomized"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_svd(port, 3, gram_threshold=16)
-    for mode in ("lanczos", "randomized"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compute_svd(port, 3, mode=mode)
+        compute_svd(port, 3, gram_threshold=16, randomized_k_threshold=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compute_svd(port, 3, mode="lanczos")
     with pytest.raises(ValueError, match="unknown mode"):
         compute_svd(port, 3, mode="qr")
 
