@@ -31,19 +31,33 @@ with nvcc, then:
               answers, the SVD's sigma against a float64 subspace
               iteration, and fused_grad_multi launches against the
               server's A-passes, request by request.
+  6. sparse:  S = 2^22 x 2^14 in 32 x 32 blocks, 16 a block-row, block
+              columns from a Zipf(1) law, built on the card (the dense
+              matrices freed first): api.svd(k=16, mode="auto") takes the
+              Lanczos mode (bsr_matvec + bsr_rmatmul an operator call,
+              bsr_matmul for U), checked by float64 residuals
+              ||S^T S v - sigma^2 v|| and the factors' orthogonality; then
+              api.solve quad/gra fused (fused_grad_bsr) and unfused
+              (bsr_matvec + bsr_rmatmul), logistic/gra fused, and quad/gra
+              on S's int8 copy (bsr_matvec + bsr_rmatmul), with the float64
+              relative gradient of each quad answer, fused against unfused,
+              and each solve's launches against its A-passes.
 
 Phase 2 also holds fused_grad_multi (k = 1, 8, 16, all four losses, f32
 and bf16 storage, slot independence of the other slots and of the slot
 count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16) and
 fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
-their plain versions.  fused_grad is fused_grad_multi's kernel with one
-slot.
-Phases 3 and 4 are one main path and phase 5 another: every launch count
-is set to 0 just before each and read just after, and each kernel of the
-path must have launched there.  The last lines are a JSON object with the
-SVD's, the solves' and the server's numbers, the card's name and power
-limit, a JSON object with each kernel's numbers, and {"ok": true,
-"device": {...}}.  Any failed check exits non-zero before those lines.
+their plain versions, and the four block-sparse kernels (f32, bf16 and
+int8 storage; bsr_matmul at nx = 16, bsr_rmatmul at nx = 1 and 16,
+fused_grad_bsr for every loss) on S, just before phase 6.  fused_grad is
+fused_grad_multi's kernel with one slot.
+Phases 3 and 4 are one main path, phase 5 another and phase 6 a third:
+every launch count is set to 0 just before each and read just after, and
+each kernel of the path must have launched there.  The last lines are a
+JSON object with the SVDs', the solves', the server's and phase 6's
+numbers, the card's name and power limit, a JSON object with each
+kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check
+exits non-zero before those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
 sources are not beside this script.
 """
@@ -65,20 +79,32 @@ M_W, N_W = 1 << 18, 16384      # A_w: the wide matrix of the randomized SVD
 R_SKETCH = K_SVD + 10          # k + p, the randomized SVD's sketch width
 K_MULTI = (1, 8, 16)           # slot counts of the fused_grad_multi check
 SLOTS = 8                      # the server's slots per group
+M_S, N_S = 1 << 22, 1 << 14   # S: the sparse matrix of phase 6
+BS_S, ELL_S = 32, 16           # S's block size and stored blocks a block-row
+K_U = 16                       # bsr_matmul's nx (U recovery) in phase 2
+SPARSE_ITERS = 300             # iterations of phase 6's quad solves
+# Phase 6's quad solves: the float64 ||S^T(Sx - b)|| / ||S^T b|| after
+# SPARSE_ITERS gra steps at L0 = sigma_1^2.  Gradient descent from 0 leaves
+# (1 - lambda/L)^k of each mode; over S's block-column spectrum that is
+# about 0.006 at 300 steps (tools/sparse_spectrum.py).
+REL_GRAD_LIMIT = 2e-2
 SEED = 0
 REPS = 10                      # timed launches per kernel (median taken)
 ROWS64 = 1 << 18               # row chunk of the float64 reference sums
 ROWS64_W = 1 << 14             # the same for A_w (2 GB of float64 a chunk)
+BROWS64_S = 8192               # block-rows of S a float64 chunk (1 GB)
 
 # Published H100 SXM peaks (NVIDIA data sheet), the bound's denominators.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,       # f32 FMA on the CUDA cores
-              torch.bfloat16: 989e12}     # bf16 tensor cores, dense
+              torch.bfloat16: 989e12,     # bf16 tensor cores, dense
+              torch.int8: 1979e12}        # int8 tensor cores, dense
 
 # Normwise relative tolerances, kernel against plain: g and the Gram sum
 # over 2^21 rows in another order than cuBLAS does.
 TOL = {"f": 1e-4, "z": 1e-4, "g": 5e-4, "tsgram": 5e-4, "gemm": 1e-4,
-       "sketch": 1e-4}
+       "sketch": 1e-4, "bsr_matvec": 1e-4, "bsr_matmul": 1e-4,
+       "bsr_rmatmul": 5e-4}
 SOURCES = {
     # fused_grad is fused_grad_multi.cu's one-slot launch.
     "fused_grad": ("src/repro_torch/kernels/csrc/fused_grad_multi.cu",
@@ -91,11 +117,22 @@ SOURCES = {
                          "src/repro/kernels/fusedgrad.py:320"),
     "randsketch": ("src/repro_torch/kernels/csrc/randsketch.cu",
                    "src/repro/kernels/randsketch.py:58"),
+    "bsr_matvec": ("src/repro_torch/kernels/csrc/bsr_spmv.cu",
+                   "src/repro/kernels/bsr.py:251"),
+    "bsr_matmul": ("src/repro_torch/kernels/csrc/bsr_spmm.cu",
+                   "src/repro/kernels/bsr.py:188"),
+    "bsr_rmatmul": ("src/repro_torch/kernels/csrc/bsr_rmatmul.cu",
+                    "src/repro/kernels/bsr.py:335"),
+    "fused_grad_bsr": ("src/repro_torch/kernels/csrc/fused_grad_bsr.cu",
+                       "src/repro/kernels/fusedgrad.py:238"),
 }
-# The kernels each main path runs: phases 3-4 (solves and the Gram SVD)
-# and phase 5 (the server with its randomized-SVD one-shot).
+# The kernels each main path runs: phases 3-4 (solves and the Gram SVD),
+# phase 5 (the server with its randomized-SVD one-shot) and phase 6 (the
+# sparse solves and the Lanczos SVD).
 PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
-         "serve": ("fused_grad_multi", "randsketch", "gemm")}
+         "serve": ("fused_grad_multi", "randsketch", "gemm"),
+         "sparse": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul",
+                    "fused_grad_bsr")}
 
 
 class CheckFailed(RuntimeError):
@@ -737,6 +774,350 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
           f"{svd.info['tail_ratio']:.3e}, sigma error {err_s:.3e}")
     return rec
 
+# -- phase 6: the sparse path ----------------------------------------------
+
+def sparse_matrix(dev):
+    """S (M_S x N_S, BS_S x BS_S blocks, ELL_S a block-row), built on the
+    card: each block-row's block columns drawn without replacement from a
+    Zipf(1) law over the N_S / BS_S block columns (Gumbel top-k) and sorted,
+    Gaussian block entries; seed SEED + 3."""
+    from repro_torch.core.distmat import SparseRowMatrix
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    nbr = M_S // BS_S
+    cols = sparse_columns(nbr, gen, dev)
+    data = torch.randn((nbr, ELL_S, BS_S, BS_S), generator=gen, device=dev)
+    return SparseRowMatrix(data, cols, dims=(M_S, N_S), nnz=data.numel())
+
+
+def sparse_columns(nbr: int, gen, dev) -> torch.Tensor:
+    """S's block pattern: for each of `nbr` block-rows, ELL_S block columns
+    drawn without replacement from a Zipf(1) law over N_S / BS_S (Gumbel
+    top-k), sorted; int32 (nbr, ELL_S)."""
+    nbc = N_S // BS_S
+    logp = -torch.log(torch.arange(1, nbc + 1, device=dev,
+                                   dtype=torch.float32))
+    cols = torch.empty((nbr, ELL_S), dtype=torch.int32, device=dev)
+    step = 1 << 14
+    for i in range(0, nbr, step):
+        u = torch.rand(min(step, nbr - i), nbc, generator=gen, device=dev)
+        keys = logp - torch.log(-torch.log(u.clamp_min(1e-30)))
+        top = keys.topk(ELL_S, dim=1).indices
+        cols[i:i + step] = torch.sort(top, dim=1).values.to(torch.int32)
+    return cols
+
+
+def _chunks64(a):
+    """(first block-row, float64 blocks, int64 cols) over chunks of a
+    BlockELL's block-rows, int8 scales applied."""
+    nbr = a.cols.shape[0]
+    for i in range(0, nbr, BROWS64_S):
+        d = a.data[i:i + BROWS64_S].double()
+        if a.scales is not None:
+            d = d * a.scales[i:i + BROWS64_S, :, None, None].double()
+        yield i, d, a.cols[i:i + BROWS64_S].long()
+
+
+def apply64(a, X: torch.Tensor) -> torch.Tensor:
+    """A X in float64 for a BlockELL A and X (n, k)."""
+    bs = a.bs
+    Xb = X.double().reshape(a.shape[1] // bs, bs, -1)
+    out = []
+    for _, d, c in _chunks64(a):
+        y = torch.zeros((d.shape[0], bs, Xb.shape[-1]), dtype=torch.float64,
+                        device=X.device)
+        for s in range(a.ell):
+            y += d[:, s] @ Xb[c[:, s]]
+        out.append(y.reshape(-1, Xb.shape[-1]))
+    return torch.cat(out)
+
+
+def rapply64(a, Y: torch.Tensor) -> torch.Tensor:
+    """A^T Y in float64 for a BlockELL A and Y (m, k)."""
+    bs = a.bs
+    Yb = Y.double().reshape(-1, bs, Y.shape[-1])
+    g = torch.zeros((a.shape[1] // bs, bs, Y.shape[-1]), dtype=torch.float64,
+                    device=Y.device)
+    for i, d, c in _chunks64(a):
+        yc = Yb[i:i + d.shape[0]]
+        for s in range(a.ell):
+            g.index_add_(0, c[:, s], d[:, s].transpose(1, 2) @ yc)
+    return g.reshape(a.shape[1], -1)
+
+
+def bsr_library(a):
+    """torch.sparse_bsr_tensor of a BlockELL whose slots are all stored
+    blocks (S has no padding slots), for the library yardstick; None for
+    int8 storage, which torch's BSR product does not take."""
+    if a.scales is not None:
+        return None
+    nbr, ell = a.cols.shape
+    crow = torch.arange(0, nbr * ell + 1, ell, device=a.data.device)
+    return torch.sparse_bsr_tensor(crow, a.cols.reshape(-1).long(),
+                                   a.data.reshape(-1, a.bs, a.bs),
+                                   size=a.shape)
+
+
+def library_time(fn) -> tuple[float | None, str | None]:
+    """One PyTorch call's time as the yardstick, or why there is none."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return time_ms(fn), None
+
+
+def sparse_bound(a, nx: int, extra_bytes: float, flops_per_elem: float):
+    """The bound of one pass over a BlockELL's stored blocks: the blocks,
+    scales and cols read once plus `extra_bytes`, or the operations."""
+    elems = a.data.numel()
+    nbytes = (elems * a.data.element_size() + 4 * a.cols.numel()
+              + (0 if a.scales is None else 4 * a.scales.numel())
+              + extra_bytes)
+    return bound(nbytes, flops_per_elem * nx * elems, a.data.dtype)
+
+
+def check_sparse_kernels(mats: dict, gen) -> dict:
+    """bsr_matvec, bsr_matmul (nx = K_U), bsr_rmatmul (nx = 1 and K_U) and
+    fused_grad_bsr (every loss) against their plain versions on S in f32,
+    bf16 and int8 storage (fused_grad_bsr: f32 and bf16; ops composes
+    bsr_matvec and bsr_rmatmul for int8); each timed beside its plain
+    version, its bound and, where one exists, torch's BSR product.
+    Returns {kernel: {storage: numbers}}."""
+    from repro_torch.kernels import bsr, fusedgrad
+
+    dev = mats["f32"].device
+    m, n = M_S, N_S
+    x = torch.randn(n, generator=gen, device=dev)
+    X = torch.randn(n, K_U, generator=gen, device=dev)
+    U1 = torch.randn(m, 1, generator=gen, device=dev)
+    U = torch.randn(m, K_U, generator=gen, device=dev)
+    xs = x / math.sqrt(ELL_S * BS_S)          # unit-scale z = S xs
+    w = torch.rand(m, generator=gen, device=dev)
+    z0 = bsr.bsr_matvec_plain(mats["f32"]._local(), xs)
+    tgt = {loss: targets(loss, z0, gen) for loss in fusedgrad.LOSSES}
+    del z0
+    out = {k: {} for k in PATHS["sparse"]}
+    for dt, srm in mats.items():
+        a = srm._local()
+        lib = bsr_library(a)
+        cases = (("bsr_matvec", bsr.bsr_matvec, bsr.bsr_matvec_plain, x, 1,
+                  4 * (n + m), lambda: lib @ x[:, None]),
+                 ("bsr_matmul", bsr.bsr_matmul, bsr.bsr_matmul_plain, X, K_U,
+                  4 * K_U * (n + m), lambda: lib @ X),
+                 ("bsr_rmatmul", bsr.bsr_rmatmul, bsr.bsr_rmatmul_plain, U1,
+                  1, 4 * (n + m), lambda: lib.t() @ U1),
+                 ("bsr_rmatmul", bsr.bsr_rmatmul, bsr.bsr_rmatmul_plain, U,
+                  K_U, 4 * K_U * (n + m), lambda: lib.t() @ U))
+        for name, kern, plain, arg, nx, extra, libcall in cases:
+            got = kern(a, arg)
+            want = plain(a, arg)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            require(e <= TOL[name], f"{name} {dt} nx={nx}: relative error "
+                    f"{e:.3e} > {TOL[name]}")
+            require(torch.equal(got, kern(a, arg)),
+                    f"{name} {dt} nx={nx}: two runs differ")
+            b_ms, b_by = sparse_bound(a, nx, extra, 2.0)
+            lib_ms, lib_note = ((None, "int8 blocks: torch's BSR product "
+                                 "takes no int8") if lib is None
+                                else library_time(libcall))
+            rec = {"nx": nx, "rel_err": e, "max_abs_err": max_abs(got, want),
+                   "ms": time_ms(lambda: kern(a, arg)),
+                   "plain_ms": time_ms(lambda: plain(a, arg)),
+                   "library_ms": lib_ms, "library_note": lib_note,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            key = dt if name != "bsr_rmatmul" or nx == 1 else f"{dt}_nx{nx}"
+            out[name][key] = rec
+            del got, want
+        if dt == "int8":
+            continue
+        recs = {}
+        for loss in fusedgrad.LOSSES:
+            t = tgt[loss]
+            got = fusedgrad.fused_grad_bsr(a, xs, t, w, loss=loss, param=0.5)
+            want = fusedgrad.fused_grad_bsr_plain(a, xs, t, w, loss=loss,
+                                                  param=0.5)
+            torch.cuda.synchronize()
+            errs = {q: rel_err(g, p) for q, g, p in zip("fgz", got, want)}
+            for q, e in errs.items():
+                require(e <= TOL[q], f"fused_grad_bsr {dt} {loss}: {q} "
+                        f"relative error {e:.3e} > {TOL[q]}")
+            again = fusedgrad.fused_grad_bsr(a, xs, t, w, loss=loss,
+                                             param=0.5)
+            require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                    f"fused_grad_bsr {dt} {loss}: two runs differ")
+            rec = {"rel_err": errs, "max_abs_err": max(
+                max_abs(g, p) for g, p in zip(got, want))}
+            if loss == "quad":
+                rec["ms"] = time_ms(lambda: fusedgrad.fused_grad_bsr(
+                    a, xs, t, w, loss="quad"))
+                rec["plain_ms"] = time_ms(lambda: fusedgrad.fused_grad_bsr_plain(
+                    a, xs, t, w, loss="quad"))
+                rec["library_ms"] = None     # no one torch call fuses these
+                rec["bound_ms"], rec["bound_by"] = sparse_bound(
+                    a, 1, 4 * (2 * n + 3 * m + 1), 4.0)
+            recs[loss] = rec
+            del got, want, again
+        out["fused_grad_bsr"][dt] = recs
+        del lib
+        torch.cuda.empty_cache()
+    for name, by in out.items():
+        for key, r in by.items():
+            r = r.get("quad", r)
+            lib = ("    none" if r["library_ms"] is None
+                   else f"{r['library_ms']:9.3f} ms")
+            print(f"[kernels] {name:14s} {key:9s} kernel {r['ms']:9.3f} ms | "
+                  f"plain {r['plain_ms']:9.3f} ms | library {lib} | bound "
+                  f"{r['bound_ms']:8.3f} ms ({r['bound_by']}), share "
+                  f"{r['bound_ms'] / r['ms']:.3f}")
+    return out
+
+
+def sparse_solve(api, ops, srm, b, **kw) -> tuple[dict, object, dict]:
+    """One api.solve on a SparseRowMatrix; returns its record, the result
+    and the launches it made, by kernel."""
+    fused = kw.pop("fused")
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.solve(api.SolveRequest(A=srm, b=b, precision="f32",
+                                     device=srm.device, **kw), fused=fused)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    after = ops.launch_counts()
+    made = {k: after[k] - before[k] for k in PATHS["sparse"]}
+    info = res.info
+    require(bool(torch.isfinite(res.x).all()), f"sparse solve {kw}: "
+            "non-finite x")
+    rec = {"loss": kw["loss"], "method": kw["method"], "fused": fused,
+           "storage": "int8" if srm.scales is not None else "f32",
+           "plan": info["plan"], "iterations": info["iterations"],
+           "a_passes": info["a_passes"], "launches": made, "ms": wall,
+           "ms_per_iteration": wall / max(info["iterations"], 1)}
+    return rec, res, made
+
+
+def run_sparse(api, ops, S, S_i8, refs) -> dict:
+    """Phase 6 on the main path's counts (the caller zeroes them just
+    before and reads them just after): the Lanczos SVD of S, then quad/gra
+    fused and unfused, logistic/gra and quad/gra on the int8 copy."""
+    a, a_i8 = S._local(), S_i8._local()
+    dev = S.device
+    # -- the Lanczos SVD (mode auto) --
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.svd(api.SvdRequest(A=S, k=K_SVD, device=dev))
+    torch.cuda.synchronize()
+    svd_ms = (time.perf_counter() - t0) * 1e3
+    after = ops.launch_counts()
+    made = {k: after[k] - before[k] for k in PATHS["sparse"]}
+    U, s, V = res.factors
+    info = res.info
+    require(info["plan"] == "lanczos", f"sparse svd: plan {info['plan']}")
+    require(U.to_local().shape == (M_S, K_SVD) and V.shape == (N_S, K_SVD),
+            "sparse svd: factor shapes")
+    require(bool(torch.isfinite(s).all()), "sparse svd: non-finite sigma")
+    V64, s64 = V.double(), s.double()
+    R = rapply64(a, apply64(a, V64)) - V64 * s64 ** 2
+    resid = torch.linalg.vector_norm(R, dim=0) / s64[0] ** 2
+    eye = torch.eye(K_SVD, dtype=torch.float64, device=dev)
+    orth_v = float(torch.linalg.matrix_norm(V64.T @ V64 - eye))
+    u = U.to_local().double()
+    orth_u = float(torch.linalg.matrix_norm(u.T @ u - eye))
+    op_calls = info["op_calls"]
+    require(float(resid.max()) <= 1e-4, f"sparse svd: residual "
+            f"{float(resid.max()):.3e} sigma_1^2 > 1e-4")
+    require(orth_v <= 1e-3, f"sparse svd: ||V^T V - I|| = {orth_v:.3e}")
+    require(orth_u <= 1e-3, f"sparse svd: ||U^T U - I|| = {orth_u:.3e}")
+    require(info["a_passes"] == 2 * op_calls + 1,
+            f"sparse svd: a_passes {info['a_passes']} != 2 x {op_calls} + 1")
+    require(made == {"bsr_matvec": op_calls, "bsr_rmatmul": op_calls,
+                     "bsr_matmul": 1, "fused_grad_bsr": 0},
+            f"sparse svd: launches {made} for {op_calls} operator calls")
+    svd_rec = {"ms": svd_ms, "restarts": info["restarts"],
+               "op_calls": op_calls, "a_passes": info["a_passes"],
+               "converged": info["converged"], "sigma_1": float(s[0]),
+               "sigma_16": float(s[-1]),
+               "max_residual_over_sigma1sq": float(resid.max()),
+               "orth_v": orth_v, "orth_u": orth_u, "launches": made}
+    print(f"[sparse] Lanczos SVD k={K_SVD} of {M_S} x {N_S} (bs {BS_S}, "
+          f"ell {ELL_S}): {svd_ms:.1f} ms, {info['restarts']} restarts, "
+          f"{op_calls} operator calls, {info['a_passes']} A-passes, "
+          f"converged {info['converged']}, sigma_1 {float(s[0]):.4f}, "
+          f"max residual {float(resid.max()):.3e} sigma_1^2, "
+          f"||V^T V - I|| {orth_v:.3e}, ||U^T U - I|| {orth_u:.3e}")
+    L0 = float(s[0]) ** 2
+
+    # -- the solves --
+    solves = []
+    quad = dict(loss="quad", method="gra", L0=L0, tol=1e-12,
+                max_iters=SPARSE_ITERS)
+    for srm, bell, fused in ((S, a, True), (S, a, False),
+                             (S_i8, a_i8, True)):
+        rec, r, made = sparse_solve(api, ops, srm, refs["b_quad"],
+                                    fused=fused, **quad)
+        key = "f32" if bell is a else "int8"
+        x64 = r.x.double()[:, None]
+        resid64 = apply64(bell, x64)[:, 0] - refs["b_quad"].double()
+        grad = rapply64(bell, resid64[:, None])[:, 0]
+        rec["rel_grad"] = float(torch.linalg.vector_norm(grad)
+                                / refs["atb"][key])
+        rec["objective64"] = 0.5 * float(resid64 @ resid64)
+        n_att = rec["a_passes"]
+        if srm is S_i8:        # int8: bsr_matvec + bsr_rmatmul an attempt
+            want = {"bsr_matvec": n_att, "bsr_rmatmul": n_att,
+                    "bsr_matmul": 0, "fused_grad_bsr": 0}
+        elif fused:
+            want = {"bsr_matvec": 0, "bsr_rmatmul": 0, "bsr_matmul": 0,
+                    "fused_grad_bsr": n_att}
+        else:                  # cached: one apply to seed, then one each
+            k = r.info["iterations"] + r.info["n_backtracks"]
+            want = {"bsr_matvec": 1 + k, "bsr_rmatmul": k, "bsr_matmul": 0,
+                    "fused_grad_bsr": 0}
+            require(n_att == 1 + 2 * k, f"unfused sparse solve: a_passes "
+                    f"{n_att} != 1 + 2 x {k}")
+        require(rec["plan"] == ("fused" if fused else "cached"),
+                f"sparse quad {key} fused={fused}: plan {rec['plan']}")
+        require(made == want, f"sparse quad {key} fused={fused}: launches "
+                f"{made} for {n_att} A-passes")
+        require(rec["rel_grad"] <= REL_GRAD_LIMIT, f"sparse quad {key} "
+                f"fused={fused}: relative gradient {rec['rel_grad']:.3e} > "
+                f"{REL_GRAD_LIMIT}")
+        solves.append(rec)
+    fused_obj, unfused_obj = (solves[0]["objective64"],
+                              solves[1]["objective64"])
+    gap = abs(fused_obj - unfused_obj) / fused_obj
+    require(gap <= 1e-5, f"sparse quad: fused and unfused objectives "
+            f"differ by {gap:.3e}")
+    rec, r, made = sparse_solve(api, ops, S, refs["b_log"], fused=True,
+                                loss="logistic", method="gra", L0=0.25 * L0,
+                                tol=1e-12, max_iters=30)
+    hist = r.info["history"][:rec["iterations"]].tolist()
+    rec["first_last_objective"] = [hist[0], hist[-1]]
+    require(rec["plan"] == "fused", f"sparse logistic: plan {rec['plan']}")
+    require(made["fused_grad_bsr"] == rec["a_passes"],
+            f"sparse logistic: launches {made}")
+    require(all(b <= a_ * (1 + 1e-6) for a_, b in zip(hist, hist[1:]))
+            and hist[-1] < hist[0],
+            "sparse logistic: the objective does not fall monotonically")
+    solves.append(rec)
+    for r_ in solves:
+        print(f"[sparse] {r_['loss']}/{r_['method']} {r_['storage']} "
+              f"fused={r_['fused']}: plan {r_['plan']}, {r_['iterations']} "
+              f"iterations, {r_['a_passes']} A-passes, "
+              f"{r_['ms_per_iteration']:.3f} ms/iteration"
+              + (f", relative gradient {r_['rel_grad']:.3e}"
+                 if "rel_grad" in r_ else
+                 f", objective {r_['first_last_objective'][0]:.6e} -> "
+                 f"{r_['first_last_objective'][1]:.6e}"))
+    print(f"[sparse] fused vs unfused objective {gap:.3e}")
+    return {"svd": svd_rec, "solves": solves, "fused_unfused_gap": gap}
+
+
 def smoke(dev: torch.device) -> dict:
     """Phases 2 to 5 on `dev`; returns the numbers to report."""
     from repro_torch import api
@@ -844,16 +1225,69 @@ def smoke(dev: torch.device) -> dict:
     serve_rec["svd"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
     print(f"[serve] randomized SVD warm {serve_rec['svd']['warm_ms']:.1f} ms, "
           f"{warm.info['a_passes']} A-passes")
-    by_path = {"solve_svd": launches, "serve": serve_launches}
+    # The dense matrices are done with: phase 6 has the card to itself.
+    del A, A_w, rm, rm_w, warm, res
+    torch.cuda.empty_cache()
+
+    # -- phase 6 set-up: S on the card, its bf16 and int8 copies, and the
+    # phase-2 checks of the sparse kernels on them --------------------------
+    t0 = time.perf_counter()
+    S = sparse_matrix(dev)
+    mats = {"f32": S, "bf16": S.astype_store(torch.bfloat16),
+            "int8": S.astype_store(torch.int8)}
+    torch.cuda.synchronize()
+    print(f"[sparse] S: {M_S} x {N_S}, bs {BS_S}, ell {ELL_S}, block density "
+          f"{S.block_density():.4f}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen6 = torch.Generator(device=dev).manual_seed(SEED + 4)
+    kernels.update(check_sparse_kernels(mats, gen6))
+    del mats["bf16"]
+    torch.cuda.empty_cache()
+    # float64 references, made before the path's counts are zeroed.
+    a, a_i8 = S._local(), mats["int8"]._local()
+    x_true = torch.randn(N_S, 1, generator=gen6, device=dev,
+                         dtype=torch.float64) / math.sqrt(ELL_S * BS_S)
+    z = apply64(a, x_true)[:, 0]
+    b_quad = (z + 0.5 * torch.randn(M_S, generator=gen6, device=dev,
+                                    dtype=torch.float64)).float()
+    b_log = torch.where(z + torch.randn(M_S, generator=gen6, device=dev,
+                                        dtype=torch.float64) > 0,
+                        1.0, -1.0).float()
+    refs = {"b_quad": b_quad, "b_log": b_log, "atb": {
+        key: float(torch.linalg.vector_norm(rapply64(bell, b_quad[:, None])))
+        for key, bell in (("f32", a), ("int8", a_i8))}}
+    del z
+
+    # -- the sparse path: counts zeroed just before, read just after -------
+    ops.reset_launch_counts()
+    sparse_rec = run_sparse(api, ops, S, mats["int8"], refs)
+    torch.cuda.synchronize()
+    sparse_launches = ops.launch_counts()
+    # ----------------------------------------------------------------------
+    print(f"[main path] sparse: launches {sparse_launches}")
+    for name in PATHS["sparse"]:
+        require(sparse_launches[name] > 0, f"{name} never launched on the "
+                "sparse path")
+    t0 = time.perf_counter()
+    api.svd(api.SvdRequest(A=S, k=K_SVD, device=dev))
+    torch.cuda.synchronize()
+    sparse_rec["svd"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"[sparse] Lanczos SVD warm {sparse_rec['svd']['warm_ms']:.1f} ms")
+    by_path = {"solve_svd": launches, "serve": serve_launches,
+               "sparse": sparse_launches}
 
     rows = []
     for name, by_dtype in kernels.items():
         f32 = {"fused_grad": lambda r: r["quad"],
+               "fused_grad_bsr": lambda r: r["quad"],
                "fused_grad_multi": lambda r: dict(
                    r[SLOTS], max_abs_err=r[SLOTS]["quad"]["max_abs_err"])
                }.get(name, lambda r: r)(by_dtype["f32"])
         shape = {"gemm": [M, N, K_GEMM], "fused_grad_multi": [M, N, SLOTS],
-                 "randsketch": [M_W, N_W, R_SKETCH]}.get(name, [M, N])
+                 "randsketch": [M_W, N_W, R_SKETCH],
+                 "bsr_matvec": [M_S, N_S, 1], "bsr_matmul": [M_S, N_S, K_U],
+                 "bsr_rmatmul": [M_S, N_S, 1],
+                 "fused_grad_bsr": [M_S, N_S]}.get(name, [M, N])
         path = next(p for p, names in PATHS.items() if name in names)
         src, replaces = SOURCES[name]
         rows.append({
@@ -865,7 +1299,7 @@ def smoke(dev: torch.device) -> dict:
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
             "shape": shape, "dtype": "f32", "checks": by_dtype})
     return {"kernels": rows, "svd": svd_rec, "solves": solves,
-            "serve": serve_rec}
+            "serve": serve_rec, "sparse": sparse_rec}
 
 
 def main() -> int:
@@ -887,7 +1321,8 @@ def main() -> int:
 
     summary = smoke(dev)
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
-                      "serve": summary["serve"]}))
+                      "serve": summary["serve"],
+                      "sparse": summary["sparse"]}))
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": summary["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
+from repro_torch.core.distmat.sparserow import SparseRowMatrix
 from repro_torch.core.linalg.svd import compute_svd as _compute_svd
 from repro_torch.core.optim.first_order import minimize_first_order
 from repro_torch.core.tfocs.linop import LinopMatrix
@@ -77,10 +78,10 @@ def _not_yet(what: str, item: str):
 
 @dataclass
 class SolveRequest:
-    """minimize f(Ax) + h(x): a design matrix `A` (RowMatrix or a local
-    matrix), a target `b` and a row-separable `loss`; `smooth` / `prox` are
-    escape hatches for prebuilt components."""
-    A: Any = None                 # RowMatrix | tensor | array
+    """minimize f(Ax) + h(x): a design matrix `A` (RowMatrix,
+    SparseRowMatrix or a local matrix), a target `b` and a row-separable
+    `loss`; `smooth` / `prox` are escape hatches for prebuilt components."""
+    A: Any = None                 # RowMatrix | SparseRowMatrix | tensor | array
     b: Any = None                 # (m,) target / labels / counts
     loss: str = "quad"            # quad | logistic | huber | poisson
     param: float = 1.0            # loss scalar (huber δ)
@@ -139,11 +140,12 @@ class SolveRequest:
 
 @dataclass
 class SvdRequest:
-    """Truncated SVD of a RowMatrix (core.linalg.compute_svd)."""
+    """Truncated SVD of a RowMatrix or SparseRowMatrix
+    (core.linalg.compute_svd)."""
     A: Any
     k: int
     compute_u: bool = True
-    mode: str = "auto"            # auto | gram | randomized (lanczos later)
+    mode: str = "auto"            # auto | gram | lanczos | randomized
     options: dict = field(default_factory=dict)   # extra compute_svd kwargs
     deadline_s: float | None = None
     telemetry: Any = None
@@ -202,10 +204,10 @@ class Overloaded(Result):
         self.info.setdefault("plan", "rejected")
 
 
-def _on_device(A, device) -> RowMatrix | torch.Tensor:
+def _on_device(A, device) -> RowMatrix | SparseRowMatrix | torch.Tensor:
     """The request's matrix on the request's device."""
     dev = T.resolve_device(device)
-    if isinstance(A, (RowMatrix, torch.Tensor)):
+    if isinstance(A, (RowMatrix, SparseRowMatrix, torch.Tensor)):
         if A.device.type != dev.type:
             raise ValueError(f"A lies on {A.device}, the request on {dev}")
         return A

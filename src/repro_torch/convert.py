@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
+from repro_torch.core.distmat.sparserow import SparseRowMatrix
 
 
 def tensor_from_numpy(arr, *, device, dtype=None) -> torch.Tensor:
@@ -39,3 +40,17 @@ def rowmatrix_from_numpy(rows, n_rows: int, *, device,
 def vector_from_numpy(v, *, device) -> torch.Tensor:
     """A data- or solution-space vector (b, x0, targets, weights) as f32."""
     return tensor_from_numpy(v, device=device, dtype=torch.float32)
+
+
+def sparserow_from_numpy(data, cols, dims, nnz: int, scales=None, *,
+                         device) -> SparseRowMatrix:
+    """A SparseRowMatrix from the reference's stored arrays
+    (`np.asarray(srm.data)`, `srm.cols`, padding block-rows included), its
+    true dims and nnz; int8 data and its f32 `scales` cross as they are."""
+    return SparseRowMatrix(
+        tensor_from_numpy(data, device=device).contiguous(),
+        tensor_from_numpy(np.asarray(cols, np.int32),
+                          device=device).contiguous(),
+        dims=tuple(int(d) for d in dims), nnz=int(nnz),
+        scales=None if scales is None else tensor_from_numpy(
+            np.asarray(scales, np.float32), device=device).contiguous())

@@ -120,3 +120,7 @@ class DistMatrix:
 
     def to_local(self) -> torch.Tensor:  # pragma: no cover - abstract
         raise NotImplementedError
+
+    def normal_op(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """v ↦ Aᵀ(A v): the only operator the Lanczos SVD needs."""
+        return lambda v: self.rmatvec(self.matvec(v))

@@ -15,13 +15,17 @@ import torch.nn.functional as F
 
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
+from repro_torch.core.distmat.sparserow import SparseRowMatrix
 from repro_torch.kernels import ops as _ops
+
+_DIST = (RowMatrix, SparseRowMatrix)
 
 
 @dataclass(frozen=True)
 class LinopMatrix:
-    """y = A x for a RowMatrix or a plain local matrix."""
-    A: RowMatrix | torch.Tensor
+    """y = A x for a RowMatrix, a SparseRowMatrix or a plain local
+    matrix."""
+    A: RowMatrix | SparseRowMatrix | torch.Tensor
 
     @property
     def in_shape(self) -> tuple[int, ...]:
@@ -32,6 +36,8 @@ class LinopMatrix:
         # Padded row count: data-space vectors are padded to it (pad_data).
         if isinstance(self.A, RowMatrix):
             return (self.A.rows.shape[0],)
+        if isinstance(self.A, SparseRowMatrix):
+            return (self.A.m_pad,)
         return (self.A.shape[0],)
 
     @property
@@ -39,19 +45,19 @@ class LinopMatrix:
         return self.A.device
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.A, RowMatrix):
+        if isinstance(self.A, _DIST):
             return self.A.matvec(x)
         return self.A @ x
 
     def adjoint(self, y: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.A, RowMatrix):
+        if isinstance(self.A, _DIST):
             return self.A.rmatvec(y)
         return self.A.T @ y
 
     def fused_grad(self, x: torch.Tensor, sep):
         """(f(Ax), Aᵀ∇f(Ax), Ax) in one streaming pass over A for a
         row-separable smooth; `sep` is its RowSeparable form."""
-        if isinstance(self.A, RowMatrix):
+        if isinstance(self.A, _DIST):
             return self.A.fused_grad(x, sep)
         kind, t, w, prm = T.row_separable_inputs(
             sep, self.out_shape[0], self.row_weights)
@@ -62,12 +68,20 @@ class LinopMatrix:
         in one streaming pass over A; `x` is (k × n), `seps` a sequence of
         k RowSeparable smooths sharing one loss kind/param, or one smooth
         with stacked targets."""
-        if isinstance(self.A, RowMatrix):
+        if isinstance(self.A, _DIST):
             return self.A.fused_grad_multi(x, seps)
         kind, t, w, prm = T.row_separable_batch_inputs(
             seps, self.out_shape[0], self.row_weights)
         return _ops.fused_grad_multi(self.A, torch.atleast_2d(x), t, w,
                                      loss=kind, param=prm)
+
+    def operand_dtype(self) -> torch.dtype:
+        """dtype of the matrix operand as stored."""
+        if isinstance(self.A, RowMatrix):
+            return self.A.rows.dtype
+        if isinstance(self.A, SparseRowMatrix):
+            return self.A.data.dtype
+        return self.A.dtype
 
     def pad_data(self, b: torch.Tensor) -> torch.Tensor:
         """Pad a data-space vector to the padded row count."""
@@ -77,7 +91,7 @@ class LinopMatrix:
     def row_weights(self) -> torch.Tensor:
         """{0,1} mask of true rows: weights that keep padding rows out of
         the smooth."""
-        if isinstance(self.A, RowMatrix):
+        if isinstance(self.A, _DIST):
             return self.A._row_mask()
         return torch.ones(self.out_shape, dtype=torch.float32,
                           device=self.device)

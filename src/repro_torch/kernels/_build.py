@@ -29,6 +29,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Block-sparse storage also takes int8, with a per-block f32 scale.
+STORAGE_CODES = {**DTYPE_CODES, torch.int8: 2}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -49,6 +51,20 @@ _SIGNATURES = {
     "repro_tsgram": [_I, _P, _I, _LL, _I, _I, _LL, _P, _P, _I, _P],
     # device, a, a_dtype, b, b_dtype, c, c_dtype, m, K, N, stream
     "repro_gemm": [_I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _P],
+    # device, data, dtype, scales, cols, nbr, ell, bs, x, y, stream
+    "repro_bsr_spmv": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _P, _P],
+    # device, data, dtype, scales, cols, nbr, ell, bs, x, nx, y, stream
+    "repro_bsr_spmm": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _I, _P, _P],
+    # device, data, dtype, scales, order, chunk_start, chunk_len,
+    # col_chunks, nchunks, ell, bs, nbc, x, nx, part, y, stream
+    "repro_bsr_rmatmul": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P, _I, _P, _P, _P],
+    # device, nbr, ell, bs, n, dtype, *staged, *g_smem, *grid
+    "repro_fused_grad_bsr_plan": [_I, _LL, _I, _I, _I, _I, _IP, _IP, _IP],
+    # device, data, dtype, cols, x, t, w, nbr, ell, bs, n, staged, g_smem,
+    # grid, loss, param, z, g_part, f_part, g, f, stream
+    "repro_fused_grad_bsr": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -146,6 +162,14 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{what} must be float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[t.dtype]
+
+
+def storage_code(t: torch.Tensor, what: str) -> int:
+    """The dtype code of block-sparse storage: f32, bf16 or int8."""
+    if t.dtype not in STORAGE_CODES:
+        raise TypeError(f"{what} must be float32, bfloat16 or int8, got "
+                        f"{t.dtype}")
+    return STORAGE_CODES[t.dtype]
 
 
 def stream(dev: torch.device) -> int:

@@ -17,9 +17,15 @@ in block order in a second kernel, so repeated runs agree bit for bit.  Its
 row blocking and grid follow from A's shape alone, so a request gets the
 same bits from ``fused_grad`` as from any slot of ``fused_grad_multi``.
 
-``fused_grad_plain`` and ``fused_grad_multi_plain`` are the same functions
-in plain torch: the CPU path, and what the kernel is held against on the
-card.
+``fused_grad_bsr`` (``csrc/fused_grad_bsr.cu``) is the same function on a
+BlockELL operand (kernels/bsr.py), replacing ``_fused_grad_bsr_kernel``:
+each stored block is read once, z and the residual come from a block-row's
+staged blocks, and rᵀAᵢⱼ is added into the block's partial g at block
+column cols[i, s] by one owner thread per element, so no float atomics.
+
+``fused_grad_plain``, ``fused_grad_multi_plain`` and
+``fused_grad_bsr_plain`` are the same functions in plain torch: the CPU
+path, and what the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import bsr as _bsr
 
 LOSSES = ("quad", "logistic", "huber", "poisson")
 MAX_SLOTS = 32            # right-hand sides one launch takes
@@ -92,6 +99,61 @@ def fused_grad_multi_plain(a: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
     z = x.float() @ af.T
     le, r = row_loss_elem(z, t, w, loss, param)
     return le.sum(dim=1), r @ af, z
+
+
+def fused_grad_bsr_plain(a: "_bsr.BlockELL", x: torch.Tensor,
+                         t: torch.Tensor, w: torch.Tensor, *, loss: str,
+                         param: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(f, g, z) on a BlockELL in plain torch (the reference's
+    fused_grad_bsr_jnp): z from the gathered x blocks, the residual through
+    row_loss_grad, then the scatter-add of rᵀAᵢⱼ over block columns.  The
+    residual stays f32 for every storage, as in the kernel."""
+    z = _bsr.bsr_matvec_plain(a, x.float())
+    f, r = row_loss_grad(z, t, w, loss, param)
+    return f, _bsr.bsr_rmatmul_plain(a, r[:, None])[:, 0], z
+
+
+def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, t: torch.Tensor,
+                   w: torch.Tensor, *, loss: str, param: float = 1.0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/fused_grad_bsr.cu on a CUDA BlockELL with f32 or bf16
+    blocks: x (n,), t, w (m,) over its dims, read as f32.  Returns f32
+    f (scalar), g (n,), z (m,).  Replaces the TPU kernel
+    ``src/repro/kernels/fusedgrad.py:fused_grad_bsr``."""
+    dev, code = _bsr.check_operands(a, x, t, w)
+    if a.scales is not None:
+        raise ValueError("fused_grad_bsr takes exact (f32 or bf16) blocks; "
+                         "int8 shards compose bsr_matvec and bsr_rmatmul")
+    if loss not in LOSSES:
+        raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+    (m, n), (nbr, ell) = a.shape, a.cols.shape
+    if x.shape != (n,) or t.shape != (m,) or w.shape != (m,):
+        raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
+                         f"w {tuple(w.shape)} against A {a.shape}")
+    x, t, w = (v.float().contiguous() for v in (x, t, w))
+    lib = _build.lib()
+    staged, g_smem, grid = (ctypes.c_int() for _ in range(3))
+    _build.check(lib.repro_fused_grad_bsr_plan(
+        dev.index, nbr, ell, a.bs, n, code, ctypes.byref(staged),
+        ctypes.byref(g_smem), ctypes.byref(grid)), "fused_grad_bsr plan")
+    f32 = dict(dtype=torch.float32, device=dev)
+    z = torch.empty(m, **f32)
+    g_part = torch.empty((grid.value, n), **f32)
+    f_part = torch.empty(grid.value, **f32)
+    g = torch.empty(n, **f32)
+    f = torch.empty((), **f32)
+    _build.check(lib.repro_fused_grad_bsr(
+        dev.index, a.data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
+        t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, staged.value,
+        g_smem.value, grid.value, LOSSES.index(loss), float(param),
+        z.data_ptr(), g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(),
+        f.data_ptr(), _build.stream(dev)), "fused_grad_bsr launch")
+    fused_grad_bsr.launches += 1
+    return f, g, z
+
+
+fused_grad_bsr.launches = 0
 
 
 def _launch(a, x, t, w, loss, param):

@@ -22,8 +22,10 @@ def tsgram_ref(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
 def fused_grad_ref(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
                    weights: torch.Tensor, *, loss: str, param: float = 1.0
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(f, g, z) for a dense operand: z = A x, then the loss and its
-    derivative, then g = Aᵀ r as a separate product."""
+    """(f, g, z) for a dense or BlockELL operand (densified): z = A x, then
+    the loss and its derivative, then g = Aᵀ r as a separate product."""
+    if hasattr(a, "to_dense"):
+        a = a.to_dense()
     af = a.float()
     z = af @ x.float()
     t = target.float()
@@ -49,3 +51,18 @@ def fused_grad_ref(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
     else:
         raise ValueError(loss)
     return f, af.T @ r, z
+
+
+def bsr_matmul_ref(a, x: torch.Tensor) -> torch.Tensor:
+    """Y = A X oracle via densification of the BlockELL operand."""
+    return (a.to_dense().float() @ x.float()).to(x.dtype)
+
+
+def bsr_matvec_ref(a, x: torch.Tensor) -> torch.Tensor:
+    """y = A x oracle via densification of the BlockELL operand."""
+    return (a.to_dense().float() @ x.float()).to(x.dtype)
+
+
+def bsr_rmatmul_ref(a, x: torch.Tensor) -> torch.Tensor:
+    """Y = AᵀX oracle via densification of the BlockELL operand."""
+    return (a.to_dense().float().T @ x.float()).to(x.dtype)

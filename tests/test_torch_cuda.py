@@ -4,13 +4,17 @@ Small shapes that still cover every path of each kernel: ragged m and n,
 f32 and bf16 storage, the staged and the unstaged paths of the
 fused_grad_multi kernel (fused_grad is its one-slot launch), slot counts
 from 1 to 32, every gemm block tile, one and several randsketch slices and
-Q tiles.  Skips where there is no CUDA device.  Run on the card with
+Q tiles; for the block-sparse kernels every block size from 8 to 128, f32,
+bf16 and int8 blocks, ragged block-row counts and nx, a hot column longer
+than one rmatmul chunk, and fused_grad_bsr's staged and unstaged paths with
+g in shared and in global memory.  Skips where there is no CUDA device.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import fusedgrad, gemm, ops, randsketch, tsgram
+from repro_torch.kernels import (bsr, fusedgrad, gemm, ops, randsketch,
+                                 tsgram)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,5 +211,116 @@ def test_ops_route_cuda_tensors_to_the_kernels(dev):
     ops.gemm(a, x[:, None])
     ops.fused_grad_multi(a, x[None], t[None], w[None], loss="quad")
     ops.randsketch(a, a[:, :3])
+    b = _random_bell(dev, 5, 4, 2, 8, "f32", 1)
+    xb, ub = torch.randn(32, device=dev), torch.randn(40, device=dev)
+    ops.bsr_matvec(b, xb)
+    ops.bsr_matmul(b, xb[:, None])
+    ops.bsr_rmatmul(b, ub[:, None])
+    ops.fused_grad_bsr(b, xb, ub, torch.ones_like(ub), loss="quad")
     assert ops.launch_counts() == {"fused_grad": 1, "tsgram": 1, "gemm": 1,
-                                   "fused_grad_multi": 1, "randsketch": 1}
+                                   "fused_grad_multi": 1, "randsketch": 1,
+                                   "bsr_matvec": 1, "bsr_matmul": 1,
+                                   "bsr_rmatmul": 1, "fused_grad_bsr": 1}
+    # int8 blocks compose bsr_matvec and bsr_rmatmul, as the reference does.
+    ops.reset_launch_counts()
+    q = b.quantize_int8()
+    f, g, z = ops.fused_grad_bsr(q, xb, ub, torch.ones_like(ub), loss="quad")
+    want = fusedgrad.fused_grad_bsr_plain(q, xb, ub, torch.ones_like(ub),
+                                          loss="quad")
+    torch.cuda.synchronize()
+    assert _rel(g, want[1]) <= TOL_SUM and _rel(z, want[2]) <= TOL
+    counts = ops.launch_counts()
+    assert (counts["bsr_matvec"], counts["bsr_rmatmul"],
+            counts["fused_grad_bsr"]) == (1, 1, 0)
+
+
+# -- block-sparse kernels ---------------------------------------------------
+
+def _random_bell(dev, nbr, nbc, ell, bs, storage, seed, hot=None):
+    """A BlockELL of Gaussian blocks, each block-row's `ell` columns drawn
+    without replacement and sorted; with `hot`, every block-row holds that
+    column."""
+    g = _gen(dev, seed)
+    keys = torch.rand(nbr, nbc, generator=g, device=dev)
+    if hot is not None:
+        keys[:, hot] = -1.0
+    cols = torch.sort(torch.argsort(keys, dim=1)[:, :ell], dim=1).values
+    data = torch.randn(nbr, ell, bs, bs, generator=g, device=dev) / bs ** 0.5
+    a = bsr.BlockELL(data, cols.to(torch.int32).contiguous(),
+                     (nbr * bs, nbc * bs))
+    if storage == "bf16":
+        return bsr.BlockELL(data.to(torch.bfloat16), a.cols, a.shape)
+    return a.quantize_int8() if storage == "int8" else a
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("nbr,nbc,ell,nx", [(37, 13, 5, 1), (70, 9, 3, 16),
+                                            (11, 6, 6, 33)])
+def test_bsr_kernels_match_plain(dev, storage, bs, nbr, nbc, ell, nx):
+    a = _random_bell(dev, nbr, nbc, ell, bs, storage, nbr + bs)
+    m, n = a.shape
+    g = _gen(dev, nx)
+    x = torch.randn(n, generator=g, device=dev)
+    X = torch.randn(n, nx, generator=g, device=dev)
+    U = torch.randn(m, nx, generator=g, device=dev)
+    for kern, plain, arg, tol in (
+            (bsr.bsr_matvec, bsr.bsr_matvec_plain, x, TOL),
+            (bsr.bsr_matmul, bsr.bsr_matmul_plain, X, TOL),
+            (bsr.bsr_rmatmul, bsr.bsr_rmatmul_plain, U, TOL_SUM)):
+        got = kern(a, arg)
+        want = plain(a, arg)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert _rel(got, want) <= tol, kern.__name__
+        assert torch.equal(got, kern(a, arg)), kern.__name__
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_bsr_rmatmul_hot_column(dev, storage):
+    """Every block-row holds block column 3: its list is 500 slots, 16
+    chunks of the gather, summed in chunk order."""
+    a = _random_bell(dev, 500, 20, 4, 16, storage, 9, hot=3)
+    idx = a.column_index()
+    assert int(idx.col_chunks[4] - idx.col_chunks[3]) == \
+        -(-500 // bsr.RMATMUL_CHUNK)
+    for nx in (1, 16):
+        X = torch.randn(a.shape[0], nx, generator=_gen(dev, nx), device=dev)
+        got = bsr.bsr_rmatmul(a, X)
+        want = bsr.bsr_rmatmul_plain(a, X)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= TOL_SUM
+        assert torch.equal(got, bsr.bsr_rmatmul(a, X))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", fusedgrad.LOSSES)
+@pytest.mark.parametrize("bs,nbr,nbc,ell", [(8, 301, 40, 7), (32, 150, 16, 16),
+                                            (128, 9, 5, 2), (8, 40, 5000, 4),
+                                            (64, 33, 700, 3),
+                                            (128, 5, 400, 2)])
+def test_fused_grad_bsr_matches_plain(dev, dtype, loss, bs, nbr, nbc, ell):
+    """Staged block-rows (up to 64 KB of f32) and unstaged ones (bs = 128);
+    g in shared memory, and in global memory where n·4 bytes do not fit
+    beside the tile (n = 40000, 44800 and 51200)."""
+    a = _random_bell(dev, nbr, nbc, ell, bs, dtype, nbr + ell)
+    m, n = a.shape
+    g = _gen(dev, m)
+    x = torch.randn(n, generator=g, device=dev) / ell ** 0.5
+    t = torch.randn(m, generator=g, device=dev)
+    if loss == "logistic":
+        t = torch.where(t >= 0, 1.0, -1.0)
+    elif loss == "poisson":
+        t = torch.poisson(torch.ones(m, device=dev), generator=g)
+    w = torch.rand(m, generator=g, device=dev)
+    w[-(m // 7):] = 0.0
+    got = fusedgrad.fused_grad_bsr(a, x, t, w, loss=loss, param=0.5)
+    want = fusedgrad.fused_grad_bsr_plain(a, x, t, w, loss=loss, param=0.5)
+    torch.cuda.synchronize()
+    assert [v.shape for v in got] == [(), (n,), (m,)]
+    assert _rel(got[0], want[0]) <= TOL
+    assert _rel(got[1], want[1]) <= TOL_SUM
+    assert _rel(got[2], want[2]) <= TOL
+    again = fusedgrad.fused_grad_bsr(a, x, t, w, loss=loss, param=0.5)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)

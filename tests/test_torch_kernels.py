@@ -151,7 +151,9 @@ def test_cpu_tensors_never_reach_the_kernels():
     ops.fused_grad_multi(_t(a), X, T, W, loss="quad")
     ops.randsketch(_t(a), _t(a)[:, :3])
     assert ops.launch_counts() == {"fused_grad": 0, "tsgram": 0, "gemm": 0,
-                                   "fused_grad_multi": 0, "randsketch": 0}
+                                   "fused_grad_multi": 0, "randsketch": 0,
+                                   "bsr_matvec": 0, "bsr_matmul": 0,
+                                   "bsr_rmatmul": 0, "fused_grad_bsr": 0}
     for call in (lambda: fusedgrad.fused_grad(_t(a), _t(x), _t(t), _t(w),
                                               loss="quad"),
                  lambda: tsgram.tsgram(_t(a)),

@@ -157,8 +157,8 @@ def test_auto_mode_follows_the_reference_planner():
     kw = dict(k=24, gram_threshold=64, randomized_k_threshold=16)
     assert j_compute_svd(jrm, mode="auto", tol=1e-5, max_restarts=100,
                          **kw).info["mode"] == "lanczos"
-    with pytest.raises(NotImplementedError, match="Lanczos"):
-        compute_svd(rm, mode="auto", **kw)
+    got = compute_svd(rm, mode="auto", tol=1e-5, max_restarts=100, **kw)
+    assert got.info["mode"] == "lanczos"
     assert RANDOMIZED_K_THRESHOLD == 128
 
 

@@ -80,10 +80,11 @@ def test_auto_mode_is_gram_up_to_the_threshold():
     # for small k (tests/test_torch_randsvd.py) and Lanczos for large k.
     assert compute_svd(port, 3, gram_threshold=16).info["mode"] == \
         "randomized"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_svd(port, 3, gram_threshold=16, randomized_k_threshold=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_svd(port, 3, mode="lanczos")
+    lz = dict(tol=1e-7, max_restarts=100)
+    assert compute_svd(port, 3, gram_threshold=16, randomized_k_threshold=2,
+                       **lz).info["mode"] == "lanczos"
+    got = compute_svd(port, 3, mode="lanczos", **lz)
+    np.testing.assert_allclose(got.s.numpy(), np.asarray(want.s), rtol=1e-4)
     with pytest.raises(ValueError, match="unknown mode"):
         compute_svd(port, 3, mode="qr")
 
