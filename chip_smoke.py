@@ -26,11 +26,12 @@ with nvcc, then:
               logistic/lbfgs requests, and one SvdRequest(k=16,
               mode="auto") of a wide A_w (2^18 x 16384, a decaying
               spectrum) that must take the randomized mode; two requests
-              per group are served again one at a time (slots=1).  Quad
-              answers against their float64 optima, group against serial
-              answers, the SVD's sigma against a float64 subspace
-              iteration, and fused_grad_multi launches against the
-              server's A-passes, request by request.
+              per group are served again one at a time (slots=1), and
+              one exact SimilarityRequest on A.  Quad answers against
+              their float64 optima, group against serial answers, the
+              SVD's sigma against a float64 subspace iteration, the
+              similarities against float64 cosines, and fused_grad_multi
+              launches against the server's A-passes, request by request.
   6. sparse:  S = 2^22 x 2^14 in 32 x 32 blocks, 16 a block-row, block
               columns from a Zipf(1) law, built on the card (the dense
               matrices freed first): api.svd(k=16, mode="auto") takes the
@@ -42,6 +43,25 @@ with nvcc, then:
               on S's int8 copy (bsr_matvec + bsr_rmatmul), with the float64
               relative gradient of each quad answer, fused against unfused,
               and each solve's launches against its A-passes.
+  7. sparse serve: one SolverServer(slots=8) on S answers 16 quad/gra, 8
+              quad/acc_rb and 8 logistic/lbfgs requests (iteration caps
+              SPARSE_SERVE_ITERS), a sampled SimilarityRequest (threshold
+              0.5, default gamma) and an exact one on S_sim = 2^20 x 2^12
+              (bs 32, ell 16, Zipf(1) over 128 block columns, 64 planted
+              column pairs of cosine near 0.9), and an exact one on S_sim
+              densified as a RowMatrix.  After the path's counts are read:
+              each served objective against a float64 evaluation at its x,
+              the gra answers' float64 relative gradient against
+              SERVE_REL_GRAD_LIMIT, the solves again one at a time
+              (slots=1: every gra request, two of each other group) and the
+              acc_rb requests through api.solve; DIMSUM's gamma, p and
+              variance against float64 formulas, its planted pairs against
+              the DIMSUM error bounds, both exact answers against the
+              float64 cosines of the whole matrix and against each other,
+              and fused_grad_bsr_multi launches against the server's
+              A-passes.  Then bsr_rmatmul on a 512-column strip of S_sim
+              and of S (a strip of the sparse Gram) and tsgram on S_sim's
+              dense copy against their plain versions.
 
 Phase 2 also holds fused_grad_multi (k = 1, 8, 16, all four losses, f32
 and bf16 storage, slot independence of the other slots and of the slot
@@ -49,15 +69,19 @@ count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16) and
 fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
 their plain versions, and the four block-sparse kernels (f32, bf16 and
 int8 storage; bsr_matmul at nx = 16, bsr_rmatmul at nx = 1 and 16,
-fused_grad_bsr for every loss) on S, just before phase 6.  fused_grad is
-fused_grad_multi's kernel with one slot.
-Phases 3 and 4 are one main path, phase 5 another and phase 6 a third:
-every launch count is set to 0 just before each and read just after, and
+fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16,
+every loss, f32 and bf16 storage, slot independence; the int8 composition
+at k = 8) on S, just before phase 6.  fused_grad is fused_grad_multi's
+kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
+A, held to the float64 cosines of phase 3's Gram.
+Phases 3 and 4 are one main path, phases 5, 6 and 7 one each: every launch
+count is set to 0 just before each and read just after it (in phases 5 and
+7, once the grouped server drains, before the checks' own launches), and
 each kernel of the path must have launched there.  The last lines are a
-JSON object with the SVDs', the solves', the server's and phase 6's
-numbers, the card's name and power limit, a JSON object with each
-kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check
-exits non-zero before those lines.
+JSON object with the SVDs', the solves', the servers' and phases 6 and
+7's numbers, the card's name and power limit, a JSON object with each
+kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check exits non-zero before
+those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
 sources are not beside this script.
 """
@@ -88,6 +112,18 @@ SPARSE_ITERS = 300             # iterations of phase 6's quad solves
 # (1 - lambda/L)^k of each mode; over S's block-column spectrum that is
 # about 0.006 at 300 steps (tools/sparse_spectrum.py).
 REL_GRAD_LIMIT = 2e-2
+K_BSR_MULTI = (1, 8, 16)       # slot counts of the fused_grad_bsr_multi check
+M_SIM, N_SIM = 1 << 20, 1 << 12   # S_sim: the matrix of phase 7's DIMSUM
+PLANTED = 64                   # planted near-duplicate column pairs of S_sim
+SIM_THRESHOLD = 0.5            # phase 7's sampled DIMSUM request
+# Phase 7's iteration caps, chosen to keep the phase near 40 s: quad/gra,
+# quad/acc_rb and logistic/lbfgs requests on S.
+SPARSE_SERVE_ITERS = {"gra": 60, "acc_rb": 40, "lbfgs": 20}
+# Phase 7's served gra requests: the float64 relative gradient after their
+# cap.  60 steps at 1/L0 leave 0.055 (tools/sparse_spectrum.py); the group
+# backtracks, so its L stays within 2 L0, and 30 steps at 1/(2 L0) leave
+# 0.093.
+SERVE_REL_GRAD_LIMIT = 0.15
 SEED = 0
 REPS = 10                      # timed launches per kernel (median taken)
 ROWS64 = 1 << 18               # row chunk of the float64 reference sums
@@ -125,14 +161,19 @@ SOURCES = {
                     "src/repro/kernels/bsr.py:335"),
     "fused_grad_bsr": ("src/repro_torch/kernels/csrc/fused_grad_bsr.cu",
                        "src/repro/kernels/fusedgrad.py:238"),
+    "fused_grad_bsr_multi": (
+        "src/repro_torch/kernels/csrc/fused_grad_bsr_multi.cu",
+        "src/repro/kernels/fusedgrad.py:434"),
 }
 # The kernels each main path runs: phases 3-4 (solves and the Gram SVD),
-# phase 5 (the server with its randomized-SVD one-shot) and phase 6 (the
-# sparse solves and the Lanczos SVD).
+# phase 5 (the server with its randomized-SVD one-shot), phase 6 (the
+# sparse solves and the Lanczos SVD) and phase 7 (the server on a sparse
+# matrix, with DIMSUM requests on both matrix types).
 PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          "serve": ("fused_grad_multi", "randsketch", "gemm"),
          "sparse": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul",
-                    "fused_grad_bsr")}
+                    "fused_grad_bsr"),
+         "sparse_serve": ("fused_grad_bsr_multi", "bsr_rmatmul", "tsgram")}
 
 
 class CheckFailed(RuntimeError):
@@ -650,8 +691,9 @@ def drive(server) -> dict:
 
 
 def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
-    """Phase 5 on the main path's counts (the caller zeroes them just
-    before and reads them just after)."""
+    """Phase 5 on the main path's counts: the caller zeroes them just
+    before; they are read just after the grouped server drains (returned
+    as "launches"), before the slots=1 server and the checks run."""
     from repro_torch.core.distmat import RowMatrix
     from repro_torch.launch import telemetry
     from repro_torch.launch.serve import SolverServer
@@ -680,7 +722,9 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
     ids = [grouped.submit(r) for r in reqs]
     svd_id = grouped.submit(api.SvdRequest(A=rm_w, k=K_SVD, mode="auto",
                                            device=dev))
+    sim_id = grouped.submit(api.SimilarityRequest(A=rm, device=dev))
     run = drive(grouped)
+    # The path's launches: the slots=1 server below is a check.
     launched_group = ops.launch_counts()
     serial = SolverServer(slots=1)
     sreqs = serve_requests(api, rm, B_quad, B_log, L0, lambda i: i < 2)
@@ -689,7 +733,7 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
 
     # -- checks ------------------------------------------------------------
     res = {rid: run["results"][rid] for rid in ids}
-    require(len(run["results"]) == len(ids) + 1, "serve: not every request "
+    require(len(run["results"]) == len(ids) + 2, "serve: not every request "
             "was answered")
     for rid, r in res.items():
         require(r.info["plan"] == "fused-group", f"serve {rid}: plan "
@@ -722,6 +766,16 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
     require(svd.info["plan"] == "randomized", f"serve: the SVD took "
             f"{svd.info['plan']}")
     require(err_s <= 1e-3, f"serve: randomized sigma error {err_s:.3e}")
+    # The exact DIMSUM of A against the float64 cosines of phase 3's Gram.
+    sim = run["results"][sim_id]
+    d64 = torch.sqrt(torch.diagonal(G64))
+    err_sim = max_abs(sim.factors[0], G64 / (d64[:, None] * d64[None, :]))
+    require(sim.info["plan"] == "gram" and sim.info["a_passes"] == 1,
+            f"serve: similarity info {sim.info['plan']}, "
+            f"{sim.info['a_passes']} A-passes")
+    require(sim.factors[0].shape == (N, N) and err_sim <= 1e-4,
+            f"serve: exact similarities off the float64 cosines by "
+            f"{err_sim:.3e}")
     launched = ops.launch_counts()
     a_passes = grouped.stats["a_passes"] + serial.stats["a_passes"]
     require(launched_group["fused_grad_multi"] == grouped.stats["a_passes"],
@@ -730,10 +784,10 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
     require(launched["fused_grad_multi"] == a_passes,
             "serve: fused_grad_multi launches != A-passes with the serial "
             "server")
-    require(launched["fused_grad"] == 0, "serve: fused_grad launched "
+    require(launched_group["fused_grad"] == 0, "serve: fused_grad launched "
             "inside group steps")
-    require(launched["randsketch"] == svd.info["power_iters"] + 1,
-            f"serve: {launched['randsketch']} randsketch launches for "
+    require(launched_group["randsketch"] == svd.info["power_iters"] + 1,
+            f"serve: {launched_group['randsketch']} randsketch launches for "
             f"power_iters={svd.info['power_iters']}")
 
     # -- numbers -------------------------------------------------------------
@@ -743,8 +797,8 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
     oneshot = [sp.dur_s for sp in grouped.tel.spans
                if sp.name == "serve.oneshot"]
     rec = {
-        "requests": len(ids) + 1, "wall_s": run["wall_s"],
-        "requests_per_s": (len(ids) + 1) / run["wall_s"],
+        "requests": len(ids) + 2, "wall_s": run["wall_s"],
+        "requests_per_s": (len(ids) + 2) / run["wall_s"],
         "p50_latency_s": lat[len(lat) // 2],
         "p99_latency_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
         "steps": grouped.stats["steps"], "a_passes": grouped.stats["a_passes"],
@@ -757,7 +811,8 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
         "svd": {"plan": svd.info["plan"], "a_passes": svd.info["a_passes"],
                 "tail_ratio": svd.info["tail_ratio"],
                 "sigma_rel_err": err_s, "served_ms": 1e3 * oneshot[0]},
-        "launches": launched}
+        "similarity": {"plan": sim.info["plan"], "max_abs_err": err_sim},
+        "launches": launched_group}
     print(f"[serve] {rec['requests']} requests in {run['wall_s']:.2f} s "
           f"({rec['requests_per_s']:.2f} req/s), latency p50 "
           f"{rec['p50_latency_s']:.3f} s, p99 {rec['p99_latency_s']:.3f} s, "
@@ -772,6 +827,8 @@ def run_serve(api, ops, A, A_w, L0, G64, single_ms, gen) -> dict:
           f"{rec['svd']['served_ms']:.1f} ms served, "
           f"{svd.info['a_passes']} A-passes, tail_ratio "
           f"{svd.info['tail_ratio']:.3e}, sigma error {err_s:.3e}")
+    print(f"[serve] exact DIMSUM of A ({N} x {N}): max abs error "
+          f"{err_sim:.3e} against the float64 cosines")
     return rec
 
 # -- phase 6: the sparse path ----------------------------------------------
@@ -790,11 +847,12 @@ def sparse_matrix(dev):
     return SparseRowMatrix(data, cols, dims=(M_S, N_S), nnz=data.numel())
 
 
-def sparse_columns(nbr: int, gen, dev) -> torch.Tensor:
+def sparse_columns(nbr: int, gen, dev, nbc: int | None = None
+                   ) -> torch.Tensor:
     """S's block pattern: for each of `nbr` block-rows, ELL_S block columns
-    drawn without replacement from a Zipf(1) law over N_S / BS_S (Gumbel
-    top-k), sorted; int32 (nbr, ELL_S)."""
-    nbc = N_S // BS_S
+    drawn without replacement from a Zipf(1) law over `nbc` (S's N_S / BS_S
+    unless given; Gumbel top-k), sorted; int32 (nbr, ELL_S)."""
+    nbc = nbc or N_S // BS_S
     logp = -torch.log(torch.arange(1, nbc + 1, device=dev,
                                    dtype=torch.float32))
     cols = torch.empty((nbr, ELL_S), dtype=torch.int32, device=dev)
@@ -976,6 +1034,83 @@ def check_sparse_kernels(mats: dict, gen) -> dict:
     return out
 
 
+def check_sparse_multi(mats: dict, gen) -> dict:
+    """fused_grad_bsr_multi against its plain version on S for k in
+    K_BSR_MULTI, every loss, f32 and bf16 storage, and the int8 composition
+    (bsr_matmul + bsr_rmatmul through ops) at k = SLOTS; a request's bits
+    alone, in slot 0 among random neighbours and in slot SLOTS - 1, and
+    two runs' bits.  Returns {storage: {k: numbers}}."""
+    from repro_torch.kernels import fusedgrad, ops
+
+    dev = mats["f32"].device
+    m, n = M_S, N_S
+    plain = fusedgrad.fused_grad_bsr_multi_plain
+    out = {}
+    for dt in ("f32", "bf16", "int8"):
+        a = mats[dt]._local()
+        run = ops.fused_grad_bsr_multi if dt == "int8" \
+            else fusedgrad.fused_grad_bsr_multi
+        for k in (SLOTS,) if dt == "int8" else K_BSR_MULTI:
+            x = torch.randn(k, n, generator=gen, device=dev) \
+                / math.sqrt(ELL_S * BS_S)
+            w = torch.rand(k, m, generator=gen, device=dev)
+            z0 = plain(a, x, torch.zeros_like(w), w, loss="quad")[2]
+            rec = {}
+            for loss in fusedgrad.LOSSES:
+                t = targets(loss, z0, gen)
+                got = run(a, x, t, w, loss=loss, param=0.5)
+                want = plain(a, x, t, w, loss=loss, param=0.5)
+                torch.cuda.synchronize()
+                errs = {q: rel_err(g, p) for q, g, p in zip("fgz", got, want)}
+                for q, e in errs.items():
+                    require(e <= TOL[q], f"fused_grad_bsr_multi {dt} k={k} "
+                            f"{loss}: {q} relative error {e:.3e} > {TOL[q]}")
+                again = run(a, x, t, w, loss=loss, param=0.5)
+                require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                        f"fused_grad_bsr_multi {dt} k={k} {loss}: two runs "
+                        "differ")
+                rec[loss] = {"rel_err": errs, "max_abs_err": max(
+                    max_abs(g, p) for g, p in zip(got, want))}
+                if k == SLOTS and loss == "logistic" and dt != "int8":
+                    # Slot 0's request alone, and among random neighbours in
+                    # slot 0 and in slot SLOTS - 1: the same bits.
+                    alone = run(a, x[:1], t[:1], w[:1], loss=loss, param=0.5)
+                    x2 = torch.randn(k, n, generator=gen, device=dev) \
+                        / math.sqrt(ELL_S * BS_S)
+                    t2 = targets(loss, z0, gen)
+                    w2 = torch.rand(k, m, generator=gen, device=dev)
+                    for slot in (0, k - 1):
+                        x3, t3, w3 = x2.clone(), t2.clone(), w2.clone()
+                        x3[slot], t3[slot], w3[slot] = x[0], t[0], w[0]
+                        grp = run(a, x3, t3, w3, loss=loss, param=0.5)
+                        torch.cuda.synchronize()
+                        require(all(torch.equal(u[0], v[slot])
+                                    for u, v in zip(alone, grp)),
+                                f"fused_grad_bsr_multi {dt}: slot {slot} "
+                                "differs from the same request alone")
+                    del alone, x2, t2, w2, x3, t3, w3, grp
+                if loss == "quad":
+                    rec["ms"] = time_ms(lambda: run(a, x, t, w, loss="quad"))
+                    rec["plain_ms"] = time_ms(lambda: plain(
+                        a, x, t, w, loss="quad"))
+                    rec["library_ms"] = None   # no one torch call fuses these
+                    rec["bound_ms"], rec["bound_by"] = sparse_bound(
+                        a, k, 4 * k * (2 * n + 3 * m + 1), 4.0)
+                del got, want, again, t
+            out.setdefault(dt, {})[k] = rec
+            del x, w, z0
+        torch.cuda.empty_cache()
+    for dt, by_k in out.items():
+        for k, r in by_k.items():
+            print(f"[kernels] fused_grad_bsr_multi k={k:2d} {dt:4s} kernel "
+                  f"{r['ms']:9.3f} ms | plain {r['plain_ms']:9.3f} ms | "
+                  f"library     none | bound {r['bound_ms']:8.3f} ms "
+                  f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.3f}"
+                  + (" (int8: bsr_matmul + bsr_rmatmul)"
+                     if dt == "int8" else ""))
+    return out
+
+
 def sparse_solve(api, ops, srm, b, **kw) -> tuple[dict, object, dict]:
     """One api.solve on a SparseRowMatrix; returns its record, the result
     and the launches it made, by kernel."""
@@ -1118,8 +1253,396 @@ def run_sparse(api, ops, S, S_i8, refs) -> dict:
     return {"svd": svd_rec, "solves": solves, "fused_unfused_gap": gap}
 
 
+# -- phase 7: the server on a sparse matrix --------------------------------
+
+def similarity_matrix(dev):
+    """S_sim (M_SIM x N_SIM, BS_S x BS_S blocks, ELL_S a block-row, block
+    columns from a Zipf(1) law over its N_SIM / BS_S, Gaussian entries;
+    seed SEED + 5) with PLANTED near-duplicate column pairs: in block column
+    c = 2p, column u + 1 (u = 2 (p mod 16)) of every stored block becomes
+    0.9 column u + sqrt(0.19) of its own noise, a cosine near 0.9.  Returns
+    the matrix and the pairs (i, j) of global column ids."""
+    from repro_torch.core.distmat import SparseRowMatrix
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    nbr = M_SIM // BS_S
+    cols = sparse_columns(nbr, gen, dev, nbc=N_SIM // BS_S)
+    data = torch.randn((nbr, ELL_S, BS_S, BS_S), generator=gen, device=dev)
+    pairs = []
+    for p in range(PLANTED):
+        c, u = 2 * p, 2 * (p % 16)
+        rows, slots = torch.nonzero(cols == c, as_tuple=True)
+        blk = data[rows, slots]
+        blk[:, :, u + 1] = 0.9 * blk[:, :, u] \
+            + math.sqrt(0.19) * blk[:, :, u + 1]
+        data[rows, slots] = blk
+        pairs.append((c * BS_S + u, c * BS_S + u + 1))
+    return (SparseRowMatrix(data, cols, dims=(M_SIM, N_SIM),
+                            nnz=data.numel()), pairs)
+
+
+def similarity_refs64(S_sim, pairs) -> dict:
+    """float64 column norms of S_sim and, for each planted pair (i, j), its
+    cosine and s2 = sum_k (a_ki a_kj)^2 / (|c_i|^2 |c_j|^2), the variance
+    formula's Gram entry."""
+    a = S_sim._local()
+    sq = torch.zeros((N_SIM // BS_S, BS_S), dtype=torch.float64,
+                     device=a.data.device)
+    for _, d, c in _chunks64(a):
+        sq.index_add_(0, c.reshape(-1), (d * d).sum(dim=2).reshape(-1, BS_S))
+    norms = torch.sqrt(sq.reshape(-1))
+    cos, s2 = [], []
+    for i, j in pairs:
+        rows, slots = torch.nonzero(a.cols == i // BS_S, as_tuple=True)
+        blk = a.data[rows, slots].double()
+        ai = blk[:, :, i % BS_S] / norms[i]
+        aj = blk[:, :, j % BS_S] / norms[j]
+        cos.append(float((ai * aj).sum()))
+        s2.append(float((ai * ai * aj * aj).sum()))
+    f64 = dict(dtype=torch.float64, device=a.data.device)
+    return {"norms": norms, "cos": torch.tensor(cos, **f64),
+            "s2": torch.tensor(s2, **f64)}
+
+
+def cosines64(A_d: torch.Tensor) -> torch.Tensor:
+    """The float64 cosines of a dense matrix's columns, its Gram summed a
+    chunk of ROWS64_W rows at a time."""
+    n = A_d.shape[1]
+    G = torch.zeros((n, n), dtype=torch.float64, device=A_d.device)
+    for i in range(0, A_d.shape[0], ROWS64_W):
+        c = A_d[i:i + ROWS64_W].double()
+        G += c.T @ c
+    d = torch.sqrt(torch.diagonal(G))
+    inv = torch.where(d > 0, 1.0 / d.clamp_min(1e-300), 0.0)
+    return G * inv[:, None] * inv[None, :]
+
+
+def sparse_serve_requests(api, S, B_quad, B_log, L0, which) -> list:
+    """Phase 7's solve requests on S, in submit order: 16 quad/gra, 8
+    quad/acc_rb and 8 logistic/lbfgs at SPARSE_SERVE_ITERS; `which(method,
+    i)` picks the i-th of each block."""
+    spec = [("gra", "quad", range(16)), ("acc_rb", "quad", range(16, 24)),
+            ("lbfgs", "logistic", range(8))]
+    reqs = []
+    for method, loss, rows in spec:
+        for j in (r for i, r in enumerate(rows) if which(method, i)):
+            b = B_quad[j] if loss == "quad" else B_log[j]
+            reqs.append(api.SolveRequest(
+                A=S, b=b, loss=loss, method=method, L0=L0, tol=1e-12,
+                max_iters=SPARSE_SERVE_ITERS[method], device=S.device))
+    return reqs
+
+
+def sparse_serve_targets(S, gen) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 7's targets on S from seeded x* and noise: 24 quad rows and 8
+    logistic rows."""
+    dev = S.device
+    X_true = torch.randn(N_S, 32, generator=gen, device=dev,
+                         dtype=torch.float64) / math.sqrt(ELL_S * BS_S)
+    Z = apply64(S._local(), X_true).T                         # (32, M_S)
+    B_quad = (Z[:24] + 0.5 * torch.randn(24, M_S, generator=gen, device=dev,
+                                         dtype=torch.float64)).float()
+    B_log = torch.where(Z[24:] + torch.randn(8, M_S, generator=gen,
+                                             device=dev,
+                                             dtype=torch.float64) > 0,
+                        1.0, -1.0).float()
+    return B_quad, B_log
+
+
+def serve_sparse(api, S, S_sim, dense_sim, B_quad, B_log, L0) -> dict:
+    """Phase 7's path, on the main path's counts (the caller zeroes them
+    just before and reads them just after): one SolverServer(slots=SLOTS)
+    on S answers the solve requests, a sampled and an exact DIMSUM request
+    on S_sim and an exact one on its densified RowMatrix."""
+    from repro_torch.launch import telemetry
+    from repro_torch.launch.serve import SolverServer
+
+    dev = S.device
+    grouped = SolverServer(slots=SLOTS, telemetry=telemetry.Recorder())
+    reqs = sparse_serve_requests(api, S, B_quad, B_log, L0,
+                                 lambda method, i: True)
+    ids = [grouped.submit(r) for r in reqs]
+    sim_ids = {
+        "sampled": grouped.submit(api.SimilarityRequest(
+            A=S_sim, threshold=SIM_THRESHOLD, device=dev)),
+        "exact": grouped.submit(api.SimilarityRequest(A=S_sim, device=dev)),
+        "dense": grouped.submit(api.SimilarityRequest(A=dense_sim,
+                                                      device=dev))}
+    run = drive(grouped)
+    return {"server": grouped, "reqs": reqs, "ids": ids, "sim_ids": sim_ids,
+            "run": run}
+
+
+def objective64(a, loss: str, B: torch.Tensor, X: torch.Tensor,
+                m: int) -> tuple[list, torch.Tensor]:
+    """float64 objectives of the rows of X (k, n) against the rows of B
+    (k, m_pad) over S's first m rows, and the residuals Z - B (quad)."""
+    Z = apply64(a, X.double().T).T[:, :m]
+    Bm = B[:, :m].double()
+    if loss == "quad":
+        R = Z - Bm
+        return (0.5 * (R * R).sum(dim=1)).tolist(), R
+    mz = -Bm * Z
+    return torch.logaddexp(torch.zeros_like(mz), mz).sum(dim=1).tolist(), None
+
+
+def check_sparse_serve(api, ops, served, S, B_quad, B_log, pairs, refs, L0,
+                       single_ms) -> dict:
+    """Phase 7's checks, after the path's counts were read: the solves held
+    to float64 figures of their own x and to a slots=1 server and api.solve
+    (whose launches count on no path); the DIMSUM answers held to float64
+    cosines of S_sim over the whole matrix (exact) or on the planted pairs
+    (sampled)."""
+    from repro_torch.launch.serve import SolverServer
+
+    dev = S.device
+    a = S._local()
+    grouped, reqs, ids, run = (served["server"], served["reqs"],
+                               served["ids"], served["run"])
+    before = ops.launch_counts()
+    serial = SolverServer(slots=1)
+    sreqs = sparse_serve_requests(api, S, B_quad, B_log, L0,
+                                  lambda method, i: method == "gra" or i < 2)
+    sids = [serial.submit(r) for r in sreqs]
+    srun = drive(serial)
+    made = ops.launch_counts()["fused_grad_bsr_multi"] \
+        - before["fused_grad_bsr_multi"]
+    require(made == serial.stats["a_passes"], f"sparse serve: the serial "
+            f"server launched fused_grad_bsr_multi {made} times for "
+            f"{serial.stats['a_passes']} A-passes")
+
+    # -- the solves ----------------------------------------------------------
+    res = {rid: run["results"][rid] for rid in ids}
+    require(len(run["results"]) == len(ids) + len(served["sim_ids"]),
+            "sparse serve: not every request was answered")
+    for rid, r in res.items():
+        require(r.info["plan"] == "fused-group", f"sparse serve {rid}: plan "
+                f"{r.info['plan']}")
+        require(bool(torch.isfinite(r.x).all()), f"sparse serve {rid}: "
+                "non-finite x")
+        require(r.info["a_passes"] == run["observed"][rid],
+                f"sparse serve {rid}: a_passes {r.info['a_passes']} != the "
+                f"{run['observed'][rid]} group passes while resident")
+    # Each served objective against a float64 evaluation at its own x.
+    Xq = torch.stack([res[rid].x for rid in ids[:24]])
+    Xl = torch.stack([res[rid].x for rid in ids[24:]])
+    quad64, R = objective64(a, "quad", B_quad, Xq, M_S)
+    log64, _ = objective64(a, "logistic", B_log, Xl, M_S)
+    quad_obj = [res[rid].info["objective"] for rid in ids[:24]]
+    log_obj = [res[rid].info["objective"] for rid in ids[24:]]
+    obj_rel = max(abs(o - o64) / abs(o64) for o, o64
+                  in zip(quad_obj + log_obj, quad64 + log64))
+    require(obj_rel <= TOL["f"], f"sparse serve: a served objective is "
+            f"{obj_rel:.3e} off its float64 value at x")
+    f0_quad = [0.5 * float((B_quad[j].double() ** 2).sum()) for j in range(24)]
+    require(all(o < f for o, f in zip(quad64, f0_quad)),
+            "sparse serve: a quad objective did not fall below f(0)")
+    f0_log = M_S * math.log(2.0)
+    require(all(math.isfinite(o) and o < f0_log for o in log64),
+            f"sparse serve: logistic objectives {log64} not below "
+            f"{f0_log:.6e}")
+    # The gra requests: float64 ||S^T(Sx - b)|| / ||S^T b||.
+    grad = torch.linalg.vector_norm(rapply64(a, R[:16].T), dim=0)
+    atb = torch.linalg.vector_norm(rapply64(a, B_quad[:16].T), dim=0)
+    rel_grad = (grad / atb).tolist()
+    del R, grad
+    require(max(rel_grad) <= SERVE_REL_GRAD_LIMIT, f"sparse serve: gra "
+            f"relative gradient {max(rel_grad):.3e} > {SERVE_REL_GRAD_LIMIT}")
+    # Group against serial: every gra request, two of acc_rb and lbfgs.
+    firsts = ids[:16] + ids[16:18] + ids[24:26]
+    agree = [rel_err(res[rid].x, srun["results"][sid].x)
+             for rid, sid in zip(firsts, sids)]
+    require(max(agree) <= 1e-4, f"sparse serve: group and serial x differ "
+            f"by {max(agree):.3e}")
+    # acc_rb against the direct path (api.solve takes the same engine; the
+    # direct "gra" is the fixed-step method, the group's gra backtracks).
+    direct = []
+    for rid, req in zip(ids[16:24], reqs[16:24]):
+        d = api.solve(api.SolveRequest(
+            A=S, b=req.b, loss="quad", method="acc_rb", L0=L0, tol=1e-12,
+            max_iters=SPARSE_SERVE_ITERS["acc_rb"], device=dev))
+        direct.append(rel_err(res[rid].x, d.x))
+    require(max(direct) <= 1e-4, f"sparse serve: group and direct acc_rb x "
+            f"differ by {max(direct):.3e}")
+
+    # -- DIMSUM ----------------------------------------------------------------
+    sim = run["results"][served["sim_ids"]["sampled"]]
+    info = sim.info
+    S_est = sim.factors[0]
+    pi = torch.tensor([i for i, _ in pairs], device=dev)
+    pj = torch.tensor([j for _, j in pairs], device=dev)
+    gamma64 = 10.0 * math.log(N_SIM) / SIM_THRESHOLD
+    p64 = torch.clamp(math.sqrt(gamma64) / refs["norms"], max=1.0)
+    var64 = refs["s2"] * (1.0 / (p64[pi] * p64[pj]) - 1.0)
+    est = S_est[pi, pj].double()
+    rel_pairs = (est - refs["cos"]).abs() / refs["cos"]
+    gamma_rel = abs(info["gamma"] - gamma64) / gamma64
+    p_rel = float(((info["p"].double() - p64).abs() / p64).max())
+    var_rel = float(((info["variance"][pi, pj].double() - var64).abs()
+                     / var64).max())
+    require(info["plan"] == "dimsum" and info["a_passes"] == 1,
+            f"sparse serve: DIMSUM info {info['plan']}, {info['a_passes']}")
+    require(S_est.shape == (N_SIM, N_SIM)
+            and bool(torch.isfinite(S_est).all()),
+            "sparse serve: DIMSUM shape or non-finite entries")
+    require(torch.equal(torch.diagonal(S_est), torch.ones(N_SIM, device=dev)),
+            "sparse serve: DIMSUM diagonal is not exactly 1")
+    require(gamma_rel <= 1e-6, f"sparse serve: gamma off by {gamma_rel:.3e}")
+    require(p_rel <= 1e-6, f"sparse serve: p off by {p_rel:.3e}")
+    require(var_rel <= 1e-3, f"sparse serve: variance off by {var_rel:.3e}")
+    require(float(rel_pairs.mean()) < 0.15 and float(rel_pairs.max()) < 0.55,
+            f"sparse serve: planted pairs' relative error mean "
+            f"{float(rel_pairs.mean()):.3f}, max {float(rel_pairs.max()):.3f}")
+    # The exact answers, sparse (strip-wise bsr_rmatmul Gram) and dense
+    # (tsgram): normwise against the float64 cosines of the whole matrix
+    # and against each other (phase 2's Gram limit), max-abs on the
+    # diagonal and the planted pairs (the largest entries).
+    exact = {}
+    for key in ("exact", "dense"):
+        r = run["results"][served["sim_ids"][key]]
+        require(r.info["plan"] == "gram", f"sparse serve: {key} DIMSUM plan "
+                f"{r.info['plan']}")
+        exact[key] = r.factors[0]
+    cos64 = refs["cos64"]
+    exact_err = {}
+    for key, C in exact.items():
+        e = {"rel_err": rel_err(C, cos64), "max_abs_err": max_abs(C, cos64),
+             "max_abs_err_pairs_diag": max(
+                 max_abs(C[pi, pj], refs["cos"]),
+                 max_abs(torch.diagonal(C), torch.diagonal(cos64)))}
+        exact_err[key] = e
+        require(e["rel_err"] <= TOL["tsgram"]
+                and e["max_abs_err_pairs_diag"] <= 1e-4,
+                f"sparse serve: {key} DIMSUM off the float64 cosines by "
+                f"{e['rel_err']:.3e} normwise, "
+                f"{e['max_abs_err_pairs_diag']:.3e} on the pairs and the "
+                "diagonal")
+    exact_err["sparse_vs_dense"] = {
+        "rel_err": rel_err(exact["exact"], exact["dense"]),
+        "max_abs_err": max_abs(exact["exact"], exact["dense"])}
+    require(exact_err["sparse_vs_dense"]["rel_err"] <= TOL["tsgram"],
+            f"sparse serve: sparse and dense exact DIMSUM differ by "
+            f"{exact_err['sparse_vs_dense']['rel_err']:.3e} normwise")
+    del exact
+
+    # -- numbers -------------------------------------------------------------
+    lat = sorted(grouped.latencies())
+    full_ms = statistics.median(dt for dt, _ in run["full"])
+    per_pass = statistics.median(dt / p for dt, p in run["full"] if p)
+    n_req = len(run["results"])
+    rec = {
+        "requests": n_req, "wall_s": run["wall_s"],
+        "requests_per_s": n_req / run["wall_s"],
+        "p50_latency_s": lat[len(lat) // 2],
+        "p99_latency_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "steps": grouped.stats["steps"], "a_passes": grouped.stats["a_passes"],
+        "serial_a_passes": serial.stats["a_passes"],
+        "iteration_caps": SPARSE_SERVE_ITERS,
+        "ms_per_group_iteration_8": full_ms,
+        "ms_per_group_pass_8": per_pass,
+        "single_fused_grad_bsr_ms_x8": 8 * single_ms,
+        "max_group_serial_rel": max(agree),
+        "max_group_direct_acc_rb_rel": max(direct),
+        "max_objective_rel_err": obj_rel, "gra_rel_grad": rel_grad,
+        "quad_objectives": quad64, "logistic_objectives": log64,
+        "dimsum": {"gamma": info["gamma"], "gamma_rel_err": gamma_rel,
+                   "p_rel_err": p_rel, "variance_rel_err": var_rel,
+                   "planted_rel_err_mean": float(rel_pairs.mean()),
+                   "planted_rel_err_max": float(rel_pairs.max()),
+                   "planted_cos64_mean": float(refs["cos"].mean())},
+        "exact_dimsum": exact_err}
+    print(f"[sparse serve] {n_req} requests in {run['wall_s']:.2f} s "
+          f"({rec['requests_per_s']:.2f} req/s), latency p50 "
+          f"{rec['p50_latency_s']:.3f} s, p99 {rec['p99_latency_s']:.3f} s, "
+          f"{rec['steps']} steps, {rec['a_passes']} group A-passes, caps "
+          f"{SPARSE_SERVE_ITERS}")
+    print(f"[sparse serve] 8 active slots: {full_ms:.3f} ms per group "
+          f"iteration, {per_pass:.3f} ms per group pass, against 8 x "
+          f"single-request fused_grad_bsr {8 * single_ms:.3f} ms")
+    print(f"[sparse serve] served objectives vs float64 {obj_rel:.3e}, gra "
+          f"relative gradient max {max(rel_grad):.3e} (limit "
+          f"{SERVE_REL_GRAD_LIMIT}), group vs serial {max(agree):.3e}, "
+          f"group vs direct acc_rb {max(direct):.3e}")
+    print(f"[sparse serve] DIMSUM on {M_SIM} x {N_SIM} (threshold "
+          f"{SIM_THRESHOLD}, gamma {info['gamma']:.3f}): planted pairs' "
+          f"relative error mean {float(rel_pairs.mean()):.4f}, max "
+          f"{float(rel_pairs.max()):.4f} (cosine mean "
+          f"{float(refs['cos'].mean()):.4f}); gamma {gamma_rel:.1e}, p "
+          f"{p_rel:.1e}, variance {var_rel:.1e} off float64")
+    print("[sparse serve] exact DIMSUM vs float64 cosines (normwise, max "
+          "abs, max abs on the pairs and diagonal): " + "; ".join(
+              f"{key} {e['rel_err']:.3e}, {e['max_abs_err']:.3e}, "
+              f"{e['max_abs_err_pairs_diag']:.3e}"
+              for key, e in exact_err.items() if key != "sparse_vs_dense")
+          + f"; sparse vs dense "
+          f"{exact_err['sparse_vs_dense']['rel_err']:.3e} normwise, "
+          f"{exact_err['sparse_vs_dense']['max_abs_err']:.3e} max")
+    return rec
+
+
+def check_wide_kernels(S, S_sim, dense_sim) -> dict:
+    """The kernels at the widths phase 7 gives them, against their plain
+    versions: bsr_rmatmul on a 512-column strip of S_sim (each strip of its
+    sparse Gram) and of S, and tsgram on S_sim's dense copy.  Returns
+    {kernel: {case: numbers}}."""
+    from repro_torch.kernels import bsr, tsgram
+
+    out = {"bsr_rmatmul": {}, "tsgram": {}}
+    for key, srm in (("f32_nx512_S_sim", S_sim), ("f32_nx512_S", S)):
+        a = srm._local()
+        t0 = time.perf_counter()
+        strip = srm._dense_columns(0, 512)
+        torch.cuda.synchronize()
+        densify_ms = (time.perf_counter() - t0) * 1e3
+        got = bsr.bsr_rmatmul(a, strip)
+        want = bsr.bsr_rmatmul_plain(a, strip)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        require(e <= TOL["bsr_rmatmul"], f"bsr_rmatmul {key}: relative error "
+                f"{e:.3e} > {TOL['bsr_rmatmul']}")
+        require(torch.equal(got, bsr.bsr_rmatmul(a, strip)),
+                f"bsr_rmatmul {key}: two runs differ")
+        b_ms, b_by = sparse_bound(a, 512, 4 * 512 * (a.shape[0] + a.shape[1]),
+                                  2.0)
+        out["bsr_rmatmul"][key] = {
+            "nx": 512, "rel_err": e, "max_abs_err": max_abs(got, want),
+            "ms": time_ms(lambda: bsr.bsr_rmatmul(a, strip), reps=3),
+            "plain_ms": time_ms(lambda: bsr.bsr_rmatmul_plain(a, strip),
+                                reps=3),
+            "densify_ms": densify_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "strips": srm.shape[1] // 512}
+        del got, want, strip
+    A_d = dense_sim.rows
+    got = tsgram.tsgram(A_d, out_dtype=torch.float32)
+    want = tsgram.tsgram_plain(A_d, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    e = rel_err(got, want)
+    require(e <= TOL["tsgram"], f"tsgram on S_sim's dense copy: relative "
+            f"error {e:.3e} > {TOL['tsgram']}")
+    require(torch.equal(got, got.T), "tsgram on S_sim's dense copy: not "
+            "symmetric")
+    require(torch.equal(got, tsgram.tsgram(A_d, out_dtype=torch.float32)),
+            "tsgram on S_sim's dense copy: two runs differ")
+    m, n = A_d.shape
+    b_ms, b_by = bound(4 * (m * n + n * n), float(m) * n * (n + 1),
+                       torch.float32)
+    out["tsgram"]["f32_dense_sim"] = {
+        "shape": [m, n], "rel_err": e, "max_abs_err": max_abs(got, want),
+        "ms": time_ms(lambda: tsgram.tsgram(A_d, out_dtype=torch.float32),
+                      reps=3),
+        "plain_ms": time_ms(lambda: tsgram.tsgram_plain(
+            A_d, out_dtype=torch.float32), reps=3),
+        "bound_ms": b_ms, "bound_by": b_by}
+    for name, cases in out.items():
+        for key, r in cases.items():
+            print(f"[sparse serve] {name} {key}: rel err {r['rel_err']:.3e}, "
+                  f"{r['ms']:.1f} ms (plain {r['plain_ms']:.1f} ms, bound "
+                  f"{r['bound_ms']:.2f} ms by {r['bound_by']})")
+    return out
+
+
 def smoke(dev: torch.device) -> dict:
-    """Phases 2 to 5 on `dev`; returns the numbers to report."""
+    """Phases 2 to 7 on `dev`; returns the numbers to report."""
     from repro_torch import api
     from repro_torch.core.distmat import RowMatrix
     from repro_torch.kernels import ops
@@ -1205,12 +1728,12 @@ def smoke(dev: torch.device) -> dict:
         require(launches[name] > 0, f"{name} never launched on the solve "
                 "and SVD path")
 
-    # -- the serving path: counts zeroed just before, read just after -----
+    # -- the serving path: counts zeroed just before, read by run_serve
+    # just after the grouped server drains, before its checks ------------
     ops.reset_launch_counts()
     serve_rec = run_serve(api, ops, A, A_w, L0, G64,
                           kernels["fused_grad"]["f32"]["quad"]["ms"], gen5)
-    torch.cuda.synchronize()
-    serve_launches = ops.launch_counts()
+    serve_launches = serve_rec["launches"]
     # ----------------------------------------------------------------------
     print(f"[main path] serving: launches {serve_launches}")
     for name in PATHS["serve"]:
@@ -1225,6 +1748,12 @@ def smoke(dev: torch.device) -> dict:
     serve_rec["svd"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
     print(f"[serve] randomized SVD warm {serve_rec['svd']['warm_ms']:.1f} ms, "
           f"{warm.info['a_passes']} A-passes")
+    t0 = time.perf_counter()
+    api.similarities(api.SimilarityRequest(A=rm, device=dev))
+    torch.cuda.synchronize()
+    serve_rec["similarity"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"[serve] exact DIMSUM of A warm "
+          f"{serve_rec['similarity']['warm_ms']:.1f} ms")
     # The dense matrices are done with: phase 6 has the card to itself.
     del A, A_w, rm, rm_w, warm, res
     torch.cuda.empty_cache()
@@ -1241,6 +1770,8 @@ def smoke(dev: torch.device) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     gen6 = torch.Generator(device=dev).manual_seed(SEED + 4)
     kernels.update(check_sparse_kernels(mats, gen6))
+    kernels["fused_grad_bsr_multi"] = check_sparse_multi(
+        mats, torch.Generator(device=dev).manual_seed(SEED + 6))
     del mats["bf16"]
     torch.cuda.empty_cache()
     # float64 references, made before the path's counts are zeroed.
@@ -1273,21 +1804,89 @@ def smoke(dev: torch.device) -> dict:
     torch.cuda.synchronize()
     sparse_rec["svd"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
     print(f"[sparse] Lanczos SVD warm {sparse_rec['svd']['warm_ms']:.1f} ms")
+    # Phase 6's copies and references are done with.
+    del mats, a, a_i8, refs, b_quad, b_log, x_true
+    torch.cuda.empty_cache()
+
+    # -- phase 7 set-up: S_sim, its densified RowMatrix and the float64
+    # references, made before the path's counts are zeroed ----------------
+    t0 = time.perf_counter()
+    S_sim, pairs = similarity_matrix(dev)
+    refs7 = similarity_refs64(S_sim, pairs)
+    dense_sim = RowMatrix(rows=S_sim._dense_columns(0, N_SIM), n_rows=M_SIM)
+    torch.cuda.synchronize()
+    print(f"[sparse serve] S_sim: {M_SIM} x {N_SIM}, bs {BS_S}, ell {ELL_S}, "
+          f"{PLANTED} planted pairs (float64 cosine mean "
+          f"{float(refs7['cos'].mean()):.4f}), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    refs7["cos64"] = cosines64(dense_sim.rows)
+    L0_S = sparse_rec["svd"]["sigma_1"] ** 2
+    B_quad7, B_log7 = sparse_serve_targets(
+        S, torch.Generator(device=dev).manual_seed(SEED + 7))
+
+    # -- the sparse serving path: counts zeroed just before, read just after
+    ops.reset_launch_counts()
+    t7 = time.perf_counter()
+    served = serve_sparse(api, S, S_sim, dense_sim, B_quad7, B_log7, L0_S)
+    torch.cuda.synchronize()
+    serve7_launches = ops.launch_counts()
+    # ----------------------------------------------------------------------
+    path_s = time.perf_counter() - t7
+    print(f"[main path] sparse serving: launches {serve7_launches}, "
+          f"{path_s:.1f} s")
+    for name in PATHS["sparse_serve"]:
+        require(serve7_launches[name] > 0, f"{name} never launched on the "
+                "sparse serving path")
+    require(serve7_launches["fused_grad_bsr_multi"]
+            == served["server"].stats["a_passes"],
+            f"sparse serve: {serve7_launches['fused_grad_bsr_multi']} "
+            f"fused_grad_bsr_multi launches != "
+            f"{served['server'].stats['a_passes']} server A-passes")
+    require(serve7_launches["fused_grad_multi"] == 0
+            and serve7_launches["fused_grad_bsr"] == 0,
+            "sparse serve: another fused kernel launched inside group steps")
+    serve7_rec = check_sparse_serve(
+        api, ops, served, S, B_quad7, B_log7, pairs, refs7, L0_S,
+        kernels["fused_grad_bsr"]["f32"]["quad"]["ms"])
+    serve7_rec["path_s"] = path_s
+    serve7_rec["launches"] = serve7_launches
+    del served, B_quad7, B_log7
+    # The kernels at phase 7's widths against their plain versions.
+    for name, cases in check_wide_kernels(S, S_sim, dense_sim).items():
+        kernels[name].update(cases)
+    del dense_sim
+    torch.cuda.empty_cache()
+    # The sampled DIMSUM again, warm and alone, and S_sim's Gram alone.
+    t0 = time.perf_counter()
+    api.similarities(api.SimilarityRequest(A=S_sim, threshold=SIM_THRESHOLD,
+                                           device=dev))
+    torch.cuda.synchronize()
+    serve7_rec["dimsum"]["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    S_sim.gram()
+    torch.cuda.synchronize()
+    serve7_rec["dimsum"]["gram_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"[sparse serve] sampled DIMSUM warm "
+          f"{serve7_rec['dimsum']['warm_ms']:.1f} ms, S_sim's Gram "
+          f"{serve7_rec['dimsum']['gram_ms']:.1f} ms")
     by_path = {"solve_svd": launches, "serve": serve_launches,
-               "sparse": sparse_launches}
+               "sparse": sparse_launches, "sparse_serve": serve7_launches}
 
     rows = []
     for name, by_dtype in kernels.items():
         f32 = {"fused_grad": lambda r: r["quad"],
                "fused_grad_bsr": lambda r: r["quad"],
                "fused_grad_multi": lambda r: dict(
+                   r[SLOTS], max_abs_err=r[SLOTS]["quad"]["max_abs_err"]),
+               "fused_grad_bsr_multi": lambda r: dict(
                    r[SLOTS], max_abs_err=r[SLOTS]["quad"]["max_abs_err"])
                }.get(name, lambda r: r)(by_dtype["f32"])
         shape = {"gemm": [M, N, K_GEMM], "fused_grad_multi": [M, N, SLOTS],
                  "randsketch": [M_W, N_W, R_SKETCH],
                  "bsr_matvec": [M_S, N_S, 1], "bsr_matmul": [M_S, N_S, K_U],
                  "bsr_rmatmul": [M_S, N_S, 1],
-                 "fused_grad_bsr": [M_S, N_S]}.get(name, [M, N])
+                 "fused_grad_bsr": [M_S, N_S],
+                 "fused_grad_bsr_multi": [M_S, N_S, SLOTS]}.get(name, [M, N])
         path = next(p for p, names in PATHS.items() if name in names)
         src, replaces = SOURCES[name]
         rows.append({
@@ -1299,7 +1898,9 @@ def smoke(dev: torch.device) -> dict:
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
             "shape": shape, "dtype": "f32", "checks": by_dtype})
     return {"kernels": rows, "svd": svd_rec, "solves": solves,
-            "serve": serve_rec, "sparse": sparse_rec}
+            "serve": serve_rec, "sparse": sparse_rec,
+            "sparse_serve": serve7_rec,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
 def main() -> int:
@@ -1322,7 +1923,9 @@ def main() -> int:
     summary = smoke(dev)
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
-                      "sparse": summary["sparse"]}))
+                      "sparse": summary["sparse"],
+                      "sparse_serve": summary["sparse_serve"],
+                      "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": summary["kernels"]}))
     print(json.dumps({"ok": True, "device": {

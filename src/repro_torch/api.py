@@ -1,17 +1,19 @@
 """repro_torch.api: the request/result surface of the port.
 
 Counterpart of src/repro/api.py.  The same request dataclasses drive both
-entry paths: the direct call path, where `solve(SolveRequest)` and
-`svd(SvdRequest)` run a job at once, and the serving path, where
-`launch/serve.SolverServer.submit` enqueues them and answers requests that
-share a design matrix with one fused A-pass per group iteration.  Every
+entry paths: the direct call path, where `solve(SolveRequest)`,
+`svd(SvdRequest)` and `similarities(SimilarityRequest)` run a job at once,
+and the serving path, where `launch/serve.SolverServer.submit` enqueues
+them and answers requests that share a design matrix with one fused A-pass
+per group iteration.  Every
 `Result.info` carries the standard keys
 
   iterations — outer iterations (power iterations for randomized SVD)
   a_passes   — streaming passes over A consumed (the paper's cost unit)
   converged  — whether the stopping test fired before the iteration cap
   plan       — which engine answered ("fused", "fused_affine", "cached",
-               "gram", "randomized", "fused-group", ...)
+               "gram", "randomized", "lanczos", "fused-group", "dimsum",
+               ...)
   degraded   — None for a full-quality answer, else why it was cut short
                ("deadline", "max_iterations", "fault", "overloaded")
   precision  — what ran ("f32"; "auto" runs f32 until the planner is
@@ -46,7 +48,6 @@ from repro_torch.kernels.fusedgrad import LOSSES
 REGS = ("none", "l1", "l2")
 FAULT_TOLERANCE_ITEM = "ROADMAP queue 1 item 14 (fault tolerance and telemetry)"
 LOW_PRECISION_ITEM = "ROADMAP queue 1 item 12 (low precision)"
-DISTMAT_ITEM = "ROADMAP queue 1 item 9 (distmat types and DIMSUM)"
 _ids = itertools.count()
 
 
@@ -163,26 +164,30 @@ class SvdRequest:
 
 @dataclass
 class SimilarityRequest:
-    """DIMSUM column similarities.  Validated as the reference validates
-    it; the server refuses it until ROADMAP queue 1 item 9 lands."""
+    """DIMSUM column similarities of a RowMatrix or SparseRowMatrix (exact
+    at threshold=0, sampled above; column_similarities)."""
     A: Any
     threshold: float = 0.0
     gamma: float | None = None
     seed: int = 0
     deadline_s: float | None = None
     telemetry: Any = None
+    device: Any = "cuda"
     request_id: str = field(default_factory=lambda: _next_id("sim"))
 
     def __post_init__(self):
         _check_scalar("threshold", self.threshold, minimum=0.0)
         _check_scalar("deadline_s", self.deadline_s, minimum=0.0,
                       exclusive=True, optional=True)
+        for name in ("deadline_s", "telemetry"):
+            if getattr(self, name) is not None:
+                _not_yet(name, FAULT_TOLERANCE_ITEM)
 
 
 @dataclass
 class Result:
-    """Answer envelope: `x` for solves, `factors` (U, s, V) for the SVD,
-    `info` with the standard keys."""
+    """Answer envelope: `x` for solves, `factors` (U, s, V) for the SVD
+    and (sim,) for similarities, `info` with the standard keys."""
     x: torch.Tensor | None = None
     factors: tuple | None = None
     info: dict = field(default_factory=dict)
@@ -285,3 +290,32 @@ def svd(req: SvdRequest) -> Result:
     return Result(factors=(res.U, res.s, res.V), info=info,
                   request_id=req.request_id)
 
+
+def similarities(req: SimilarityRequest) -> Result:
+    """Run one SimilarityRequest now; factors are (sim,).  DIMSUM is one
+    Gram-style reduction: one pass over A, no iteration."""
+    A = _on_device(req.A, req.device)
+    if isinstance(A, torch.Tensor):
+        A = RowMatrix.create(A, device=A.device)
+    sim, info = A.column_similarities(req.threshold, gamma=req.gamma,
+                                      seed=req.seed, return_info=True)
+    info = dict(info)
+    info.setdefault("iterations", 0)
+    info.setdefault("a_passes", 1)
+    info.setdefault("converged", True)
+    info.setdefault("plan", "dimsum" if req.threshold > 0 else "gram")
+    info.setdefault("degraded", None)
+    return Result(factors=(sim,), info=info, request_id=req.request_id)
+
+
+# -- thin signature-compatible wrappers ---------------------------------------
+
+def column_similarities(A, threshold: float = 0.0, *,
+                        gamma: float | None = None, seed: int = 0,
+                        device="cuda"):
+    """Thin wrapper: a SimilarityRequest through the request path.
+    Returns (sim, info)."""
+    res = similarities(SimilarityRequest(A=A, threshold=threshold,
+                                         gamma=gamma, seed=seed,
+                                         device=device))
+    return res.factors[0], res.info

@@ -10,7 +10,8 @@ The Gram goes through the tsgram kernel, the fused gradient through the
 fused_grad kernel (fused_grad_multi for a group of right-hand sides), the
 randomized SVD's projection AᵀQ through the randsketch kernel and the
 small-factor product through the gemm kernel (kernels/ops: plain torch for
-CPU tensors).
+CPU tensors).  DIMSUM column similarities (``column_similarities``) run on
+tsgram.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.kernels import ops as _ops
 from . import types as T
 
 _CHUNKS_ITEM = "ROADMAP queue 1 item 13 (multi-GPU)"
+# Rows of DIMSUM's column norms and keep mask handled at a time.
+_DIMSUM_ROWS = 1 << 16
 
 
 def _check_chunks(chunks) -> None:
@@ -145,6 +148,11 @@ class RowMatrix(T.DistMatrix):
         return replace(self, rows=_ops.gemm(self.rows, B,
                                             out_dtype=self.rows.dtype))
 
+    def scale_columns(self, d: torch.Tensor) -> "RowMatrix":
+        """A · diag(d) (DIMSUM's column scaling); bf16 storage times f32
+        scales promotes to f32, as in the reference."""
+        return replace(self, rows=self.rows * d[None, :])
+
     def column_stats(self) -> dict[str, torch.Tensor]:
         """Per-column statistics (MLlib colStats)."""
         m = self.n_rows
@@ -165,6 +173,43 @@ class RowMatrix(T.DistMatrix):
     def frobenius_norm(self) -> torch.Tensor:
         a = self.rows.float()
         return torch.sqrt((a * a).sum())
+
+    def column_norms(self) -> torch.Tensor:
+        """Per-column L2 norms of the true rows (column_stats' norm_l2) in
+        f32, summed in float64 a chunk of rows at a time, so that no copy
+        of A is made."""
+        sq = torch.zeros(self.rows.shape[1], dtype=torch.float64,
+                         device=self.device)
+        for i in range(0, self.n_rows, _DIMSUM_ROWS):
+            c = self.rows[i:min(i + _DIMSUM_ROWS, self.n_rows)].double()
+            sq += (c * c).sum(0)
+        return torch.sqrt(sq).float()
+
+    def column_similarities(self, threshold: float = 0.0, *,
+                            gamma: float | None = None, seed: int = 0,
+                            return_info: bool = False):
+        """DIMSUM cosine similarities of the columns through tsgram
+        (types.column_similarities); the keep mask is drawn a chunk of rows
+        at a time into the one sampled copy."""
+        return T.column_similarities(self, threshold, gamma=gamma, seed=seed,
+                                     return_info=return_info)
+
+    def _sampled(self, p, scale, gen) -> "RowMatrix":
+        """Sampled DIMSUM's copy: entry (k, i) kept with probability p[i]
+        and scaled by scale[i], in f32."""
+        m_pad, n = self.rows.shape
+        b = torch.empty((m_pad, n), dtype=torch.float32, device=self.device)
+        for i in range(0, m_pad, _DIMSUM_ROWS):
+            a = self.rows[i:i + _DIMSUM_ROWS]
+            keep = torch.rand(a.shape, generator=gen, device=self.device) < p
+            b[i:i + _DIMSUM_ROWS] = torch.where(keep, a, 0.0) * scale
+            del keep
+        return replace(self, rows=b)
+
+    def _square_(self) -> "RowMatrix":
+        """The entries squared in place (on a fresh scaled copy)."""
+        self.rows.square_()
+        return self
 
     # -- materialization ----------------------------------------------------
     def to_local(self) -> torch.Tensor:

@@ -9,10 +9,13 @@ padding rows are zero blocks and weigh 0 in every loss.
 
 The products run the block-sparse kernels through kernels/ops (plain torch
 for CPU tensors): matvec → bsr_matvec, rmatvec and the sparse Gram →
-bsr_rmatmul, multiply_local (the U = A(VΣ⁻¹) product) → bsr_matmul, and
-the fused gradient → fused_grad_bsr (for int8 storage bsr_matvec and
-bsr_rmatmul).  ``dispatch="dense"`` densifies and takes the dense kernels
-instead.
+bsr_rmatmul (against one densified 512-column strip at a time),
+multiply_local (the U = A(VΣ⁻¹) product) → bsr_matmul, the fused gradient
+→ fused_grad_bsr (for int8 storage bsr_matvec and bsr_rmatmul) and its
+request-batched form, the serving path's group pass → fused_grad_bsr_multi
+(for int8 storage bsr_matmul and bsr_rmatmul).  ``dispatch="dense"``
+densifies and takes the dense kernels instead.  DIMSUM column similarities
+(``column_similarities``) run on the sparse Gram.
 
 Differences from the reference, each until its ROADMAP item lands: the
 reference's ``dispatch="auto"`` asks the planner whether BSR beats the
@@ -31,17 +34,18 @@ import torch.nn.functional as F
 from repro_torch.kernels import bsr as _bsr
 from repro_torch.kernels import ops as _ops
 from . import types as T
+from .types import dimsum_gamma  # noqa: F401  (the reference's home)
 from .rowmatrix import _CHUNKS_ITEM as MULTI_GPU_ITEM
 from .rowmatrix import RowMatrix, _check_chunks
 
 PLANNER_ITEM = _bsr.PLANNER_ITEM
-SPARSE_SERVING_ITEM = ("ROADMAP queue 1 item 8 (fused_grad_bsr_multi and "
-                       "the sparse server)")
-DIMSUM_ITEM = "ROADMAP queue 1 item 9 (distmat types and DIMSUM)"
 _DISPATCH = ("auto", "bsr", "dense")
 # Column-strip width of AᵀX with a wide X (the sparse Gram), as in the
 # reference: each strip's partials stay (chunks × bs × 512) f32.
 _RMATMUL_STRIP = 512
+# Block-rows of sampled DIMSUM's keep mask (and of the column norms'
+# float64 sums) handled at a time.
+_MASK_BLOCK_ROWS = 2048
 
 
 def _rup(x: int, m: int) -> int:
@@ -264,37 +268,99 @@ class SparseRowMatrix(T.DistMatrix):
             f, g, z = _ops.fused_grad(dense, xp, t, w, loss=kind, param=prm)
         return f, g[: self.dims[1]], z
 
-    def gram(self, *, dispatch: str = "auto") -> torch.Tensor:
-        """AᵀA with the sparse operand on the transpose side (bsr_rmatmul
-        over column strips of the densified strip, flops ∝ stored blocks ·
-        n), or the dense tsgram kernel with dispatch="dense"."""
-        dense = self._dense()
+    def fused_grad_multi(self, x: torch.Tensor, smooths, *,
+                         dispatch: str = "auto"):
+        """Request-batched fused gradients over the stored blocks: a group
+        of k right-hand sides answered with ONE read of each stored block
+        (fused_grad_bsr_multi; for int8 storage bsr_matmul and
+        bsr_rmatmul); `dispatch="dense"` densifies and takes the dense
+        fused_grad_multi.  `x` (k × n); `smooths` a sequence of k
+        row-separable smooths sharing one loss kind/param, or one smooth
+        with stacked targets, padded to m_pad rows with padding rows
+        weighted 0.  Returns ((k,) values, (k × n) gradients, (k × m_pad)
+        images)."""
+        kind, t, w, prm = T.row_separable_batch_inputs(smooths, self.m_pad,
+                                                       self._row_mask)
+        x = torch.atleast_2d(torch.as_tensor(x))
+        xp = F.pad(x, (0, self.n_pad - x.shape[1]))
         if self._use_bsr(dispatch):
-            df = dense.float()
-            g = torch.cat([_ops.bsr_rmatmul(self._local(),
-                                            df[:, i: i + _RMATMUL_STRIP])
-                           for i in range(0, df.shape[1], _RMATMUL_STRIP)],
-                          dim=1)
+            f, g, z = _ops.fused_grad_bsr_multi(self._local(), xp, t, w,
+                                                loss=kind, param=prm)
         else:
+            dense = self._dense()
+            if dense.dtype not in (torch.float32, torch.bfloat16):
+                dense = dense.float()
+            f, g, z = _ops.fused_grad_multi(dense, xp, t, w, loss=kind,
+                                            param=prm)
+        return f, g[:, : self.dims[1]], z
+
+    def gram(self, *, dispatch: str = "auto") -> torch.Tensor:
+        """AᵀA with the sparse operand on the transpose side: bsr_rmatmul
+        against one densified 512-column strip of A at a time (flops ∝
+        stored blocks · n; the whole m_pad × n_pad matrix is never built),
+        or the dense tsgram kernel with dispatch="dense"."""
+        if self._use_bsr(dispatch):
+            local = self._local()
+            strips = []
+            for c0 in range(0, self.n_pad, _RMATMUL_STRIP):
+                strip = self._dense_columns(
+                    c0, min(c0 + _RMATMUL_STRIP, self.n_pad))
+                strips.append(_ops.bsr_rmatmul(local, strip))
+                del strip
+            g = torch.cat(strips, dim=1)
+        else:
+            dense = self._dense()
             if dense.dtype not in (torch.float32, torch.bfloat16):
                 dense = dense.float()
             g = _ops.tsgram(dense, out_dtype=torch.float32)
         n = self.dims[1]
         return g[:n, :n].to(self.out_dtype)
 
+    def _dense_columns(self, c0: int, c1: int) -> torch.Tensor:
+        """Columns [c0, c1) of the padded strip densified in f32 (c0 and c1
+        multiples of bs): only the blocks whose column falls inside are
+        gathered, slot by slot in order, so the values are those of the
+        whole densified strip (int8 blocks scaled as in to_dense)."""
+        bs, nbr = self.bs, self.data.shape[0]
+        j0, nbj = c0 // bs, (c1 - c0) // bs
+        out = torch.zeros((nbr, bs, nbj, bs), dtype=torch.float32,
+                          device=self.device)
+        for s in range(self.ell):
+            c = self.cols[:, s].long() - j0
+            rows = torch.nonzero((c >= 0) & (c < nbj)).squeeze(1)
+            blk = self.data[rows, s].float()
+            if self.scales is not None:
+                blk = blk * self.scales[rows, s, None, None]
+            # One block-row appears once a slot, so no index repeats.
+            out[rows, :, c[rows], :] += blk
+        return out.reshape(nbr * bs, nbj * bs)
+
     def frobenius_norm(self) -> torch.Tensor:
         d = self.dequantize().data.float()
         return torch.sqrt((d * d).sum())
 
     def column_norms(self) -> torch.Tensor:
-        """Per-column L2 norms."""
-        d = self.dequantize().data.float()
-        sq = (d * d).sum(dim=2)                       # (nbr, ell, bs)
-        out = torch.zeros((self.n_pad // self.bs, self.bs), dtype=sq.dtype,
-                          device=self.device)
-        out.index_add_(0, self.cols.reshape(-1).long(),
-                       sq.reshape(-1, self.bs))
-        return torch.sqrt(out.reshape(-1)[: self.dims[1]])
+        """Per-column L2 norms in f32 (the DIMSUM scaling vector), summed
+        in float64 in an order fixed by the block pattern: the stored
+        blocks' column sums of squares, sorted by block column (the column
+        index), then one sum per block column as a difference of prefix
+        sums.  Runs repeat bit for bit; the reference sums in f32."""
+        bs, nbr = self.bs, self.data.shape[0]
+        sq = torch.empty((nbr, self.ell, bs), dtype=torch.float64,
+                         device=self.device)
+        for i in range(0, nbr, _MASK_BLOCK_ROWS):
+            d = self.data[i:i + _MASK_BLOCK_ROWS].double()
+            if self.scales is not None:
+                d = d * self.scales[i:i + _MASK_BLOCK_ROWS, :, None, None]
+            sq[i:i + _MASK_BLOCK_ROWS] = (d * d).sum(dim=2)
+        order = self._local().column_index().order.long()
+        prefix = F.pad(torch.cumsum(sq.reshape(-1, bs)[order], dim=0),
+                       (0, 0, 1, 0))
+        counts = torch.bincount(self.cols.reshape(-1).long(),
+                                minlength=self.n_pad // bs)
+        ends = torch.cumsum(counts, dim=0)
+        out = prefix[ends] - prefix[ends - counts]    # (nbc, bs)
+        return torch.sqrt(out.reshape(-1)[: self.dims[1]]).float()
 
     def scale_columns(self, d: torch.Tensor) -> "SparseRowMatrix":
         """A · diag(d), scaling the stored blocks (the pattern is
@@ -308,15 +374,44 @@ class SparseRowMatrix(T.DistMatrix):
         # bf16 storage times f32 scales promotes to f32, as in the reference.
         return replace(self, data=self.data * db[self.cols.long()][:, :, None, :])
 
+    # -- DIMSUM --------------------------------------------------------------
+    def column_similarities(self, threshold: float = 0.0, *,
+                            gamma: float | None = None, seed: int = 0,
+                            return_info: bool = False):
+        """DIMSUM cosine similarities of the columns through the sparse Gram
+        (types.column_similarities); the keep mask is drawn a chunk of
+        block-rows at a time into one buffer.  int8 storage dequantizes
+        first."""
+        if self.scales is not None:
+            return self.dequantize().column_similarities(
+                threshold, gamma=gamma, seed=seed, return_info=return_info)
+        return T.column_similarities(self, threshold, gamma=gamma, seed=seed,
+                                     return_info=return_info)
+
+    def _sampled(self, p, scale, gen) -> "SparseRowMatrix":
+        """Sampled DIMSUM's copy of the stored blocks: entry (k, i) kept
+        with probability p[i] and scaled by scale[i], in f32."""
+        pad = self.n_pad - self.dims[1]
+        pb = F.pad(p, (0, pad)).reshape(-1, self.bs)
+        sb = F.pad(scale, (0, pad)).reshape(-1, self.bs)
+        sampled = torch.empty(self.data.shape, dtype=torch.float32,
+                              device=self.device)
+        for i in range(0, self.data.shape[0], _MASK_BLOCK_ROWS):
+            d = self.data[i:i + _MASK_BLOCK_ROWS]
+            c = self.cols[i:i + _MASK_BLOCK_ROWS].long()
+            u = torch.rand(d.shape, generator=gen, device=self.device)
+            keep = u < pb[c][:, :, None, :]
+            sampled[i:i + _MASK_BLOCK_ROWS] = (torch.where(keep, d, 0.0)
+                                               * sb[c][:, :, None, :])
+            del u, keep
+        return replace(self, data=sampled)
+
+    def _square_(self) -> "SparseRowMatrix":
+        """The stored entries squared in place (on a fresh scaled copy)."""
+        self.data.square_()
+        return self
+
     # -- what waits for later slices ------------------------------------------
-    def fused_grad_multi(self, x, smooths, *, dispatch: str = "auto"):
-        raise NotImplementedError(
-            f"SparseRowMatrix.fused_grad_multi waits for {SPARSE_SERVING_ITEM}")
-
-    def column_similarities(self, threshold: float = 0.0, **kw):
-        raise NotImplementedError(
-            f"column_similarities waits for {DIMSUM_ITEM}")
-
     def remesh(self, *args, **kw):
         raise NotImplementedError(f"remesh waits for {MULTI_GPU_ITEM}")
 
@@ -345,3 +440,4 @@ class SparseRowMatrix(T.DistMatrix):
     def compute_svd(self, k: int, **kw):
         from repro_torch.core.linalg import svd as _svd
         return _svd.compute_svd(self, k, **kw)
+

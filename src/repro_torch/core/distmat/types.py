@@ -8,6 +8,7 @@ carry weight 0 in every loss.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable
 
@@ -102,6 +103,70 @@ def row_separable_batch_inputs(smooths, m_pad: int, row_mask_fn: Callable):
     t2 = torch.stack([_pad1(t, m_pad) for t in ts])
     w2 = torch.stack([mask if w is None else _pad1(w, m_pad) for w in ws])
     return kinds.pop(), t2, w2, params.pop()
+
+
+def dimsum_gamma(n: int, threshold: float) -> float:
+    """The paper's oversampling parameter: γ = 10·log(n)/threshold keeps the
+    estimate of every pair with similarity ≥ threshold within ~20% relative
+    error w.h.p. (DIMSUM analysis, refs [10, 11])."""
+    return 10.0 * math.log(max(n, 2)) / threshold
+
+
+def dimsum_variance(s2: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Per-pair sampled-DIMSUM estimator variance,
+        Var[ŝᵢⱼ] = Σ_k (ã_ki ã_kj)² · (1/(pᵢpⱼ) − 1),
+    from the Gram `s2` of the squared column-scaled matrix and the
+    per-column keep probabilities `p`.  The diagonal is written exactly by
+    the estimator, so its variance is 0."""
+    n = p.shape[0]
+    pp = p[:, None] * p[None, :]
+    var = s2 * torch.where(pp > 0, 1.0 / torch.clamp(pp, min=1e-30) - 1.0,
+                           0.0)
+    idx = torch.arange(n, device=var.device)
+    var[idx, idx] = 0.0
+    return var
+
+
+def column_similarities(A: "DistMatrix", threshold: float = 0.0, *,
+                        gamma: float | None = None, seed: int = 0,
+                        return_info: bool = False):
+    """DIMSUM cosine similarities of A's columns (paper refs [10, 11]), for
+    either matrix type: A supplies column_norms, scale_columns, gram and
+    the two hooks _sampled and _square_.
+
+    threshold=0 computes cos(i, j) = (AᵀA)ᵢⱼ/(‖cᵢ‖‖cⱼ‖) exactly, as the Gram
+    of the column-scaled A.  threshold>0 runs sampled DIMSUM: an entry of
+    column i is kept with probability pᵢ = min(1, √γ/‖cᵢ‖) and rescaled by
+    1/(pᵢ‖cᵢ‖), so the estimate is unbiased off the diagonal, whose value
+    (1 for a non-zero column) is written exactly; γ defaults to
+    dimsum_gamma(n, threshold).  The keep mask comes from a torch.Generator
+    on A's device seeded with `seed`, so the sampled entries differ from
+    the reference's; γ, p, the diagonal and the variance do not.
+    return_info=True returns (sim, info) with γ, p and the per-pair
+    estimator variance (dimsum_variance), from one more Gram of the squared
+    scaled matrix."""
+    norms = A.column_norms()
+    inv = torch.where(norms > 0, 1.0 / torch.clamp(norms, min=1e-30), 0.0)
+    n = A.shape[1]
+    if threshold <= 0.0:
+        sim = A.scale_columns(inv).gram()
+        if not return_info:
+            return sim
+        return sim, {"gamma": None, "p": torch.ones(n, device=A.device),
+                     "variance": torch.zeros((n, n), device=A.device)}
+    g = gamma if gamma is not None else dimsum_gamma(n, threshold)
+    p = torch.clamp(math.sqrt(g) * inv, max=1.0)
+    scale = inv * torch.where(p > 0, 1.0 / p, 0.0)
+    gen = torch.Generator(device=A.device).manual_seed(int(seed))
+    sim = A._sampled(p, scale, gen).gram().to(A.out_dtype)
+    # The diagonal estimator is biased (E[b²] = a²/p); its true value is
+    # known, so write it instead, as the reference (and MLlib) do.
+    idx = torch.arange(n, device=A.device)
+    sim[idx, idx] = (norms > 0).to(sim.dtype)
+    if not return_info:
+        return sim
+    s2 = A.scale_columns(inv)._square_().gram().float()
+    return sim, {"gamma": g, "p": p, "variance": dimsum_variance(s2, p)}
 
 
 @dataclass(frozen=True)

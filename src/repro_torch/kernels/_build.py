@@ -65,6 +65,13 @@ _SIGNATURES = {
     # grid, loss, param, z, g_part, f_part, g, f, stream
     "repro_fused_grad_bsr": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
                              _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    # device, nbr, ell, bs, n, *staged, *grid
+    "repro_fused_grad_bsr_multi_plan": [_I, _LL, _I, _I, _I, _IP, _IP],
+    # device, data, dtype, cols, x, t, w, nbr, ell, bs, n, k, staged, grid,
+    # loss, param, z, g_part, f_part, g, f, stream
+    "repro_fused_grad_bsr_multi": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+                                   _P, _P],
 }
 
 _lock = threading.Lock()

@@ -22,10 +22,15 @@ BlockELL operand (kernels/bsr.py), replacing ``_fused_grad_bsr_kernel``:
 each stored block is read once, z and the residual come from a block-row's
 staged blocks, and rᵀAᵢⱼ is added into the block's partial g at block
 column cols[i, s] by one owner thread per element, so no float atomics.
+``fused_grad_bsr_multi`` (``csrc/fused_grad_bsr_multi.cu``) is its
+request-batched form, replacing ``_fused_grad_bsr_multi_kernel``: one read
+of each stored block serves k slots, thread (s, c) owns slot s's g entries
+at in-block offset c, and the grid follows from A's shape alone, as in
+fused_grad_multi.
 
-``fused_grad_plain``, ``fused_grad_multi_plain`` and
-``fused_grad_bsr_plain`` are the same functions in plain torch: the CPU
-path, and what the kernels are held against on the card.
+``fused_grad_plain``, ``fused_grad_multi_plain``, ``fused_grad_bsr_plain``
+and ``fused_grad_bsr_multi_plain`` are the same functions in plain torch:
+the CPU path, and what the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -154,6 +159,71 @@ def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, t: torch.Tensor,
 
 
 fused_grad_bsr.launches = 0
+
+
+def fused_grad_bsr_multi_plain(a: "_bsr.BlockELL", x: torch.Tensor,
+                               t: torch.Tensor, w: torch.Tensor, *,
+                               loss: str, param: float = 1.0
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(f (k,), g (k × n), z (k × m)) for k right-hand sides on a BlockELL
+    in plain torch (the reference's fused_grad_bsr_multi_jnp): z from the
+    gathered X blocks slot by slot, the residual through row_loss_elem,
+    then the scatter-add of Aᵢⱼᵀ R over block columns.  The residual stays
+    f32 for every storage, as in the kernel."""
+    z = _bsr.bsr_matmul_plain(a, x.float().T).T.contiguous()
+    le, r = row_loss_elem(z, t, w, loss, param)
+    return le.sum(dim=1), _bsr.bsr_rmatmul_plain(a, r.T).T.contiguous(), z
+
+
+def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
+                         t: torch.Tensor, w: torch.Tensor, *, loss: str,
+                         param: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/fused_grad_bsr_multi.cu on a CUDA BlockELL with f32 or
+    bf16 blocks: x (k × n); t, w (k × m) over its dims, read as f32,
+    1 ≤ k ≤ MAX_SLOTS.  Returns f32 f (k,), g (k × n), z (k × m).  Replaces
+    the TPU kernel ``src/repro/kernels/fusedgrad.py:fused_grad_bsr_multi``:
+    one read of each stored block serves every slot, and a slot's outputs
+    are sums in an order fixed by A's shape alone, so a request gets the
+    same bits whatever the other slots hold and however many there are."""
+    dev, code = _bsr.check_operands(a, x, t, w)
+    if a.scales is not None:
+        raise ValueError("fused_grad_bsr_multi takes exact (f32 or bf16) "
+                         "blocks; int8 shards compose bsr_matmul and "
+                         "bsr_rmatmul")
+    if loss not in LOSSES:
+        raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+    (m, n), (nbr, ell) = a.shape, a.cols.shape
+    k = x.shape[0] if x.dim() == 2 else 0
+    if x.shape != (k, n) or t.shape != (k, m) or w.shape != (k, m):
+        raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
+                         f"w {tuple(w.shape)} against A {a.shape}")
+    if not 1 <= k <= MAX_SLOTS:
+        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got {k}")
+    x, t, w = (v.float().contiguous() for v in (x, t, w))
+    lib = _build.lib()
+    staged, grid = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.repro_fused_grad_bsr_multi_plan(
+        dev.index, nbr, ell, a.bs, n, ctypes.byref(staged),
+        ctypes.byref(grid)), "fused_grad_bsr_multi plan")
+    f32 = dict(dtype=torch.float32, device=dev)
+    z = torch.empty((k, m), **f32)
+    g_part = torch.empty((grid.value, k, n), **f32)
+    f_part = torch.empty((grid.value, k), **f32)
+    g = torch.empty((k, n), **f32)
+    f = torch.empty(k, **f32)
+    _build.check(lib.repro_fused_grad_bsr_multi(
+        dev.index, a.data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
+        t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, k, staged.value,
+        grid.value, LOSSES.index(loss), float(param), z.data_ptr(),
+        g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(), f.data_ptr(),
+        _build.stream(dev)), "fused_grad_bsr_multi launch")
+    fused_grad_bsr_multi.launches += 1
+    return f, g, z
+
+
+fused_grad_bsr_multi.launches = 0
 
 
 def _launch(a, x, t, w, loss, param):

@@ -22,7 +22,8 @@ KERNELS = {"fused_grad": _fg.fused_grad, "tsgram": _tsgram.tsgram,
            "randsketch": _randsketch.randsketch,
            "bsr_matvec": _bsr.bsr_matvec, "bsr_matmul": _bsr.bsr_matmul,
            "bsr_rmatmul": _bsr.bsr_rmatmul,
-           "fused_grad_bsr": _fg.fused_grad_bsr}
+           "fused_grad_bsr": _fg.fused_grad_bsr,
+           "fused_grad_bsr_multi": _fg.fused_grad_bsr_multi}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -143,4 +144,31 @@ def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, target: torch.Tensor,
     else:
         f, g, z = _fg.fused_grad_bsr(a, x, target, weights, loss=loss,
                                      param=param)
+    return f, g.to(x.dtype), z
+
+
+def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
+                         target: torch.Tensor, weights: torch.Tensor, *,
+                         loss: str, param: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Request-batched fused (f, g, z) for a BlockELL shard: k right-hand
+    sides answered with ONE read of each stored block.  x (k, n),
+    target/weights (k, m) over its padded dims → f (k,) f32, g (k, n) in
+    x.dtype, z (k, m) f32.  int8 shards compose bsr_matmul at nx = k, the
+    row residual and bsr_rmatmul, as the reference does; exact shards take
+    the fused kernel (1 ≤ k ≤ fusedgrad.MAX_SLOTS), which takes any n, so
+    the reference's VMEM-budget fallback has no counterpart."""
+    if loss not in _fg.LOSSES:
+        raise ValueError(f"loss must be one of {_fg.LOSSES}, got {loss!r}")
+    if _on_cpu(a.data, x, target, weights):
+        f, g, z = _fg.fused_grad_bsr_multi_plain(a, x, target, weights,
+                                                 loss=loss, param=param)
+    elif a.scales is not None:
+        z = _bsr.bsr_matmul(a, x.T).T
+        le, r = _fg.row_loss_elem(z, target, weights, loss, param)
+        f = le.sum(dim=1)
+        g = _bsr.bsr_rmatmul(a, r.to(x.dtype).T).T
+    else:
+        f, g, z = _fg.fused_grad_bsr_multi(a, x, target, weights, loss=loss,
+                                           param=param)
     return f, g.to(x.dtype), z

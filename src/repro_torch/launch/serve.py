@@ -20,11 +20,14 @@ squares, one-vs-rest logistic), their iterations share each pass over A:
     budget: the reference prices opening with the planner
     (``budget_s``), which waits for ROADMAP queue 1 item 11.
 
-SVD requests and non-batchable solves (escape-hatch smooths or proxes,
-non-quadratic accelerated requests) run as one-shot jobs through the same
-FIFO queue, via the same ``repro_torch.api`` executors; an SVD wide enough
-for the randomized mode runs it (core/linalg/randsvd, the randsketch
-kernel).  A grouped request's ``deadline_s`` retires it with its best
+SVD and similarity requests and non-batchable solves (escape-hatch
+smooths or proxes, non-quadratic accelerated requests) run as one-shot jobs
+through the same FIFO queue, via the same ``repro_torch.api`` executors; an
+SVD wide enough for the randomized mode runs it (core/linalg/randsvd, the
+randsketch kernel), and a similarity request runs DIMSUM on the matrix's
+Gram (tsgram dense, bsr_rmatmul sparse).  A group's matrix may be a
+RowMatrix, a SparseRowMatrix or a plain tensor: its group pass is
+fused_grad_multi, or fused_grad_bsr_multi on the stored blocks.  A grouped request's ``deadline_s`` retires it with its best
 iterate once the deadline passes; ``max_pending`` sheds load at submit with
 a typed ``api.Overloaded`` result.
 
@@ -239,9 +242,6 @@ class SolverServer:
     # -- queue ----------------------------------------------------------------
 
     def submit(self, req) -> str:
-        if isinstance(req, api.SimilarityRequest):
-            raise NotImplementedError(
-                f"similarity requests wait for {api.DISTMAT_ITEM}")
         if isinstance(req, api.SolveRequest):
             if req.smooth is None and req.method == "lbfgs" \
                     and req.reg != "none":
@@ -347,7 +347,9 @@ class SolverServer:
     def _run_oneshot(self, req) -> api.Result:
         if isinstance(req, api.SolveRequest):
             return api.solve(req)
-        return api.svd(req)
+        if isinstance(req, api.SvdRequest):
+            return api.svd(req)
+        return api.similarities(req)
 
     def _finish(self, res: api.Result) -> None:
         self._results[res.request_id] = res

@@ -5,9 +5,12 @@ f32 and bf16 storage, the staged and the unstaged paths of the
 fused_grad_multi kernel (fused_grad is its one-slot launch), slot counts
 from 1 to 32, every gemm block tile, one and several randsketch slices and
 Q tiles; for the block-sparse kernels every block size from 8 to 128, f32,
-bf16 and int8 blocks, ragged block-row counts and nx, a hot column longer
-than one rmatmul chunk, and fused_grad_bsr's staged and unstaged paths with
-g in shared and in global memory.  Skips where there is no CUDA device.  Run on the card with
+bf16 and int8 blocks, ragged block-row counts and nx (up to past a sparse
+Gram strip's 512 columns), a hot column longer than one rmatmul chunk, and
+fused_grad_bsr's staged and unstaged paths with g in shared and in global
+memory; fused_grad_bsr_multi at every block size, 1 to 32 slots, staged
+and unstaged, with its slot independence and repeatability bit for bit.
+Skips where there is no CUDA device.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import pytest
@@ -217,10 +220,13 @@ def test_ops_route_cuda_tensors_to_the_kernels(dev):
     ops.bsr_matmul(b, xb[:, None])
     ops.bsr_rmatmul(b, ub[:, None])
     ops.fused_grad_bsr(b, xb, ub, torch.ones_like(ub), loss="quad")
+    ops.fused_grad_bsr_multi(b, xb[None], ub[None], torch.ones_like(ub)[None],
+                             loss="quad")
     assert ops.launch_counts() == {"fused_grad": 1, "tsgram": 1, "gemm": 1,
                                    "fused_grad_multi": 1, "randsketch": 1,
                                    "bsr_matvec": 1, "bsr_matmul": 1,
-                                   "bsr_rmatmul": 1, "fused_grad_bsr": 1}
+                                   "bsr_rmatmul": 1, "fused_grad_bsr": 1,
+                                   "fused_grad_bsr_multi": 1}
     # int8 blocks compose bsr_matvec and bsr_rmatmul, as the reference does.
     ops.reset_launch_counts()
     q = b.quantize_int8()
@@ -256,7 +262,7 @@ def _random_bell(dev, nbr, nbc, ell, bs, storage, seed, hot=None):
 @pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("nbr,nbc,ell,nx", [(37, 13, 5, 1), (70, 9, 3, 16),
-                                            (11, 6, 6, 33)])
+                                            (11, 6, 6, 33), (9, 5, 3, 520)])
 def test_bsr_kernels_match_plain(dev, storage, bs, nbr, nbc, ell, nx):
     a = _random_bell(dev, nbr, nbc, ell, bs, storage, nbr + bs)
     m, n = a.shape
@@ -324,3 +330,116 @@ def test_fused_grad_bsr_matches_plain(dev, dtype, loss, bs, nbr, nbc, ell):
     again = fusedgrad.fused_grad_bsr(a, x, t, w, loss=loss, param=0.5)
     for u, v in zip(got, again):
         assert torch.equal(u, v)
+
+
+
+# -- the request-batched block-sparse kernel -----------------------------------
+
+def _bsr_multi_inputs(dev, a, k, loss, seed):
+    m, n = a.shape
+    g = _gen(dev, seed)
+    x = torch.randn(k, n, generator=g, device=dev) / a.ell ** 0.5
+    t = torch.randn(k, m, generator=g, device=dev)
+    if loss == "logistic":
+        t = torch.where(t >= 0, 1.0, -1.0)
+    elif loss == "poisson":
+        t = torch.poisson(torch.ones(k, m, device=dev), generator=g)
+    w = torch.rand(k, m, generator=g, device=dev)
+    w[:, -(m // 7):] = 0.0
+    return x, t, w
+
+
+# (bs, nbr, nbc, ell): staged at bs 8, 32 (S's shape) and 64; unstaged at
+# bs 16 (the X slab of 32 slots passes its budget) and 128 (the tile does).
+BSR_MULTI_SHAPES = [(8, 301, 40, 7), (16, 90, 60, 40), (32, 150, 16, 16),
+                    (64, 33, 20, 3), (128, 9, 5, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 8, 17, 32])
+@pytest.mark.parametrize("loss", fusedgrad.LOSSES)
+@pytest.mark.parametrize("bs,nbr,nbc,ell", BSR_MULTI_SHAPES)
+def test_fused_grad_bsr_multi_matches_plain(dev, dtype, k, loss, bs, nbr,
+                                            nbc, ell):
+    a = _random_bell(dev, nbr, nbc, ell, bs, dtype, nbr + ell)
+    m, n = a.shape
+    x, t, w = _bsr_multi_inputs(dev, a, k, loss, m + k)
+    got = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss=loss, param=0.5)
+    want = fusedgrad.fused_grad_bsr_multi_plain(a, x, t, w, loss=loss,
+                                                param=0.5)
+    torch.cuda.synchronize()
+    assert [v.shape for v in got] == [(k,), (k, n), (k, m)]
+    assert _rel(got[0], want[0]) <= TOL
+    assert _rel(got[1], want[1]) <= TOL_SUM
+    assert _rel(got[2], want[2]) <= TOL
+    again = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss=loss, param=0.5)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_grad_bsr_multi_hot_column(dev, dtype):
+    """Every block-row holds block column 3 (500 slots of one column):
+    its g entries take one owner thread's adds over every block-row."""
+    a = _random_bell(dev, 500, 20, 4, 16, dtype, 9, hot=3)
+    x, t, w = _bsr_multi_inputs(dev, a, 8, "huber", 3)
+    got = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="huber", param=0.5)
+    want = fusedgrad.fused_grad_bsr_multi_plain(a, x, t, w, loss="huber",
+                                                param=0.5)
+    torch.cuda.synchronize()
+    assert _rel(got[0], want[0]) <= TOL
+    assert _rel(got[1], want[1]) <= TOL_SUM
+    assert _rel(got[2], want[2]) <= TOL
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bs,nbr,nbc,ell", BSR_MULTI_SHAPES)
+def test_fused_grad_bsr_multi_slots_are_independent(dev, dtype, bs, nbr, nbc,
+                                                    ell):
+    """A request gets the same bits alone (k = 1), in slot 0 among 7 random
+    neighbours, and in slot 5 among 31 others; zero-weight slots give
+    exactly zero f and g."""
+    a = _random_bell(dev, nbr, nbc, ell, bs, dtype, 5)
+    x, t, w = _bsr_multi_inputs(dev, a, 1, "logistic", 6)
+    alone = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="logistic")
+    for k, slot in ((8, 0), (32, 5)):
+        x2, t2, w2 = _bsr_multi_inputs(dev, a, k, "logistic", 7 + k)
+        x2[slot], t2[slot], w2[slot] = x[0], t[0], w[0]
+        w2[k // 2:] = 0.0
+        group = fusedgrad.fused_grad_bsr_multi(a, x2, t2, w2,
+                                               loss="logistic")
+        torch.cuda.synchronize()
+        for u, v in zip(alone, group):
+            assert torch.equal(u[0], v[slot]), k
+        assert bool((group[0][k // 2:] == 0).all())
+        assert bool((group[1][k // 2:] == 0).all())
+
+
+def test_fused_grad_bsr_multi_refuses_what_it_does_not_take(dev):
+    a = _random_bell(dev, 10, 6, 2, 8, "f32", 1)
+    x, t, w = _bsr_multi_inputs(dev, a, 33, "quad", 2)
+    with pytest.raises(ValueError, match="slots"):
+        fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="quad")
+    with pytest.raises(ValueError, match="shapes"):
+        fusedgrad.fused_grad_bsr_multi(a, x[:2], t[:3], w[:2], loss="quad")
+    with pytest.raises(ValueError, match="int8"):
+        fusedgrad.fused_grad_bsr_multi(a.quantize_int8(), x[:2], t[:2],
+                                       w[:2], loss="quad")
+
+
+def test_fused_grad_bsr_multi_int8_composes(dev):
+    """int8 blocks compose bsr_matmul at nx = k, the residual and
+    bsr_rmatmul, as the reference does."""
+    a = _random_bell(dev, 70, 9, 3, 16, "int8", 4)
+    x, t, w = _bsr_multi_inputs(dev, a, 8, "poisson", 5)
+    ops.reset_launch_counts()
+    got = ops.fused_grad_bsr_multi(a, x, t, w, loss="poisson", param=0.5)
+    want = fusedgrad.fused_grad_bsr_multi_plain(a, x, t, w, loss="poisson",
+                                                param=0.5)
+    torch.cuda.synchronize()
+    assert _rel(got[0], want[0]) <= TOL
+    assert _rel(got[1], want[1]) <= TOL_SUM
+    assert _rel(got[2], want[2]) <= TOL
+    counts = ops.launch_counts()
+    assert (counts["bsr_matmul"], counts["bsr_rmatmul"],
+            counts["fused_grad_bsr_multi"]) == (1, 1, 0)

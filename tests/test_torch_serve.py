@@ -208,9 +208,8 @@ class TestScheduler:
                                         device="cpu"))
 
     def test_mixed_queue_oneshots(self):
-        """SVD requests and non-batchable solves ride the same FIFO queue
-        as one-shot jobs and return standardized Results; a similarity
-        request waits for its own slice."""
+        """SVD and similarity requests and non-batchable solves ride the
+        same FIFO queue as one-shot jobs and return standardized Results."""
         m, n = 96, 12
         A, bs = _trace(m, n, 1, seed=17)
         R = RowMatrix.create(A, device="cpu")
@@ -221,21 +220,22 @@ class TestScheduler:
         s3 = srv.submit(api.SolveRequest(A=A, b=y, loss="logistic",
                                          method="acc_rb", max_iters=80,
                                          device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            srv.submit(api.SimilarityRequest(A=R))
+        s2 = srv.submit(api.SimilarityRequest(A=R, device="cpu"))
         res = srv.run()
-        assert len(res) == 3
+        assert len(res) == 4
+        assert srv.result(s2).factors[0].shape == (n, n)
+        assert srv.result(s2).info["plan"] == "gram"
         sv = np.linalg.svd(A, compute_uv=False)[:3]
         np.testing.assert_allclose(srv.result(s1).factors[1].numpy(), sv,
                                    rtol=1e-3, atol=1e-3)
         assert srv.result(s3).info["iterations"] > 0
-        assert srv.stats["oneshot"] == 2
-        for rid in (s0, s1, s3):
+        assert srv.stats["oneshot"] == 3
+        for rid in (s0, s1, s2, s3):
             info = srv.result(rid).info
             for key in ("iterations", "a_passes", "converged", "plan"):
                 assert key in info, (rid, key)
         # Each request finished once: one latency per request.
-        assert len(srv.latencies()) == 3
+        assert len(srv.latencies()) == 4
 
     def test_batchable_and_group_key(self):
         A, bs = _trace(32, 4, 2)

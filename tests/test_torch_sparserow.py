@@ -200,10 +200,11 @@ def test_what_waits_for_later_slices_raises():
     with pytest.raises(ValueError, match="bs must be"):
         SparseRowMatrix.from_dense(np.eye(16, dtype=np.float32), 4,
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.fused_grad_multi(x[None], [sm])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port.column_similarities(0.5)
+    # The group pass and DIMSUM are ported (tests/test_torch_sparse_serve.py
+    # and tests/test_torch_dimsum.py hold them against the reference).
+    f, g, z = port.fused_grad_multi(x[None], [sm])
+    assert (f.shape, g.shape, z.shape) == ((1,), (1, 24), (1, port.m_pad))
+    assert port.column_similarities(0.5).shape == (24, 24)
     with pytest.raises(NotImplementedError, match="item 13"):
         port.remesh(None)
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -286,3 +287,35 @@ def test_convert_carries_int8_and_bf16_across():
     assert pbf.data.dtype == torch.bfloat16
     np.testing.assert_array_equal(pbf.data.float().numpy(),
                                   np.asarray(bf.data, np.float32))
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_gram_builds_one_column_strip_at_a_time(storage):
+    """The sparse Gram densifies one 512-column strip at a time: each strip
+    holds exactly the columns of the densified matrix, and the Gram (both
+    dispatches) matches the float64 Gram of the stored values; in f32 the
+    Gram and the Gram-mode SVD also match the reference's."""
+    a = _matrix(90, 530, density=0.3, seed=21)       # two strips, ragged
+    ref, port = _pair(a)
+    if storage != "f32":
+        port = port.astype_store(
+            {"bf16": torch.bfloat16, "int8": torch.int8}[storage])
+    dense = port._dense().float()
+    for c0 in range(0, port.n_pad, 512):
+        c1 = min(c0 + 512, port.n_pad)
+        assert torch.equal(port._dense_columns(c0, c1), dense[:, c0:c1])
+    d64 = port.to_local().double()
+    want = (d64.T @ d64).numpy()
+    scale = np.abs(want).max()
+    for dispatch in ("bsr", "dense"):
+        got = port.gram(dispatch=dispatch)
+        assert got.shape == (530, 530) and got.dtype == torch.float32
+        _close(got.double() / scale, want / scale, rtol=0, atol=1e-6)
+    if storage == "f32":
+        _close(port.gram().double() / scale,
+               np.asarray(ref.gram(dispatch="bsr"), np.float64) / scale,
+               rtol=0, atol=1e-6)
+        jres = ref.compute_svd(4, mode="gram")
+        res = port.compute_svd(4, mode="gram")
+        assert res.info["mode"] == "gram"
+        _close(res.s, jres.s, rtol=1e-5, atol=0)

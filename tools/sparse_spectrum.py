@@ -10,7 +10,8 @@ shares are S's spectrum up to scale.  From them it prints the relative
 gradient ||Sᵀ(Sx − b)|| / ||Sᵀb|| that k gradient steps at L = σ₁² leave
 when started from 0 (each mode keeps (1 − λ/L)^k of its part of Sᵀb),
 ignoring the noise and the couplings between block columns: the prediction
-behind chip_smoke.py's REL_GRAD_LIMIT.
+behind chip_smoke.py's REL_GRAD_LIMIT (phase 6, SPARSE_ITERS steps) and
+SERVE_REL_GRAD_LIMIT (phase 7's served gra requests, their cap).
 """
 import argparse
 import sys
@@ -37,7 +38,8 @@ def main() -> None:
           f"{top[:4].tolist()}, median {float(share.median()):.4f}, "
           f"smallest {float(top[-1]):.4f}")
     lam = share / share.max()
-    for k in (100, 200, chip_smoke.SPARSE_ITERS, 600):
+    for k in sorted({chip_smoke.SPARSE_SERVE_ITERS["gra"], 100, 200,
+                     chip_smoke.SPARSE_ITERS, 600}):
         r = torch.sqrt((lam ** 2 * (1 - lam) ** (2 * k)).sum()
                        / (lam ** 2).sum())
         print(f"relative gradient after {k} steps: {float(r):.3e}")
