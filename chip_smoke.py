@@ -63,6 +63,21 @@ with nvcc, then:
               and of S (a strip of the sparse Gram) and tsgram on S_sim's
               dense copy against their plain versions.
 
+  8. lm:      greedy generation (repro_torch.launch.serve_llm.generate:
+              prefill, then 31 decode steps) of LM_BATCH = 4 prompts of
+              2048 tokens on llama3.2-3b (28 layers, GQA 24:8, bf16) and
+              then falcon-mamba-7b (64 Mamba1 layers, bf16 weights, f32
+              scan), each at full width and depth with weights drawn from
+              a seed, the earlier phases' matrices freed first.  The
+              prefill launches flash_attention (llama) or selective_scan
+              (mamba) once a layer and a decode step none.  Then each
+              kernel against its plain version on layer 0's real inputs
+              (flash_attention in bf16 and f32, and bf16 at S = 2049;
+              selective_scan's y and final state at S = 2048 and 2049),
+              timed beside SDPA (attention) and its bound; and prefill
+              against decode: the last-position logits of a prefill of
+              S + 1 tokens against a prefill of S and one decode step, at
+              full size in bf16 and at full width and 4 layers in f32.
 Phase 2 also holds fused_grad_multi (k = 1, 8, 16, all four losses, f32
 and bf16 storage, slot independence of the other slots and of the slot
 count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16) and
@@ -74,12 +89,13 @@ every loss, f32 and bf16 storage, slot independence; the int8 composition
 at k = 8) on S, just before phase 6.  fused_grad is fused_grad_multi's
 kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
-Phases 3 and 4 are one main path, phases 5, 6 and 7 one each: every launch
-count is set to 0 just before each and read just after it (in phases 5 and
-7, once the grouped server drains, before the checks' own launches), and
-each kernel of the path must have launched there.  The last lines are a
-JSON object with the SVDs', the solves', the servers' and phases 6 and
-7's numbers, the card's name and power limit, a JSON object with each
+Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
+one a model: every launch count is set to 0 just before each and read just
+after it (in phases 5 and 7, once the grouped server drains, before the
+checks' own launches), and each kernel of the path must have launched
+there.  The last lines are a
+JSON object with the SVDs', the solves', the servers' and phases 6, 7 and
+8's numbers, the card's name and power limit, a JSON object with each
 kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
@@ -124,6 +140,19 @@ SPARSE_SERVE_ITERS = {"gra": 60, "acc_rb": 40, "lbfgs": 20}
 # backtracks, so its L stays within 2 L0, and 30 steps at 1/(2 L0) leave
 # 0.093.
 SERVE_REL_GRAD_LIMIT = 0.15
+# Phase 8: greedy generation on two LM configurations at full width and
+# depth (bf16 weights from a seed): B prompts of S tokens, G tokens each.
+LM_MODELS = {"llama3.2-3b": "flash_attention",
+             "falcon-mamba-7b": "selective_scan"}
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+LM_F32_LAYERS = 4              # depth of the f32 prefill-against-decode check
+# Phase 8's limits, normwise relative.  flash_attention in bf16: the kernel
+# rounds the softmax weights to bf16 before the PV product (2^-9 each), as
+# the reference kernel does, and the plain version does not.  Prefill
+# against decode in bf16: the two paths round the residual stream to bf16
+# (2^-8) at different places in each of 28 (64) layers.
+TOL_LM = {"flash_f32": 1e-4, "flash_bf16": 1e-2, "scan": 1e-4,
+          "pvd_f32": 1e-4, "pvd_bf16": 5e-2}
 SEED = 0
 REPS = 10                      # timed launches per kernel (median taken)
 ROWS64 = 1 << 18               # row chunk of the float64 reference sums
@@ -135,6 +164,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,       # f32 FMA on the CUDA cores
               torch.bfloat16: 989e12,     # bf16 tensor cores, dense
               torch.int8: 1979e12}        # int8 tensor cores, dense
+# Exponentials: the special-function units issue 16 a clock an SM against
+# 128 f32 FMA lanes (256 flops), so a sixteenth of the f32 rate.
+EXP_PER_S = 67e12 / 16
 
 # Normwise relative tolerances, kernel against plain: g and the Gram sum
 # over 2^21 rows in another order than cuBLAS does.
@@ -164,11 +196,16 @@ SOURCES = {
     "fused_grad_bsr_multi": (
         "src/repro_torch/kernels/csrc/fused_grad_bsr_multi.cu",
         "src/repro/kernels/fusedgrad.py:434"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:58"),
 }
 # The kernels each main path runs: phases 3-4 (solves and the Gram SVD),
 # phase 5 (the server with its randomized-SVD one-shot), phase 6 (the
-# sparse solves and the Lanczos SVD) and phase 7 (the server on a sparse
-# matrix, with DIMSUM requests on both matrix types).
+# sparse solves and the Lanczos SVD), phase 7 (the server on a sparse
+# matrix, with DIMSUM requests on both matrix types) and phase 8 (LM
+# serving; run_lm checks its own counts).
 PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          "serve": ("fused_grad_multi", "randsketch", "gemm"),
          "sparse": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul",
@@ -1641,8 +1678,257 @@ def check_wide_kernels(S, S_sim, dense_sim) -> dict:
     return out
 
 
+# -- phase 8: LM serving ----------------------------------------------------
+
+def attn_inputs(params, cfg, tokens):
+    """Layer 0's real q (B·Hq, S, D) and k, v (B·Hkv, S, D) for `tokens`,
+    as the prefill gives them to flash_attention."""
+    from repro_torch.models import layers as L
+
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    lp = params["blocks"][0]
+    h = L.apply_norm(lp["norm1"], L.embed(params["embed"], tokens, cfg), cfg)
+    q, k, v = L._qkv(lp["attn"], h, pos, cfg)
+    return [t.transpose(1, 2).reshape(-1, S, t.shape[-1]).contiguous()
+            for t in (q, k, v)]
+
+
+def scan_inputs(params, cfg, tokens):
+    """Layer 0's real (x, dt, A, B, C, D) for `tokens`, as the prefill
+    gives them to selective_scan."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+
+    lp = params["blocks"][0]
+    h = L.apply_norm(lp["norm1"], L.embed(params["embed"], tokens, cfg), cfg)
+    xr = (h @ lp["mixer"]["w_in"]).chunk(2, -1)[0]
+    xc = F.silu(SSM._causal_conv(xr.float(), lp["mixer"]["conv_w"],
+                                 lp["mixer"]["conv_b"])).to(h.dtype)
+    di, N, dt_rank = SSM._dims(cfg)
+    dt, A, Bm, Cm = SSM._scan_inputs(lp["mixer"], xc, dt_rank, N)
+    return xc.float().contiguous(), dt, A, Bm, Cm, lp["mixer"]["D"]
+
+
+def check_flash(params, cfg, tokens) -> dict:
+    """flash_attention against its plain version on layer 0's real q, k,
+    v: bf16 (the path's type) and f32 at the path's S, bf16 at S + 1
+    (ragged); times at the path's shape beside SDPA and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    g = cfg.num_heads // cfg.num_kv_heads
+    out = {}
+    for key, toks, dtype in (("bf16", tokens[:, :LM_PROMPT], None),
+                             ("f32", tokens[:, :LM_PROMPT], torch.float32),
+                             ("bf16_ragged", tokens, None)):
+        q, k, v = attn_inputs(params, cfg, toks)
+        if dtype is not None:
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = fa.flash_attention(q, k, v, q_heads_per_kv=g)
+        want = fa.flash_attention_plain(q, k, v, q_heads_per_kv=g)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        lim = TOL_LM["flash_f32" if dtype else "flash_bf16"]
+        require(bool(torch.isfinite(got).all()) and e <= lim,
+                f"flash_attention {key}: relative error {e:.3e} > {lim}")
+        rec = {"rel_err": e, "max_abs_err": max_abs(got, want),
+               "shape": list(q.shape), "group": g}
+        del got, want
+        if key != "bf16_ragged":
+            bhq, S, D = q.shape
+            pairs = bhq * S * (S + 1) / 2
+            rec["bound_ms"], rec["bound_by"] = bound(
+                (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                4.0 * D * pairs, q.dtype)
+            rec["ms"] = time_ms(lambda: fa.flash_attention(
+                q, k, v, q_heads_per_kv=g))
+            rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, q_heads_per_kv=g), reps=3)
+            B = toks.shape[0]
+            q4, k4, v4 = (t.reshape(B, -1, S, D) for t in (q, k, v))
+            rec["library_ms"], rec["library_error"] = library_time(
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=True))
+            sdpa = (f"{rec['library_ms']:.3f}" if rec["library_ms"]
+                    else rec["library_error"])
+            print(f"[lm] flash_attention {key}: kernel {rec['ms']:.3f} ms | "
+                  f"plain {rec['plain_ms']:.3f} | SDPA {sdpa} | bound "
+                  f"{rec['bound_ms']:.3f} ({rec['bound_by']}), share "
+                  f"{rec['bound_ms'] / rec['ms']:.3f} | rel err {e:.2e}")
+        else:
+            print(f"[lm] flash_attention {key} (S = {q.shape[1]}): rel err "
+                  f"{e:.2e}")
+        out[key] = rec
+        del q, k, v
+    return out
+
+
+def check_scan(params, cfg, tokens) -> dict:
+    """selective_scan against its plain version on layer 0's real inputs
+    at the path's S and at S + 1 (ragged): y and the final state; times at
+    the path's shape beside the bound."""
+    from repro_torch.kernels import selective_scan as ss
+
+    out = {}
+    for key, toks in (("f32", tokens[:, :LM_PROMPT]), ("f32_ragged", tokens)):
+        args = scan_inputs(params, cfg, toks)
+        y, h = ss.selective_scan(*args)
+        y0, h0 = ss.selective_scan_plain(*args)
+        torch.cuda.synchronize()
+        e_y, e_h = rel_err(y, y0), rel_err(h, h0)
+        require(bool(torch.isfinite(y).all()) and e_y <= TOL_LM["scan"]
+                and e_h <= TOL_LM["scan"],
+                f"selective_scan {key}: relative error y {e_y:.3e}, final "
+                f"state {e_h:.3e} > {TOL_LM['scan']}")
+        Bt, S, d = args[0].shape
+        N = args[2].shape[1]
+        rec = {"rel_err": {"y": e_y, "h": e_h},
+               "max_abs_err": max(max_abs(y, y0), max_abs(h, h0)),
+               "shape": [Bt, S, d, N]}
+        del y, h, y0, h0
+        if key == "f32":
+            t_bytes = (3 * Bt * S * d + 2 * Bt * S * N + d * N + d
+                       + Bt * d * N) * 4 / HBM_BYTES_PER_S * 1e3
+            t_exp = Bt * S * d * N / EXP_PER_S * 1e3
+            rec["bound_ms"], rec["bound_by"] = (
+                (t_bytes, "bytes") if t_bytes >= t_exp
+                else (t_exp, "operations"))
+            rec["ms"] = time_ms(lambda: ss.selective_scan(*args))
+            rec["plain_ms"] = time_ms(lambda: ss.selective_scan_plain(*args),
+                                      reps=3)
+            rec["library_ms"] = None   # no one torch call runs the scan
+            print(f"[lm] selective_scan {key}: kernel {rec['ms']:.3f} ms | "
+                  f"plain {rec['plain_ms']:.3f} | bound "
+                  f"{rec['bound_ms']:.3f} ({rec['bound_by']}; bytes "
+                  f"{t_bytes:.3f}, exp {t_exp:.3f}), share "
+                  f"{rec['bound_ms'] / rec['ms']:.3f} | rel err y {e_y:.2e}, "
+                  f"h {e_h:.2e}")
+        else:
+            print(f"[lm] selective_scan {key} (S = {S}): rel err y "
+                  f"{e_y:.2e}, h {e_h:.2e}")
+        out[key] = rec
+        del args
+    return out
+
+
+def prefill_vs_decode(model, params, tokens) -> float:
+    """Normwise relative difference of the last-position logits of
+    prefill(tokens[:, :S+1]) (the kernel path) and prefill(tokens[:, :S])
+    then decode_step(tokens[:, S]) (the plain one-token path)."""
+    B, S1 = tokens.shape
+    with torch.inference_mode():
+        want, _ = model.prefill(params, {"tokens": tokens},
+                                model.init_caches(B, S1))
+        _, caches = model.prefill(params, {"tokens": tokens[:, :-1]},
+                                  model.init_caches(B, S1))
+        got, _ = model.decode_step(params, tokens[:, -1:], caches, S1 - 1)
+    V = model.cfg.vocab_size
+    return rel_err(got[..., :V], want[..., :V])
+
+
+def run_lm(dev) -> dict:
+    """Phase 8: greedy generation on llama3.2-3b and falcon-mamba-7b at
+    full width and depth in bf16 (random weights from a seed), each model
+    alone on the card; then each kernel against its plain version on
+    layer 0's real inputs, and prefill against decode at full size (bf16)
+    and at full width and LM_F32_LAYERS layers in f32."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_llm import generate
+    from repro_torch.models import build
+
+    out = {"models": {}, "kernels": {}}
+    for arch, kernel in LM_MODELS.items():
+        cfg = configs.get(arch)
+        model = build(cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        t0 = time.perf_counter()
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                               generator=gen, device=dev)
+        prompt = tokens[:, :LM_PROMPT]
+
+        # -- the main path: counts zeroed just before, read just after ----
+        ops.reset_launch_counts()
+        toks, times = generate(model, params, prompt, LM_GEN)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        # ------------------------------------------------------------------
+        print(f"[main path] {arch}: launches {counts}")
+        for name, c in counts.items():
+            want = cfg.num_layers if name == kernel else 0
+            require(c == want, f"{arch}: {name} launched {c} times in one "
+                    f"generate, want {want} (one a layer, in prefill only)")
+        require(toks.shape == (LM_BATCH, LM_GEN)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{arch}: greedy tokens outside the vocabulary")
+        # A decode step alone launches no kernel.
+        with torch.inference_mode():
+            caches = model.init_caches(LM_BATCH, 65)
+            logits, caches = model.prefill(params, {"tokens": prompt[:, :64]},
+                                           caches)
+            ops.reset_launch_counts()
+            logits, _ = model.decode_step(
+                params, logits[:, -1].argmax(-1, keepdim=True), caches, 64)
+            torch.cuda.synchronize()
+        require(not any(ops.launch_counts().values()),
+                f"{arch}: a decode step launched {ops.launch_counts()}")
+        require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+                f"{arch}: decode logits not finite")
+        del caches, logits
+        warm = generate(model, params, prompt, LM_GEN)[1]
+        rec = {"init_s": init_s, "launches": counts, "cold": times,
+               "warm": warm,
+               "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+               / (warm["prefill_ms"] / 1e3),
+               "decode_tokens_per_s": LM_BATCH
+               / (warm["decode_ms_per_token"] / 1e3),
+               "tokens_row0": toks[0].tolist()}
+        print(f"[lm] {arch}: {rec['params_b']:.2f} B parameters (init "
+              f"{init_s:.1f} s); prefill {warm['prefill_ms']:.1f} ms for "
+              f"{LM_BATCH}x{LM_PROMPT} ({rec['prefill_tokens_per_s']:.0f} "
+              f"tokens/s), decode {warm['decode_ms_per_token']:.2f} "
+              f"ms/token ({rec['decode_tokens_per_s']:.1f} tokens/s at batch "
+              f"{LM_BATCH}); cold prefill {times['prefill_ms']:.1f} ms")
+
+        check = check_flash if kernel == "flash_attention" else check_scan
+        out["kernels"][kernel] = check(params, cfg, tokens)
+        out["kernels"][kernel]["launches"] = counts[kernel]
+        e = prefill_vs_decode(model, params, tokens)
+        rec["prefill_vs_decode_bf16"] = e
+        require(e <= TOL_LM["pvd_bf16"], f"{arch}: bf16 prefill against "
+                f"decode {e:.3e} > {TOL_LM['pvd_bf16']}")
+        del model, params, tokens, prompt
+        torch.cuda.empty_cache()
+
+        cfg32 = cfg.scaled(num_layers=LM_F32_LAYERS, dtype="float32")
+        model = build(cfg32, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED + 9))
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                               generator=gen, device=dev)
+        e = prefill_vs_decode(model, params, tokens)
+        rec["prefill_vs_decode_f32"] = e
+        require(e <= TOL_LM["pvd_f32"], f"{arch}: f32 prefill against "
+                f"decode ({LM_F32_LAYERS} layers) {e:.3e} > "
+                f"{TOL_LM['pvd_f32']}")
+        print(f"[lm] {arch}: prefill against decode, last-position logits: "
+              f"bf16 {rec['prefill_vs_decode_bf16']:.3e} (limit "
+              f"{TOL_LM['pvd_bf16']}), f32 at {LM_F32_LAYERS} layers "
+              f"{e:.3e} (limit {TOL_LM['pvd_f32']})")
+        out["models"][arch] = rec
+        del model, params, tokens
+        torch.cuda.empty_cache()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
 def smoke(dev: torch.device) -> dict:
-    """Phases 2 to 7 on `dev`; returns the numbers to report."""
+    """Phases 2 to 8 on `dev`; returns the numbers to report."""
     from repro_torch import api
     from repro_torch.core.distmat import RowMatrix
     from repro_torch.kernels import ops
@@ -1869,8 +2155,17 @@ def smoke(dev: torch.device) -> dict:
     print(f"[sparse serve] sampled DIMSUM warm "
           f"{serve7_rec['dimsum']['warm_ms']:.1f} ms, S_sim's Gram "
           f"{serve7_rec['dimsum']['gram_ms']:.1f} ms")
+    # The sparse matrices are done with: phase 8 has the card to itself.
+    del S, S_sim, refs7, pairs
+    torch.cuda.empty_cache()
+
+    # -- phase 8: LM serving; run_lm zeroes and reads the counts around each
+    # model's generate ------------------------------------------------------
+    lm = run_lm(dev)
     by_path = {"solve_svd": launches, "serve": serve_launches,
-               "sparse": sparse_launches, "sparse_serve": serve7_launches}
+               "sparse": sparse_launches, "sparse_serve": serve7_launches,
+               **{f"lm:{arch}": rec["launches"]
+                  for arch, rec in lm["models"].items()}}
 
     rows = []
     for name, by_dtype in kernels.items():
@@ -1897,9 +2192,22 @@ def smoke(dev: torch.device) -> dict:
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
             "shape": shape, "dtype": "f32", "checks": by_dtype})
+    for name, recs in lm["kernels"].items():
+        main = recs["bf16" if name == "flash_attention" else "f32"]
+        src, replaces = SOURCES[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": recs["launches"],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            "dtype": "bf16" if name == "flash_attention" else "f32",
+            "checks": recs})
     return {"kernels": rows, "svd": svd_rec, "solves": solves,
             "serve": serve_rec, "sparse": sparse_rec,
-            "sparse_serve": serve7_rec,
+            "sparse_serve": serve7_rec, "lm": lm["models"],
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
@@ -1925,6 +2233,7 @@ def main() -> int:
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
                       "sparse_serve": summary["sparse_serve"],
+                      "lm": summary["lm"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": summary["kernels"]}))

@@ -54,3 +54,32 @@ def sparserow_from_numpy(data, cols, dims, nnz: int, scales=None, *,
         dims=tuple(int(d) for d in dims), nnz=int(nnz),
         scales=None if scales is None else tensor_from_numpy(
             np.asarray(scales, np.float32), device=device).contiguous())
+
+
+def lm_params_from_numpy(params, cfg, *, device):
+    """The port's LM parameters (`models.transformer.Params`) from the
+    reference's parameter pytree as numpy arrays
+    (`jax.tree.map(np.asarray, model.init(key))`).  Each layer stack's
+    leading layer axis (the reference's vmap-stacked init) is unstacked
+    into one module a layer."""
+    from repro_torch.models import transformer as TF
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        return tensor_from_numpy(tree, device=device)
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    out = {"embed": tensors(params["embed"]),
+           "final_norm": tensors(params["final_norm"])}
+    for name, n, _ in TF.lm_structure(cfg):
+        out[name] = [tensors(layer(params[name], i)) for i in range(n)]
+    extra = sorted(set(params) - set(out))
+    if extra:
+        raise NotImplementedError(f"parameters {extra} belong to parts of "
+                                  "the model that are not ported yet")
+    return TF.Params(out)

@@ -72,6 +72,12 @@ _SIGNATURES = {
     "repro_fused_grad_bsr_multi": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I,
                                    _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
                                    _P, _P],
+    # device, q, k, v, o, dtype, bhq, S, D, group, scale, causal, stream
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _P],
+    # device, x, dt, A, B, C, D, h0, y, h_out, Bt, S, d, N, stream
+    "repro_selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P],
 }
 
 _lock = threading.Lock()

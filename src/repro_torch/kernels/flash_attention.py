@@ -1,0 +1,72 @@
+"""Causal (or full) flash attention, forward, with native GQA.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
+flash_attention`` (``_flash_kernel``): prefill attention of the LM serving
+path.  On the H100 it is bound by operations (4·D flops a live query–key
+pair against one read of q, k, v and one write of o).
+``csrc/flash_attention.cu`` gives one block each (b·hq, 64-query tile), walks
+the 64-key tiles in a loop (skipping those past the causal diagonal),
+stages K and V in shared memory in f32, keeps the online-softmax state and
+the output tile in registers, and runs f32 FMA on the CUDA cores; the
+kernel chooses its own tiles.  The KV row of a query row is bh // group,
+so repeated KV heads are never materialized; the ragged S edge is masked
+in the kernel.
+
+``flash_attention_plain`` is the same function in plain torch: explicit
+(S × S) scores, f32 softmax, GQA by ``repeat_interleave``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from . import ref as _ref
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float | None = None, causal: bool = True,
+                          q_heads_per_kv: int = 1) -> torch.Tensor:
+    """q: (B·Hq, S, D); k, v: (B·Hkv, S, D).  Returns (B·Hq, S, D) in
+    q.dtype."""
+    return _ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                    q_heads_per_kv=q_heads_per_kv)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, causal: bool = True,
+                    q_heads_per_kv: int = 1) -> torch.Tensor:
+    """Launch csrc/flash_attention.cu on contiguous CUDA q (B·Hq, S, D) and
+    k, v (B·Hkv, S, D) of one dtype (f32 or bf16), D in HEAD_DIMS and
+    B·Hq = B·Hkv · q_heads_per_kv; returns o (B·Hq, S, D) in q.dtype."""
+    dev = _build.check_device(q, k, v)
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
+        raise ValueError(f"q, k, v must be (BH, S, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    bhq, s, d = q.shape
+    if k.shape[1:] != (s, d) or bhq != k.shape[0] * q_heads_per_kv:
+        raise ValueError(f"k {tuple(k.shape)} does not conform to q "
+                         f"{tuple(q.shape)} with {q_heads_per_kv} q heads a "
+                         f"KV head")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    code = _build.dtype_code(q, "q")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    _build.check(_build.lib().repro_flash_attention(
+        dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        code, bhq, s, d, q_heads_per_kv, scale, int(causal),
+        _build.stream(dev)), "flash_attention launch")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

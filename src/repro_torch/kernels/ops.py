@@ -12,9 +12,11 @@ from __future__ import annotations
 import torch
 
 from . import bsr as _bsr
+from . import flash_attention as _fa
 from . import fusedgrad as _fg
 from . import gemm as _gemm
 from . import randsketch as _randsketch
+from . import selective_scan as _ss
 from . import tsgram as _tsgram
 
 KERNELS = {"fused_grad": _fg.fused_grad, "tsgram": _tsgram.tsgram,
@@ -23,7 +25,9 @@ KERNELS = {"fused_grad": _fg.fused_grad, "tsgram": _tsgram.tsgram,
            "bsr_matvec": _bsr.bsr_matvec, "bsr_matmul": _bsr.bsr_matmul,
            "bsr_rmatmul": _bsr.bsr_rmatmul,
            "fused_grad_bsr": _fg.fused_grad_bsr,
-           "fused_grad_bsr_multi": _fg.fused_grad_bsr_multi}
+           "fused_grad_bsr_multi": _fg.fused_grad_bsr_multi,
+           "flash_attention": _fa.flash_attention,
+           "selective_scan": _ss.selective_scan}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -172,3 +176,47 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
         f, g, z = _fg.fused_grad_bsr_multi(a, x, target, weights, loss=loss,
                                            param=param)
     return f, g.to(x.dtype), z
+
+
+def _no_tiles(**tiles) -> None:
+    """The kernels choose their own tiles until the autotuner is ported
+    (ROADMAP.md queue 1 item 11)."""
+    given = sorted(k for k, v in tiles.items() if v is not None)
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: the port's kernels choose their own tiles "
+            "until kernels/autotune.py is ported (ROADMAP.md queue 1 item 11)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    bq: int | None = None, bk: int | None = None
+                    ) -> torch.Tensor:
+    """q: (B, Hq, S, D), k/v: (B, Hkv, S, D) with Hq a multiple of Hkv.
+    Returns (B, Hq, S, D): softmax(QKᵀ·scale)V with f32 softmax, KV head
+    = q head // (Hq / Hkv)."""
+    _no_tiles(bq=bq, bk=bk)
+    B, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv or sq != sk:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "conform")
+    args = (q.reshape(B * hq, sq, d), k.reshape(B * hkv, sk, d),
+            v.reshape(B * hkv, sk, d))
+    fn = _fa.flash_attention_plain if _on_cpu(q, k, v) else _fa.flash_attention
+    out = fn(*(a.contiguous() for a in args), scale=scale, causal=causal,
+             q_heads_per_kv=hq // hkv)
+    return out.reshape(B, hq, sq, d)
+
+
+def selective_scan(x, dt, A, B, C, D, *, h0=None, q: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused Mamba1 scan.  x, dt: (Bt, S, d); A: (d, N); B, C: (Bt, S, N);
+    D: (d,); h0: (Bt, d, N) or None (zeros).  Returns (y (Bt, S, d), f32
+    final state (Bt, d, N)); the reference returns y alone, and prefill
+    into a cache needs the state."""
+    _no_tiles(q=q)
+    tensors = (x, dt, A, B, C, D) + (() if h0 is None else (h0,))
+    if _on_cpu(*tensors):
+        return _ss.selective_scan_plain(x, dt, A, B, C, D, h0=h0)
+    return _ss.selective_scan(x, dt, A, B, C, D, h0=h0)

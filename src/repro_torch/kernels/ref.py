@@ -5,6 +5,8 @@ whatever the storage type.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -66,3 +68,40 @@ def bsr_matvec_ref(a, x: torch.Tensor) -> torch.Tensor:
 def bsr_rmatmul_ref(a, x: torch.Tensor) -> torch.Tensor:
     """Y = AᵀX oracle via densification of the BlockELL operand."""
     return (a.to_dense().float().T @ x.float()).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float | None = None, causal: bool = True,
+                        q_heads_per_kv: int = 1) -> torch.Tensor:
+    """Naive attention with explicit (S × S) scores, f32 softmax.
+    q: (B·Hq, S, D); k, v: (B·Hkv, S, D), q-head-major per batch element."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q_heads_per_kv > 1:
+        k = k.repeat_interleave(q_heads_per_kv, dim=0)
+        v = v.repeat_interleave(q_heads_per_kv, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def selective_scan_ref(x, dt, A, B, C, D, h0=None):
+    """Sequential oracle for the Mamba1 recurrence (f32): returns y in
+    x.dtype and the final state (Bt, d, N) in f32.  h0 (default 0) is the
+    state before the first step."""
+    Bt, S, d = x.shape
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B.float(), C.float()
+    h = (torch.zeros(Bt, d, A.shape[1], device=x.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * A) * h + \
+            (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + D * xf[:, t])
+    y = torch.stack(ys, 1) if ys else xf.new_zeros(Bt, 0, d)
+    return y.to(x.dtype), h

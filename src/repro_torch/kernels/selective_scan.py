@@ -1,0 +1,67 @@
+"""Mamba1 selective scan: the recurrence h_t = exp(dt_t·A)∘h_{t−1} +
+dt_t·x_t·B_t, y_t = C_t·h_t + D·x_t, with its final state.
+
+Replaces the TPU kernel ``src/repro/kernels/selective_scan.py:
+selective_scan`` (``_scan_kernel``): the prefill scan of the Mamba1 serving
+path.  On the H100 it is bound by operations, Bt·S·d·N exponentials on the
+special-function units, against one read of x and dt and one write of y,
+which take about as long.  ``csrc/selective_scan.cu`` gives each thread
+one (batch, channel) with its N states in registers and walks S in order;
+a block stages 32-step tiles of x and dt (coalesced across 128 channels)
+and of B_t and C_t (shared by every channel) in shared memory.  It starts
+from an optional h0 and writes the final state, which the reference kernel
+lists as optional but does not write; prefill into a cache needs it.
+
+``selective_scan_plain`` is the same function in plain torch: the
+sequential loop of ``ref.selective_scan_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import ref as _ref
+
+STATE_DIMS = (8, 16)
+
+
+def selective_scan_plain(x, dt, A, B, C, D, h0=None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x, dt: (Bt, S, d); A: (d, N); B, C: (Bt, S, N); D: (d,); h0 (Bt, d,
+    N) or None.  Returns (y (Bt, S, d) in x.dtype, f32 final state)."""
+    return _ref.selective_scan_ref(x, dt, A, B, C, D, h0=h0)
+
+
+def selective_scan(x, dt, A, B, C, D, h0=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/selective_scan.cu on contiguous f32 CUDA tensors (N in
+    STATE_DIMS); returns (y (Bt, S, d), final state (Bt, d, N)), f32."""
+    tensors = (x, dt, A, B, C, D) + (() if h0 is None else (h0,))
+    dev = _build.check_device(*tensors)
+    Bt, S, d = x.shape
+    N = A.shape[-1]
+    shapes = {"x": (x, (Bt, S, d)), "dt": (dt, (Bt, S, d)), "A": (A, (d, N)),
+              "B": (B, (Bt, S, N)), "C": (C, (Bt, S, N)), "D": (D, (d,))}
+    if h0 is not None:
+        shapes["h0"] = (h0, (Bt, d, N))
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if N not in STATE_DIMS:
+        raise ValueError(f"state dim {N} is not one of {STATE_DIMS}")
+    y = torch.empty_like(x)
+    h_out = torch.empty((Bt, d, N), dtype=torch.float32, device=dev)
+    _build.check(_build.lib().repro_selective_scan(
+        dev.index, x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), D.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), h_out.data_ptr(), Bt, S, d, N, _build.stream(dev)),
+        "selective_scan launch")
+    selective_scan.launches += 1
+    return y, h_out
+
+
+selective_scan.launches = 0

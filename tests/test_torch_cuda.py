@@ -9,15 +9,19 @@ bf16 and int8 blocks, ragged block-row counts and nx (up to past a sparse
 Gram strip's 512 columns), a hot column longer than one rmatmul chunk, and
 fused_grad_bsr's staged and unstaged paths with g in shared and in global
 memory; fused_grad_bsr_multi at every block size, 1 to 32 slots, staged
-and unstaged, with its slot independence and repeatability bit for bit.
+and unstaged, with its slot independence and repeatability bit for bit;
+flash_attention at head dims 32, 64 and 128, 1, 3 and 4 q heads a KV head,
+causal and not, S of 1, 63 and 2049, f32 and bf16; the selective scan at
+a channel count off the 128-channel block, N = 8 and 16, S of 1, 37 and
+300, from a nonzero state, with its final state.
 Skips where there is no CUDA device.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import (bsr, fusedgrad, gemm, ops, randsketch,
-                                 tsgram)
+from repro_torch.kernels import (bsr, flash_attention, fusedgrad, gemm, ops,
+                                 randsketch, selective_scan, tsgram)
 
 pytestmark = pytest.mark.cuda
 
@@ -222,11 +226,19 @@ def test_ops_route_cuda_tensors_to_the_kernels(dev):
     ops.fused_grad_bsr(b, xb, ub, torch.ones_like(ub), loss="quad")
     ops.fused_grad_bsr_multi(b, xb[None], ub[None], torch.ones_like(ub)[None],
                              loss="quad")
+    q4 = torch.randn(1, 2, 9, 32, device=dev)
+    ops.flash_attention(q4, q4, q4)
+    s3 = torch.rand(1, 9, 12, device=dev)
+    ops.selective_scan(s3, s3, -torch.rand(12, 8, device=dev),
+                       torch.randn(1, 9, 8, device=dev),
+                       torch.randn(1, 9, 8, device=dev),
+                       torch.randn(12, device=dev))
     assert ops.launch_counts() == {"fused_grad": 1, "tsgram": 1, "gemm": 1,
                                    "fused_grad_multi": 1, "randsketch": 1,
                                    "bsr_matvec": 1, "bsr_matmul": 1,
                                    "bsr_rmatmul": 1, "fused_grad_bsr": 1,
-                                   "fused_grad_bsr_multi": 1}
+                                   "fused_grad_bsr_multi": 1,
+                                   "flash_attention": 1, "selective_scan": 1}
     # int8 blocks compose bsr_matvec and bsr_rmatmul, as the reference does.
     ops.reset_launch_counts()
     q = b.quantize_int8()
@@ -443,3 +455,108 @@ def test_fused_grad_bsr_multi_int8_composes(dev):
     counts = ops.launch_counts()
     assert (counts["bsr_matmul"], counts["bsr_rmatmul"],
             counts["fused_grad_bsr_multi"]) == (1, 1, 0)
+
+
+# bf16 attention: the kernel rounds the softmax weights to bf16 before the
+# PV product (as the reference kernel does) and the plain version does not;
+# each weight moves by up to 2^-9 relative, and the output is rounded to
+# bf16 (2^-9) on both sides.
+TOL_ATTN_BF16 = 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 63, 2049])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_attention_matches_plain(dev, D, group, causal, S, dtype):
+    g = _gen(dev, D + 7 * group + S)
+    bkv = 2
+    q = torch.randn(bkv * group, S, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(bkv, S, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(bkv, S, D, generator=g, device=dev).to(dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          q_heads_per_kv=group)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 q_heads_per_kv=group)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel(got, want) <= (TOL if dtype == torch.float32
+                               else TOL_ATTN_BF16)
+
+
+def test_flash_attention_dispatch_counts_launches(dev):
+    g = _gen(dev, 3)
+    q = torch.randn(2, 6, 100, 64, generator=g, device=dev)
+    k = torch.randn(2, 2, 100, 64, generator=g, device=dev)
+    v = torch.randn(2, 2, 100, 64, generator=g, device=dev)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert _rel(got.cpu(), want) <= TOL
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q = torch.randn(4, 16, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.randn(4, 16, 256, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.randn(4, 16, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.randn(4, 64, 16, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.randn(4, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="conform"):
+        flash_attention.flash_attention(q, q[:3], q[:3], q_heads_per_kv=2)
+
+
+def _scan_args(dev, Bt, S, d, N, seed):
+    g = _gen(dev, seed)
+    return (torch.randn(Bt, S, d, generator=g, device=dev),
+            torch.rand(Bt, S, d, generator=g, device=dev) * 0.1,
+            -torch.rand(d, N, generator=g, device=dev) - 0.1,
+            torch.randn(Bt, S, N, generator=g, device=dev),
+            torch.randn(Bt, S, N, generator=g, device=dev),
+            torch.randn(d, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("N", selective_scan.STATE_DIMS)
+@pytest.mark.parametrize("Bt,d", [(1, 128), (3, 200), (2, 1000)])
+def test_selective_scan_matches_plain(dev, Bt, d, N, S, with_h0):
+    args = _scan_args(dev, Bt, S, d, N, seed=Bt * d + N + S)
+    h0 = (torch.randn(Bt, d, N, generator=_gen(dev, 1), device=dev)
+          if with_h0 else None)
+    y, h = selective_scan.selective_scan(*args, h0=h0)
+    y0, h0_ = selective_scan.selective_scan_plain(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert y.shape == (Bt, S, d) and h.shape == (Bt, d, N)
+    assert _rel(y, y0) <= TOL
+    assert _rel(h, h0_) <= TOL
+
+
+def test_selective_scan_dispatch_counts_launches(dev):
+    args = _scan_args(dev, 2, 40, 130, 16, seed=9)
+    ops.reset_launch_counts()
+    y, h = ops.selective_scan(*args)
+    y0, h0 = ops.selective_scan(*(a.cpu() for a in args))
+    assert ops.launch_counts()["selective_scan"] == 1
+    assert _rel(y.cpu(), y0) <= TOL and _rel(h.cpu(), h0) <= TOL
+
+
+def test_selective_scan_refuses_what_it_does_not_take(dev):
+    x, dt, A, B, C, D = _scan_args(dev, 1, 8, 64, 16, seed=2)
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan.selective_scan(x.bfloat16(), dt, A, B, C, D)
+    with pytest.raises(ValueError, match="state dim"):
+        selective_scan.selective_scan(x, dt, A[:, :4].contiguous(),
+                                      B[..., :4].contiguous(),
+                                      C[..., :4].contiguous(), D)
+    with pytest.raises(ValueError, match="shape"):
+        selective_scan.selective_scan(x, dt[:, :4], A, B, C, D)

@@ -18,8 +18,8 @@ import torch
 from repro.kernels import fusedgrad as jfg
 from repro.kernels import ops as jops
 from repro_torch import convert
-from repro_torch.kernels import (_build, fusedgrad, gemm, ops, randsketch,
-                                 ref, tsgram)
+from repro_torch.kernels import (_build, flash_attention, fusedgrad, gemm,
+                                 ops, randsketch, ref, selective_scan, tsgram)
 
 DTYPES = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
 SHAPES = [(96, 48), (130, 70)]       # multi-tile, and ragged in m and n
@@ -150,18 +150,28 @@ def test_cpu_tensors_never_reach_the_kernels():
     X, T, W = _t(x)[None], _t(t)[None], _t(w)[None]
     ops.fused_grad_multi(_t(a), X, T, W, loss="quad")
     ops.randsketch(_t(a), _t(a)[:, :3])
+    q = torch.randn(1, 2, 5, 32)
+    ops.flash_attention(q, q, q)
+    s = torch.rand(1, 5, 12)
+    scan = (s, s, -torch.rand(12, 8), torch.randn(1, 5, 8),
+            torch.randn(1, 5, 8), torch.randn(12))
+    ops.selective_scan(*scan)
     assert ops.launch_counts() == {"fused_grad": 0, "tsgram": 0, "gemm": 0,
                                    "fused_grad_multi": 0, "randsketch": 0,
                                    "bsr_matvec": 0, "bsr_matmul": 0,
                                    "bsr_rmatmul": 0, "fused_grad_bsr": 0,
-                                   "fused_grad_bsr_multi": 0}
+                                   "fused_grad_bsr_multi": 0,
+                                   "flash_attention": 0,
+                                   "selective_scan": 0}
     for call in (lambda: fusedgrad.fused_grad(_t(a), _t(x), _t(t), _t(w),
                                               loss="quad"),
                  lambda: tsgram.tsgram(_t(a)),
                  lambda: gemm.gemm(_t(a), _t(x)[:, None]),
                  lambda: fusedgrad.fused_grad_multi(_t(a), X, T, W,
                                                     loss="quad"),
-                 lambda: randsketch.randsketch(_t(a), _t(a)[:, :3])):
+                 lambda: randsketch.randsketch(_t(a), _t(a)[:, :3]),
+                 lambda: flash_attention.flash_attention(q[0], q[0], q[0]),
+                 lambda: selective_scan.selective_scan(*scan)):
         with pytest.raises(ValueError, match="need CUDA tensors"):
             call()
 
