@@ -72,21 +72,23 @@ with nvcc, then:
               prefill launches flash_attention (llama) or selective_scan
               (mamba) once a layer and a decode step none.  Then each
               kernel against its plain version on layer 0's real inputs
-              (flash_attention in bf16 and f32, and bf16 at S = 2049;
+              (flash_attention in bf16 and f32, bf16 at S = 2049, and
+              bf16 causal with 2048 queries against 2049 keys;
               selective_scan's y and final state at S = 2048 and 2049),
               timed beside SDPA (attention) and its bound; and prefill
               against decode: the last-position logits of a prefill of
               S + 1 tokens against a prefill of S and one decode step, at
               full size in bf16 and at full width and 4 layers in f32.
-Phase 2 also holds fused_grad_multi (k = 1, 8, 16, all four losses, f32
-and bf16 storage, slot independence of the other slots and of the slot
-count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16) and
+Phase 2 also holds fused_grad_multi (k = 1, 8, 16, 40, all four losses,
+f32 and bf16 storage, one launch a call, slot independence of the other
+slots and of the slot count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16) and
 fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
 their plain versions, and the four block-sparse kernels (f32, bf16 and
 int8 storage; bsr_matmul at nx = 16, bsr_rmatmul at nx = 1 and 16,
-fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16,
-every loss, f32 and bf16 storage, slot independence; the int8 composition
-at k = 8) on S, just before phase 6.  fused_grad is fused_grad_multi's
+fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16, 40,
+every loss, f32 and bf16 storage, one launch a call, slot independence;
+the int8 composition at k = 8) on S, just before phase 6.  After the build
+it prints each multi-slot kernel's registers and spill bytes from ptxas.  fused_grad is fused_grad_multi's
 kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
@@ -117,7 +119,7 @@ K_SVD = 16                     # singular triplets asked of the SVD
 K_GEMM = 16                    # columns of B in the gemm check
 M_W, N_W = 1 << 18, 16384      # A_w: the wide matrix of the randomized SVD
 R_SKETCH = K_SVD + 10          # k + p, the randomized SVD's sketch width
-K_MULTI = (1, 8, 16)           # slot counts of the fused_grad_multi check
+K_MULTI = (1, 8, 16, 40)       # slot counts of the fused_grad_multi check
 SLOTS = 8                      # the server's slots per group
 M_S, N_S = 1 << 22, 1 << 14   # S: the sparse matrix of phase 6
 BS_S, ELL_S = 32, 16           # S's block size and stored blocks a block-row
@@ -128,7 +130,7 @@ SPARSE_ITERS = 300             # iterations of phase 6's quad solves
 # (1 - lambda/L)^k of each mode; over S's block-column spectrum that is
 # about 0.006 at 300 steps (tools/sparse_spectrum.py).
 REL_GRAD_LIMIT = 2e-2
-K_BSR_MULTI = (1, 8, 16)       # slot counts of the fused_grad_bsr_multi check
+K_BSR_MULTI = (1, 8, 16, 40)   # slot counts of the fused_grad_bsr_multi check
 M_SIM, N_SIM = 1 << 20, 1 << 12   # S_sim: the matrix of phase 7's DIMSUM
 PLANTED = 64                   # planted near-duplicate column pairs of S_sim
 SIM_THRESHOLD = 0.5            # phase 7's sampled DIMSUM request
@@ -255,6 +257,54 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def one_launch(kernel, call, what: str):
+    """`call()`, which must launch `kernel` (a wrapper with a launch count)
+    exactly once, whatever the slot count."""
+    before = kernel.launches
+    out = call()
+    require(kernel.launches == before + 1, f"{what}: "
+            f"{kernel.launches - before} launches of {kernel.__name__} in "
+            "one call")
+    return out
+
+
+def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu")
+                 ) -> list:
+    """Registers and spill bytes of every kernel in `sources`, from the
+    ptxas report of the build (kernels/_build.py's build_log)."""
+    from repro_torch.kernels import _build
+
+    rows, section, name, spill = [], None, None, None
+    for line in _build.build_log().read_text().splitlines():
+        line = line.strip()
+        if line.startswith("== "):
+            section = line[3:]
+        elif section not in sources:
+            continue
+        elif line.startswith("ptxas info") and "Compiling entry" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            spill = [int(w) for w in line.replace(",", " ").split()
+                     if w.isdigit()][1:3]
+        elif line.startswith("ptxas info") and "Used" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.append({"source": section, "kernel": name, "registers": regs,
+                         "spill_store_bytes": spill[0] if spill else None,
+                         "spill_load_bytes": spill[1] if spill else None})
+            name, spill = None, None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, dn in zip(rows, names):
+                r["kernel"] = dn.replace("(anonymous namespace)::", "")
+    except OSError:
+        pass
+    require(bool(rows), f"no ptxas report for {sources}")
+    return rows
 
 
 def card() -> dict:
@@ -408,8 +458,11 @@ def check_fused_grad_multi(A: torch.Tensor, gen) -> dict:
             rec = {}
             for loss in fusedgrad.LOSSES:
                 t = targets(loss, z0, gen)
-                got = fusedgrad.fused_grad_multi(a, x, t, w, loss=loss,
-                                                 param=0.5)
+                got = one_launch(
+                    fusedgrad.fused_grad_multi,
+                    lambda: fusedgrad.fused_grad_multi(
+                        a, x, t, w, loss=loss, param=0.5),
+                    f"fused_grad_multi {dt} k={k} {loss}")
                 want = fusedgrad.fused_grad_multi_plain(a, x, t, w,
                                                         loss=loss, param=0.5)
                 torch.cuda.synchronize()
@@ -1077,6 +1130,7 @@ def check_sparse_multi(mats: dict, gen) -> dict:
     (bsr_matmul + bsr_rmatmul through ops) at k = SLOTS; a request's bits
     alone, in slot 0 among random neighbours and in slot SLOTS - 1, and
     two runs' bits.  Returns {storage: {k: numbers}}."""
+    from repro_torch.kernels import bsr as _bsr
     from repro_torch.kernels import fusedgrad, ops
 
     dev = mats["f32"].device
@@ -1095,7 +1149,11 @@ def check_sparse_multi(mats: dict, gen) -> dict:
             rec = {}
             for loss in fusedgrad.LOSSES:
                 t = targets(loss, z0, gen)
-                got = run(a, x, t, w, loss=loss, param=0.5)
+                got = one_launch(
+                    _bsr.bsr_rmatmul if dt == "int8"
+                    else fusedgrad.fused_grad_bsr_multi,
+                    lambda: run(a, x, t, w, loss=loss, param=0.5),
+                    f"fused_grad_bsr_multi {dt} k={k} {loss}")
                 want = plain(a, x, t, w, loss=loss, param=0.5)
                 torch.cuda.synchronize()
                 errs = {q: rel_err(g, p) for q, g, p in zip("fgz", got, want)}
@@ -1714,7 +1772,8 @@ def scan_inputs(params, cfg, tokens):
 def check_flash(params, cfg, tokens) -> dict:
     """flash_attention against its plain version on layer 0's real q, k,
     v: bf16 (the path's type) and f32 at the path's S, bf16 at S + 1
-    (ragged); times at the path's shape beside SDPA and the bound."""
+    (ragged), and bf16 causal with S queries against S + 1 keys; times at
+    the path's shape beside SDPA and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
@@ -1722,10 +1781,15 @@ def check_flash(params, cfg, tokens) -> dict:
     out = {}
     for key, toks, dtype in (("bf16", tokens[:, :LM_PROMPT], None),
                              ("f32", tokens[:, :LM_PROMPT], torch.float32),
-                             ("bf16_ragged", tokens, None)):
+                             ("bf16_ragged", tokens, None),
+                             ("bf16_sq_ne_sk", tokens, None)):
         q, k, v = attn_inputs(params, cfg, toks)
         if dtype is not None:
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        if key == "bf16_sq_ne_sk":
+            # 2048 queries against 2049 keys (causal, top-left): layer 0's
+            # real q for the first S positions, k and v for all S + 1.
+            q = q[:, :LM_PROMPT].contiguous()
         got = fa.flash_attention(q, k, v, q_heads_per_kv=g)
         want = fa.flash_attention_plain(q, k, v, q_heads_per_kv=g)
         torch.cuda.synchronize()
@@ -1735,8 +1799,10 @@ def check_flash(params, cfg, tokens) -> dict:
                 f"flash_attention {key}: relative error {e:.3e} > {lim}")
         rec = {"rel_err": e, "max_abs_err": max_abs(got, want),
                "shape": list(q.shape), "group": g}
+        if key == "bf16_sq_ne_sk":
+            rec["kv_shape"] = list(k.shape)
         del got, want
-        if key != "bf16_ragged":
+        if key not in ("bf16_ragged", "bf16_sq_ne_sk"):
             bhq, S, D = q.shape
             pairs = bhq * S * (S + 1) / 2
             rec["bound_ms"], rec["bound_by"] = bound(
@@ -1758,8 +1824,8 @@ def check_flash(params, cfg, tokens) -> dict:
                   f"{rec['bound_ms']:.3f} ({rec['bound_by']}), share "
                   f"{rec['bound_ms'] / rec['ms']:.3f} | rel err {e:.2e}")
         else:
-            print(f"[lm] flash_attention {key} (S = {q.shape[1]}): rel err "
-                  f"{e:.2e}")
+            print(f"[lm] flash_attention {key} (Sq = {q.shape[1]}, Sk = "
+                  f"{k.shape[1]}): rel err {e:.2e}")
         out[key] = rec
         del q, k, v
     return out
@@ -1977,6 +2043,12 @@ def smoke(dev: torch.device) -> dict:
                                 "acc_rb": "fused_affine"}[method],
                 f"quad {method}: plan {rec['plan']}")
         require(gap <= 1e-5, f"quad {method}: objective gap {gap:.3e}")
+        # The stopping rule (a relative step below tol) needs the gradient
+        # accurate to f32's rounding: a noisier fused_grad keeps the iterate
+        # moving until the cap.
+        require(rec["iterations"] < iters,
+                f"quad {method}: ran to its cap of {iters} iterations "
+                f"without converging")
     rec, res = run_solve(api, ops, rm, b_log, loss="logistic", method="gra",
                          L0=0.25 * L0, tol=1e-9, max_iters=30)
     hist = res.info["history"][:rec["iterations"]].tolist()
@@ -2004,7 +2076,7 @@ def smoke(dev: torch.device) -> dict:
     for r in solves:
         print(f"[solve] {r['loss']}/{r['method']}: plan {r['plan']}, "
               f"{r['iterations']} iterations, {r['a_passes']} A-passes, "
-              f"{r['ms_per_iteration']:.3f} ms/iteration"
+              f"{r['ms']:.1f} ms, {r['ms_per_iteration']:.3f} ms/iteration"
               + (f", objective gap {r['objective_gap']:.3e}"
                  if "objective_gap" in r else
                  f", objective {r['first_last_objective'][0]:.6e} -> "
@@ -2227,13 +2299,19 @@ def main() -> int:
     _build.lib()
     print(f"[build] {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_report()
+    for r in ptxas:
+        print(f"[ptxas] {r['kernel']}: {r['registers']} registers, "
+              f"{r['spill_store_bytes']} bytes spill stores, "
+              f"{r['spill_load_bytes']} bytes spill loads")
 
     summary = smoke(dev)
+    summary["ptxas"] = ptxas
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
                       "sparse_serve": summary["sparse_serve"],
-                      "lm": summary["lm"],
+                      "lm": summary["lm"], "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": summary["kernels"]}))

@@ -4,7 +4,9 @@ The sources in ``csrc/`` have a plain C interface.  At first use, ``nvcc``
 compiles each ``*.cu`` for ``sm_90a`` into an object (all sources at once,
 one process each) and links them into one shared library under ``build/`` at
 the repository root, named by a hash of the sources and flags; ``ctypes``
-loads it.  Nothing is built or loaded when a module is imported.
+loads it.  ptxas reports each kernel's registers and spills (``-Xptxas -v``)
+into a log beside the library (``build_log``).  Nothing is built or loaded
+when a module is imported.
 
 Every C entry returns ``cudaGetLastError()``; ``check`` raises on non-zero.
 There is no fallback: a failed build, a missing ``nvcc`` or a device that is
@@ -26,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Block-sparse storage also takes int8, with a per-block f32 scale.
@@ -35,13 +37,12 @@ STORAGE_CODES = {**DTYPE_CODES, torch.int8: 2}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # device, m, n, k, dtype, *bm, *staged, *g_smem, *grid
-    "repro_fused_grad_multi_plan": [_I, _LL, _I, _I, _I, _IP, _IP, _IP,
-                                    _IP],
-    # device, a, dtype, x, t, w, m, n, k, bm, staged, g_smem, grid, loss,
-    # param, z, g_part, f_part, g, f, stream
+    # device, m, n, dtype, *staged, *grid
+    "repro_fused_grad_multi_plan": [_I, _LL, _I, _I, _IP, _IP],
+    # device, a, dtype, x, t, w, m, n, k, staged, grid, loss, param, z,
+    # g_part, f_part, g, f, stream
     "repro_fused_grad_multi": [_I, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+                               _I, _F, _P, _P, _P, _P, _P, _P],
     # device, a, dtype, q, m, n, r, slices, rows_per_slice, part, out,
     # out_dtype, stream
     "repro_randsketch": [_I, _P, _I, _P, _LL, _I, _I, _I, _LL, _P, _P, _I,
@@ -65,16 +66,16 @@ _SIGNATURES = {
     # grid, loss, param, z, g_part, f_part, g, f, stream
     "repro_fused_grad_bsr": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
                              _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
-    # device, nbr, ell, bs, n, *staged, *grid
-    "repro_fused_grad_bsr_multi_plan": [_I, _LL, _I, _I, _I, _IP, _IP],
+    # device, nbr, ell, bs, n, dtype, *staged, *grid
+    "repro_fused_grad_bsr_multi_plan": [_I, _LL, _I, _I, _I, _I, _IP, _IP],
     # device, data, dtype, cols, x, t, w, nbr, ell, bs, n, k, staged, grid,
     # loss, param, z, g_part, f_part, g, f, stream
     "repro_fused_grad_bsr_multi": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I,
                                    _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
                                    _P, _P],
-    # device, q, k, v, o, dtype, bhq, S, D, group, scale, causal, stream
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _P],
+    # device, q, k, v, o, dtype, bhq, Sq, Sk, D, group, scale, causal, stream
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _P],
     # device, x, dt, A, B, C, D, h0, y, h_out, Bt, S, d, N, stream
     "repro_selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
@@ -101,6 +102,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
+def build_log() -> Path:
+    """The compiler's report for the current library, one section a source."""
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
     """Compile and link the kernels unless the library is already built."""
     out = library_path()
@@ -116,19 +122,22 @@ def build() -> Path:
             jobs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        failed = []
+        failed, logs = [], []
         for src, _, proc in jobs:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
+            logs.append(f"== {src.name}\n{log}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        (Path(tmp) / "build.log").write_text("\n".join(logs))
         lib = Path(tmp) / out.name
         link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib),
                                *(str(obj) for _, obj, _ in jobs)],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(Path(tmp) / "build.log", build_log())
         os.replace(lib, out)
     return out
 

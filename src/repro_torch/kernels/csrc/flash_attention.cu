@@ -1,9 +1,12 @@
 // Flash attention forward with native GQA: O = softmax(Q K^T * scale) V,
-// causal or not, for q (B*Hq, S, D) and k, v (B*Hkv, S, D) in f32 or bf16.
+// causal or not, for q (B*Hq, Sq, D) and k, v (B*Hkv, Sk, D) in f32 or bf16.
+// The causal mask is top-left, as the reference's tril((Sq, Sk)): query row
+// i sees keys 0..i, so rows >= Sk see every key.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (_flash_kernel).  On the H100 it is bound by operations:
-// 4*D flops per live (query, key) pair (S(S+1)/2 pairs a head when causal)
+// 4*D flops per live (query, key) pair (S(S+1)/2 pairs a head when causal
+// and Sq = Sk = S)
 // against one read of q, k, v and one write of o.  This first version runs
 // f32 FMA on the CUDA cores (no tensor cores), so its ceiling is the f32
 // rate, not the bf16 tensor-core rate its bound is priced at.
@@ -21,10 +24,11 @@
 // registers.  p goes through shared memory to the PV product, rounded to
 // V's type first as the reference rounds it (p.astype(v.dtype)); l sums the
 // unrounded p, as the reference does.  The KV row is bh / group (the
-// q-head-major flattening of the reference's kv_map).  The ragged S edge is
-// masked inside the kernel (keys >= S score MASK_VALUE, rows >= S are not
-// written), causal or not.  Query tiles are launched last first, so the
-// longest causal rows start first.
+// q-head-major flattening of the reference's kv_map).  The ragged edges
+// are masked inside the kernel (keys >= Sk score MASK_VALUE, rows >= Sq are
+// not written), causal or not; a causal key tile is visited iff its first
+// key is <= the query tile's last row and < Sk.  Query tiles are launched
+// last first, so the longest causal rows start first.
 #include "common.cuh"
 
 namespace {
@@ -100,8 +104,8 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int group,
-          float scale, int causal) {
+          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+          int group, float scale, int causal) {
   constexpr int CPT = D / 16;  // accumulator columns a thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;              // [D][kBQ]
@@ -109,15 +113,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = kt + D * kBK;      // [kBK][D]
   float* ps = vs + kBK * D;      // [kBQ][kPStride]
 
-  const int nq = (S + kBQ - 1) / kBQ;
+  const int nq = (Sq + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;
   const int bh = blockIdx.y;
-  const T* qb = q + (size_t)bh * S * D;
-  const T* kb = k + (size_t)(bh / group) * S * D;
-  const T* vb = v + (size_t)(bh / group) * S * D;
+  const T* qb = q + (size_t)bh * Sq * D;
+  const T* kb = k + (size_t)(bh / group) * Sk * D;
+  const T* vb = v + (size_t)(bh / group) * Sk * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  stage_transposed<T, D>(qb, q0, S, qt);
+  stage_transposed<T, D>(qb, q0, Sq, qt);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -128,13 +132,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
   }
 
-  const int last_key = causal ? min(q0 + kBQ, S) - 1 : S - 1;
+  const int last_key = causal ? min(min(q0 + kBQ, Sq), Sk) - 1 : Sk - 1;
   const int nk = last_key / kBK + 1;
   for (int kti = 0; kti < nk; ++kti) {
     const int k0 = kti * kBK;
     __syncthreads();  // the previous tile's kt, vs and ps are read
-    stage_transposed<T, D>(kb, k0, S, kt);
-    stage_rows<T, D>(vb, k0, S, vs);
+    stage_transposed<T, D>(kb, k0, Sk, kt);
+    stage_rows<T, D>(vb, k0, Sk, vs);
     __syncthreads();
 
     float s[4][4] = {};
@@ -157,7 +161,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx * 4 + j;
-        const bool live = key < S && !(causal && key > row);
+        const bool live = key < Sk && !(causal && key > row);
         s[i][j] = live ? s[i][j] * scale : kMask;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -205,9 +209,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* out = o + ((size_t)bh * S + row) * D + tx;
+    T* out = o + ((size_t)bh * Sq + row) * D + tx;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) store_f32(out + 16 * j, acc[i][j] / denom);
   }
@@ -215,28 +219,29 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bhq, int S, int group, float scale, int causal,
-                   cudaStream_t stream) {
+                   int bhq, int Sq, int Sk, int group, float scale,
+                   int causal, cudaStream_t stream) {
   auto fn = flash_fwd<T, D>;
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, bhq);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, bhq);
   fn<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, group, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, group, scale,
+      causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* o, int bhq, int S, int group, float scale,
-                     int causal, cudaStream_t stream) {
+                     void* o, int bhq, int Sq, int Sk, int group,
+                     float scale, int causal, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, bhq, S, group, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bhq, S, group, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bhq, S, group, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, bhq, Sq, Sk, group, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, bhq, Sq, Sk, group, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, bhq, Sq, Sk, group, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -245,15 +250,19 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 extern "C" int repro_flash_attention(int device, const void* q, const void* k,
                                      const void* v, void* o, int dtype,
-                                     int bhq, int S, int D, int group,
-                                     float scale, int causal, void* stream) {
+                                     int bhq, int Sq, int Sk, int D,
+                                     int group, float scale, int causal,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (bhq == 0 || S == 0) return cudaSuccess;
+  if (bhq == 0 || Sq == 0) return cudaSuccess;
+  if (Sk == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, bhq, S, group, scale, causal, s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, bhq, Sq, Sk, group, scale,
+                                   causal, s);
   if (dtype == DT_F32)
-    return launch_d<float>(D, q, k, v, o, bhq, S, group, scale, causal, s);
+    return launch_d<float>(D, q, k, v, o, bhq, Sq, Sk, group, scale, causal,
+                           s);
   return cudaErrorInvalidValue;
 }

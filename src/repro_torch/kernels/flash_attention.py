@@ -9,11 +9,12 @@ the 64-key tiles in a loop (skipping those past the causal diagonal),
 stages K and V in shared memory in f32, keeps the online-softmax state and
 the output tile in registers, and runs f32 FMA on the CUDA cores; the
 kernel chooses its own tiles.  The KV row of a query row is bh // group,
-so repeated KV heads are never materialized; the ragged S edge is masked
-in the kernel.
+so repeated KV heads are never materialized; query and key lengths may
+differ (Sq against Sk, the causal mask top-left as in the reference's
+``tril((Sq, Sk))``), and the ragged edges of both are masked in the kernel.
 
 ``flash_attention_plain`` is the same function in plain torch: explicit
-(S × S) scores, f32 softmax, GQA by ``repeat_interleave``.
+(Sq × Sk) scores, f32 softmax, GQA by ``repeat_interleave``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ HEAD_DIMS = (32, 64, 128)
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: float | None = None, causal: bool = True,
                           q_heads_per_kv: int = 1) -> torch.Tensor:
-    """q: (B·Hq, S, D); k, v: (B·Hkv, S, D).  Returns (B·Hq, S, D) in
+    """q: (B·Hq, Sq, D); k, v: (B·Hkv, Sk, D).  Returns (B·Hq, Sq, D) in
     q.dtype."""
     return _ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                     q_heads_per_kv=q_heads_per_kv)
@@ -39,15 +40,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, causal: bool = True,
                     q_heads_per_kv: int = 1) -> torch.Tensor:
-    """Launch csrc/flash_attention.cu on contiguous CUDA q (B·Hq, S, D) and
-    k, v (B·Hkv, S, D) of one dtype (f32 or bf16), D in HEAD_DIMS and
-    B·Hq = B·Hkv · q_heads_per_kv; returns o (B·Hq, S, D) in q.dtype."""
+    """Launch csrc/flash_attention.cu on contiguous CUDA q (B·Hq, Sq, D)
+    and k, v (B·Hkv, Sk, D) of one dtype (f32 or bf16), D in HEAD_DIMS and
+    B·Hq = B·Hkv · q_heads_per_kv; returns o (B·Hq, Sq, D) in q.dtype."""
     dev = _build.check_device(q, k, v)
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
         raise ValueError(f"q, k, v must be (BH, S, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    bhq, s, d = q.shape
-    if k.shape[1:] != (s, d) or bhq != k.shape[0] * q_heads_per_kv:
+    bhq, sq, d = q.shape
+    sk = k.shape[1]
+    if k.shape[2] != d or bhq != k.shape[0] * q_heads_per_kv:
         raise ValueError(f"k {tuple(k.shape)} does not conform to q "
                          f"{tuple(q.shape)} with {q_heads_per_kv} q heads a "
                          f"KV head")
@@ -63,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     _build.check(_build.lib().repro_flash_attention(
         dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        code, bhq, s, d, q_heads_per_kv, scale, int(causal),
+        code, bhq, sq, sk, d, q_heads_per_kv, scale, int(causal),
         _build.stream(dev)), "flash_attention launch")
     flash_attention.launches += 1
     return out

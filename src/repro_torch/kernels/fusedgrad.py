@@ -9,13 +9,15 @@ One kernel, ``csrc/fused_grad_multi.cu``, serves both wrappers and replaces
 both TPU kernels of ``src/repro/kernels/fusedgrad.py``: ``fused_grad``
 (``_fused_grad_kernel``) is its one-slot case, and ``fused_grad_multi``
 (``_fused_grad_multi_kernel``) the request-batched form for k right-hand
-sides sharing A (the serving path, ``core/optim/batched``).  On the H100 a
-few slots are bound by the bytes of A (4mnk flops against m·n·sizeof(storage)
-bytes).  The kernel stages each row block in shared memory so A leaves HBM
-once, gives every block of a persistent grid its own partials, and sums them
-in block order in a second kernel, so repeated runs agree bit for bit.  Its
-row blocking and grid follow from A's shape alone, so a request gets the
-same bits from ``fused_grad`` as from any slot of ``fused_grad_multi``.
+sides sharing A (the serving path, ``core/optim/batched``), any k in one
+launch.  On the H100 a few slots are bound by the bytes of A (4mnk flops
+against m·n·sizeof(storage) bytes).  The kernel stages each row tile in
+shared memory so A leaves HBM once, runs the slots over it in chunks of 8,
+gives every block of a persistent grid its own partials, and sums them in
+block order in a second kernel, so repeated runs agree bit for bit.  Its
+row tiling, grid and chunk width follow from A's shape and storage alone,
+so a request gets the same bits from ``fused_grad`` as from any slot of
+``fused_grad_multi`` with any number of slots.
 
 ``fused_grad_bsr`` (``csrc/fused_grad_bsr.cu``) is the same function on a
 BlockELL operand (kernels/bsr.py), replacing ``_fused_grad_bsr_kernel``:
@@ -24,9 +26,9 @@ staged blocks, and rᵀAᵢⱼ is added into the block's partial g at block
 column cols[i, s] by one owner thread per element, so no float atomics.
 ``fused_grad_bsr_multi`` (``csrc/fused_grad_bsr_multi.cu``) is its
 request-batched form, replacing ``_fused_grad_bsr_multi_kernel``: one read
-of each stored block serves k slots, thread (s, c) owns slot s's g entries
-at in-block offset c, and the grid follows from A's shape alone, as in
-fused_grad_multi.
+of each stored block serves any k slots in chunks of 8, thread (s, c) owns
+slot s's g entries at in-block offset c, and the grid follows from A's shape
+and storage alone, as in fused_grad_multi.
 
 ``fused_grad_plain``, ``fused_grad_multi_plain``, ``fused_grad_bsr_plain``
 and ``fused_grad_bsr_multi_plain`` are the same functions in plain torch:
@@ -42,7 +44,6 @@ from . import _build
 from . import bsr as _bsr
 
 LOSSES = ("quad", "logistic", "huber", "poisson")
-MAX_SLOTS = 32            # right-hand sides one launch takes
 
 
 def row_loss_elem(z: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
@@ -181,12 +182,13 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
                          param: float = 1.0
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/fused_grad_bsr_multi.cu on a CUDA BlockELL with f32 or
-    bf16 blocks: x (k × n); t, w (k × m) over its dims, read as f32,
-    1 ≤ k ≤ MAX_SLOTS.  Returns f32 f (k,), g (k × n), z (k × m).  Replaces
+    bf16 blocks: x (k × n); t, w (k × m) over its dims, read as f32, any
+    k ≥ 1 in one launch.  Returns f32 f (k,), g (k × n), z (k × m).  Replaces
     the TPU kernel ``src/repro/kernels/fusedgrad.py:fused_grad_bsr_multi``:
     one read of each stored block serves every slot, and a slot's outputs
-    are sums in an order fixed by A's shape alone, so a request gets the
-    same bits whatever the other slots hold and however many there are."""
+    are sums in an order fixed by A's shape and storage alone, so a request
+    gets the same bits whatever the other slots hold and however many there
+    are."""
     dev, code = _bsr.check_operands(a, x, t, w)
     if a.scales is not None:
         raise ValueError("fused_grad_bsr_multi takes exact (f32 or bf16) "
@@ -199,18 +201,23 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     if x.shape != (k, n) or t.shape != (k, m) or w.shape != (k, m):
         raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
                          f"w {tuple(w.shape)} against A {a.shape}")
-    if not 1 <= k <= MAX_SLOTS:
-        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got {k}")
+    if k < 1:
+        raise ValueError("the kernel takes one slot or more, got none")
     x, t, w = (v.float().contiguous() for v in (x, t, w))
+    # The staged path's 16-byte copies need aligned blocks (check_operands
+    # refuses others) and X: a view of X that starts elsewhere is copied to
+    # a fresh, aligned tensor.
+    if x.data_ptr() % 16:
+        x = x.clone()
     lib = _build.lib()
     staged, grid = ctypes.c_int(), ctypes.c_int()
     _build.check(lib.repro_fused_grad_bsr_multi_plan(
-        dev.index, nbr, ell, a.bs, n, ctypes.byref(staged),
+        dev.index, nbr, ell, a.bs, n, code, ctypes.byref(staged),
         ctypes.byref(grid)), "fused_grad_bsr_multi plan")
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((k, m), **f32)
     g_part = torch.empty((grid.value, k, n), **f32)
-    f_part = torch.empty((grid.value, k), **f32)
+    f_part = torch.empty((grid.value, 2, k), **f32)
     g = torch.empty((k, n), **f32)
     f = torch.empty(k, **f32)
     _build.check(lib.repro_fused_grad_bsr_multi(
@@ -227,9 +234,9 @@ fused_grad_bsr_multi.launches = 0
 
 
 def _launch(a, x, t, w, loss, param):
-    """Run csrc/fused_grad_multi.cu: a (m × n) f32 or bf16, row-major;
-    x (k × n); t, w (k × m), 1 ≤ k ≤ MAX_SLOTS.  Returns f32 f (k,),
-    g (k × n), z (k × m)."""
+    """Run csrc/fused_grad_multi.cu once: a (m × n) f32 or bf16, row-major;
+    x (k × n); t, w (k × m), any k ≥ 1.  Returns f32 f (k,), g (k × n),
+    z (k × m)."""
     dev = _build.check_device(a, x, t, w)
     if a.dim() != 2 or not a.is_contiguous():
         raise ValueError("a must be a contiguous (m, n) matrix")
@@ -239,26 +246,27 @@ def _launch(a, x, t, w, loss, param):
     if x.shape != (k, n) or t.shape != (k, m) or w.shape != (k, m):
         raise ValueError(f"shapes a {tuple(a.shape)}, x {tuple(x.shape)}, "
                          f"t {tuple(t.shape)}, w {tuple(w.shape)}")
-    if not 1 <= k <= MAX_SLOTS or m < 1 or n < 1:
-        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots and a "
+    if k < 1 or m < 1 or n < 1:
+        raise ValueError(f"the kernel takes one slot or more and a "
                          f"non-empty a; got k={k}, a {tuple(a.shape)}")
     code = _build.dtype_code(a, "a")
     x, t, w = (v.float().contiguous() for v in (x, t, w))
     lib = _build.lib()
-    bm, staged, g_smem, grid = (ctypes.c_int() for _ in range(4))
+    staged, grid = ctypes.c_int(), ctypes.c_int()
     _build.check(lib.repro_fused_grad_multi_plan(
-        dev.index, m, n, k, code, ctypes.byref(bm), ctypes.byref(staged),
-        ctypes.byref(g_smem), ctypes.byref(grid)), "fused_grad_multi plan")
+        dev.index, m, n, code, ctypes.byref(staged), ctypes.byref(grid)),
+        "fused_grad_multi plan")
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((k, m), **f32)
-    g_part = torch.empty((grid.value, k, n), **f32)
-    f_part = torch.empty((grid.value, k), **f32)
+    # The staged path keeps a running G and a group partial a block.
+    g_part = torch.empty((grid.value, 1 + staged.value, k, n), **f32)
+    f_part = torch.empty((grid.value, 2, k), **f32)
     g = torch.empty((k, n), **f32)
     f = torch.empty(k, **f32)
     _build.check(lib.repro_fused_grad_multi(
         dev.index, a.data_ptr(), code, x.data_ptr(), t.data_ptr(),
-        w.data_ptr(), m, n, k, bm.value, staged.value, g_smem.value,
-        grid.value, LOSSES.index(loss), float(param), z.data_ptr(),
+        w.data_ptr(), m, n, k, staged.value, grid.value,
+        LOSSES.index(loss), float(param), z.data_ptr(),
         g_part.data_ptr(),
         f_part.data_ptr(), g.data_ptr(), f.data_ptr(), _build.stream(dev)),
         "fused_grad_multi launch")
@@ -286,12 +294,13 @@ def fused_grad_multi(a: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
                      w: torch.Tensor, *, loss: str, param: float = 1.0
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/fused_grad_multi.cu on a CUDA operand: a (m × n) f32 or
-    bf16, row-major; x (k × n); t, w (k × m), 1 ≤ k ≤ MAX_SLOTS.  Returns
-    f32 f (k,), g (k × n), z (k × m).  Replaces the TPU kernel
+    bf16, row-major; x (k × n); t, w (k × m), any k ≥ 1 in one launch.
+    Returns f32 f (k,), g (k × n), z (k × m).  Replaces the TPU kernel
     ``src/repro/kernels/fusedgrad.py:fused_grad_multi``: one read of A
     serves every slot, and each slot's outputs are sums in an order fixed
-    by A's shape alone, so a slot gets the same bits whatever the other
-    slots hold and however many there are (``csrc/fused_grad_multi.cu``)."""
+    by A's shape and storage alone, so a slot gets the same bits whatever
+    the other slots hold and however many there are
+    (``csrc/fused_grad_multi.cu``)."""
     f, g, z = _launch(a, x, t, w, loss, param)
     fused_grad_multi.launches += 1
     return f, g, z

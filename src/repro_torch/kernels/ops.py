@@ -160,7 +160,7 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     target/weights (k, m) over its padded dims → f (k,) f32, g (k, n) in
     x.dtype, z (k, m) f32.  int8 shards compose bsr_matmul at nx = k, the
     row residual and bsr_rmatmul, as the reference does; exact shards take
-    the fused kernel (1 ≤ k ≤ fusedgrad.MAX_SLOTS), which takes any n, so
+    the fused kernel (any k in one launch), which takes any n, so
     the reference's VMEM-budget fallback has no counterpart."""
     if loss not in _fg.LOSSES:
         raise ValueError(f"loss must be one of {_fg.LOSSES}, got {loss!r}")
@@ -192,13 +192,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     bq: int | None = None, bk: int | None = None
                     ) -> torch.Tensor:
-    """q: (B, Hq, S, D), k/v: (B, Hkv, S, D) with Hq a multiple of Hkv.
-    Returns (B, Hq, S, D): softmax(QKᵀ·scale)V with f32 softmax, KV head
-    = q head // (Hq / Hkv)."""
+    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D) with Hq a multiple of Hkv.
+    Returns (B, Hq, Sq, D): softmax(QKᵀ·scale)V with f32 softmax, KV head
+    = q head // (Hq / Hkv).  The causal mask is top-left, as the
+    reference's default dispatch defines it (``tril`` of (Sq, Sk)): query
+    row i sees keys 0..i, so rows ≥ Sk see every key."""
     _no_tiles(bq=bq, bk=bk)
     B, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    if hq % hkv or sq != sk:
+    if hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "conform")
     args = (q.reshape(B * hq, sq, d), k.reshape(B * hkv, sk, d),

@@ -73,8 +73,9 @@ def bsr_rmatmul_ref(a, x: torch.Tensor) -> torch.Tensor:
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: float | None = None, causal: bool = True,
                         q_heads_per_kv: int = 1) -> torch.Tensor:
-    """Naive attention with explicit (S × S) scores, f32 softmax.
-    q: (B·Hq, S, D); k, v: (B·Hkv, S, D), q-head-major per batch element."""
+    """Naive attention with explicit (Sq × Sk) scores, f32 softmax, the
+    causal mask top-left (``tril`` of (Sq, Sk)).  q: (B·Hq, Sq, D);
+    k, v: (B·Hkv, Sk, D), q-head-major per batch element."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q_heads_per_kv > 1:

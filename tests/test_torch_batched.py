@@ -53,7 +53,7 @@ def _close(got, want, tol):
 
 # -- the kernel dispatch ------------------------------------------------------
 
-@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("k", [1, 3, 8, 40])
 @pytest.mark.parametrize("loss", fusedgrad.LOSSES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_fused_grad_multi_matches_pallas(dtype, loss, k):

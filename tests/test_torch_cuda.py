@@ -3,15 +3,18 @@
 Small shapes that still cover every path of each kernel: ragged m and n,
 f32 and bf16 storage, the staged and the unstaged paths of the
 fused_grad_multi kernel (fused_grad is its one-slot launch), slot counts
-from 1 to 32, every gemm block tile, one and several randsketch slices and
+from 1 to 100 (one launch each, across and past 8-slot chunks), a slot's
+bits at k = 1, 40 and 100, every gemm block tile, one and several randsketch slices and
 Q tiles; for the block-sparse kernels every block size from 8 to 128, f32,
 bf16 and int8 blocks, ragged block-row counts and nx (up to past a sparse
 Gram strip's 512 columns), a hot column longer than one rmatmul chunk, and
 fused_grad_bsr's staged and unstaged paths with g in shared and in global
-memory; fused_grad_bsr_multi at every block size, 1 to 32 slots, staged
+memory; fused_grad_bsr_multi at every block size, 1 to 100 slots, staged
 and unstaged, with its slot independence and repeatability bit for bit;
-flash_attention at head dims 32, 64 and 128, 1, 3 and 4 q heads a KV head,
-causal and not, S of 1, 63 and 2049, f32 and bf16; the selective scan at
+a SolverServer group of 40 slots on a dense and on a sparse matrix, one
+launch per A-pass; flash_attention at head dims 32, 64 and 128, 1, 3 and 4
+q heads a KV head, causal and not, query and key lengths of 1, 63 and 2049
+and unequal ones both ways (2048 against 2049 among them), f32 and bf16; the selective scan at
 a channel count off the 128-channel block, N = 8 and 16, S of 1, 37 and
 300, from a nonzero state, with its final state.
 Skips where there is no CUDA device.  Run on the card with
@@ -86,13 +89,18 @@ def _multi_inputs(dev, loss, m, n, k, dtype, seed):
     return a, x, t, w
 
 
+SLOT_COUNTS = [1, 3, 8, 16, 31, 32, 33, 40, 64, 100]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("loss", fusedgrad.LOSSES)
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("k", SLOT_COUNTS)
 @pytest.mark.parametrize("m,n", [(1000, 70), (4099, 1024), (300, 6000)])
 def test_fused_grad_multi_matches_plain(dev, dtype, loss, k, m, n):
     a, x, t, w = _multi_inputs(dev, loss, m, n, k, dtype, m + n + k)
+    launches = fusedgrad.fused_grad_multi.launches
     got = fusedgrad.fused_grad_multi(a, x, t, w, loss=loss, param=0.5)
+    assert fusedgrad.fused_grad_multi.launches == launches + 1
     want = fusedgrad.fused_grad_multi_plain(a, x, t, w, loss=loss,
                                             param=0.5)
     torch.cuda.synchronize()
@@ -106,21 +114,27 @@ def test_fused_grad_multi_matches_plain(dev, dtype, loss, k, m, n):
 
 
 def test_fused_grad_multi_takes_32_slots(dev):
-    a, x, t, w = _multi_inputs(dev, "huber", 2000, 300, 32, torch.float32, 5)
-    got = fusedgrad.fused_grad_multi(a, x, t, w, loss="huber", param=0.5)
-    want = fusedgrad.fused_grad_multi_plain(a, x, t, w, loss="huber",
-                                            param=0.5)
-    torch.cuda.synchronize()
-    assert _rel(got[1], want[1]) <= TOL_SUM and _rel(got[2], want[2]) <= TOL
-    with pytest.raises(ValueError, match="slots"):
-        fusedgrad.fused_grad_multi(a, torch.cat([x, x[:1]]),
-                                   torch.cat([t, t[:1]]),
-                                   torch.cat([w, w[:1]]), loss="quad")
+    """32 slots, and 33 (once the cap), each in one launch; no slot is
+    refused."""
+    a, x, t, w = _multi_inputs(dev, "huber", 2000, 300, 33, torch.float32, 5)
+    for k in (32, 33):
+        launches = fusedgrad.fused_grad_multi.launches
+        got = fusedgrad.fused_grad_multi(a, x[:k], t[:k], w[:k],
+                                         loss="huber", param=0.5)
+        assert fusedgrad.fused_grad_multi.launches == launches + 1
+        want = fusedgrad.fused_grad_multi_plain(a, x[:k], t[:k], w[:k],
+                                                loss="huber", param=0.5)
+        torch.cuda.synchronize()
+        assert _rel(got[1], want[1]) <= TOL_SUM
+        assert _rel(got[2], want[2]) <= TOL
+    with pytest.raises(ValueError, match="one slot or more"):
+        fusedgrad.fused_grad_multi(a, x[:0], t[:0], w[:0], loss="quad")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,n,k", [(4099, 1024, 8), (300, 6000, 4),
-                                   (1000, 70, 16)])
+                                   (1000, 70, 16), (4099, 1024, 40),
+                                   (300, 6000, 33)])
 def test_fused_grad_multi_slots_are_independent(dev, dtype, m, n, k):
     """Slot 0's (f, g, z) are the same bits whatever the other slots hold,
     and zero-weight slots give exactly zero f and g."""
@@ -137,15 +151,45 @@ def test_fused_grad_multi_slots_are_independent(dev, dtype, m, n, k):
     assert bool((f2[1:] == 0).all()) and bool((g2[1:] == 0).all())
 
 
+def _off_boundary(v: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of v that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+    out = buf[1:].view(v.shape)
+    out.copy_(v)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(4099, 1024), (300, 6000), (257, 6001)])
+def test_fused_grad_multi_bits_do_not_depend_on_alignment(dev, dtype, m, n):
+    """A and X that start off a 16-byte boundary (or rows that are not a
+    multiple of 4 elements) load element by element with the same
+    arithmetic: the same bits as aligned copies, on the staged and the
+    unstaged path, and close to the plain version."""
+    a, x, t, w = _multi_inputs(dev, "quad", m, n, 8, dtype, 17)
+    want = fusedgrad.fused_grad_multi(a, x, t, w, loss="quad")
+    got = fusedgrad.fused_grad_multi(_off_boundary(a), _off_boundary(x), t, w,
+                                     loss="quad")
+    plain = fusedgrad.fused_grad_multi_plain(a, x, t, w, loss="quad")
+    torch.cuda.synchronize()
+    for u, v in zip(want, got):
+        assert torch.equal(u, v)
+    assert _rel(got[0], plain[0]) <= TOL and _rel(got[1], plain[1]) <= TOL_SUM
+    assert _rel(got[2], plain[2]) <= TOL
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,n", [(4099, 1024), (300, 6000), (1000, 70),
                                  (257, 16384)])
 def test_fused_grad_multi_slot_bits_do_not_depend_on_the_slot_count(
         dev, dtype, m, n):
     """A request gets the same bits alone (k = 1, and fused_grad, its
-    one-slot launch) as in a group of 3, 8 or 16: the row blocking and the
-    grid follow from A's shape alone."""
-    a, x, t, w = _multi_inputs(dev, "huber", m, n, 16, dtype, 13)
+    one-slot launch) as in a group of 3, 8, 16, 40 or 100: the row tiling,
+    the grid and the chunk width follow from A's shape and storage
+    alone."""
+    a, x, t, w = _multi_inputs(dev, "huber", m, n, 100, dtype, 13)
     alone = fusedgrad.fused_grad_multi(a, x[:1], t[:1], w[:1], loss="huber",
                                        param=0.5)
     single = fusedgrad.fused_grad(a, x[0], t[0], w[0], loss="huber",
@@ -154,7 +198,7 @@ def test_fused_grad_multi_slot_bits_do_not_depend_on_the_slot_count(
     assert [v.shape for v in single] == [(), (n,), (m,)]
     for u, v in zip(single, alone):
         assert torch.equal(u, v[0])
-    for k in (3, 8, 16):
+    for k in (3, 8, 16, 40, 100):
         group = fusedgrad.fused_grad_multi(a, x[:k], t[:k], w[:k],
                                            loss="huber", param=0.5)
         torch.cuda.synchronize()
@@ -361,14 +405,14 @@ def _bsr_multi_inputs(dev, a, k, loss, seed):
     return x, t, w
 
 
-# (bs, nbr, nbc, ell): staged at bs 8, 32 (S's shape) and 64; unstaged at
-# bs 16 (the X slab of 32 slots passes its budget) and 128 (the tile does).
+# (bs, nbr, nbc, ell): staged at bs 8, 16, 32 (S's shape) and 64, and at
+# bs 128 in bf16; unstaged at bs 128 in f32 (the block-row passes 64 KB).
 BSR_MULTI_SHAPES = [(8, 301, 40, 7), (16, 90, 60, 40), (32, 150, 16, 16),
                     (64, 33, 20, 3), (128, 9, 5, 2)]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("k", [1, 2, 8, 17, 32])
+@pytest.mark.parametrize("k", [1, 2, 8, 17, 31, 32, 33, 40, 64, 100])
 @pytest.mark.parametrize("loss", fusedgrad.LOSSES)
 @pytest.mark.parametrize("bs,nbr,nbc,ell", BSR_MULTI_SHAPES)
 def test_fused_grad_bsr_multi_matches_plain(dev, dtype, k, loss, bs, nbr,
@@ -376,7 +420,9 @@ def test_fused_grad_bsr_multi_matches_plain(dev, dtype, k, loss, bs, nbr,
     a = _random_bell(dev, nbr, nbc, ell, bs, dtype, nbr + ell)
     m, n = a.shape
     x, t, w = _bsr_multi_inputs(dev, a, k, loss, m + k)
+    launches = fusedgrad.fused_grad_bsr_multi.launches
     got = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss=loss, param=0.5)
+    assert fusedgrad.fused_grad_bsr_multi.launches == launches + 1
     want = fusedgrad.fused_grad_bsr_multi_plain(a, x, t, w, loss=loss,
                                                 param=0.5)
     torch.cuda.synchronize()
@@ -409,12 +455,13 @@ def test_fused_grad_bsr_multi_hot_column(dev, dtype):
 def test_fused_grad_bsr_multi_slots_are_independent(dev, dtype, bs, nbr, nbc,
                                                     ell):
     """A request gets the same bits alone (k = 1), in slot 0 among 7 random
-    neighbours, and in slot 5 among 31 others; zero-weight slots give
-    exactly zero f and g."""
+    neighbours, in slot 5 among 31 others, in slot 17 among 39 and in slot
+    41 among 99; zero-weight slots (the upper half) give exactly zero f
+    and g."""
     a = _random_bell(dev, nbr, nbc, ell, bs, dtype, 5)
     x, t, w = _bsr_multi_inputs(dev, a, 1, "logistic", 6)
     alone = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="logistic")
-    for k, slot in ((8, 0), (32, 5)):
+    for k, slot in ((8, 0), (32, 5), (40, 17), (100, 41)):
         x2, t2, w2 = _bsr_multi_inputs(dev, a, k, "logistic", 7 + k)
         x2[slot], t2[slot], w2[slot] = x[0], t[0], w[0]
         w2[k // 2:] = 0.0
@@ -427,16 +474,80 @@ def test_fused_grad_bsr_multi_slots_are_independent(dev, dtype, bs, nbr, nbc,
         assert bool((group[1][k // 2:] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_grad_bsr_multi_bits_do_not_depend_on_alignment(dev, dtype):
+    """An X that starts off a 16-byte boundary is copied to an aligned
+    tensor before the staged kernel runs (the same bits as an aligned X);
+    blocks that start off one are refused, never sent down another path."""
+    a = _random_bell(dev, 150, 16, 16, 32, dtype, 19)
+    x, t, w = _bsr_multi_inputs(dev, a, 8, "quad", 20)
+    want = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="quad")
+    got = fusedgrad.fused_grad_bsr_multi(a, _off_boundary(x), t, w,
+                                         loss="quad")
+    torch.cuda.synchronize()
+    for u, v in zip(want, got):
+        assert torch.equal(u, v)
+    shifted = bsr.BlockELL(_off_boundary(a.data), a.cols, a.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fusedgrad.fused_grad_bsr_multi(shifted, x, t, w, loss="quad")
+
+
 def test_fused_grad_bsr_multi_refuses_what_it_does_not_take(dev):
+    """No slot count is refused but none; 33 slots (once past the cap)
+    run against their plain version."""
     a = _random_bell(dev, 10, 6, 2, 8, "f32", 1)
     x, t, w = _bsr_multi_inputs(dev, a, 33, "quad", 2)
-    with pytest.raises(ValueError, match="slots"):
-        fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="quad")
+    got = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="quad")
+    want = fusedgrad.fused_grad_bsr_multi_plain(a, x, t, w, loss="quad")
+    torch.cuda.synchronize()
+    assert _rel(got[1], want[1]) <= TOL_SUM and _rel(got[2], want[2]) <= TOL
+    with pytest.raises(ValueError, match="one slot or more"):
+        fusedgrad.fused_grad_bsr_multi(a, x[:0], t[:0], w[:0], loss="quad")
     with pytest.raises(ValueError, match="shapes"):
         fusedgrad.fused_grad_bsr_multi(a, x[:2], t[:3], w[:2], loss="quad")
     with pytest.raises(ValueError, match="int8"):
         fusedgrad.fused_grad_bsr_multi(a.quantize_int8(), x[:2], t[:2],
                                        w[:2], loss="quad")
+
+
+@pytest.mark.parametrize("matrix", ["dense", "sparse"])
+def test_forty_slot_group_launches_once_a_pass(dev, matrix):
+    """A SolverServer group of 40 acc_rb requests on the card: one fused
+    kernel launch for each of the server's A-passes (every 40-slot pass is
+    one launch), and every answer close to the float64 least squares."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core.distmat import RowMatrix, SparseRowMatrix
+    from repro_torch.launch.serve import SolverServer
+
+    rng = np.random.default_rng(40)
+    m, n, k = 4096, 96, 40
+    a = rng.normal(size=(m, n)) / np.sqrt(n)
+    if matrix == "sparse":
+        a *= np.kron(rng.random((m // 16, n // 16)) < 0.4, np.ones((16, 16)))
+    a = a.astype(np.float32)
+    B = (a @ rng.normal(size=(n, k)) + 0.01 * rng.normal(size=(m, k))).T
+    B = B.astype(np.float32)
+    A = (RowMatrix.create(torch.from_numpy(a), device=dev) if matrix == "dense"
+         else SparseRowMatrix.from_dense(a, 16, device=dev))
+    L0 = float(np.linalg.norm(a, 2)) ** 2
+    srv = SolverServer(slots=k)
+    ids = [srv.submit(api.SolveRequest(
+        A=A, b=torch.from_numpy(b).to(dev), method="acc_rb", L0=L0,
+        tol=1e-9, max_iters=300, device=dev)) for b in B]
+    ops.reset_launch_counts()
+    srv.run()
+    torch.cuda.synchronize()
+    kernel = "fused_grad_multi" if matrix == "dense" else "fused_grad_bsr_multi"
+    assert ops.launch_counts()[kernel] == srv.stats["a_passes"] > 0
+    X = np.linalg.lstsq(a.astype(np.float64), B.T.astype(np.float64),
+                        rcond=None)[0]
+    for j, rid in enumerate(ids):
+        r = srv.result(rid)
+        assert r.info["plan"] == "fused-group"
+        assert float(np.abs(r.x.double().cpu().numpy() - X[:, j]).max()) \
+            < 1e-3
 
 
 def test_fused_grad_bsr_multi_int8_composes(dev):
@@ -465,16 +576,18 @@ TOL_ATTN_BF16 = 1e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [1, 63, 2049])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (2049, 2049),
+                                   (63, 130), (130, 63), (1, 100),
+                                   (2048, 2049), (2049, 2048)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 3, 4])
 @pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
-def test_flash_attention_matches_plain(dev, D, group, causal, S, dtype):
-    g = _gen(dev, D + 7 * group + S)
+def test_flash_attention_matches_plain(dev, D, group, causal, sq, sk, dtype):
+    g = _gen(dev, D + 7 * group + sq + 3 * sk)
     bkv = 2
-    q = torch.randn(bkv * group, S, D, generator=g, device=dev).to(dtype)
-    k = torch.randn(bkv, S, D, generator=g, device=dev).to(dtype)
-    v = torch.randn(bkv, S, D, generator=g, device=dev).to(dtype)
+    q = torch.randn(bkv * group, sq, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(bkv, sk, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(bkv, sk, D, generator=g, device=dev).to(dtype)
     got = flash_attention.flash_attention(q, k, v, causal=causal,
                                           q_heads_per_kv=group)
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal,

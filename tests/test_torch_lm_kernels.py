@@ -1,6 +1,7 @@
 """The port's LM kernels' plain versions against the reference, on the CPU.
 
 flash_attention (causal and not; MHA, GQA 2:1 and 4:1; a ragged S of 50;
+query and key lengths that differ, both ways;
 f32 and bf16) and the Mamba1 selective_scan (ragged d and S, N = 8 and 16,
 a starting state, the final state) take the same numpy inputs in both
 packages.  The reference runs its Pallas kernels in interpret mode
@@ -81,6 +82,50 @@ def test_flash_attention_matches_reference(B, hq, hkv, S, D, causal, dtype):
                                     bk=128 if causal else S,
                                     force_pallas=True)
         np.testing.assert_allclose(_np32(got), _np32(kern), **tol)
+
+
+def _qkv2(B, hq, hkv, sq, sk, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    npdt = ml_dtypes.bfloat16 if dtype == "bf16" else np.float32
+    return [rng.normal(size=(B, h, s, D)).astype(npdt)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("sq,sk", [(8, 12), (16, 12), (1, 33), (40, 7)])
+def test_flash_attention_query_and_key_lengths_differ(sq, sk, group, causal,
+                                                      dtype):
+    """Sq ≠ Sk against the reference's default dispatch (its jnp oracle on
+    the CPU): the causal mask is top-left, so query rows ≥ Sk see every
+    key."""
+    B, hkv, D = 2, 2, 16
+    q, k, v = _qkv2(B, hkv * group, hkv, sq, sk, D, dtype,
+                    seed=sq * 100 + sk + group)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.shape == (B, hkv * group, sq, D)
+    assert got.dtype == _t(q).dtype
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(_np32(got), _np32(want),
+                               **(F32 if dtype == "f32" else BF16))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq", [40, 200])
+def test_flash_attention_lengths_differ_against_the_pallas_kernel(sq,
+                                                                  causal):
+    """The reference's Pallas kernel (interpret mode) at Sk = 128, a
+    multiple of its key tile bk = 128.  Only there: its wrapper pads K to
+    bk with zeros, and for causal Sq > Sk with a ragged Sk the rows ≥ Sk
+    then attend to the padded keys, which its default dispatch does not."""
+    q, k, v = _qkv2(1, 4, 2, sq, 128, 32, "f32", seed=sq)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    kern = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, bq=16,
+                                bk=128, force_pallas=True)
+    np.testing.assert_allclose(_np32(got), _np32(kern), **F32)
 
 
 def test_flash_attention_scale_and_port_oracle():

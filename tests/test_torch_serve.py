@@ -57,6 +57,33 @@ class TestGroupParity:
             assert g.info["plan"] == "fused-group"
             assert float((g.x - s.x).abs().max()) < 1e-4, method
 
+    def test_forty_slot_group_matches_serial_solves(self):
+        """One acc_rb group of 40 slots (five 8-slot chunks of the fused
+        kernel, past its former 32-slot cap) answers as the same requests
+        served one at a time and as api.solve, request by request; its
+        A-passes are the group passes while resident."""
+        m, n, k = 131, 16, 40
+        A, bs = _trace(m, n, k, seed=40)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            grouped, serial = SolverServer(slots=k), SolverServer(slots=1)
+            ids = [grouped.submit(_request(A, b, "acc_rb")) for b in bs]
+            sids = [serial.submit(_request(A, b, "acc_rb")) for b in bs]
+            grouped.run()
+            serial.run()
+            assert grouped.stats["a_passes"] == max(
+                grouped.result(i).info["a_passes"] for i in ids)
+            for rid, sid, b in zip(ids, sids, bs):
+                g, s = grouped.result(rid), serial.result(sid)
+                d = api.solve(_request(A, b, "acc_rb"))
+                assert g.info["plan"] == "fused-group"
+                assert g.info["converged"] and s.info["converged"]
+                assert float((g.x - s.x).abs().max()) < 1e-4
+                assert float((g.x - d.x).abs().max()) < 1e-4
+        finally:
+            torch.set_num_threads(threads)
+
     def test_group_solutions_correct(self):
         m, n, k = 120, 12, 5
         A, bs = _trace(m, n, k, seed=3)

@@ -301,3 +301,33 @@ def test_sparse_group_matches_serial_and_direct_solves():
         assert g.info["converged"] and s.info["converged"]
         assert float((g.x - s.x).abs().max()) < 1e-4
         assert float((g.x - d.x).abs().max()) < 1e-4
+
+
+def test_forty_slot_sparse_group_matches_serial_solves():
+    """One acc_rb group of 40 slots on a SparseRowMatrix (five 8-slot
+    chunks of the fused kernel, past its former 32-slot cap), the same
+    requests served one at a time, and api.solve agree request by request;
+    the group's A-passes are the group passes while resident."""
+    a, _, _ = _trace_problem(seed=41)
+    _, port = _pair(a, 8)
+    rng = np.random.default_rng(42)
+    B = (rng.normal(size=(40, 61)) @ a.T
+         + 0.01 * rng.normal(size=(40, 163))).astype(np.float32)
+    L0 = float(np.linalg.norm(a, 2)) ** 2
+    reqs = lambda: [api.SolveRequest(A=port, b=b, L0=L0, tol=1e-8,  # noqa
+                                     method="acc_rb", max_iters=2000,
+                                     device="cpu") for b in B]
+    grouped, serial = SolverServer(slots=40), SolverServer(slots=1)
+    gids = [grouped.submit(r) for r in reqs()]
+    sids = [serial.submit(r) for r in reqs()]
+    grouped.run()
+    serial.run()
+    assert grouped.stats["a_passes"] == max(
+        grouped.result(i).info["a_passes"] for i in gids)
+    for gid, sid, r in zip(gids, sids, reqs()):
+        g, s = grouped.result(gid), serial.result(sid)
+        d = api.solve(r)
+        assert g.info["plan"] == "fused-group"
+        assert g.info["converged"] and s.info["converged"]
+        assert float((g.x - s.x).abs().max()) < 1e-4
+        assert float((g.x - d.x).abs().max()) < 1e-4
