@@ -69,8 +69,10 @@ with nvcc, then:
               then falcon-mamba-7b (64 Mamba1 layers, bf16 weights, f32
               scan), each at full width and depth with weights drawn from
               a seed, the earlier phases' matrices freed first.  The
-              prefill launches flash_attention (llama) or selective_scan
-              (mamba) once a layer and a decode step none.  Then each
+              prefill launches flash_attention (llama; bf16, so its
+              tensor-core variant, counted apart from the f32 one) or
+              selective_scan (mamba) once a layer and a decode step
+              none.  Then each
               kernel against its plain version on layer 0's real inputs
               (flash_attention in bf16 and f32, bf16 at S = 2049, and
               bf16 causal with 2048 queries against 2049 keys;
@@ -88,7 +90,9 @@ int8 storage; bsr_matmul at nx = 16, bsr_rmatmul at nx = 1 and 16,
 fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16, 40,
 every loss, f32 and bf16 storage, one launch a call, slot independence;
 the int8 composition at k = 8) on S, just before phase 6.  After the build
-it prints each multi-slot kernel's registers and spill bytes from ptxas.  fused_grad is fused_grad_multi's
+it prints each multi-slot kernel's and flash_attention's registers and
+spill bytes from ptxas, and fails if flash_attention's tensor-core variant
+spills or ptxas serialized its wgmmas.  fused_grad is fused_grad_multi's
 kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
@@ -270,19 +274,23 @@ def one_launch(kernel, call, what: str):
     return out
 
 
-def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu")
-                 ) -> list:
-    """Registers and spill bytes of every kernel in `sources`, from the
-    ptxas report of the build (kernels/_build.py's build_log)."""
+def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu",
+                          "flash_attention.cu")) -> list:
+    """Registers and spill bytes of every kernel in `sources`, and whether
+    ptxas serialized its wgmmas, from the ptxas report of the build
+    (kernels/_build.py's build_log)."""
     from repro_torch.kernels import _build
 
     rows, section, name, spill = [], None, None, None
+    serialized = set()
     for line in _build.build_log().read_text().splitlines():
         line = line.strip()
         if line.startswith("== "):
             section = line[3:]
         elif section not in sources:
             continue
+        elif "wgmma.mma_async instructions are serialized" in line:
+            serialized.add(line.split("'")[1])
         elif line.startswith("ptxas info") and "Compiling entry" in line:
             name = line.split("'")[1]
         elif "bytes spill stores" in line:
@@ -294,6 +302,8 @@ def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu")
                          "spill_store_bytes": spill[0] if spill else None,
                          "spill_load_bytes": spill[1] if spill else None})
             name, spill = None, None
+    for r in rows:
+        r["wgmma_serialized"] = r["kernel"] in serialized
     try:
         names = subprocess.run(["c++filt"], input="\n".join(
             r["kernel"] for r in rows), capture_output=True, text=True,
@@ -1798,7 +1808,8 @@ def check_flash(params, cfg, tokens) -> dict:
         require(bool(torch.isfinite(got).all()) and e <= lim,
                 f"flash_attention {key}: relative error {e:.3e} > {lim}")
         rec = {"rel_err": e, "max_abs_err": max_abs(got, want),
-               "shape": list(q.shape), "group": g}
+               "shape": list(q.shape), "group": g,
+               "variant": fa.VARIANTS[q.dtype]}
         if key == "bf16_sq_ne_sk":
             rec["kv_shape"] = list(k.shape)
         del got, want
@@ -1819,13 +1830,14 @@ def check_flash(params, cfg, tokens) -> dict:
                     q4, k4, v4, is_causal=True, enable_gqa=True))
             sdpa = (f"{rec['library_ms']:.3f}" if rec["library_ms"]
                     else rec["library_error"])
-            print(f"[lm] flash_attention {key}: kernel {rec['ms']:.3f} ms | "
+            print(f"[lm] flash_attention {key} ({rec['variant']}): kernel "
+                  f"{rec['ms']:.3f} ms | "
                   f"plain {rec['plain_ms']:.3f} | SDPA {sdpa} | bound "
                   f"{rec['bound_ms']:.3f} ({rec['bound_by']}), share "
                   f"{rec['bound_ms'] / rec['ms']:.3f} | rel err {e:.2e}")
         else:
-            print(f"[lm] flash_attention {key} (Sq = {q.shape[1]}, Sk = "
-                  f"{k.shape[1]}): rel err {e:.2e}")
+            print(f"[lm] flash_attention {key} ({rec['variant']}; Sq = "
+                  f"{q.shape[1]}, Sk = {k.shape[1]}): rel err {e:.2e}")
         out[key] = rec
         del q, k, v
     return out
@@ -1901,6 +1913,7 @@ def run_lm(dev) -> dict:
     layer 0's real inputs, and prefill against decode at full size (bf16)
     and at full width and LM_F32_LAYERS layers in f32."""
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_llm import generate
     from repro_torch.models import build
@@ -1923,12 +1936,20 @@ def run_lm(dev) -> dict:
         toks, times = generate(model, params, prompt, LM_GEN)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        variants = dict(fa.flash_attention.variant_launches)
         # ------------------------------------------------------------------
-        print(f"[main path] {arch}: launches {counts}")
+        print(f"[main path] {arch}: launches {counts}; flash_attention by "
+              f"variant {variants}")
         for name, c in counts.items():
             want = cfg.num_layers if name == kernel else 0
             require(c == want, f"{arch}: {name} launched {c} times in one "
                     f"generate, want {want} (one a layer, in prefill only)")
+        # The bf16 prefill runs the tensor-core variant alone.
+        tc = fa.VARIANTS[torch.bfloat16]
+        for name, c in variants.items():
+            want = counts["flash_attention"] if name == tc else 0
+            require(c == want, f"{arch}: flash_attention variant {name} "
+                    f"launched {c} times in one generate, want {want}")
         require(toks.shape == (LM_BATCH, LM_GEN)
                 and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
                 f"{arch}: greedy tokens outside the vocabulary")
@@ -1947,7 +1968,8 @@ def run_lm(dev) -> dict:
                 f"{arch}: decode logits not finite")
         del caches, logits
         warm = generate(model, params, prompt, LM_GEN)[1]
-        rec = {"init_s": init_s, "launches": counts, "cold": times,
+        rec = {"init_s": init_s, "launches": counts,
+               "flash_attention_variant_launches": variants, "cold": times,
                "warm": warm,
                "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
                "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
@@ -1965,6 +1987,8 @@ def run_lm(dev) -> dict:
         check = check_flash if kernel == "flash_attention" else check_scan
         out["kernels"][kernel] = check(params, cfg, tokens)
         out["kernels"][kernel]["launches"] = counts[kernel]
+        if kernel == "flash_attention":
+            out["kernels"][kernel]["variant_launches"] = variants
         e = prefill_vs_decode(model, params, tokens)
         rec["prefill_vs_decode_bf16"] = e
         require(e <= TOL_LM["pvd_bf16"], f"{arch}: bf16 prefill against "
@@ -2276,6 +2300,9 @@ def smoke(dev: torch.device) -> dict:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"],
             "dtype": "bf16" if name == "flash_attention" else "f32",
+            **({"variant": main["variant"],
+                "variant_launches": recs["variant_launches"]}
+               if name == "flash_attention" else {}),
             "checks": recs})
     return {"kernels": rows, "svd": svd_rec, "solves": solves,
             "serve": serve_rec, "sparse": sparse_rec,
@@ -2303,7 +2330,13 @@ def main() -> int:
     for r in ptxas:
         print(f"[ptxas] {r['kernel']}: {r['registers']} registers, "
               f"{r['spill_store_bytes']} bytes spill stores, "
-              f"{r['spill_load_bytes']} bytes spill loads")
+              f"{r['spill_load_bytes']} bytes spill loads"
+              + (", wgmma serialized" if r["wgmma_serialized"] else ""))
+    tc = [r for r in ptxas if "flash_fwd_tc" in r["kernel"]]
+    require(len(tc) == 3 and all(
+        r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+        and not r["wgmma_serialized"] for r in tc),
+        f"flash_attention's tensor-core variant spills or serializes: {tc}")
 
     summary = smoke(dev)
     summary["ptxas"] = ptxas

@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.distmat.types import resolve_device
+
 
 def _orthogonalize(w: torch.Tensor, V: torch.Tensor, upto: int
                    ) -> torch.Tensor:
@@ -32,10 +34,10 @@ def _orthogonalize(w: torch.Tensor, V: torch.Tensor, upto: int
 
 def lanczos_eigsh(op: Callable[[torch.Tensor], torch.Tensor], n: int, k: int,
                   *, ncv: int | None = None, max_restarts: int = 40,
-                  tol: float = 1e-6, seed: int = 0, device="cpu"
+                  tol: float = 1e-6, seed: int = 0, device="cuda"
                   ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Top-k eigenpairs of a symmetric PSD operator `op` of size n, in
-    float32 on `device`.
+    float32 on `device` (the card unless the caller asks for the CPU).
 
     Returns (eigenvalues descending (k,), eigenvectors (n, k), info) with
     info["restarts"], ["resid"] (the k Ritz residual estimates),
@@ -43,7 +45,7 @@ def lanczos_eigsh(op: Callable[[torch.Tensor], torch.Tensor], n: int, k: int,
     ncv = ncv or min(n, max(2 * k + 1, 20))
     if not (k < ncv <= n):
         raise ValueError(f"need k < ncv <= n, got k={k} ncv={ncv} n={n}")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     v0 = torch.randn(n, generator=gen, device=dev, dtype=f32)

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.distmat.types import resolve_device
 from repro_torch.core.tfocs.smooth import RowSeparable
 
 REGS = ("none", "l1", "l2")
@@ -109,8 +110,8 @@ class GraGroupState(NamedTuple):
     bt: torch.Tensor       # (S,)  per-slot cumulative backtracks
 
 
-def gra_group_init(slots: int, n: int, *, device="cpu") -> GraGroupState:
-    kw = dict(device=device)
+def gra_group_init(slots: int, n: int, *, device="cuda") -> GraGroupState:
+    kw = dict(device=resolve_device(device))
     return GraGroupState(
         X=torch.zeros((slots, n), dtype=_F32, **kw),
         F=torch.zeros(slots, dtype=_F32, **kw),
@@ -210,7 +211,8 @@ class AccGroupState(NamedTuple):
 
 
 def acc_group_init(slots: int, n: int, m_pad: int, *,
-                   device="cpu") -> AccGroupState:
+                   device="cuda") -> AccGroupState:
+    device = resolve_device(device)
     kw = dict(dtype=_F32, device=device)
     zn = lambda: torch.zeros((slots, n), **kw)        # noqa: E731
     zm = lambda: torch.zeros((slots, m_pad), **kw)    # noqa: E731
@@ -359,7 +361,8 @@ class LbfgsGroupState(NamedTuple):
 
 
 def lbfgs_group_init(slots: int, n: int, mem: int = 10, *,
-                     device="cpu") -> LbfgsGroupState:
+                     device="cuda") -> LbfgsGroupState:
+    device = resolve_device(device)
     kw = dict(dtype=_F32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return LbfgsGroupState(

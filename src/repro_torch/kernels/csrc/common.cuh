@@ -1,10 +1,11 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Storage types are f32 or bf16 (and int8 for the block-sparse kernels,
-// with a per-block f32 scale); every kernel upcasts what it loads to f32 in
-// registers and accumulates in f32 on the CUDA cores (no tensor cores, no
-// TF32), as the TPU kernels upcast their VMEM tiles.  The C entry points
-// take a dtype code per operand and return cudaGetLastError().
+// with a per-block f32 scale); the kernels upcast what they load to f32 in
+// registers and accumulate in f32 on the CUDA cores (no TF32), as the TPU
+// kernels upcast their VMEM tiles, except flash_attention in bf16, which
+// multiplies bf16 on the tensor cores into f32 (hopper.cuh).  The C entry
+// points take a dtype code per operand and return cudaGetLastError().
 #pragma once
 
 #include <cuda_bf16.h>

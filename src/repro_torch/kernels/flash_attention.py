@@ -4,14 +4,18 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
 flash_attention`` (``_flash_kernel``): prefill attention of the LM serving
 path.  On the H100 it is bound by operations (4·D flops a live query–key
 pair against one read of q, k, v and one write of o).
-``csrc/flash_attention.cu`` gives one block each (b·hq, 64-query tile), walks
-the 64-key tiles in a loop (skipping those past the causal diagonal),
-stages K and V in shared memory in f32, keeps the online-softmax state and
-the output tile in registers, and runs f32 FMA on the CUDA cores; the
-kernel chooses its own tiles.  The KV row of a query row is bh // group,
-so repeated KV heads are never materialized; query and key lengths may
-differ (Sq against Sk, the causal mask top-left as in the reference's
-``tril((Sq, Sk))``), and the ragged edges of both are masked in the kernel.
+``csrc/flash_attention.cu`` has two variants, chosen by dtype.  bf16 (the
+prefill's type) runs on the tensor cores: a block of two consumer
+warpgroups owns a (b·hq, 128-query tile) and walks the 128-key tiles
+(skipping those past the causal diagonal), which one producer warp brings
+in by TMA through a two-stage ring; QKᵀ and PV are both ``wgmma``, with p
+rounded to bf16 as the A fragment of PV, and the online-softmax state and
+the output tile stay in registers.  f32 runs on the CUDA cores (f32 FMA,
+64-query blocks), as the tensor cores have no f32 product at f32
+precision.  The KV row of a query row is bh // group, so repeated KV heads
+are never materialized; query and key lengths may differ (Sq against Sk,
+the causal mask top-left as in the reference's ``tril((Sq, Sk))``), and
+the ragged edges of both are masked in the kernel.
 
 ``flash_attention_plain`` is the same function in plain torch: explicit
 (Sq × Sk) scores, f32 softmax, GQA by ``repeat_interleave``.
@@ -26,6 +30,8 @@ from . import _build
 from . import ref as _ref
 
 HEAD_DIMS = (32, 64, 128)
+# The kernel variant each dtype launches.
+VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,8 +47,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, causal: bool = True,
                     q_heads_per_kv: int = 1) -> torch.Tensor:
     """Launch csrc/flash_attention.cu on contiguous CUDA q (B·Hq, Sq, D)
-    and k, v (B·Hkv, Sk, D) of one dtype (f32 or bf16), D in HEAD_DIMS and
-    B·Hq = B·Hkv · q_heads_per_kv; returns o (B·Hq, Sq, D) in q.dtype."""
+    and k, v (B·Hkv, Sk, D) of one dtype (f32 or bf16), each starting on a
+    16-byte boundary, D in HEAD_DIMS and B·Hq = B·Hkv · q_heads_per_kv;
+    returns o (B·Hq, Sq, D) in q.dtype.  Counts the launch in
+    ``flash_attention.launches`` and in ``flash_attention.variant_launches``
+    under its variant (``VARIANTS``)."""
     dev = _build.check_device(q, k, v)
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
         raise ValueError(f"q, k, v must be (BH, S, D); got {tuple(q.shape)}, "
@@ -61,6 +70,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _build.dtype_code(q, "q")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on a 16-byte boundary")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     _build.check(_build.lib().repro_flash_attention(
@@ -68,7 +79,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code, bhq, sq, sk, d, q_heads_per_kv, scale, int(causal),
         _build.stream(dev)), "flash_attention launch")
     flash_attention.launches += 1
+    flash_attention.variant_launches[VARIANTS[q.dtype]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(VARIANTS.values(), 0)

@@ -43,8 +43,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count, and its per-variant counts where
+    it has variants (flash_attention)."""
     for fn in KERNELS.values():
         fn.launches = 0
+        for variant in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[variant] = 0
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:

@@ -164,6 +164,23 @@ def test_requests_default_to_the_card(monkeypatch):
         api.solve(api.SolveRequest(A=cpu, b=b))
 
 
+@pytest.mark.parametrize("entry", ["lanczos_eigsh", "gra_group_init",
+                                   "acc_group_init", "lbfgs_group_init"])
+def test_engine_entry_points_default_to_the_card(monkeypatch, entry):
+    """Lanczos and the group engines' state constructors, called without
+    a device, go to the card and raise where there is none."""
+    from repro_torch.core.linalg import lanczos_eigsh
+    from repro_torch.core.optim import batched
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"lanczos_eigsh": lambda: lanczos_eigsh(lambda v: v, 30, 2),
+            "gra_group_init": lambda: batched.gra_group_init(2, 5),
+            "acc_group_init": lambda: batched.acc_group_init(2, 5, 7),
+            "lbfgs_group_init": lambda: batched.lbfgs_group_init(2, 5)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call[entry]()
+
+
 def _imports(path):
     """Top-level module names a file imports (absolute imports only)."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

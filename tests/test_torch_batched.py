@@ -212,7 +212,7 @@ def _engines(method, loss, reg, seed):
         ts, tst = batched.make_gra_group(tl, loss, reg=reg)
         jstate = jbatched.gra_group_init(SLOTS, N)._replace(
             L=jnp.asarray(L0))
-        tstate = batched.gra_group_init(SLOTS, N)._replace(L=_t(L0))
+        tstate = batched.gra_group_init(SLOTS, N, device="cpu")._replace(L=_t(L0))
     elif method in ("acc", "acc_rb"):
         rb = method == "acc_rb"
         js, jst = jbatched.make_acc_group(jl, loss, reg=reg,
@@ -221,12 +221,12 @@ def _engines(method, loss, reg, seed):
                                          backtracking=rb, restart=rb)
         jstate = jbatched.acc_group_init(SLOTS, N, M)._replace(
             L=jnp.asarray(L0))
-        tstate = batched.acc_group_init(SLOTS, N, M)._replace(L=_t(L0))
+        tstate = batched.acc_group_init(SLOTS, N, M, device="cpu")._replace(L=_t(L0))
     else:
         js, jst = jbatched.make_lbfgs_group(jl, loss)
         ts, tst = batched.make_lbfgs_group(tl, loss)
         jstate = jbatched.lbfgs_group_init(SLOTS, N)
-        tstate = batched.lbfgs_group_init(SLOTS, N)
+        tstate = batched.lbfgs_group_init(SLOTS, N, device="cpu")
     data = (T, W) if method == "lbfgs" else (T, W, lam)
     jargs = tuple(jnp.asarray(v) for v in data)
     targs = tuple(_t(v) for v in data)

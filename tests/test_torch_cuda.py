@@ -14,7 +14,11 @@ and unstaged, with its slot independence and repeatability bit for bit;
 a SolverServer group of 40 slots on a dense and on a sparse matrix, one
 launch per A-pass; flash_attention at head dims 32, 64 and 128, 1, 3 and 4
 q heads a KV head, causal and not, query and key lengths of 1, 63 and 2049
-and unequal ones both ways (2048 against 2049 among them), f32 and bf16; the selective scan at
+and unequal ones both ways (2048 against 2049 among them), f32 and bf16,
+key lengths off the bf16 kernel's 128-key tile, scores near 50, four KV
+heads each read by the right q heads, the same bits twice and a launch
+count for each variant (bf16 on the tensor cores, f32 on the CUDA cores);
+the selective scan at
 a channel count off the 128-channel block, N = 8 and 16, S of 1, 37 and
 300, from a nonzero state, with its final state.
 Skips where there is no CUDA device.  Run on the card with
@@ -598,6 +602,94 @@ def test_flash_attention_matches_plain(dev, D, group, causal, sq, sk, dtype):
                                else TOL_ATTN_BF16)
 
 
+def _attn_inputs(dev, bkv, group, sq, sk, D, dtype, seed):
+    g = _gen(dev, seed)
+    return (torch.randn(bkv * group, sq, D, generator=g, device=dev).to(dtype),
+            torch.randn(bkv, sk, D, generator=g, device=dev).to(dtype),
+            torch.randn(bkv, sk, D, generator=g, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_attention_repeats_bit_for_bit(dev, D, dtype):
+    """Fixed sum orders and no atomics: two launches, the same bits."""
+    q, k, v = _attn_inputs(dev, 2, 3, 300, 300, D, dtype, seed=D)
+    got = flash_attention.flash_attention(q, k, v, q_heads_per_kv=3)
+    again = flash_attention.flash_attention(q, k, v, q_heads_per_kv=3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sk", [127, 129, 200, 383])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_attention_ragged_key_tile_bf16(dev, D, sk, causal):
+    """Key lengths off the tensor-core kernel's 128-key tile: the last
+    tile's missing keys arrive as zeros and must not count."""
+    q, k, v = _attn_inputs(dev, 2, 3, 256, sk, D, torch.bfloat16,
+                           seed=D + sk)
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          q_heads_per_kv=3)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 q_heads_per_kv=3)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TOL_ATTN_BF16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_attention_large_logits(dev, D, dtype):
+    """Scores up to about 50 in size, so the running max moves by tens
+    from one key tile to the next and the rescale of O and l counts."""
+    q, k, v = _attn_inputs(dev, 2, 3, 520, 520, D, torch.float32, seed=5)
+    # s = q·k / sqrt(D) is N(0, 1) for unit normals; q * 10 makes it
+    # N(0, 100), whose largest of 3 · 520² draws is near 50.
+    q, k, v = (q * 10.0).to(dtype), k.to(dtype), v.to(dtype)
+    scores = (q[:3].float() @ k[:1].float().transpose(1, 2)) / D ** 0.5
+    assert scores.abs().max() >= 40.0
+    got = flash_attention.flash_attention(q, k, v, q_heads_per_kv=3)
+    want = flash_attention.flash_attention_plain(q, k, v, q_heads_per_kv=3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= (TOL if dtype == torch.float32
+                               else TOL_ATTN_BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kv_row_across_heads(dev, dtype):
+    """Four KV heads, three q heads each: q head h reads KV head h // 3.
+    Each q head alone against its KV head gives the same bits as the
+    grouped launch, and the KV heads differ, so a wrong row would show."""
+    q, k, v = _attn_inputs(dev, 4, 3, 200, 200, 128, dtype, seed=11)
+    scale = torch.arange(1, 5, device=dev, dtype=dtype)[:, None, None]
+    k, v = (k * scale).contiguous(), (v * scale).contiguous()
+    got = flash_attention.flash_attention(q, k, v, q_heads_per_kv=3)
+    for h in range(12):
+        alone = flash_attention.flash_attention(
+            q[h:h + 1].contiguous(), k[h // 3:h // 3 + 1].contiguous(),
+            v[h // 3:h // 3 + 1].contiguous())
+        assert torch.equal(got[h:h + 1], alone), h
+    want = flash_attention.flash_attention_plain(q, k, v, q_heads_per_kv=3)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= (TOL if dtype == torch.float32
+                               else TOL_ATTN_BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_counts_its_variant(dev, dtype):
+    """A bf16 call launches the tensor-core variant alone, an f32 call the
+    CUDA-core one; ops.reset_launch_counts zeroes both counts."""
+    q, k, v = _attn_inputs(dev, 1, 2, 70, 70, 64, dtype, seed=1)
+    ops.reset_launch_counts()
+    assert set(flash_attention.flash_attention.variant_launches.values()) \
+        == {0}
+    flash_attention.flash_attention(q, k, v, q_heads_per_kv=2)
+    mine = flash_attention.VARIANTS[dtype]
+    assert flash_attention.flash_attention.variant_launches == {
+        name: int(name == mine) for name in
+        flash_attention.VARIANTS.values()}
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
 def test_flash_attention_dispatch_counts_launches(dev):
     g = _gen(dev, 3)
     q = torch.randn(2, 6, 100, 64, generator=g, device=dev)
@@ -626,6 +718,10 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
     q = torch.randn(4, 16, 64, device=dev)
     with pytest.raises(ValueError, match="conform"):
         flash_attention.flash_attention(q, q[:3], q[:3], q_heads_per_kv=2)
+    q = torch.randn(4 * 16 * 64 + 1, device=dev,
+                    dtype=torch.bfloat16)[1:].view(4, 16, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.flash_attention(q, q, q)
 
 
 def _scan_args(dev, Bt, S, d, N, seed):

@@ -50,7 +50,7 @@ def test_lanczos_eigsh_matches_numpy(n, k):
     M = ((q * w) @ q.T).astype(np.float32)
     Mt = torch.from_numpy(M)
     vals, vecs, info = lanczos_eigsh(lambda v: Mt @ v, n, k, tol=1e-7,
-                                     max_restarts=200)
+                                     max_restarts=200, device="cpu")
     np.testing.assert_allclose(vals.numpy(), w[:k], rtol=1e-4)
     np.testing.assert_allclose(_aligned(vecs, q[:, :k]), q[:, :k], atol=1e-3)
     ncv = min(n, max(2 * k + 1, 20))
@@ -61,7 +61,7 @@ def test_lanczos_eigsh_matches_numpy(n, k):
     np.testing.assert_allclose(vals.numpy(), np.asarray(jvals), rtol=1e-4)
     assert set(info) == set(jinfo)
     with pytest.raises(ValueError, match="ncv"):
-        lanczos_eigsh(lambda v: Mt @ v, n, k, ncv=k)
+        lanczos_eigsh(lambda v: Mt @ v, n, k, ncv=k, device="cpu")
 
 
 def test_sparse_svd_takes_lanczos_and_matches_numpy():
