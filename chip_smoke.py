@@ -83,16 +83,20 @@ with nvcc, then:
               full size in bf16 and at full width and 4 layers in f32.
 Phase 2 also holds fused_grad_multi (k = 1, 8, 16, 40, all four losses,
 f32 and bf16 storage, one launch a call, slot independence of the other
-slots and of the slot count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16) and
+slots and of the slot count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16,
+on A_w and on its ragged view of N_W - 1 columns starting one element into
+its storage, each against plain, bit-stable, the view against its aligned
+copy, and timed) and
 fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
 their plain versions, and the four block-sparse kernels (f32, bf16 and
 int8 storage; bsr_matmul at nx = 16, bsr_rmatmul at nx = 1 and 16,
 fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16, 40,
 every loss, f32 and bf16 storage, one launch a call, slot independence;
 the int8 composition at k = 8) on S, just before phase 6.  After the build
-it prints each multi-slot kernel's and flash_attention's registers and
-spill bytes from ptxas, and fails if flash_attention's tensor-core variant
-spills or ptxas serialized its wgmmas.  fused_grad is fused_grad_multi's
+it prints each multi-slot kernel's, flash_attention's and randsketch's
+registers and spill bytes from ptxas, and fails if flash_attention's
+tensor-core variant spills or ptxas serialized its wgmmas, or if a
+randsketch kernel spills.  fused_grad is fused_grad_multi's
 kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
@@ -275,7 +279,7 @@ def one_launch(kernel, call, what: str):
 
 
 def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu",
-                          "flash_attention.cu")) -> list:
+                          "flash_attention.cu", "randsketch.cu")) -> list:
     """Registers and spill bytes of every kernel in `sources`, and whether
     ptxas serialized its wgmmas, from the ptxas report of the build
     (kernels/_build.py's build_log)."""
@@ -542,27 +546,33 @@ def check_fused_grad_multi(A: torch.Tensor, gen) -> dict:
 
 def check_randsketch(A_w: torch.Tensor, gen) -> dict:
     """randsketch against its plain version on A_w, r = R_SKETCH, f32 and
-    bf16 storage; returns {dtype: numbers}."""
+    bf16 storage, and on the ragged view of each (M_W x (N_W - 1), starting
+    one element into the storage, so every row starts at another offset
+    from a 16-byte boundary; no copy); returns {dtype: numbers}, the ragged
+    view's under "ragged"."""
     from repro_torch.kernels import randsketch
 
     m, n = A_w.shape
     q = torch.randn(m, R_SKETCH, generator=gen, device=A_w.device)
     out = {}
-    for dt in ("f32", "bf16"):
-        a = A_w if dt == "f32" else A_w.to(torch.bfloat16)
+
+    def measure(a, what):
         got = randsketch.randsketch(a, q, out_dtype=torch.float32)
         want = randsketch.randsketch_plain(a, q, torch.float32)
         torch.cuda.synchronize()
         e = rel_err(got, want)
-        require(e <= TOL["sketch"], f"randsketch {dt}: relative error "
+        require(e <= TOL["sketch"], f"randsketch {what}: relative error "
                 f"{e:.3e} > {TOL['sketch']}")
         require(torch.equal(got, randsketch.randsketch(
-            a, q, out_dtype=torch.float32)), f"randsketch {dt}: two runs "
+            a, q, out_dtype=torch.float32)), f"randsketch {what}: two runs "
             "differ")
         qc = q.to(a.dtype)
-        b_ms, b_by = bound(m * n * a.element_size() + 4 * R_SKETCH * (m + n),
-                           2.0 * m * n * R_SKETCH, a.dtype)
-        out[dt] = {
+        rows, cols = a.shape
+        b_ms, b_by = bound(rows * cols * a.element_size()
+                           + 4 * R_SKETCH * (rows + cols),
+                           2.0 * rows * cols * R_SKETCH, a.dtype)
+        rec = {
+            "shape": [rows, cols, R_SKETCH],
             "rel_err": e, "max_abs_err": max_abs(got, want),
             "ms": time_ms(lambda: randsketch.randsketch(
                 a, q, out_dtype=torch.float32)),
@@ -570,13 +580,29 @@ def check_randsketch(A_w: torch.Tensor, gen) -> dict:
                 a, q, torch.float32), reps=3),
             "library_ms": time_ms(lambda: torch.mm(a.T, qc)),
             "bound_ms": b_ms, "bound_by": b_by}
-        del got, want, qc, a
+        return rec, got
+
+    for dt in ("f32", "bf16"):
+        a = A_w if dt == "f32" else A_w.to(torch.bfloat16)
+        out[dt], whole = measure(a, dt)
+        ragged = a.view(-1)[1:1 + m * (n - 1)].view(m, n - 1)
+        require(ragged.data_ptr() % 16 != 0, "the ragged view is aligned")
+        out[dt]["ragged"], got = measure(ragged, f"{dt} ragged view")
+        # The ragged view's columns are A's shifted by one element along
+        # its storage: not A's columns, so no bitwise check against
+        # `whole`; its aligned copy gives the same bits.
+        require(torch.equal(got, randsketch.randsketch(
+            ragged.clone(), q, out_dtype=torch.float32)),
+            f"randsketch {dt}: the ragged view and its aligned copy differ")
+        del a, ragged, whole, got
         torch.cuda.empty_cache()
-    for dt, r in out.items():
-        print(f"[kernels] randsketch r={R_SKETCH} {dt:4s} kernel "
-              f"{r['ms']:9.3f} ms | plain {r['plain_ms']:9.3f} ms | library "
-              f"{r['library_ms']:9.3f} ms | bound {r['bound_ms']:8.3f} ms "
-              f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.3f}")
+    for dt, rec in out.items():
+        for r, view in ((rec, "A_w"), (rec["ragged"], "ragged")):
+            print(f"[kernels] randsketch r={R_SKETCH} {dt:4s} {view:6s} "
+                  f"kernel {r['ms']:9.3f} ms | plain {r['plain_ms']:9.3f} ms"
+                  f" | library {r['library_ms']:9.3f} ms | bound "
+                  f"{r['bound_ms']:8.3f} ms ({r['bound_by']}), share "
+                  f"{r['bound_ms'] / r['ms']:.3f}")
     return out
 
 
@@ -2337,6 +2363,10 @@ def main() -> int:
         r["spill_store_bytes"] == r["spill_load_bytes"] == 0
         and not r["wgmma_serialized"] for r in tc),
         f"flash_attention's tensor-core variant spills or serializes: {tc}")
+    sketch = [r for r in ptxas if r["source"] == "randsketch.cu"]
+    require(len(sketch) >= 3 and all(
+        r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in sketch),
+        f"randsketch's kernels spill: {sketch}")
 
     summary = smoke(dev)
     summary["ptxas"] = ptxas

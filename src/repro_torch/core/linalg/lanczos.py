@@ -34,10 +34,12 @@ def _orthogonalize(w: torch.Tensor, V: torch.Tensor, upto: int
 
 def lanczos_eigsh(op: Callable[[torch.Tensor], torch.Tensor], n: int, k: int,
                   *, ncv: int | None = None, max_restarts: int = 40,
-                  tol: float = 1e-6, seed: int = 0, device="cuda"
-                  ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+                  tol: float = 1e-6, seed: int = 0, dtype=torch.float32,
+                  device="cuda") -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Top-k eigenpairs of a symmetric PSD operator `op` of size n, in
-    float32 on `device` (the card unless the caller asks for the CPU).
+    `dtype` (float32 unless asked) on `device` (the card unless the caller
+    asks for the CPU): v0, the basis V, T, beta, the Ritz values and the
+    residuals are built in it, as the reference's ``dtype=`` does.
 
     Returns (eigenvalues descending (k,), eigenvectors (n, k), info) with
     info["restarts"], ["resid"] (the k Ritz residual estimates),
@@ -46,15 +48,15 @@ def lanczos_eigsh(op: Callable[[torch.Tensor], torch.Tensor], n: int, k: int,
     if not (k < ncv <= n):
         raise ValueError(f"need k < ncv <= n, got k={k} ncv={ncv} n={n}")
     dev = resolve_device(device)
-    f32 = torch.float32
+    kw = dict(device=dev, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    v0 = torch.randn(n, generator=gen, device=dev, dtype=f32)
-    V = torch.zeros((ncv + 1, n), device=dev, dtype=f32)
+    v0 = torch.randn(n, generator=gen, **kw)
+    V = torch.zeros((ncv + 1, n), **kw)
     V[0] = v0 / torch.linalg.vector_norm(v0)
-    T = torch.zeros((ncv, ncv), device=dev, dtype=f32)
-    beta = torch.zeros((), device=dev, dtype=f32)
-    ritz = torch.zeros(ncv, device=dev, dtype=f32)
-    resid = torch.full((ncv,), torch.inf, device=dev, dtype=f32)
+    T = torch.zeros((ncv, ncv), **kw)
+    beta = torch.zeros((), **kw)
+    ritz = torch.zeros(ncv, **kw)
+    resid = torch.full((ncv,), torch.inf, **kw)
     j = restarts = op_calls = 0
     done = False
     while not done and restarts < max_restarts:

@@ -110,13 +110,21 @@ class GraGroupState(NamedTuple):
     bt: torch.Tensor       # (S,)  per-slot cumulative backtracks
 
 
-def gra_group_init(slots: int, n: int, *, device="cuda") -> GraGroupState:
+def _full_l0(slots: int, L0, device) -> torch.Tensor:
+    """(slots,) f32 filled with L0: a float, or one value a slot, as the
+    reference's ``jnp.full((slots,), L0)`` broadcasts it."""
+    return torch.empty(slots, dtype=_F32, device=device).copy_(
+        torch.as_tensor(L0, dtype=_F32))
+
+
+def gra_group_init(slots: int, n: int, L0: float = 1.0, *,
+                   device="cuda") -> GraGroupState:
     kw = dict(device=resolve_device(device))
     return GraGroupState(
         X=torch.zeros((slots, n), dtype=_F32, **kw),
         F=torch.zeros(slots, dtype=_F32, **kw),
         G=torch.zeros((slots, n), dtype=_F32, **kw),
-        L=torch.ones(slots, dtype=_F32, **kw),
+        L=_full_l0(slots, L0, kw["device"]),
         k=torch.zeros(slots, dtype=torch.int32, **kw),
         done=torch.zeros(slots, dtype=torch.bool, **kw),
         obj=torch.full((slots,), torch.nan, dtype=_F32, **kw),
@@ -210,7 +218,7 @@ class AccGroupState(NamedTuple):
     rs: torch.Tensor       # (S,)  cumulative gradient-test restarts
 
 
-def acc_group_init(slots: int, n: int, m_pad: int, *,
+def acc_group_init(slots: int, n: int, m_pad: int, L0: float = 1.0, *,
                    device="cuda") -> AccGroupState:
     device = resolve_device(device)
     kw = dict(dtype=_F32, device=device)
@@ -219,7 +227,7 @@ def acc_group_init(slots: int, n: int, m_pad: int, *,
     return AccGroupState(
         X=zn(), AX=zm(), UX=zn(), Z=zn(), AZ=zm(), UZ=zn(), UB=zn(),
         F=torch.zeros(slots, **kw), theta=torch.ones(slots, **kw),
-        L=torch.ones(slots, **kw),
+        L=_full_l0(slots, L0, device),
         k=torch.zeros(slots, dtype=torch.int32, device=device),
         done=torch.zeros(slots, dtype=torch.bool, device=device),
         obj=torch.full((slots,), torch.nan, **kw),

@@ -43,10 +43,10 @@ _SIGNATURES = {
     # g_part, f_part, g, f, stream
     "repro_fused_grad_multi": [_I, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _I,
                                _I, _F, _P, _P, _P, _P, _P, _P],
-    # device, a, dtype, q, m, n, r, slices, rows_per_slice, part, out,
+    # device, a, dtype, q, m, n, r, qs, slices, rows_per_slice, part, out,
     # out_dtype, stream
-    "repro_randsketch": [_I, _P, _I, _P, _LL, _I, _I, _I, _LL, _P, _P, _I,
-                         _P],
+    "repro_randsketch": [_I, _P, _I, _P, _LL, _I, _I, _P, _I, _LL, _P, _P,
+                         _I, _P],
     # device, a, dtype, m, n, slices, rows_per_slice, part, out, out_dtype,
     # stream
     "repro_tsgram": [_I, _P, _I, _LL, _I, _I, _LL, _P, _P, _I, _P],
@@ -192,6 +192,13 @@ def storage_code(t: torch.Tensor, what: str) -> int:
         raise TypeError(f"{what} must be float32, bfloat16 or int8, got "
                         f"{t.dtype}")
     return STORAGE_CODES[t.dtype]
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` if it starts on a 16-byte boundary, else a fresh copy of it (a
+    new allocation, which does): the kernels' 16-byte loads and copies need
+    that boundary, and a view such as ``x[1:]`` may start anywhere."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream(dev: torch.device) -> int:

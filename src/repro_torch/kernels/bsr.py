@@ -234,8 +234,12 @@ def bsr_rmatmul_plain(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
 
 # -- the kernels ---------------------------------------------------------------
 
-def check_operands(a: BlockELL, *vectors: torch.Tensor) -> tuple[torch.device, int]:
-    """Device, storage code and layout of a kernel's operands."""
+def check_operands(a: BlockELL, *vectors: torch.Tensor
+                   ) -> tuple[torch.device, int, torch.Tensor]:
+    """Device, storage code and layout of a kernel's operands; returns the
+    device, the storage code and the blocks to launch on: ``a.data``, or a
+    fresh copy of it where it starts off a 16-byte boundary (the kernels
+    load blocks in 16-byte pieces)."""
     dev = _build.check_device(a.data, a.cols, *vectors)
     code = _build.storage_code(a.data, "BlockELL data")
     nbr, ell, bs, bs2 = a.data.shape
@@ -256,9 +260,7 @@ def check_operands(a: BlockELL, *vectors: torch.Tensor) -> tuple[torch.device, i
     for t in (a.data, a.cols) + (() if a.scales is None else (a.scales,)):
         if not t.is_contiguous():
             raise ValueError("BlockELL arrays must be contiguous")
-    if a.data.data_ptr() % 16:
-        raise ValueError("BlockELL data must be 16-byte aligned")
-    return dev, code
+    return dev, code, _build.aligned(a.data)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -269,14 +271,14 @@ def bsr_matvec(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/bsr_spmv.cu: y = A x for a CUDA BlockELL A and x (n,),
     read as f32.  Returns f32 (m,).  Replaces the TPU kernel
     ``src/repro/kernels/bsr.py:bsr_matvec``."""
-    dev, code = check_operands(a, x)
+    dev, code, data = check_operands(a, x)
     if x.shape != (a.shape[1],):
         raise ValueError(f"x {tuple(x.shape)} against A {a.shape}")
     x = x.float().contiguous()
     y = torch.empty(a.shape[0], dtype=torch.float32, device=dev)
     nbr, ell = a.cols.shape
     _build.check(_build.lib().repro_bsr_spmv(
-        dev.index, a.data.data_ptr(), code, _ptr(a.scales), a.cols.data_ptr(),
+        dev.index, data.data_ptr(), code, _ptr(a.scales), a.cols.data_ptr(),
         nbr, ell, a.bs, x.data_ptr(), y.data_ptr(), _build.stream(dev)),
         "bsr_matvec launch")
     bsr_matvec.launches += 1
@@ -290,7 +292,7 @@ def bsr_matmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/bsr_spmm.cu: Y = A X for a CUDA BlockELL A and X (n, nx),
     read as f32.  Returns f32 (m, nx).  Replaces the TPU kernel
     ``src/repro/kernels/bsr.py:bsr_matmul``."""
-    dev, code = check_operands(a, x)
+    dev, code, data = check_operands(a, x)
     if x.dim() != 2 or x.shape[0] != a.shape[1] or x.shape[1] < 1:
         raise ValueError(f"X {tuple(x.shape)} against A {a.shape}")
     x = x.float().contiguous()
@@ -298,7 +300,7 @@ def bsr_matmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((a.shape[0], nx), dtype=torch.float32, device=dev)
     nbr, ell = a.cols.shape
     _build.check(_build.lib().repro_bsr_spmm(
-        dev.index, a.data.data_ptr(), code, _ptr(a.scales), a.cols.data_ptr(),
+        dev.index, data.data_ptr(), code, _ptr(a.scales), a.cols.data_ptr(),
         nbr, ell, a.bs, x.data_ptr(), nx, y.data_ptr(), _build.stream(dev)),
         "bsr_matmul launch")
     bsr_matmul.launches += 1
@@ -313,7 +315,7 @@ def bsr_rmatmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     X (m, nx), read as f32.  Returns f32 (n, nx).  Replaces both forms of
     the TPU kernel ``src/repro/kernels/bsr.py:bsr_rmatmul`` (the fused
     scatter and the partials + segment_sum), with no float atomics."""
-    dev, code = check_operands(a, x)
+    dev, code, data = check_operands(a, x)
     if x.dim() != 2 or x.shape[0] != a.shape[0] or x.shape[1] < 1:
         raise ValueError(f"X {tuple(x.shape)} against A {a.shape}")
     x = x.float().contiguous()
@@ -324,7 +326,7 @@ def bsr_rmatmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
                        device=dev)
     y = torch.empty((a.shape[1], nx), dtype=torch.float32, device=dev)
     _build.check(_build.lib().repro_bsr_rmatmul(
-        dev.index, a.data.data_ptr(), code, _ptr(a.scales),
+        dev.index, data.data_ptr(), code, _ptr(a.scales),
         idx.order.data_ptr(), idx.chunk_start.data_ptr(),
         idx.chunk_len.data_ptr(), idx.col_chunks.data_ptr(), idx.nchunks,
         a.ell, a.bs, nbc, x.data_ptr(), nx, part.data_ptr(), y.data_ptr(),

@@ -47,9 +47,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, causal: bool = True,
                     q_heads_per_kv: int = 1) -> torch.Tensor:
     """Launch csrc/flash_attention.cu on contiguous CUDA q (B·Hq, Sq, D)
-    and k, v (B·Hkv, Sk, D) of one dtype (f32 or bf16), each starting on a
-    16-byte boundary, D in HEAD_DIMS and B·Hq = B·Hkv · q_heads_per_kv;
-    returns o (B·Hq, Sq, D) in q.dtype.  Counts the launch in
+    and k, v (B·Hkv, Sk, D) of one dtype (f32 or bf16), D in HEAD_DIMS and
+    B·Hq = B·Hkv · q_heads_per_kv (a view that starts off a 16-byte
+    boundary is copied to one that does); returns o (B·Hq, Sq, D) in
+    q.dtype.  Counts the launch in
     ``flash_attention.launches`` and in ``flash_attention.variant_launches``
     under its variant (``VARIANTS``)."""
     dev = _build.check_device(q, k, v)
@@ -70,8 +71,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _build.dtype_code(q, "q")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must start on a 16-byte boundary")
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     _build.check(_build.lib().repro_flash_attention(

@@ -127,7 +127,7 @@ def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, t: torch.Tensor,
     blocks: x (n,), t, w (m,) over its dims, read as f32.  Returns f32
     f (scalar), g (n,), z (m,).  Replaces the TPU kernel
     ``src/repro/kernels/fusedgrad.py:fused_grad_bsr``."""
-    dev, code = _bsr.check_operands(a, x, t, w)
+    dev, code, data = _bsr.check_operands(a, x, t, w)
     if a.scales is not None:
         raise ValueError("fused_grad_bsr takes exact (f32 or bf16) blocks; "
                          "int8 shards compose bsr_matvec and bsr_rmatmul")
@@ -150,7 +150,7 @@ def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, t: torch.Tensor,
     g = torch.empty(n, **f32)
     f = torch.empty((), **f32)
     _build.check(lib.repro_fused_grad_bsr(
-        dev.index, a.data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
+        dev.index, data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
         t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, staged.value,
         g_smem.value, grid.value, LOSSES.index(loss), float(param),
         z.data_ptr(), g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(),
@@ -189,7 +189,7 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     are sums in an order fixed by A's shape and storage alone, so a request
     gets the same bits whatever the other slots hold and however many there
     are."""
-    dev, code = _bsr.check_operands(a, x, t, w)
+    dev, code, data = _bsr.check_operands(a, x, t, w)
     if a.scales is not None:
         raise ValueError("fused_grad_bsr_multi takes exact (f32 or bf16) "
                          "blocks; int8 shards compose bsr_matmul and "
@@ -205,10 +205,8 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
         raise ValueError("the kernel takes one slot or more, got none")
     x, t, w = (v.float().contiguous() for v in (x, t, w))
     # The staged path's 16-byte copies need aligned blocks (check_operands
-    # refuses others) and X: a view of X that starts elsewhere is copied to
-    # a fresh, aligned tensor.
-    if x.data_ptr() % 16:
-        x = x.clone()
+    # copies others) and X.
+    x = _build.aligned(x)
     lib = _build.lib()
     staged, grid = ctypes.c_int(), ctypes.c_int()
     _build.check(lib.repro_fused_grad_bsr_multi_plan(
@@ -221,7 +219,7 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     g = torch.empty((k, n), **f32)
     f = torch.empty(k, **f32)
     _build.check(lib.repro_fused_grad_bsr_multi(
-        dev.index, a.data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
+        dev.index, data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
         t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, k, staged.value,
         grid.value, LOSSES.index(loss), float(param), z.data_ptr(),
         g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(), f.data_ptr(),

@@ -210,18 +210,16 @@ def _engines(method, loss, reg, seed):
     if method == "gra":
         js, jst = jbatched.make_gra_group(jl, loss, reg=reg)
         ts, tst = batched.make_gra_group(tl, loss, reg=reg)
-        jstate = jbatched.gra_group_init(SLOTS, N)._replace(
-            L=jnp.asarray(L0))
-        tstate = batched.gra_group_init(SLOTS, N, device="cpu")._replace(L=_t(L0))
+        jstate = jbatched.gra_group_init(SLOTS, N, jnp.asarray(L0))
+        tstate = batched.gra_group_init(SLOTS, N, _t(L0), device="cpu")
     elif method in ("acc", "acc_rb"):
         rb = method == "acc_rb"
         js, jst = jbatched.make_acc_group(jl, loss, reg=reg,
                                           backtracking=rb, restart=rb)
         ts, tst = batched.make_acc_group(tl, loss, reg=reg,
                                          backtracking=rb, restart=rb)
-        jstate = jbatched.acc_group_init(SLOTS, N, M)._replace(
-            L=jnp.asarray(L0))
-        tstate = batched.acc_group_init(SLOTS, N, M, device="cpu")._replace(L=_t(L0))
+        jstate = jbatched.acc_group_init(SLOTS, N, M, jnp.asarray(L0))
+        tstate = batched.acc_group_init(SLOTS, N, M, _t(L0), device="cpu")
     else:
         js, jst = jbatched.make_lbfgs_group(jl, loss)
         ts, tst = batched.make_lbfgs_group(tl, loss)
@@ -242,6 +240,23 @@ def _same_state(tstate, jstate, fields):
         want = np.asarray(getattr(jstate, name), np.float64)
         err = np.linalg.norm(got - want) / max(1.0, np.linalg.norm(want))
         assert err <= (1e-5 if name in ("X", "Z", "L") else 1e-4), (name, err)
+
+
+@pytest.mark.parametrize("init,args", [
+    ("gra_group_init", (2, 5, 2.0)), ("acc_group_init", (2, 5, 7, 3.0)),
+    ("gra_group_init", (3, 4)), ("acc_group_init", (3, 4, 6))])
+def test_group_init_takes_L0_as_the_reference_does(init, args):
+    """The group-state constructors take the initial Lipschitz estimate L0
+    (a float, 1.0 by default) positionally after the shapes, as the
+    reference's do; every field matches the reference's."""
+    want = getattr(jbatched, init)(*args)
+    got = getattr(batched, init)(*args, device="cpu")
+    assert got._fields == want._fields
+    for name in want._fields:
+        w, g = np.asarray(getattr(want, name)), getattr(got, name)
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), name
 
 
 @pytest.mark.parametrize("method,loss,reg", [

@@ -4,17 +4,21 @@ Small shapes that still cover every path of each kernel: ragged m and n,
 f32 and bf16 storage, the staged and the unstaged paths of the
 fused_grad_multi kernel (fused_grad is its one-slot launch), slot counts
 from 1 to 100 (one launch each, across and past 8-slot chunks), a slot's
-bits at k = 1, 40 and 100, every gemm block tile, one and several randsketch slices and
-Q tiles; for the block-sparse kernels every block size from 8 to 128, f32,
+bits at k = 1, 40 and 100, every gemm block tile, one and several
+randsketch slices and Q tiles, at widths off its tiles and pieces, and
+views of A that start off a 16-byte boundary (the same bits as aligned
+copies); for the block-sparse kernels every block size from 8 to 128, f32,
 bf16 and int8 blocks, ragged block-row counts and nx (up to past a sparse
 Gram strip's 512 columns), a hot column longer than one rmatmul chunk, and
 fused_grad_bsr's staged and unstaged paths with g in shared and in global
 memory; fused_grad_bsr_multi at every block size, 1 to 100 slots, staged
 and unstaged, with its slot independence and repeatability bit for bit;
+blocks that start off a 16-byte boundary through every sparse kernel;
 a SolverServer group of 40 slots on a dense and on a sparse matrix, one
 launch per A-pass; flash_attention at head dims 32, 64 and 128, 1, 3 and 4
 q heads a KV head, causal and not, query and key lengths of 1, 63 and 2049
 and unequal ones both ways (2048 against 2049 among them), f32 and bf16,
+q, k and v that start off a 16-byte boundary,
 key lengths off the bf16 kernel's 128-key tile, scores near 50, four KV
 heads each read by the right q heads, the same bits twice and a launch
 count for each variant (bf16 on the tensor cores, f32 on the CUDA cores);
@@ -211,9 +215,14 @@ def test_fused_grad_multi_slot_bits_do_not_depend_on_the_slot_count(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n,r", [(1000, 70, 5), (70000, 300, 26),
-                                   (300, 6000, 40), (33, 7, 3)])
+@pytest.mark.parametrize("r", [3, 26, 32, 40, 64])
+@pytest.mark.parametrize("m,n", [(1000, 7), (4099, 70), (33, 255),
+                                 (70000, 257), (300, 6000), (140000, 70)])
 def test_randsketch_matches_plain(dev, dtype, m, n, r):
+    """Widths off every tile and piece boundary, one Q tile and several,
+    and m within one slice and across several (70000 and 140000 rows on
+    132 SMs): within TOL of plain, the same bits twice, and the output in
+    a's type by default."""
     g = _gen(dev, m + n + r)
     a = torch.randn(m, n, generator=g, device=dev).to(dtype)
     q = torch.randn(m, r, generator=g, device=dev)
@@ -225,6 +234,46 @@ def test_randsketch_matches_plain(dev, dtype, m, n, r):
     assert torch.equal(got, randsketch.randsketch(a, q,
                                                   out_dtype=torch.float32))
     assert randsketch.randsketch(a, q).dtype == dtype
+    if m >= 70000:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert randsketch.slicing(m, n, r, sms)[0] > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,r", [(1000, 7, 5), (4099, 257, 26),
+                                   (70000, 300, 26), (300, 6001, 40)])
+def test_randsketch_offset_views_match_their_aligned_copies(dev, dtype, m,
+                                                            n, r):
+    """A view that starts 1..3 (f32) or 1..7 (bf16) elements past a
+    16-byte boundary, with NaNs in the bytes around it, gives the same bits
+    as its aligned copy: the kernel stages each row's aligned window and
+    selects the ragged edge to 0, never multiplying the NaNs."""
+    g = _gen(dev, 7 * m + n)
+    a = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    q = torch.randn(m, r, generator=g, device=dev)
+    want = randsketch.randsketch(a, q, out_dtype=torch.float32)
+    assert _rel(want, randsketch.randsketch_plain(a, q, torch.float32)) <= TOL
+    for off in range(1, 16 // a.element_size()):
+        buf = torch.full((m * n + off + 16,), float("nan"), device=dev,
+                         dtype=dtype)
+        view = buf[off:off + m * n].view(m, n)
+        view.copy_(a)
+        assert view.data_ptr() % 16 != 0
+        got = randsketch.randsketch(view, q, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), off
+
+
+def test_randsketch_row_slice_of_a_matrix(dev):
+    """A row slice A[i:] of a matrix whose width is off the 16-byte piece
+    (a user's view, no copy): the same bits as a fresh copy of it."""
+    g = _gen(dev, 5)
+    a = torch.randn(5000, 1001, generator=g, device=dev)
+    q = torch.randn(4997, 26, generator=g, device=dev)
+    view = a[3:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert torch.equal(randsketch.randsketch(view, q),
+                       randsketch.randsketch(view.clone(), q))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -480,20 +529,57 @@ def test_fused_grad_bsr_multi_slots_are_independent(dev, dtype, bs, nbr, nbc,
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_fused_grad_bsr_multi_bits_do_not_depend_on_alignment(dev, dtype):
-    """An X that starts off a 16-byte boundary is copied to an aligned
-    tensor before the staged kernel runs (the same bits as an aligned X);
-    blocks that start off one are refused, never sent down another path."""
+    """An X or blocks that start off a 16-byte boundary are copied to an
+    aligned tensor before the staged kernel runs: the same bits as aligned
+    operands, never another path."""
     a = _random_bell(dev, 150, 16, 16, 32, dtype, 19)
     x, t, w = _bsr_multi_inputs(dev, a, 8, "quad", 20)
     want = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss="quad")
     got = fusedgrad.fused_grad_bsr_multi(a, _off_boundary(x), t, w,
                                          loss="quad")
-    torch.cuda.synchronize()
-    for u, v in zip(want, got):
-        assert torch.equal(u, v)
     shifted = bsr.BlockELL(_off_boundary(a.data), a.cols, a.shape)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        fusedgrad.fused_grad_bsr_multi(shifted, x, t, w, loss="quad")
+    moved = fusedgrad.fused_grad_bsr_multi(shifted, x, t, w, loss="quad")
+    torch.cuda.synchronize()
+    for u, v, s in zip(want, got, moved):
+        assert torch.equal(u, v) and torch.equal(u, s)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [8, 32])
+def test_bsr_kernels_take_blocks_off_a_16_byte_boundary(dev, storage, bs):
+    """BlockELL data that starts off a 16-byte boundary (a view one element
+    into its storage) runs through bsr_matvec, bsr_matmul, bsr_rmatmul and,
+    for exact storage, fused_grad_bsr and fused_grad_bsr_multi: the same
+    bits as the aligned blocks, and close to the plain versions."""
+    a = _random_bell(dev, 37, 13, 5, bs, storage, 29 + bs)
+    shifted = bsr.BlockELL(_off_boundary(a.data), a.cols, a.shape, a.scales)
+    m, n = a.shape
+    g = _gen(dev, 31)
+    x = torch.randn(n, generator=g, device=dev)
+    X = torch.randn(n, 16, generator=g, device=dev)
+    U = torch.randn(m, 16, generator=g, device=dev)
+    for kern, plain, arg, tol in (
+            (bsr.bsr_matvec, bsr.bsr_matvec_plain, x, TOL),
+            (bsr.bsr_matmul, bsr.bsr_matmul_plain, X, TOL),
+            (bsr.bsr_rmatmul, bsr.bsr_rmatmul_plain, U, TOL_SUM)):
+        got = kern(shifted, arg)
+        want = kern(a, arg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kern.__name__
+        assert _rel(got, plain(a, arg)) <= tol, kern.__name__
+    if storage == "int8":
+        return
+    xs, t, w = _bsr_multi_inputs(dev, a, 3, "logistic", 32)
+    for got, want in (
+            (fusedgrad.fused_grad_bsr(shifted, xs[0], t[0], w[0],
+                                      loss="logistic"),
+             fusedgrad.fused_grad_bsr(a, xs[0], t[0], w[0], loss="logistic")),
+            (fusedgrad.fused_grad_bsr_multi(shifted, xs, t, w,
+                                            loss="logistic"),
+             fusedgrad.fused_grad_bsr_multi(a, xs, t, w, loss="logistic"))):
+        torch.cuda.synchronize()
+        for u, v in zip(got, want):
+            assert torch.equal(u, v)
 
 
 def test_fused_grad_bsr_multi_refuses_what_it_does_not_take(dev):
@@ -702,6 +788,25 @@ def test_flash_attention_dispatch_counts_launches(dev):
     assert _rel(got.cpu(), want) <= TOL
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_attention_takes_views_off_a_16_byte_boundary(dev, D, dtype):
+    """q, k and v that start one element past a 16-byte boundary (as
+    ``x[1:]`` views can) are copied to aligned tensors: the same bits as
+    aligned inputs, through the wrapper and through ops."""
+    q, k, v = _attn_inputs(dev, 2, 3, 130, 200, D, dtype, seed=D + 3)
+    want = flash_attention.flash_attention(q, k, v, q_heads_per_kv=3)
+    qs, ks, vs = (_off_boundary(t) for t in (q, k, v))
+    got = flash_attention.flash_attention(qs, ks, vs, q_heads_per_kv=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = flash_attention.flash_attention_plain(q, k, v, q_heads_per_kv=3)
+    assert _rel(got, plain) <= (TOL if dtype == torch.float32
+                                else TOL_ATTN_BF16)
+    q4, k4, v4 = (t.view(2, -1, t.shape[1], D) for t in (qs, ks, vs))
+    assert torch.equal(ops.flash_attention(q4, k4, v4).view(q.shape), want)
+
+
 def test_flash_attention_refuses_what_it_does_not_take(dev):
     q = torch.randn(4, 16, 48, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -718,10 +823,6 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
     q = torch.randn(4, 16, 64, device=dev)
     with pytest.raises(ValueError, match="conform"):
         flash_attention.flash_attention(q, q[:3], q[:3], q_heads_per_kv=2)
-    q = torch.randn(4 * 16 * 64 + 1, device=dev,
-                    dtype=torch.bfloat16)[1:].view(4, 16, 64)
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention.flash_attention(q, q, q)
 
 
 def _scan_args(dev, Bt, S, d, N, seed):

@@ -64,6 +64,32 @@ def test_lanczos_eigsh_matches_numpy(n, k):
         lanczos_eigsh(lambda v: Mt @ v, n, k, ncv=k, device="cpu")
 
 
+def test_lanczos_eigsh_runs_in_the_dtype_it_is_given():
+    """dtype=torch.float64 builds v0, the basis, T and the Ritz values in
+    float64, as the reference's dtype= does: on a PSD operator with a
+    clustered top the eigenvalues match numpy's float64 eigh to 1e-11,
+    which a float32 run cannot reach."""
+    n, k = 80, 6
+    rng = np.random.default_rng(5)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    w = np.concatenate([[9.0, 8.999, 8.998], 5.0 * 0.8 ** np.arange(n - 3)])
+    M = (q * w) @ q.T
+    M = (M + M.T) / 2
+    want = np.linalg.eigh(M)[0][::-1][:k]
+    Mt = torch.from_numpy(M)
+    vals, vecs, info = lanczos_eigsh(lambda v: Mt @ v, n, k, tol=1e-13,
+                                     max_restarts=300, dtype=torch.float64,
+                                     device="cpu")
+    assert vals.dtype == vecs.dtype == info["resid"].dtype == torch.float64
+    assert info["converged"]
+    np.testing.assert_allclose(vals.numpy(), want, rtol=1e-11)
+    M32 = torch.from_numpy(M.astype(np.float32))
+    v32, _, _ = lanczos_eigsh(lambda v: M32 @ v, n, k, tol=1e-7,
+                              max_restarts=300, device="cpu")
+    assert v32.dtype == torch.float32
+    assert np.max(np.abs(v32.double().numpy() - want) / want) > 1e-11
+
+
 def test_sparse_svd_takes_lanczos_and_matches_numpy():
     """tests/test_sparserow.py::TestSparseSVD's bar: σ within 1e-4 of the
     dense SVD's, and U Σ Vᵀ the rank-4 truncation."""
