@@ -12,7 +12,11 @@ with nvcc, then:
               2^21 x 1024 in f32 and again in bf16 storage, and times each
               (CUDA events, warmed, median of REPS launches) beside its
               plain version, one PyTorch library call where there is one,
-              and the card's bound for the same work;
+              and the card's bound for the same work (tsgram's f32 bound
+              is its route's, three TF32 tensor-core products a product;
+              the f32 CUDA-core bound is printed beside it); tsgram also
+              on A's ragged view (2^21 x 1023 starting one element into
+              A's storage), bit for bit against its aligned copy;
   3. svd:     api.svd in Gram mode, k = 16, on the f32 A; singular values
               against the float64 Gram's eigenvalues, U's orthogonality, and
               the A-pass count;
@@ -89,14 +93,17 @@ its storage, each against plain, bit-stable, the view against its aligned
 copy, and timed) and
 fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
 their plain versions, and the four block-sparse kernels (f32, bf16 and
-int8 storage; bsr_matmul at nx = 16, bsr_rmatmul at nx = 1 and 16,
+int8 storage; bsr_matmul at nx = 16, its columns at nx = 1 and 8 bit for
+bit those of nx = 16 and unchanged when X's other columns change,
+bsr_rmatmul at nx = 1 and 16,
 fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16, 40,
 every loss, f32 and bf16 storage, one launch a call, slot independence;
 the int8 composition at k = 8) on S, just before phase 6.  After the build
-it prints each multi-slot kernel's, flash_attention's and randsketch's
-registers and spill bytes from ptxas, and fails if flash_attention's
-tensor-core variant spills or ptxas serialized its wgmmas, or if a
-randsketch kernel spills.  fused_grad is fused_grad_multi's
+it prints each multi-slot kernel's, flash_attention's, randsketch's,
+tsgram's and bsr_matmul's registers and spill bytes from ptxas, and fails
+if flash_attention's tensor-core variant or tsgram's f32 kernel spills or
+has its wgmmas serialized by ptxas, or if a randsketch, tsgram or
+bsr_matmul kernel spills.  fused_grad is fused_grad_multi's
 kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
@@ -173,7 +180,12 @@ BROWS64_S = 8192               # block-rows of S a float64 chunk (1 GB)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,       # f32 FMA on the CUDA cores
               torch.bfloat16: 989e12,     # bf16 tensor cores, dense
-              torch.int8: 1979e12}        # int8 tensor cores, dense
+              torch.int8: 1979e12,        # int8 tensor cores, dense
+              # TF32 tensor cores, dense: tsgram's route for f32, three
+              # TF32 products (3xTF32) for each product, so its bound is
+              # 3x its flops at this rate (the f32 CUDA-core figure is
+              # printed beside it).
+              "tf32": 495e12}
 # Exponentials: the special-function units issue 16 a clock an SM against
 # 128 f32 FMA lanes (256 flops), so a sixteenth of the f32 rate.
 EXP_PER_S = 67e12 / 16
@@ -279,7 +291,8 @@ def one_launch(kernel, call, what: str):
 
 
 def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu",
-                          "flash_attention.cu", "randsketch.cu")) -> list:
+                          "flash_attention.cu", "randsketch.cu", "tsgram.cu",
+                          "bsr_spmm.cu")) -> list:
     """Registers and spill bytes of every kernel in `sources`, and whether
     ptxas serialized its wgmmas, from the ptxas report of the build
     (kernels/_build.py's build_log)."""
@@ -395,26 +408,19 @@ def check_kernels(A: torch.Tensor, gen) -> dict:
             out["fused_grad"].setdefault(dt, {})[loss] = rec
             del got, want, again
 
-        # tsgram.
-        got = tsgram.tsgram(a, out_dtype=torch.float32)
-        want = tsgram.tsgram_plain(a, torch.float32)
-        torch.cuda.synchronize()
-        e = rel_err(got, want)
-        require(e <= TOL["tsgram"], f"tsgram {dt}: relative error {e:.3e}")
-        require(torch.equal(got, got.T), f"tsgram {dt}: not symmetric")
-        require(torch.equal(got, tsgram.tsgram(a, out_dtype=torch.float32)),
-                f"tsgram {dt}: two runs differ")
-        b_ms, b_by = bound(M * N * isz + N * N * 4, float(M) * N * (N + 1),
-                           a.dtype)
-        out["tsgram"][dt] = {
-            "rel_err": e, "max_abs_err": max_abs(got, want),
-            "ms": time_ms(lambda: tsgram.tsgram(a, out_dtype=torch.float32),
-                          reps=REPS),
-            "plain_ms": time_ms(lambda: tsgram.tsgram_plain(
-                a, torch.float32)),
-            "library_ms": time_ms(lambda: torch.mm(a.T, a)),
-            "bound_ms": b_ms, "bound_by": b_by}
-        del got, want
+        # tsgram, and in f32 on A's ragged view against its aligned copy.
+        out["tsgram"][dt] = check_tsgram(a, dt)
+        if dt == "f32":
+            ragged = a.view(-1)[1:1 + M * (N - 1)].view(M, N - 1)
+            require(ragged.data_ptr() % 16 != 0, "the ragged view is aligned")
+            rec = check_tsgram(ragged, "f32 ragged view")
+            require(torch.equal(tsgram.tsgram(ragged, out_dtype=torch.float32),
+                                tsgram.tsgram(ragged.clone(),
+                                              out_dtype=torch.float32)),
+                    "tsgram: the ragged view and its aligned copy differ")
+            out["tsgram"][dt]["ragged"] = rec
+            del ragged
+            torch.cuda.empty_cache()
 
         # gemm, the skinny product of U recovery.
         got = gemm.gemm(a, B, out_dtype=torch.float32)
@@ -437,13 +443,60 @@ def check_kernels(A: torch.Tensor, gen) -> dict:
     for name, by_dtype in out.items():
         for dt, rec in by_dtype.items():
             r = rec["quad"] if name == "fused_grad" else rec
-            print(f"[kernels] {name:10s} {dt:4s} kernel {r['ms']:9.3f} ms | "
-                  f"plain {r['plain_ms']:9.3f} ms | library "
-                  + ("     n/a" if r["library_ms"] is None
-                     else f"{r['library_ms']:9.3f} ms")
-                  + f" | bound {r['bound_ms']:8.3f} ms ({r['bound_by']}), "
-                  f"share {r['bound_ms'] / r['ms']:.3f}")
+            for key, r in ((dt, r), (dt + " ragged", r.get("ragged"))):
+                if r is None:
+                    continue
+                print(f"[kernels] {name:10s} {key:11s} kernel {r['ms']:9.3f} "
+                      f"ms | plain {r['plain_ms']:9.3f} ms | library "
+                      + ("     n/a" if r["library_ms"] is None
+                         else f"{r['library_ms']:9.3f} ms")
+                      + f" | bound {r['bound_ms']:8.3f} ms ({r['bound_by']}), "
+                      f"share {r['bound_ms'] / r['ms']:.3f}"
+                      + (f"; f32 CUDA-core bound {r['bound_cuda_core_ms']:.3f} "
+                         "ms" if "bound_cuda_core_ms" in r else ""))
     return out
+
+
+def tsgram_bound(m: int, n: int, dtype) -> dict:
+    """tsgram's bound: one read of A and one write of G, or m n (n + 1)
+    flops on its route (three TF32 products each for f32, one bf16
+    product for bf16); for f32 also the bound of f32 FMA on the CUDA
+    cores."""
+    isz = 2 if dtype == torch.bfloat16 else 4
+    nbytes, flops = m * n * isz + n * n * 4, float(m) * n * (n + 1)
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        return {"bound_ms": b_ms, "bound_by": b_by}
+    b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_cuda_core_ms": bound(nbytes, flops, torch.float32)[0]}
+
+
+def check_tsgram(a: torch.Tensor, what: str, reps: int = REPS) -> dict:
+    """tsgram on `a` against its plain version (TOL["tsgram"], symmetric,
+    the same bits twice), timed beside plain, mm(a.T, a) and its bound."""
+    from repro_torch.kernels import tsgram
+
+    got = tsgram.tsgram(a, out_dtype=torch.float32)
+    want = tsgram.tsgram_plain(a, torch.float32)
+    torch.cuda.synchronize()
+    e = rel_err(got, want)
+    require(e <= TOL["tsgram"], f"tsgram {what}: relative error {e:.3e} > "
+            f"{TOL['tsgram']}")
+    require(torch.equal(got, got.T), f"tsgram {what}: not symmetric")
+    require(torch.equal(got, tsgram.tsgram(a, out_dtype=torch.float32)),
+            f"tsgram {what}: two runs differ")
+    rec = {"shape": list(a.shape), "rel_err": e,
+           "max_abs_err": max_abs(got, want)}
+    del got, want
+    rec.update({
+        "ms": time_ms(lambda: tsgram.tsgram(a, out_dtype=torch.float32),
+                      reps=reps),
+        "plain_ms": time_ms(lambda: tsgram.tsgram_plain(a, torch.float32),
+                            reps=reps),
+        "library_ms": time_ms(lambda: torch.mm(a.T, a), reps=reps),
+        **tsgram_bound(a.shape[0], a.shape[1], a.dtype)})
+    return rec
 
 
 def multi_bound(k: int, isz: int) -> tuple[float, str]:
@@ -1116,6 +1169,19 @@ def check_sparse_kernels(mats: dict, gen) -> dict:
             key = dt if name != "bsr_rmatmul" or nx == 1 else f"{dt}_nx{nx}"
             out[name][key] = rec
             del got, want
+        # bsr_matmul's columns do not depend on nx: Y[:, :j] at nx = K_U is
+        # X[:, :j] run alone, and stays when X's other columns change.
+        Y = bsr.bsr_matmul(a, X)
+        for j in (1, 8):
+            require(torch.equal(bsr.bsr_matmul(a, X[:, :j].contiguous()),
+                                Y[:, :j]), f"bsr_matmul {dt}: columns :{j} "
+                    f"at nx = {j} differ from nx = {K_U}")
+        X2 = X.clone()
+        X2[:, 8:] = 1.0 - 7.0 * X[:, 8:]
+        require(torch.equal(bsr.bsr_matmul(a, X2)[:, :8], Y[:, :8]),
+                f"bsr_matmul {dt}: columns :8 move with columns 8:")
+        out["bsr_matmul"][dt]["columns_independent_of_nx"] = [1, 8, K_U]
+        del Y, X2
         if dt == "int8":
             continue
         recs = {}
@@ -1716,7 +1782,7 @@ def check_wide_kernels(S, S_sim, dense_sim) -> dict:
     versions: bsr_rmatmul on a 512-column strip of S_sim (each strip of its
     sparse Gram) and of S, and tsgram on S_sim's dense copy.  Returns
     {kernel: {case: numbers}}."""
-    from repro_torch.kernels import bsr, tsgram
+    from repro_torch.kernels import bsr
 
     out = {"bsr_rmatmul": {}, "tsgram": {}}
     for key, srm in (("f32_nx512_S_sim", S_sim), ("f32_nx512_S", S)):
@@ -1743,27 +1809,8 @@ def check_wide_kernels(S, S_sim, dense_sim) -> dict:
             "densify_ms": densify_ms, "bound_ms": b_ms, "bound_by": b_by,
             "strips": srm.shape[1] // 512}
         del got, want, strip
-    A_d = dense_sim.rows
-    got = tsgram.tsgram(A_d, out_dtype=torch.float32)
-    want = tsgram.tsgram_plain(A_d, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    e = rel_err(got, want)
-    require(e <= TOL["tsgram"], f"tsgram on S_sim's dense copy: relative "
-            f"error {e:.3e} > {TOL['tsgram']}")
-    require(torch.equal(got, got.T), "tsgram on S_sim's dense copy: not "
-            "symmetric")
-    require(torch.equal(got, tsgram.tsgram(A_d, out_dtype=torch.float32)),
-            "tsgram on S_sim's dense copy: two runs differ")
-    m, n = A_d.shape
-    b_ms, b_by = bound(4 * (m * n + n * n), float(m) * n * (n + 1),
-                       torch.float32)
-    out["tsgram"]["f32_dense_sim"] = {
-        "shape": [m, n], "rel_err": e, "max_abs_err": max_abs(got, want),
-        "ms": time_ms(lambda: tsgram.tsgram(A_d, out_dtype=torch.float32),
-                      reps=3),
-        "plain_ms": time_ms(lambda: tsgram.tsgram_plain(
-            A_d, out_dtype=torch.float32), reps=3),
-        "bound_ms": b_ms, "bound_by": b_by}
+    out["tsgram"]["f32_dense_sim"] = check_tsgram(
+        dense_sim.rows, "on S_sim's dense copy", reps=3)
     for name, cases in out.items():
         for key, r in cases.items():
             print(f"[sparse serve] {name} {key}: rel err {r['rel_err']:.3e}, "
@@ -2363,10 +2410,13 @@ def main() -> int:
         r["spill_store_bytes"] == r["spill_load_bytes"] == 0
         and not r["wgmma_serialized"] for r in tc),
         f"flash_attention's tensor-core variant spills or serializes: {tc}")
-    sketch = [r for r in ptxas if r["source"] == "randsketch.cu"]
-    require(len(sketch) >= 3 and all(
-        r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in sketch),
-        f"randsketch's kernels spill: {sketch}")
+    for source, count in (("randsketch.cu", 3), ("tsgram.cu", 4),
+                          ("bsr_spmm.cu", 15)):
+        rows = [r for r in ptxas if r["source"] == source]
+        require(len(rows) >= count and all(
+            r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+            and not r["wgmma_serialized"] for r in rows),
+            f"{source}'s kernels spill or serialize their wgmmas: {rows}")
 
     summary = smoke(dev)
     summary["ptxas"] = ptxas

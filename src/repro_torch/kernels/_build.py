@@ -54,8 +54,10 @@ _SIGNATURES = {
     "repro_gemm": [_I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _P],
     # device, data, dtype, scales, cols, nbr, ell, bs, x, y, stream
     "repro_bsr_spmv": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _P, _P],
-    # device, data, dtype, scales, cols, nbr, ell, bs, x, nx, y, stream
-    "repro_bsr_spmm": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _I, _P, _P],
+    # device, data, dtype, scales, cols, nbr, ell, bs, x, nx, ldx, nt, br,
+    # stages, smem, grid, y, stream
+    "repro_bsr_spmm": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _I, _I, _I, _I,
+                       _I, _I, _I, _P, _P],
     # device, data, dtype, scales, order, chunk_start, chunk_len,
     # col_chunks, nchunks, ell, bs, nbc, x, nx, part, y, stream
     "repro_bsr_rmatmul": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -10,8 +10,10 @@ Three kernels share the layout, each a hand-written CUDA kernel for sm_90a
 in ``csrc/`` with its plain torch version beside it:
 
   * ``bsr_matvec``  — y = A x   (``csrc/bsr_spmv.cu``);
-  * ``bsr_matmul``  — Y = A X   (``csrc/bsr_spmm.cu``), X blocks gathered
-    by column;
+  * ``bsr_matmul``  — Y = A X   (``csrc/bsr_spmm.cu``), X rows gathered
+    by block column into a ring of shared-memory stages beside the stored
+    blocks (``matmul_plan``), each output one thread's sum in an order
+    fixed by A's shape, so a column's bits do not depend on nx;
   * ``bsr_rmatmul`` — Y = AᵀX   (``csrc/bsr_rmatmul.cu``).  The TPU kernel
     scatter-adds into a resident accumulator on a sequential grid; here
     the scatter becomes a gather over a column-major index of the block
@@ -37,6 +39,70 @@ PLANNER_ITEM = "ROADMAP queue 1 item 11 (planner)"
 # Slots of one block column that one block of the rmatmul kernel sums
 # before writing a partial: bounds the work of a hot column's block.
 RMATMUL_CHUNK = 32
+# bsr_matmul's launch plan (csrc/bsr_spmm.cu): at most MATMUL_THREADS a
+# block, MATMUL_MAX_TILE output columns a tile, MATMUL_MAX_STAGES stages;
+# shared memory a block may use, and an SM's.
+MATMUL_THREADS = 256
+MATMUL_MAX_TILE = 32
+MATMUL_MAX_STAGES = 4
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+
+
+@dataclass(frozen=True)
+class MatmulPlan:
+    """How csrc/bsr_spmm.cu runs Y = A X: output tiles of `nt` columns
+    (`ntiles` of them across nx), units of `br` block-rows, one thread per
+    4 × 4 outputs (`threads` a block), a ring of `stages` stages of
+    `stage_bytes` each (`smem` in all), and a persistent grid of `grid`
+    blocks."""
+    nt: int
+    ntiles: int
+    br: int
+    threads: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    grid: int
+
+
+def _matmul_stage_bytes(bs: int, itemsize: int, br: int, nt: int) -> int:
+    """One stage of bsr_spmm.cu (its Layout and stage_bytes): br stored
+    blocks, each row (or 16-byte chunk of rows) followed by 16 bytes and
+    each block by 16 more; the gathered X rows, br × bs × nt f32; br f32
+    scales, in whole 16-byte pieces."""
+    row = bs * itemsize
+    chunk = max(row, 16)
+    block = (bs * row // chunk) * (chunk + 16) + 16
+    return br * block + br * bs * nt * 4 + -(-4 * br // 16) * 16
+
+
+def matmul_plan(nbr: int, bs: int, nx: int, itemsize: int,
+                sms: int) -> MatmulPlan:
+    """bsr_matmul's launch plan for `nbr` block-rows of bs × bs blocks of
+    `itemsize` bytes, nx columns of X and `sms` SMs.  The tile is the
+    power of two >= nx, at least 4 and at most MATMUL_MAX_TILE, so one tile
+    (one read of the stored blocks) serves every nx <= 32.  A unit takes as
+    many block-rows as MATMUL_THREADS threads hold, fewer where two stages
+    would not fit; the ring has as many stages as fit, up to
+    MATMUL_MAX_STAGES.  The plan decides where each output is computed,
+    never the order of its sum."""
+    nt = 4
+    while nt < min(nx, MATMUL_MAX_TILE):
+        nt *= 2
+    per_row = (bs // 4) * (nt // 4)     # threads a block-row
+    br = MATMUL_THREADS // per_row
+    while br > 1 and 2 * _matmul_stage_bytes(bs, itemsize, br, nt) \
+            > SMEM_BLOCK_MAX:
+        br //= 2
+    stage = _matmul_stage_bytes(bs, itemsize, br, nt)
+    stages = min(MATMUL_MAX_STAGES, SMEM_BLOCK_MAX // stage)
+    threads = br * per_row
+    ntiles = -(-nx // nt)
+    per_sm = max(1, min(SMEM_SM // (stages * stage + 1024), 2048 // threads))
+    units = -(-nbr // br) * ntiles
+    return MatmulPlan(nt, ntiles, br, threads, stages, stage, stages * stage,
+                      max(1, min(units, per_sm * sms)))
 
 
 @dataclass(frozen=True)
@@ -288,20 +354,37 @@ def bsr_matvec(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
 bsr_matvec.launches = 0
 
 
+def padded_columns(x: torch.Tensor) -> torch.Tensor:
+    """X as bsr_spmm.cu stages it in 16-byte pieces: `x` itself where its
+    rows are whole pieces (nx a multiple of 4) and it starts on a 16-byte
+    boundary, else a fresh copy with its columns padded by zeros to the next
+    multiple of 4 (the kernel reads the padding, never writes it to Y)."""
+    nx = x.shape[1]
+    if nx % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    xp = x.new_zeros((x.shape[0], -(-nx // 4) * 4))
+    xp[:, :nx] = x
+    return xp
+
+
 def bsr_matmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/bsr_spmm.cu: Y = A X for a CUDA BlockELL A and X (n, nx),
-    read as f32.  Returns f32 (m, nx).  Replaces the TPU kernel
-    ``src/repro/kernels/bsr.py:bsr_matmul``."""
+    read as f32.  Returns f32 (m, nx); column j has the same bits at any
+    nx.  Replaces the TPU kernel ``src/repro/kernels/bsr.py:bsr_matmul``."""
     dev, code, data = check_operands(a, x)
     if x.dim() != 2 or x.shape[0] != a.shape[1] or x.shape[1] < 1:
         raise ValueError(f"X {tuple(x.shape)} against A {a.shape}")
-    x = x.float().contiguous()
     nx = x.shape[1]
+    xp = padded_columns(x.float().contiguous())
     y = torch.empty((a.shape[0], nx), dtype=torch.float32, device=dev)
     nbr, ell = a.cols.shape
+    plan = matmul_plan(
+        nbr, a.bs, nx, data.element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     _build.check(_build.lib().repro_bsr_spmm(
         dev.index, data.data_ptr(), code, _ptr(a.scales), a.cols.data_ptr(),
-        nbr, ell, a.bs, x.data_ptr(), nx, y.data_ptr(), _build.stream(dev)),
+        nbr, ell, a.bs, xp.data_ptr(), nx, xp.shape[1], plan.nt, plan.br,
+        plan.stages, plan.smem, plan.grid, y.data_ptr(), _build.stream(dev)),
         "bsr_matmul launch")
     bsr_matmul.launches += 1
     return y

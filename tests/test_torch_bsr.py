@@ -258,3 +258,59 @@ def test_cpu_tensors_never_reach_the_bsr_kernels():
             call()
     with pytest.raises(ValueError, match="loss"):
         ops.fused_grad_bsr(pb, x, u, u, loss="hinge")
+
+
+def test_bsr_matmul_plan_reads_the_blocks_once_and_fits_the_card():
+    """bsr_matmul's launch plan (csrc/bsr_spmm.cu) at S's shape (2^17
+    block-rows of 32 x 32 f32 blocks, nx = 16): units of 8 block-rows, one
+    thread per 4 x 4 outputs (256 threads), one tile of 16 columns, a ring
+    of 4 stages of 53,408 bytes, one block an SM.  Every nx <= 32 is one
+    tile (the stored blocks read once); wider nx takes tiles of 32."""
+    p = bsr.matmul_plan(1 << 17, 32, 16, 4, 132)
+    assert (p.nt, p.ntiles, p.br, p.threads, p.stages) == (16, 1, 8, 256, 4)
+    assert (p.stage_bytes, p.smem, p.grid) == (53408, 4 * 53408, 132)
+    # The int8 group pass at 8 slots: 16 block-rows a unit.
+    q = bsr.matmul_plan(1 << 17, 32, 8, 1, 132)
+    assert (q.nt, q.ntiles, q.br, q.threads) == (8, 1, 16, 256)
+    for nx, tiles in {1: (4, 1), 3: (4, 1), 5: (8, 1), 8: (8, 1),
+                      16: (16, 1), 17: (32, 1), 32: (32, 1), 33: (32, 2),
+                      520: (32, 17)}.items():
+        r = bsr.matmul_plan(1000, 32, nx, 4, 132)
+        assert (r.nt, r.ntiles) == tiles, nx
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("nx", [1, 4, 8, 16, 32, 33, 520])
+def test_bsr_matmul_plan_at_every_block_size(bs, itemsize, nx):
+    """Every plan launches: at most MATMUL_THREADS threads, one a 4 x 4
+    output tile of one block-row (exactly four X pieces a thread), two to
+    MATMUL_MAX_STAGES stages within a block's shared memory, and a grid no
+    larger than its units."""
+    nbr = 37
+    p = bsr.matmul_plan(nbr, bs, nx, itemsize, 132)
+    per_row = (bs // 4) * (p.nt // 4)
+    assert p.nt in (4, 8, 16, 32) and p.nt * (p.ntiles - 1) < nx <= \
+        p.nt * p.ntiles
+    assert p.threads == p.br * per_row <= bsr.MATMUL_THREADS
+    assert (p.br * bs * (p.nt // 4)) == 4 * p.threads
+    assert 2 <= p.stages <= bsr.MATMUL_MAX_STAGES
+    assert p.stage_bytes % 16 == 0
+    assert p.smem == p.stages * p.stage_bytes <= bsr.SMEM_BLOCK_MAX
+    assert 1 <= p.grid <= -(-nbr // p.br) * p.ntiles
+
+
+def test_bsr_matmul_pads_x_to_whole_pieces():
+    """X goes to the kernel as rows of whole 16-byte pieces on a 16-byte
+    boundary: as it is where it already is, else a copy padded with zero
+    columns."""
+    x = torch.arange(30.0).reshape(10, 3)
+    xp = bsr.padded_columns(x)
+    assert xp.shape == (10, 4) and torch.equal(xp[:, :3], x)
+    assert not xp[:, 3].any()
+    x16 = torch.zeros(10, 16)
+    assert x16.data_ptr() % 16 == 0 and bsr.padded_columns(x16) is x16
+    off = torch.arange(170.0)[1:161].view(10, 16)
+    assert off.data_ptr() % 16 != 0
+    op = bsr.padded_columns(off)
+    assert op.data_ptr() % 16 == 0 and torch.equal(op, off)

@@ -7,9 +7,12 @@ from 1 to 100 (one launch each, across and past 8-slot chunks), a slot's
 bits at k = 1, 40 and 100, every gemm block tile, one and several
 randsketch slices and Q tiles, at widths off its tiles and pieces, and
 views of A that start off a 16-byte boundary (the same bits as aligned
+copies); tsgram at n of 1, odd and off its 128-column tile, across slices,
+and on offset views with NaNs beside them (the same bits as aligned
 copies); for the block-sparse kernels every block size from 8 to 128, f32,
 bf16 and int8 blocks, ragged block-row counts and nx (up to past a sparse
-Gram strip's 512 columns), a hot column longer than one rmatmul chunk, and
+Gram strip's 512 columns), bsr_matmul's columns the same bits at any nx,
+a hot column longer than one rmatmul chunk, and
 fused_grad_bsr's staged and unstaged paths with g in shared and in global
 memory; fused_grad_bsr_multi at every block size, 1 to 100 slots, staged
 and unstaged, with its slot independence and repeatability bit for bit;
@@ -278,16 +281,60 @@ def test_randsketch_row_slice_of_a_matrix(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n", [(1000, 70), (5003, 130), (64, 200)])
+@pytest.mark.parametrize("m,n", [(1000, 70), (5003, 130), (64, 200),
+                                 (3001, 1), (777, 257), (70000, 129),
+                                 (300, 385), (140000, 33)])
 def test_tsgram_matches_plain(dev, dtype, out_dtype, m, n):
+    """n of 1, odd, off the 128-column tile and across several tile pairs,
+    m within one slice and across several: within TOL_SUM of plain,
+    symmetric, and the same bits twice."""
     a = torch.randn(m, n, generator=_gen(dev, m), device=dev).to(dtype)
     got = tsgram.tsgram(a, out_dtype=out_dtype)
     want = tsgram.tsgram_plain(a, out_dtype)
     torch.cuda.synchronize()
-    assert got.dtype == out_dtype
+    assert got.dtype == out_dtype and got.shape == (n, n)
     assert _rel(got, want) <= (TOL_SUM if out_dtype == torch.float32 else 1e-2)
     assert torch.equal(got, got.T)
     assert torch.equal(got, tsgram.tsgram(a, out_dtype=out_dtype))
+    if m >= 70000:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert tsgram.slicing(m, n, sms)[0] > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(1000, 7), (4099, 257), (70000, 131),
+                                 (300, 1)])
+def test_tsgram_offset_views_match_their_aligned_copies(dev, dtype, m, n):
+    """A view that starts 1..3 (f32) or 1..7 (bf16) elements past a
+    16-byte boundary, with NaNs in the bytes around it, gives the same bits
+    as its aligned copy: the kernel stages each row's aligned window and
+    selects the columns past A's last to 0, never multiplying the NaNs."""
+    a = torch.randn(m, n, generator=_gen(dev, 3 * m + n), device=dev).to(
+        dtype)
+    want = tsgram.tsgram(a, out_dtype=torch.float32)
+    assert _rel(want, tsgram.tsgram_plain(a, torch.float32)) <= TOL_SUM
+    for off in range(1, 16 // a.element_size()):
+        buf = torch.full((m * n + off + 16,), float("nan"), device=dev,
+                         dtype=dtype)
+        view = buf[off:off + m * n].view(m, n)
+        view.copy_(a)
+        assert view.data_ptr() % 16 != 0
+        got = tsgram.tsgram(view, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), off
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tsgram_row_slice_of_a_matrix(dev, dtype):
+    """a[3:] of a matrix of odd width (a user's view, no copy): the same
+    bits as a fresh copy of it, and close to plain."""
+    a = torch.randn(5000, 1001, generator=_gen(dev, 9), device=dev).to(dtype)
+    view = a[3:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    got = tsgram.tsgram(view, out_dtype=torch.float32)
+    assert torch.equal(got, tsgram.tsgram(view.clone(),
+                                          out_dtype=torch.float32))
+    assert _rel(got, tsgram.tsgram_plain(view, torch.float32)) <= TOL_SUM
 
 
 @pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
@@ -389,6 +436,40 @@ def test_bsr_kernels_match_plain(dev, storage, bs, nbr, nbc, ell, nx):
         assert got.shape == want.shape and got.dtype == torch.float32
         assert _rel(got, want) <= tol, kern.__name__
         assert torch.equal(got, kern(a, arg)), kern.__name__
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("nx", [1, 8, 16, 33, 520])
+def test_bsr_matmul_matches_plain(dev, storage, bs, nx):
+    """Every storage and block size at nx of 1, 8, 16 (one tile), 33 and
+    520 (several): within TOL of plain and the same bits twice."""
+    a = _random_bell(dev, 45, 11, 4, bs, storage, 3 * bs + nx)
+    X = torch.randn(a.shape[1], nx, generator=_gen(dev, nx), device=dev)
+    got = bsr.bsr_matmul(a, X)
+    want = bsr.bsr_matmul_plain(a, X)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL
+    assert torch.equal(got, bsr.bsr_matmul(a, X))
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [8, 32, 128])
+def test_bsr_matmul_columns_do_not_depend_on_nx(dev, storage, bs):
+    """Y[:, :j] at nx = 16 has the bits of X[:, :j] run alone (j = 1, 8),
+    and does not change when X's other columns do: every output is one
+    thread's sum in an order fixed by A's shape."""
+    a = _random_bell(dev, 70, 9, 5, bs, storage, 7 * bs)
+    g = _gen(dev, bs)
+    X = torch.randn(a.shape[1], 16, generator=g, device=dev)
+    Y = bsr.bsr_matmul(a, X)
+    for j in (1, 8):
+        assert torch.equal(bsr.bsr_matmul(a, X[:, :j].contiguous()),
+                           Y[:, :j]), j
+    X2 = X.clone()
+    X2[:, 8:] = 1e3 * torch.randn(a.shape[1], 8, generator=g, device=dev)
+    assert torch.equal(bsr.bsr_matmul(a, X2)[:, :8], Y[:, :8])
 
 
 @pytest.mark.parametrize("storage", ["f32", "int8"])

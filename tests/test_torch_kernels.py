@@ -192,20 +192,120 @@ def test_plain_versions_agree_with_oracles():
 
 def test_tsgram_slicing_fills_the_card_and_bounds_partials():
     tiles = lambda n: -(-n // tsgram.TILE)
-    # Main-path shape: 16 x 16 tiles -> 136 upper-triangle tiles, sliced
-    # so that tiles x slices reaches four blocks per SM of a 132-SM card
-    # and no slice sums more than SLICE_ROWS rows.
-    slices, rows = tsgram.slicing(2 ** 21, 1024, 132)
     pairs = tiles(1024) * (tiles(1024) + 1) // 2
-    assert pairs * slices >= tsgram.BLOCKS_PER_SM * 132
-    assert slices * rows >= 2 ** 21 and rows % tsgram.CHUNK == 0
-    assert rows <= tsgram.SLICE_ROWS
+    # Main-path shape: 8 x 8 tiles of 128 -> 36 upper-triangle pairs; 33
+    # slices of whole 32-row stages make 1188 blocks, 9 whole waves of one
+    # block an SM on a 132-SM card, and no slice sums more than SLICE_ROWS.
+    slices, rows = tsgram.slicing(2 ** 21, 1024, 132)
+    assert (pairs, slices, rows) == (36, 33, 63552)
+    assert pairs * slices % 132 == 0
+    assert slices * rows >= 2 ** 21 > (slices - 1) * rows
+    assert rows % tsgram.STAGE_ROWS == 0 and rows <= tsgram.SLICE_ROWS
     assert slices * 1024 * 1024 * 4 <= tsgram.PARTIALS_BYTES
-    # Wide n: the tiles alone fill the card, so one slice.
+    # S_sim's dense copy (2^20 x 4096): 528 pairs fill 4 waves alone, and
+    # the partials cap (four 64 MB slices) wins over SLICE_ROWS.
+    assert tsgram.slicing(2 ** 20, 4096, 132) == (4, 2 ** 18)
+    # Wide n: one slice's partials fill the cap.
     assert tsgram.slicing(4096, 8192, 132)[0] == 1
-    # Few rows: never more slices than row chunks, none empty.
+    # Few rows: never more slices than row stages, none empty.
     s, r = tsgram.slicing(20, 64, 132)
     assert s * r >= 20 and (s - 1) * r < 20
+
+
+@pytest.mark.parametrize("vec", [4, 8])
+def test_tsgram_k_order_reads_each_row_once_with_one_shift_a_load(vec):
+    """The kernel's K order (tsgram.cu, "K order"): each k-step's rows, in
+    K order, cover a 32-row stage once; the four rows one shared load of a
+    warp reads (one a lane group t) have the same shift for any start p and
+    width n, and sit in adjacent staging slots, so the load touches 32
+    distinct banks."""
+    steps = tsgram.kstep_rows(vec)
+    assert sorted(r for rows in steps for r in rows) == list(
+        range(tsgram.STAGE_ROWS))
+    assert sorted(tsgram.slot(k, vec) for k in range(tsgram.STAGE_ROWS)) \
+        == list(range(tsgram.STAGE_ROWS))
+    for rows in steps:
+        if vec == 4:     # m16n8k8: lane group t reads K indices t and t + 4
+            loads = [[rows[t + 4 * h] for t in range(4)] for h in range(2)]
+        else:            # m16n8k16: K indices 2t + b + 8h
+            loads = [[rows[2 * t + b + 8 * h] for t in range(4)]
+                     for b in range(2) for h in range(2)]
+        for load in loads:
+            for n in (1, 7, 70, 1023, 1024, 4097):
+                for p in range(vec):
+                    assert len({(p + k * n) % vec for k in load}) == 1
+            slots = sorted(tsgram.slot(k, vec) for k in load)
+            assert slots == list(range(slots[0], slots[0] + 4))
+
+
+@pytest.mark.parametrize("vec", [4, 8])
+@pytest.mark.parametrize("n", [1, 7, 127, 128, 129, 1023, 4096])
+def test_tsgram_window_covers_the_tile(vec, n):
+    """The kernel copies, for each row and column tile, the 16-byte pieces
+    from the one that holds the segment's first element, as many as the
+    tile's width spans, and reads back element c at shift + c: the copy
+    covers every column a fragment reads, each piece it reads from memory
+    holds at least one element of the segment, and where the tile reaches
+    past A's last column it reads nothing past that column (the rest of
+    the tile arrives as zeros)."""
+    for p in range(vec):
+        for row in (0, 1, 2, 5, 1000):
+            for c0 in range(0, n, tsgram.TILE):
+                first, pieces, shift, end = tsgram.window(p, n, vec, row, c0)
+                assert first * vec + shift == p + row * n + c0
+                assert 0 <= shift < vec
+                assert pieces * vec >= shift + tsgram.TILE
+                assert pieces * vec <= shift + tsgram.TILE + vec - 1
+                if c0 + tsgram.TILE > n:
+                    assert end - shift == n - c0
+                else:
+                    assert end == pieces * vec
+                read = [pc for pc in range(pieces) if end > pc * vec]
+                assert all(pc * vec < shift + min(tsgram.TILE, n - c0)
+                           for pc in read)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 mantissa bits cleared, as the kernel splits an
+    operand and as the mma reads a .tf32 operand."""
+    return (x.contiguous().view(torch.int32) & ~((1 << 13) - 1)).view(
+        torch.float32)
+
+
+def _tf32_gram(a: torch.Tensor, products: int, rows: int) -> torch.Tensor:
+    """AᵀA with the kernel's f32 arithmetic in plain torch: each operand
+    split into a TF32 high part and the rest (read cut to TF32), the parts'
+    products (exact in f32) summed from zero over each run of `rows` rows,
+    the runs added to an f32 total.  products = 3 keeps lo·hi, hi·lo and
+    hi·hi (3xTF32), 1 keeps hi·hi."""
+    hi = _tf32(a)
+    lo = _tf32(a - hi)
+    total = torch.zeros(a.shape[1], a.shape[1])
+    for k0 in range(0, a.shape[0], rows):
+        h, l = hi[k0:k0 + rows], lo[k0:k0 + rows]
+        acc = h.T @ h
+        if products == 3:
+            acc = l.T @ h + h.T @ l + acc
+        total = total + acc
+    return total
+
+
+def test_three_tf32_products_keep_the_gram_at_f32_accuracy():
+    """Why tsgram meets TOL["tsgram"] (5e-4) on the tensor cores: 3xTF32
+    with 64-row runs (the kernel's kSumRows) stays within 1e-5 of float64,
+    normwise, where one TF32 product does not; bf16 storage is exact in one
+    bf16 product."""
+    rng = np.random.default_rng(64)
+    a = torch.from_numpy(rng.normal(size=(4096, 40)).astype(np.float32))
+    exact = a.double().T @ a.double()
+
+    def rel(got):
+        return float(torch.linalg.vector_norm(got.double() - exact)
+                     / torch.linalg.vector_norm(exact))
+
+    assert rel(_tf32_gram(a, 3, 64)) <= 1e-5 < rel(_tf32_gram(a, 1, 64))
+    ab = a.bfloat16().float()
+    assert torch.equal(_tf32(ab), ab)
 
 
 def test_build_checks_refuse_other_devices_and_types():
