@@ -95,16 +95,19 @@ fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
 their plain versions, and the four block-sparse kernels (f32, bf16 and
 int8 storage; bsr_matmul at nx = 16, its columns at nx = 1 and 8 bit for
 bit those of nx = 16 and unchanged when X's other columns change,
-bsr_rmatmul at nx = 1 and 16,
+bsr_rmatmul at nx = 1 and 16, its columns likewise, beside torch's BSR
+product of a transpose stored once and its route's bound (TF32 tensor-core
+products; the f32 FMA bound recorded beside it as fma_bound_ms),
 fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16, 40,
 every loss, f32 and bf16 storage, one launch a call, slot independence;
-the int8 composition at k = 8) on S, just before phase 6.  After the build
-it prints each multi-slot kernel's, flash_attention's, randsketch's,
-tsgram's and bsr_matmul's registers and spill bytes from ptxas, and fails
-if flash_attention's tensor-core variant or tsgram's f32 kernel spills or
-has its wgmmas serialized by ptxas, or if a randsketch, tsgram or
-bsr_matmul kernel spills.  fused_grad is fused_grad_multi's
-kernel with one slot.  Phase 5 also serves an exact SimilarityRequest on
+the int8 composition at k = 8, its slot bits too) on S, just before
+phase 6.  After the build it prints each multi-slot kernel's,
+flash_attention's, randsketch's, tsgram's, bsr_matmul's and bsr_rmatmul's
+registers and spill bytes from ptxas, and fails if flash_attention's tensor-core variant or tsgram's f32
+kernel spills or has its wgmmas serialized by ptxas, or if a randsketch,
+tsgram, bsr_matmul or bsr_rmatmul kernel spills.  fused_grad is
+fused_grad_multi's kernel with one slot, and fused_grad_bsr
+fused_grad_bsr_multi's.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
 one a model: every launch count is set to 0 just before each and read just
@@ -213,7 +216,8 @@ SOURCES = {
                    "src/repro/kernels/bsr.py:188"),
     "bsr_rmatmul": ("src/repro_torch/kernels/csrc/bsr_rmatmul.cu",
                     "src/repro/kernels/bsr.py:335"),
-    "fused_grad_bsr": ("src/repro_torch/kernels/csrc/fused_grad_bsr.cu",
+    # fused_grad_bsr is fused_grad_bsr_multi.cu's one-slot launch.
+    "fused_grad_bsr": ("src/repro_torch/kernels/csrc/fused_grad_bsr_multi.cu",
                        "src/repro/kernels/fusedgrad.py:238"),
     "fused_grad_bsr_multi": (
         "src/repro_torch/kernels/csrc/fused_grad_bsr_multi.cu",
@@ -292,7 +296,7 @@ def one_launch(kernel, call, what: str):
 
 def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu",
                           "flash_attention.cu", "randsketch.cu", "tsgram.cu",
-                          "bsr_spmm.cu")) -> list:
+                          "bsr_spmm.cu", "bsr_rmatmul.cu")) -> list:
     """Registers and spill bytes of every kernel in `sources`, and whether
     ptxas serialized its wgmmas, from the ptxas report of the build
     (kernels/_build.py's build_log)."""
@@ -1095,6 +1099,23 @@ def bsr_library(a):
                                    size=a.shape)
 
 
+def bsr_library_t(a):
+    """torch.sparse_bsr_tensor of Aᵀ for a BlockELL A (its blocks
+    transposed and regrouped by block column, stored once), for the
+    library yardstick of AᵀX: torch's BSR product takes no transposed
+    (SparseBsc) operand on CUDA.  None for int8 storage."""
+    if a.scales is not None:
+        return None
+    flat = a.cols.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    nbc = a.shape[1] // a.bs
+    crow = torch.zeros(nbc + 1, dtype=torch.long, device=flat.device)
+    crow[1:] = torch.cumsum(torch.bincount(flat, minlength=nbc), 0)
+    vals = a.data.reshape(-1, a.bs, a.bs)[order].transpose(1, 2).contiguous()
+    return torch.sparse_bsr_tensor(crow, order // a.ell, vals,
+                                   size=(a.shape[1], a.shape[0]))
+
+
 def library_time(fn) -> tuple[float | None, str | None]:
     """One PyTorch call's time as the yardstick, or why there is none."""
     try:
@@ -1114,6 +1135,22 @@ def sparse_bound(a, nx: int, extra_bytes: float, flops_per_elem: float):
               + (0 if a.scales is None else 4 * a.scales.numel())
               + extra_bytes)
     return bound(nbytes, flops_per_elem * nx * elems, a.data.dtype)
+
+
+def rmatmul_bound(a, nx: int) -> dict:
+    """bsr_rmatmul's bound on its route: one read of the stored blocks,
+    scales, cols, X and one write of Y, or 2 nx flops a stored element as
+    TF32 products (three a product for f32 blocks, 3xTF32; two for bf16 and
+    int8 blocks, exact in TF32); beside it, as fma_bound_ms, the bound of
+    f32 FMA on the CUDA cores."""
+    t_bytes = sparse_bound(a, nx, 4 * nx * (a.shape[0] + a.shape[1]), 0.0)[0]
+    flops = 2.0 * nx * a.data.numel()
+    products = 3 if a.data.dtype == torch.float32 else 2
+    t_ops = bound(0, products * flops, "tf32")[0]
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "fma_bound_ms": max(t_bytes, bound(0, flops, torch.float32)[0])}
 
 
 def check_sparse_kernels(mats: dict, gen) -> dict:
@@ -1140,14 +1177,15 @@ def check_sparse_kernels(mats: dict, gen) -> dict:
     for dt, srm in mats.items():
         a = srm._local()
         lib = bsr_library(a)
+        lib_t = bsr_library_t(a)
         cases = (("bsr_matvec", bsr.bsr_matvec, bsr.bsr_matvec_plain, x, 1,
                   4 * (n + m), lambda: lib @ x[:, None]),
                  ("bsr_matmul", bsr.bsr_matmul, bsr.bsr_matmul_plain, X, K_U,
                   4 * K_U * (n + m), lambda: lib @ X),
                  ("bsr_rmatmul", bsr.bsr_rmatmul, bsr.bsr_rmatmul_plain, U1,
-                  1, 4 * (n + m), lambda: lib.t() @ U1),
+                  1, 4 * (n + m), lambda: lib_t @ U1.to(lib_t.dtype)),
                  ("bsr_rmatmul", bsr.bsr_rmatmul, bsr.bsr_rmatmul_plain, U,
-                  K_U, 4 * K_U * (n + m), lambda: lib.t() @ U))
+                  K_U, 4 * K_U * (n + m), lambda: lib_t @ U.to(lib_t.dtype)))
         for name, kern, plain, arg, nx, extra, libcall in cases:
             got = kern(a, arg)
             want = plain(a, arg)
@@ -1157,15 +1195,16 @@ def check_sparse_kernels(mats: dict, gen) -> dict:
                     f"{e:.3e} > {TOL[name]}")
             require(torch.equal(got, kern(a, arg)),
                     f"{name} {dt} nx={nx}: two runs differ")
-            b_ms, b_by = sparse_bound(a, nx, extra, 2.0)
+            bnd = (rmatmul_bound(a, nx) if name == "bsr_rmatmul" else dict(
+                zip(("bound_ms", "bound_by"),
+                    sparse_bound(a, nx, extra, 2.0))))
             lib_ms, lib_note = ((None, "int8 blocks: torch's BSR product "
                                  "takes no int8") if lib is None
                                 else library_time(libcall))
             rec = {"nx": nx, "rel_err": e, "max_abs_err": max_abs(got, want),
                    "ms": time_ms(lambda: kern(a, arg)),
                    "plain_ms": time_ms(lambda: plain(a, arg)),
-                   "library_ms": lib_ms, "library_note": lib_note,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "library_ms": lib_ms, "library_note": lib_note, **bnd}
             key = dt if name != "bsr_rmatmul" or nx == 1 else f"{dt}_nx{nx}"
             out[name][key] = rec
             del got, want
@@ -1182,6 +1221,19 @@ def check_sparse_kernels(mats: dict, gen) -> dict:
                 f"bsr_matmul {dt}: columns :8 move with columns 8:")
         out["bsr_matmul"][dt]["columns_independent_of_nx"] = [1, 8, K_U]
         del Y, X2
+        # So do bsr_rmatmul's (mma computes an output from its own column).
+        Y = bsr.bsr_rmatmul(a, U)
+        for j in (1, 8):
+            require(torch.equal(bsr.bsr_rmatmul(a, U[:, :j].contiguous()),
+                                Y[:, :j]), f"bsr_rmatmul {dt}: columns :{j} "
+                    f"at nx = {j} differ from nx = {K_U}")
+        U2 = U.clone()
+        U2[:, 8:] = 1.0 - 7.0 * U[:, 8:]
+        require(torch.equal(bsr.bsr_rmatmul(a, U2)[:, :8], Y[:, :8]),
+                f"bsr_rmatmul {dt}: columns :8 move with columns 8:")
+        out["bsr_rmatmul"][f"{dt}_nx{K_U}"]["columns_independent_of_nx"] = \
+            [1, 8, K_U]
+        del Y, U2, lib_t
         if dt == "int8":
             continue
         recs = {}
@@ -1268,7 +1320,7 @@ def check_sparse_multi(mats: dict, gen) -> dict:
                         "differ")
                 rec[loss] = {"rel_err": errs, "max_abs_err": max(
                     max_abs(g, p) for g, p in zip(got, want))}
-                if k == SLOTS and loss == "logistic" and dt != "int8":
+                if k == SLOTS and loss == "logistic":
                     # Slot 0's request alone, and among random neighbours in
                     # slot 0 and in slot SLOTS - 1: the same bits.
                     alone = run(a, x[:1], t[:1], w[:1], loss=loss, param=0.5)
@@ -1799,23 +1851,26 @@ def check_wide_kernels(S, S_sim, dense_sim) -> dict:
                 f"{e:.3e} > {TOL['bsr_rmatmul']}")
         require(torch.equal(got, bsr.bsr_rmatmul(a, strip)),
                 f"bsr_rmatmul {key}: two runs differ")
-        b_ms, b_by = sparse_bound(a, 512, 4 * 512 * (a.shape[0] + a.shape[1]),
-                                  2.0)
-        out["bsr_rmatmul"][key] = {
-            "nx": 512, "rel_err": e, "max_abs_err": max_abs(got, want),
-            "ms": time_ms(lambda: bsr.bsr_rmatmul(a, strip), reps=3),
-            "plain_ms": time_ms(lambda: bsr.bsr_rmatmul_plain(a, strip),
-                                reps=3),
-            "densify_ms": densify_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "strips": srm.shape[1] // 512}
-        del got, want, strip
+        rec = {"nx": 512, "rel_err": e, "max_abs_err": max_abs(got, want),
+               "ms": time_ms(lambda: bsr.bsr_rmatmul(a, strip), reps=3),
+               "plain_ms": time_ms(lambda: bsr.bsr_rmatmul_plain(a, strip),
+                                   reps=3),
+               "densify_ms": densify_ms, **rmatmul_bound(a, 512),
+               "strips": srm.shape[1] // 512}
+        del got, want
+        lib_t = bsr_library_t(a)
+        rec["library_ms"] = time_ms(lambda: lib_t @ strip, reps=3)
+        out["bsr_rmatmul"][key] = rec
+        del strip, lib_t
     out["tsgram"]["f32_dense_sim"] = check_tsgram(
         dense_sim.rows, "on S_sim's dense copy", reps=3)
     for name, cases in out.items():
         for key, r in cases.items():
+            lib = r.get("library_ms")
             print(f"[sparse serve] {name} {key}: rel err {r['rel_err']:.3e}, "
-                  f"{r['ms']:.1f} ms (plain {r['plain_ms']:.1f} ms, bound "
-                  f"{r['bound_ms']:.2f} ms by {r['bound_by']})")
+                  f"{r['ms']:.1f} ms (plain {r['plain_ms']:.1f} ms, "
+                  + ("" if lib is None else f"library {lib:.1f} ms, ")
+                  + f"bound {r['bound_ms']:.2f} ms by {r['bound_by']})")
     return out
 
 
@@ -2411,7 +2466,7 @@ def main() -> int:
         and not r["wgmma_serialized"] for r in tc),
         f"flash_attention's tensor-core variant spills or serializes: {tc}")
     for source, count in (("randsketch.cu", 3), ("tsgram.cu", 4),
-                          ("bsr_spmm.cu", 15)):
+                          ("bsr_spmm.cu", 15), ("bsr_rmatmul.cu", 28)):
         rows = [r for r in ptxas if r["source"] == source]
         require(len(rows) >= count and all(
             r["spill_store_bytes"] == r["spill_load_bytes"] == 0

@@ -58,16 +58,11 @@ _SIGNATURES = {
     # stages, smem, grid, y, stream
     "repro_bsr_spmm": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _I, _I, _I, _I,
                        _I, _I, _I, _P, _P],
-    # device, data, dtype, scales, order, chunk_start, chunk_len,
-    # col_chunks, nchunks, ell, bs, nbc, x, nx, part, y, stream
-    "repro_bsr_rmatmul": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P, _I, _P, _P, _P],
-    # device, nbr, ell, bs, n, dtype, *staged, *g_smem, *grid
-    "repro_fused_grad_bsr_plan": [_I, _LL, _I, _I, _I, _I, _IP, _IP, _IP],
-    # device, data, dtype, cols, x, t, w, nbr, ell, bs, n, staged, g_smem,
-    # grid, loss, param, z, g_part, f_part, g, f, stream
-    "repro_fused_grad_bsr": [_I, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    # device, data, dtype, scales, order, rows, chunk_start, chunk_len,
+    # col_chunks, nchunks, bs, nbc, x, nx, xvec, nt, stages, smem, part, y,
+    # stream
+    "repro_bsr_rmatmul": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # device, nbr, ell, bs, n, dtype, *staged, *grid
     "repro_fused_grad_bsr_multi_plan": [_I, _LL, _I, _I, _I, _I, _IP, _IP],
     # device, data, dtype, cols, x, t, w, nbr, ell, bs, n, k, staged, grid,

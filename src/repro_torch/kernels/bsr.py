@@ -17,8 +17,10 @@ in ``csrc/`` with its plain torch version beside it:
   * ``bsr_rmatmul`` — Y = AᵀX   (``csrc/bsr_rmatmul.cu``).  The TPU kernel
     scatter-adds into a resident accumulator on a sequential grid; here
     the scatter becomes a gather over a column-major index of the block
-    pattern (``ColumnIndex``), built once on the device and cached on the
-    BlockELL, so every output sum runs in an order fixed by the pattern.
+    pattern (``ColumnIndex``: chunks of one column), built once on the
+    device and cached on the BlockELL, so every output sum runs in an
+    order fixed by the pattern; the products run on the tensor cores
+    (3xTF32, ``rmatmul_plan``), and a column's bits do not depend on nx.
 
 All three upcast what they load, apply the int8 scale and sum in f32, and
 each launch adds one to its wrapper's ``launches``.  ``*_plain`` are the
@@ -36,9 +38,20 @@ from . import _build
 
 BS_CANDIDATES = (8, 16, 32, 64, 128)
 PLANNER_ITEM = "ROADMAP queue 1 item 11 (planner)"
-# Slots of one block column that one block of the rmatmul kernel sums
-# before writing a partial: bounds the work of a hot column's block.
+# Slots of one block column that the rmatmul kernel sums before writing a
+# partial (a unit of its work): bounds the work of a hot column's unit.
+# csrc/bsr_rmatmul.cu stages a unit's index lists for at most this many
+# (kMaxChunk).
 RMATMUL_CHUNK = 32
+# bsr_rmatmul's launch plan (csrc/bsr_rmatmul.cu): warps a block, 16 x 8
+# output tiles a warp at most, stages of the ring at most, and the shared
+# memory its ring may take: a quarter of an SM's for tiles up to 32
+# columns (four blocks an SM), half for wider ones (two: their registers
+# allow no more).
+RMATMUL_WARPS = 4
+RMATMUL_TILES_PER_WARP = 8
+RMATMUL_MAX_STAGES = 8
+RMATMUL_RING_BUDGET = {False: 57344, True: 114688}
 # bsr_matmul's launch plan (csrc/bsr_spmm.cu): at most MATMUL_THREADS a
 # block, MATMUL_MAX_TILE output columns a tile, MATMUL_MAX_STAGES stages;
 # shared memory a block may use, and an SM's.
@@ -106,16 +119,75 @@ def matmul_plan(nbr: int, bs: int, nx: int, itemsize: int,
 
 
 @dataclass(frozen=True)
+class RmatmulPlan:
+    """How csrc/bsr_rmatmul.cu runs Y = AᵀX: output tiles of `nt` columns
+    (`ntiles` of them across nx); a ring of `stages` stages of
+    `stage_bytes` each (`smem` in all), a stage holding one stored block
+    at `row_stride` bytes a row, nt columns of its X slab at `x_stride`
+    floats a row and 16 bytes for its int8 scale."""
+    nt: int
+    ntiles: int
+    row_stride: int
+    x_stride: int
+    stages: int
+    stage_bytes: int
+    smem: int
+
+
+def rmatmul_row_stride(row_bytes: int, elem: int) -> int:
+    """The staged row stride (bytes) of bsr_rmatmul.cu (its row_stride): the
+    row itself below 16 bytes, else the least whole number of 16-byte
+    pieces, at least the row, at which the 4 rows and 8 consecutive
+    elements (of `elem` bytes) one fragment load reads fall on distinct
+    shared-memory banks (32 of 4 bytes)."""
+    if row_bytes < 16:
+        return row_bytes
+    foot = 8 * elem
+    s = row_bytes
+    while True:
+        gaps = [((b - a) * s) % 128 for a in range(4) for b in range(a + 1, 4)]
+        if all(foot <= d <= 128 - foot for d in gaps):
+            return s
+        s += 16
+
+
+def rmatmul_plan(bs: int, nx: int, itemsize: int) -> RmatmulPlan:
+    """bsr_rmatmul's launch plan for bs × bs blocks of `itemsize` bytes and
+    nx columns of X.  The tile is the power of two >= nx, at least 8 (one
+    n8 mma tile) and at most as wide as RMATMUL_WARPS warps of
+    RMATMUL_TILES_PER_WARP 16 × 8 tiles hold (256 columns at bs <= 16, 128
+    at 32, 64 at 64, 32 at 128); the ring has as many stages as fit its
+    budget (RMATMUL_RING_BUDGET), two to RMATMUL_MAX_STAGES.  The plan
+    decides which warp computes an output, never the order of its sum."""
+    mt = max(1, bs // 16)
+    nt_max = 8 * RMATMUL_WARPS * (RMATMUL_TILES_PER_WARP // mt)
+    nt = 8
+    while nt < min(nx, nt_max):
+        nt *= 2
+    row = rmatmul_row_stride(bs * itemsize, itemsize)
+    x_stride = rmatmul_row_stride(4 * nt, 4) // 4
+    stage = bs * row + 4 * bs * x_stride + 16
+    stages = max(2, min(RMATMUL_MAX_STAGES,
+                        RMATMUL_RING_BUDGET[nt > 32] // stage))
+    return RmatmulPlan(nt, -(-nx // nt), row, x_stride, stages, stage,
+                       stages * stage)
+
+
+@dataclass(frozen=True)
 class ColumnIndex:
     """The block pattern by column, for AᵀX as a gather: `order` lists the
     flat slots i*ell + s sorted by column (stable, so ascending i within a
-    column), cut into chunks of at most RMATMUL_CHUNK slots (`chunk_start`,
-    `chunk_len`); block column j owns chunks col_chunks[j] ..
-    col_chunks[j+1] − 1.  All int32 on the BlockELL's device."""
+    column), cut into chunks (`chunk_start`, `chunk_len`) of at most
+    `chunk` slots of one column, in `order`'s order, which is the order the
+    kernel runs them; block column j owns chunks col_chunks[j] ..
+    col_chunks[j+1] − 1, in ascending rows; `rows` is the block-row of each
+    slot of `order`.  It follows from the pattern alone.  All int32 on the
+    BlockELL's device."""
     order: torch.Tensor
     chunk_start: torch.Tensor
     chunk_len: torch.Tensor
     col_chunks: torch.Tensor
+    rows: torch.Tensor
 
     @property
     def nchunks(self) -> int:
@@ -124,6 +196,7 @@ class ColumnIndex:
     @staticmethod
     def build(cols: torch.Tensor, nbc: int,
               chunk: int = RMATMUL_CHUNK) -> "ColumnIndex":
+        """The index of `cols` (nbr, ell) over `nbc` block columns."""
         flat = cols.reshape(-1).long()
         if flat.numel() and (int(flat.min()) < 0 or int(flat.max()) >= nbc):
             raise ValueError(f"block columns must lie in [0, {nbc})")
@@ -142,7 +215,8 @@ class ColumnIndex:
         length = torch.clamp(counts[owner] - rank * chunk, max=chunk)
         i32 = torch.int32
         return ColumnIndex(order.to(i32), start.to(i32), length.to(i32),
-                           col_chunks.to(i32))
+                           col_chunks.to(i32),
+                           (order // cols.shape[1]).to(i32))
 
 
 @dataclass(frozen=True)
@@ -395,9 +469,10 @@ bsr_matmul.launches = 0
 
 def bsr_rmatmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/bsr_rmatmul.cu: Y = AᵀX for a CUDA BlockELL A and
-    X (m, nx), read as f32.  Returns f32 (n, nx).  Replaces both forms of
-    the TPU kernel ``src/repro/kernels/bsr.py:bsr_rmatmul`` (the fused
-    scatter and the partials + segment_sum), with no float atomics."""
+    X (m, nx), read as f32.  Returns f32 (n, nx); column j has the same bits
+    at any nx.  Replaces both forms of the TPU kernel
+    ``src/repro/kernels/bsr.py:bsr_rmatmul`` (the fused scatter and the
+    partials + segment_sum), with no float atomics."""
     dev, code, data = check_operands(a, x)
     if x.dim() != 2 or x.shape[0] != a.shape[0] or x.shape[1] < 1:
         raise ValueError(f"X {tuple(x.shape)} against A {a.shape}")
@@ -405,15 +480,20 @@ def bsr_rmatmul(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     nx = x.shape[1]
     idx = a.column_index()
     nbc = a.shape[1] // a.bs
+    plan = rmatmul_plan(a.bs, nx, data.element_size())
+    # X goes in 16-byte pieces where its rows are whole pieces on a 16-byte
+    # boundary, else element by element (the same arithmetic).
+    xvec = int(nx % 4 == 0 and x.data_ptr() % 16 == 0)
     part = torch.empty((max(idx.nchunks, 1), a.bs, nx), dtype=torch.float32,
                        device=dev)
     y = torch.empty((a.shape[1], nx), dtype=torch.float32, device=dev)
     _build.check(_build.lib().repro_bsr_rmatmul(
         dev.index, data.data_ptr(), code, _ptr(a.scales),
-        idx.order.data_ptr(), idx.chunk_start.data_ptr(),
-        idx.chunk_len.data_ptr(), idx.col_chunks.data_ptr(), idx.nchunks,
-        a.ell, a.bs, nbc, x.data_ptr(), nx, part.data_ptr(), y.data_ptr(),
-        _build.stream(dev)), "bsr_rmatmul launch")
+        idx.order.data_ptr(), idx.rows.data_ptr(), idx.chunk_start.data_ptr(),
+        idx.chunk_len.data_ptr(), idx.col_chunks.data_ptr(), idx.nchunks, a.bs,
+        nbc, x.data_ptr(), nx, xvec, plan.nt, plan.stages, plan.smem,
+        part.data_ptr(), y.data_ptr(), _build.stream(dev)),
+        "bsr_rmatmul launch")
     bsr_rmatmul.launches += 1
     return y
 

@@ -1,5 +1,5 @@
 // The row-separable losses of the fused-gradient kernels
-// (fused_grad_multi.cu, fused_grad_bsr.cu, fused_grad_bsr_multi.cu):
+// (fused_grad_multi.cu, fused_grad_bsr_multi.cu):
 // fusedgrad.py:row_loss_elem in f32, one row at a time; and what the two
 // multi-slot kernels share: the slot chunks, the loss sums and the second
 // pass over the per-block partials.

@@ -19,16 +19,16 @@ row tiling, grid and chunk width follow from A's shape and storage alone,
 so a request gets the same bits from ``fused_grad`` as from any slot of
 ``fused_grad_multi`` with any number of slots.
 
-``fused_grad_bsr`` (``csrc/fused_grad_bsr.cu``) is the same function on a
-BlockELL operand (kernels/bsr.py), replacing ``_fused_grad_bsr_kernel``:
-each stored block is read once, z and the residual come from a block-row's
-staged blocks, and rᵀAᵢⱼ is added into the block's partial g at block
-column cols[i, s] by one owner thread per element, so no float atomics.
-``fused_grad_bsr_multi`` (``csrc/fused_grad_bsr_multi.cu``) is its
-request-batched form, replacing ``_fused_grad_bsr_multi_kernel``: one read
-of each stored block serves any k slots in chunks of 8, thread (s, c) owns
-slot s's g entries at in-block offset c, and the grid follows from A's shape
-and storage alone, as in fused_grad_multi.
+``fused_grad_bsr`` and ``fused_grad_bsr_multi`` are the same function on a
+BlockELL operand (kernels/bsr.py), and one kernel,
+``csrc/fused_grad_bsr_multi.cu``, serves both and replaces both TPU
+kernels: ``fused_grad_bsr`` (``_fused_grad_bsr_kernel``) is its one-slot
+case, and ``fused_grad_bsr_multi`` (``_fused_grad_bsr_multi_kernel``) the
+request-batched form.  One read of each stored block serves any k slots in
+chunks of 8, thread (s, c) owns slot s's g entries at in-block offset c, so
+no float atomics, and the grid follows from A's shape and storage alone, as
+in fused_grad_multi: a direct sparse solve gets the same bits as the same
+request in a server group.
 
 ``fused_grad_plain``, ``fused_grad_multi_plain``, ``fused_grad_bsr_plain``
 and ``fused_grad_bsr_multi_plain`` are the same functions in plain torch:
@@ -120,43 +120,63 @@ def fused_grad_bsr_plain(a: "_bsr.BlockELL", x: torch.Tensor,
     return f, _bsr.bsr_rmatmul_plain(a, r[:, None])[:, 0], z
 
 
-def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, t: torch.Tensor,
-                   w: torch.Tensor, *, loss: str, param: float = 1.0
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/fused_grad_bsr.cu on a CUDA BlockELL with f32 or bf16
-    blocks: x (n,), t, w (m,) over its dims, read as f32.  Returns f32
-    f (scalar), g (n,), z (m,).  Replaces the TPU kernel
-    ``src/repro/kernels/fusedgrad.py:fused_grad_bsr``."""
+def _launch_bsr(a, x, t, w, loss, param, what):
+    """Run csrc/fused_grad_bsr_multi.cu once on a CUDA BlockELL with f32 or
+    bf16 blocks: x (k × n); t, w (k × m), any k ≥ 1.  Returns f32 f (k,),
+    g (k × n), z (k × m)."""
     dev, code, data = _bsr.check_operands(a, x, t, w)
     if a.scales is not None:
-        raise ValueError("fused_grad_bsr takes exact (f32 or bf16) blocks; "
-                         "int8 shards compose bsr_matvec and bsr_rmatmul")
+        raise ValueError(f"{what} takes exact (f32 or bf16) blocks; int8 "
+                         "shards compose bsr_matvec or bsr_matmul and "
+                         "bsr_rmatmul")
     if loss not in LOSSES:
         raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
     (m, n), (nbr, ell) = a.shape, a.cols.shape
-    if x.shape != (n,) or t.shape != (m,) or w.shape != (m,):
+    k = x.shape[0] if x.dim() == 2 else 0
+    if x.shape != (k, n) or t.shape != (k, m) or w.shape != (k, m):
         raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
                          f"w {tuple(w.shape)} against A {a.shape}")
+    if k < 1:
+        raise ValueError("the kernel takes one slot or more, got none")
     x, t, w = (v.float().contiguous() for v in (x, t, w))
+    # The staged path's 16-byte copies need aligned blocks (check_operands
+    # copies others) and X.
+    x = _build.aligned(x)
     lib = _build.lib()
-    staged, g_smem, grid = (ctypes.c_int() for _ in range(3))
-    _build.check(lib.repro_fused_grad_bsr_plan(
+    staged, grid = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.repro_fused_grad_bsr_multi_plan(
         dev.index, nbr, ell, a.bs, n, code, ctypes.byref(staged),
-        ctypes.byref(g_smem), ctypes.byref(grid)), "fused_grad_bsr plan")
+        ctypes.byref(grid)), f"{what} plan")
     f32 = dict(dtype=torch.float32, device=dev)
-    z = torch.empty(m, **f32)
-    g_part = torch.empty((grid.value, n), **f32)
-    f_part = torch.empty(grid.value, **f32)
-    g = torch.empty(n, **f32)
-    f = torch.empty((), **f32)
-    _build.check(lib.repro_fused_grad_bsr(
+    z = torch.empty((k, m), **f32)
+    g_part = torch.empty((grid.value, k, n), **f32)
+    f_part = torch.empty((grid.value, 2, k), **f32)
+    g = torch.empty((k, n), **f32)
+    f = torch.empty(k, **f32)
+    _build.check(lib.repro_fused_grad_bsr_multi(
         dev.index, data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
-        t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, staged.value,
-        g_smem.value, grid.value, LOSSES.index(loss), float(param),
-        z.data_ptr(), g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(),
-        f.data_ptr(), _build.stream(dev)), "fused_grad_bsr launch")
-    fused_grad_bsr.launches += 1
+        t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, k, staged.value,
+        grid.value, LOSSES.index(loss), float(param), z.data_ptr(),
+        g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(), f.data_ptr(),
+        _build.stream(dev)), f"{what} launch")
     return f, g, z
+
+
+def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, t: torch.Tensor,
+                   w: torch.Tensor, *, loss: str, param: float = 1.0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch csrc/fused_grad_bsr_multi.cu with one slot on a CUDA BlockELL
+    with f32 or bf16 blocks: x (n,), t, w (m,) over its dims, read as f32.
+    Returns f32 f (scalar), g (n,), z (m,): the bits of slot 0 of
+    ``fused_grad_bsr_multi`` with the same request.  Replaces the TPU
+    kernel ``src/repro/kernels/fusedgrad.py:fused_grad_bsr``."""
+    if x.dim() != 1 or t.dim() != 1 or w.dim() != 1:
+        raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
+                         f"w {tuple(w.shape)}: one slot takes vectors")
+    f, g, z = _launch_bsr(a, x[None], t[None], w[None], loss, param,
+                          "fused_grad_bsr")
+    fused_grad_bsr.launches += 1
+    return f[0], g[0], z[0]
 
 
 fused_grad_bsr.launches = 0
@@ -189,41 +209,7 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     are sums in an order fixed by A's shape and storage alone, so a request
     gets the same bits whatever the other slots hold and however many there
     are."""
-    dev, code, data = _bsr.check_operands(a, x, t, w)
-    if a.scales is not None:
-        raise ValueError("fused_grad_bsr_multi takes exact (f32 or bf16) "
-                         "blocks; int8 shards compose bsr_matmul and "
-                         "bsr_rmatmul")
-    if loss not in LOSSES:
-        raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
-    (m, n), (nbr, ell) = a.shape, a.cols.shape
-    k = x.shape[0] if x.dim() == 2 else 0
-    if x.shape != (k, n) or t.shape != (k, m) or w.shape != (k, m):
-        raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
-                         f"w {tuple(w.shape)} against A {a.shape}")
-    if k < 1:
-        raise ValueError("the kernel takes one slot or more, got none")
-    x, t, w = (v.float().contiguous() for v in (x, t, w))
-    # The staged path's 16-byte copies need aligned blocks (check_operands
-    # copies others) and X.
-    x = _build.aligned(x)
-    lib = _build.lib()
-    staged, grid = ctypes.c_int(), ctypes.c_int()
-    _build.check(lib.repro_fused_grad_bsr_multi_plan(
-        dev.index, nbr, ell, a.bs, n, code, ctypes.byref(staged),
-        ctypes.byref(grid)), "fused_grad_bsr_multi plan")
-    f32 = dict(dtype=torch.float32, device=dev)
-    z = torch.empty((k, m), **f32)
-    g_part = torch.empty((grid.value, k, n), **f32)
-    f_part = torch.empty((grid.value, 2, k), **f32)
-    g = torch.empty((k, n), **f32)
-    f = torch.empty(k, **f32)
-    _build.check(lib.repro_fused_grad_bsr_multi(
-        dev.index, data.data_ptr(), code, a.cols.data_ptr(), x.data_ptr(),
-        t.data_ptr(), w.data_ptr(), nbr, ell, a.bs, n, k, staged.value,
-        grid.value, LOSSES.index(loss), float(param), z.data_ptr(),
-        g_part.data_ptr(), f_part.data_ptr(), g.data_ptr(), f.data_ptr(),
-        _build.stream(dev)), "fused_grad_bsr_multi launch")
+    f, g, z = _launch_bsr(a, x, t, w, loss, param, "fused_grad_bsr_multi")
     fused_grad_bsr_multi.launches += 1
     return f, g, z
 

@@ -174,7 +174,9 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     elif a.scales is not None:
         z = _bsr.bsr_matmul(a, x.T).T
         le, r = _fg.row_loss_elem(z, target, weights, loss, param)
-        f = le.sum(dim=1)
+        # One sum a slot: torch's row sums of a (k, m) tensor take another
+        # order at another k, and a request must get the same f alone.
+        f = torch.stack([row.sum() for row in le])
         g = _bsr.bsr_rmatmul(a, r.to(x.dtype).T).T
     else:
         f, g, z = _fg.fused_grad_bsr_multi(a, x, target, weights, loss=loss,

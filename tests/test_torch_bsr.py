@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.kernels import bsr, fusedgrad, ops, ref
 
 STORAGE = ("f32", "bf16", "int8")
+REDUCE_LANES = 8    # csrc/bsr_rmatmul.cu's kReduceLanes
 LOSSES = ("quad", "logistic", "huber", "poisson")
 
 
@@ -182,23 +183,197 @@ def test_fused_grad_bsr_plain_matches_the_reference(storage, loss, bs):
     assert g.dtype == torch.float32 and z.shape == (m,)
 
 
-def _gather_rmatmul(a: bsr.BlockELL, x: torch.Tensor) -> torch.Tensor:
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 mma operand keeps of an f32 value: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _gather_rmatmul(a: bsr.BlockELL, x: torch.Tensor,
+                    idx: bsr.ColumnIndex | None = None) -> torch.Tensor:
     """AᵀX summed the way csrc/bsr_rmatmul.cu sums it: per chunk of the
-    column index in chunk order, then the chunks of each column in order."""
-    idx = a.column_index()
+    column index, its slots in order, each slot's product Aᵢⱼᵀ Xᵢ from its
+    TF32 parts (3xTF32 for f32 blocks: a_lo x_hi + a_hi x_lo + a_hi x_hi;
+    bf16 and int8 blocks are exact in TF32: a x_lo + a x_hi) from zero, its
+    even and odd k-steps (rows 8k .. 8k + 7) apart and then added, added to
+    the chunk's f32 total (int8: times the block's scale); then
+    each column's chunk totals in the reduce pass's order: lane w of
+    REDUCE_LANES adds chunks w, w + REDUCE_LANES, .. in order, and the
+    lanes' sums are added in lane order.  The mma's own rounding inside a
+    product is not modelled (float64 here)."""
+    idx = idx or a.column_index()
     bs, ell = a.bs, a.ell
-    blocks = bsr.effective_data(a).float().reshape(-1, bs, bs)
+    blocks = a.data.float().reshape(-1, bs, bs)
+    scales = None if a.scales is None else a.scales.reshape(-1)
     xr = x.float().reshape(-1, bs, x.shape[1])
+    x_hi = _tf32(xr)
+    x_lo = _tf32(xr - x_hi)
     parts = []
     for c in range(idx.nchunks):
         s0, n0 = int(idx.chunk_start[c]), int(idx.chunk_len[c])
-        p = idx.order[s0: s0 + n0].long()
-        parts.append(sum(blocks[q].T @ xr[q // ell] for q in p))
+        total = torch.zeros((bs, x.shape[1]))
+        for q in idx.order[s0: s0 + n0].long().tolist():
+            blk = blocks[q].T
+            hi, lo = x_hi[q // ell].double(), x_lo[q // ell].double()
+            if a.data.dtype == torch.float32:
+                a_hi = _tf32(blk)
+                a_lo = _tf32(blk - a_hi)
+                terms = ((a_lo, hi), (a_hi, lo), (a_hi, hi))
+            else:
+                terms = ((blk, lo), (blk, hi))
+            half = []
+            for par in (0, 1):
+                ks = [r for r in range(bs) if (r // 8) % 2 == par]
+                half.append(sum(u.double()[:, ks] @ v[ks] for u, v in terms)
+                            .float())
+            p = half[0] + half[1]
+            total = total + (p if scales is None else scales[q] * p)
+        parts.append(total)
     out = torch.zeros((a.shape[1] // bs, bs, x.shape[1]))
     for j in range(a.shape[1] // bs):
-        for c in range(int(idx.col_chunks[j]), int(idx.col_chunks[j + 1])):
-            out[j] += parts[c]
+        c0, c1 = int(idx.col_chunks[j]), int(idx.col_chunks[j + 1])
+        for w in range(REDUCE_LANES):
+            lane = torch.zeros((bs, x.shape[1]))
+            for c in range(c0 + w, c1, REDUCE_LANES):
+                lane = lane + parts[c]
+            out[j] = out[j] + lane
     return out.reshape(a.shape[1], -1)
+
+
+def _check_index(idx: bsr.ColumnIndex, cols: torch.Tensor, nbc: int,
+                 chunk: int) -> None:
+    """The invariants of a ColumnIndex: `order` sorted by column (ascending
+    rows within one) and `rows` its block-rows; chunks of one column, at
+    most `chunk` slots, cut from the front of each column's run, back to
+    back in `order`, which is the kernel's launch order (unit u is chunk
+    u // ntiles): column by column, in rows within a column;
+    `col_chunks` the chunks of each column."""
+    ell = cols.shape[1]
+    flat = cols.reshape(-1).long()
+    order = idx.order.long()
+    assert torch.equal(order, torch.argsort(flat, stable=True))
+    assert torch.equal(idx.rows.long(), order // ell)
+    start, length = idx.chunk_start.long(), idx.chunk_len.long()
+    assert int(length.min()) >= 1 and int(length.max()) <= chunk
+    assert int(start[0]) == 0 and torch.equal(start[1:],
+                                              (start + length)[:-1])
+    assert int(length.sum()) == flat.numel()
+    keys = []
+    for c in range(idx.nchunks):
+        q = order[int(start[c]): int(start[c] + length[c])]
+        rows = q // ell
+        assert len(set(flat[q].tolist())) == 1
+        assert bool((rows.diff() > 0).all())
+        keys.append((int(flat[q[0]]), int(rows[0])))
+    assert keys == sorted(keys)
+    for j in range(nbc):
+        mine = list(range(int(idx.col_chunks[j]), int(idx.col_chunks[j + 1])))
+        assert all(keys[c][0] == j for c in mine)
+        assert all(int(length[c]) == chunk for c in mine[:-1])
+
+
+def test_column_index_cuts_chunks_in_launch_order():
+    """ColumnIndex at several chunk sizes: a hot column (every block-row)
+    cut into whole chunks from its front; the chunks in the kernel's launch
+    order, column by column, in rows order within a column."""
+    rng = np.random.default_rng(11)
+    nbr, nbc, ell = 53, 9, 4
+    keys = rng.random((nbr, nbc))
+    keys[:, 5] = -1.0
+    cols = torch.sort(torch.from_numpy(np.argsort(keys, axis=1)[:, :ell]),
+                      dim=1).values.to(torch.int32)
+    for chunk in (4, 3, 32, 2, 1):
+        idx = bsr.ColumnIndex.build(cols, nbc, chunk)
+        _check_index(idx, cols, nbc, chunk)
+        hot = int(idx.col_chunks[6] - idx.col_chunks[5])
+        assert hot == -(-nbr // chunk)
+
+
+def test_column_index_order_stays_sorted_by_column():
+    """A BlockELL's cached index keeps `order` the stable sort of the
+    columns, which SparseRowMatrix.column_norms takes prefix sums over."""
+    bs, nbr, nbc, ell = 8, 2500, 7, 3
+    rng = np.random.default_rng(12)
+    cols = np.sort(np.argsort(rng.random((nbr, nbc)), axis=1)[:, :ell],
+                   axis=1)
+    a = bsr.BlockELL(torch.ones(nbr, ell, bs, bs),
+                     torch.from_numpy(cols).to(torch.int32).contiguous(),
+                     (nbr * bs, nbc * bs))
+    _check_index(a.column_index(), a.cols, nbc, bsr.RMATMUL_CHUNK)
+    assert torch.equal(a.column_index().order.long(), torch.argsort(
+        a.cols.reshape(-1).long(), stable=True))
+
+
+@pytest.mark.parametrize("storage", STORAGE)
+@pytest.mark.parametrize("chunk", [3, 32])
+def test_rmatmul_3xtf32_order_matches_plain(storage, chunk):
+    """The kernel's sum order and 3xTF32 products, emulated on the CPU over
+    an index whose columns span several chunks (and one), agree with
+    bsr_rmatmul_plain; each column of X gives the same emulated bits
+    alone."""
+    bs, nbr, nbc = 8, 23, 6
+    dense = block_sparse(nbr * bs, nbc * bs, bs, 0.5, seed=chunk)
+    _, pb = _pair(dense, bs, storage)
+    idx = bsr.ColumnIndex.build(pb.cols, nbc, chunk)
+    X = _t(np.random.default_rng(4).normal(size=(nbr * bs, 5))
+           .astype(np.float32))
+    got = _gather_rmatmul(pb, X, idx)
+    _close(got, bsr.bsr_rmatmul_plain(pb, X), atol=1e-4)
+    assert torch.equal(_gather_rmatmul(pb, X[:, 2:3], idx), got[:, 2:3])
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("nx", [1, 8, 16, 33, 512, 520])
+def test_rmatmul_plan_at_every_block_size(bs, itemsize, nx):
+    """bsr_rmatmul's plan (csrc/bsr_rmatmul.cu): a tile of 8 to nt_max
+    columns covering nx in whole tiles, at most RMATMUL_TILES_PER_WARP mma
+    tiles a warp, two to RMATMUL_MAX_STAGES stages within a block's shared
+    memory; staged rows of whole 16-byte pieces (or one run of them) on
+    which one fragment load's 4 rows x 8 elements hit 32 distinct banks or
+    share words only within a row."""
+    p = bsr.rmatmul_plan(bs, nx, itemsize)
+    assert bsr.RMATMUL_CHUNK == 32    # csrc/bsr_rmatmul.cu's kMaxChunk
+    mt = max(1, bs // 16)
+    assert p.nt in (8, 16, 32, 64, 128, 256)
+    assert p.nt * (p.ntiles - 1) < nx <= p.nt * p.ntiles
+    assert (p.nt // 8) * mt <= bsr.RMATMUL_WARPS * bsr.RMATMUL_TILES_PER_WARP
+    if nx <= 32:
+        assert p.ntiles == 1
+    assert 2 <= p.stages <= bsr.RMATMUL_MAX_STAGES
+    # Tiles up to 32 columns with fewer than 4 mma tiles a slot share each
+    # tile among 4 / tiles warps, one slot each, and take at most half the
+    # ring an iteration.
+    tiles = mt * (p.nt // 8)
+    if p.nt <= 32 and tiles < 4:
+        assert p.stages >= 2 * (4 // tiles)
+    assert p.stage_bytes == bs * p.row_stride + 4 * bs * p.x_stride + 16
+    assert p.stage_bytes % 16 == 0
+    assert p.smem == p.stages * p.stage_bytes <= bsr.SMEM_BLOCK_MAX
+    for stride, elem in ((p.row_stride, itemsize), (4 * p.x_stride, 4)):
+        assert stride % 16 == 0 or stride == bs * itemsize < 16
+        words = {}
+        for t in range(4):
+            for g in range(8):
+                w = (t * stride + g * elem) // 4
+                words.setdefault(w % 32, set()).add(w)
+        assert all(len(ws) == 1 for ws in words.values())
+
+
+def test_rmatmul_plan_at_the_paths_shapes():
+    """S's blocks (32 × 32 f32): 160-byte rows, one 8-column tile at nx = 1
+    and 8 (the Lanczos operator, the int8 group pass) with 8 stages, 16 at
+    16 with 6, and four 128-column tiles of a 512-column Gram strip with
+    5: four blocks an SM fit beside each other at the narrow tiles, two
+    at the wide ones."""
+    for nx, (nt, ntiles, stages) in {1: (8, 1, 8), 8: (8, 1, 8),
+                                     16: (16, 1, 6),
+                                     512: (128, 4, 5)}.items():
+        p = bsr.rmatmul_plan(32, nx, 4)
+        assert (p.nt, p.ntiles, p.stages, p.row_stride) == (nt, ntiles,
+                                                            stages, 160)
+        static = 3 * 2 * 4 * 32 + (16 * 8 * 32 if nt <= 32 else 0)
+        assert (4 if nt <= 32 else 2) * (p.smem + static + 1024) \
+            <= bsr.SMEM_SM
 
 
 @pytest.mark.parametrize("storage", STORAGE)

@@ -13,8 +13,11 @@ copies); for the block-sparse kernels every block size from 8 to 128, f32,
 bf16 and int8 blocks, ragged block-row counts and nx (up to past a sparse
 Gram strip's 512 columns), bsr_matmul's columns the same bits at any nx,
 a hot column longer than one rmatmul chunk, and
-fused_grad_bsr's staged and unstaged paths with g in shared and in global
-memory; fused_grad_bsr_multi at every block size, 1 to 100 slots, staged
+fused_grad_bsr (the multi kernel's one-slot launch, slot 0's bits);
+bsr_rmatmul at every storage and block size for nx of 1 to 520, its
+columns the same bits at any nx, a hot column across row ranges and X off
+a 16-byte boundary; an int8 request's bits alone and in a group;
+fused_grad_bsr_multi at every block size, 1 to 100 slots, staged
 and unstaged, with its slot independence and repeatability bit for bit;
 blocks that start off a 16-byte boundary through every sparse kernel;
 a SolverServer group of 40 slots on a dense and on a sparse matrix, one
@@ -489,6 +492,74 @@ def test_bsr_rmatmul_hot_column(dev, storage):
         assert torch.equal(got, bsr.bsr_rmatmul(a, X))
 
 
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("nx", [1, 8, 16, 33, 512, 520])
+def test_bsr_rmatmul_matches_plain(dev, storage, bs, nx):
+    """Every storage and block size at nx of 1, 8, 16 (one tile at every
+    bs), 33, 512 and 520 (wide tiles, several, a ragged last one): within
+    TOL_SUM of plain and the same bits twice."""
+    a = _random_bell(dev, 45, 11, 4, bs, storage, 5 * bs + nx)
+    U = torch.randn(a.shape[0], nx, generator=_gen(dev, nx), device=dev)
+    got = bsr.bsr_rmatmul(a, U)
+    want = bsr.bsr_rmatmul_plain(a, U)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL_SUM
+    assert torch.equal(got, bsr.bsr_rmatmul(a, U))
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs", [8, 32, 128])
+def test_bsr_rmatmul_columns_do_not_depend_on_nx(dev, storage, bs):
+    """Y[:, :j] at nx = 16 has the bits of X[:, :j] run alone (j = 1, 8)
+    and of the first 16 columns of a 512-column X (wide tiles), and does
+    not change when X's other columns do: mma computes an output from its
+    own column of X, in an order fixed by A's pattern."""
+    a = _random_bell(dev, 70, 9, 5, bs, storage, 11 * bs)
+    g = _gen(dev, bs + 1)
+    U = torch.randn(a.shape[0], 16, generator=g, device=dev)
+    Y = bsr.bsr_rmatmul(a, U)
+    for j in (1, 8):
+        assert torch.equal(bsr.bsr_rmatmul(a, U[:, :j].contiguous()),
+                           Y[:, :j]), j
+    U2 = U.clone()
+    U2[:, 8:] = 1e3 * torch.randn(a.shape[0], 8, generator=g, device=dev)
+    assert torch.equal(bsr.bsr_rmatmul(a, U2)[:, :8], Y[:, :8])
+    wide = torch.cat([U, torch.randn(a.shape[0], 496, generator=g,
+                                     device=dev)], dim=1)
+    assert torch.equal(bsr.bsr_rmatmul(a, wide)[:, :16], Y)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_bsr_rmatmul_hot_column_of_many_chunks(dev, storage):
+    """Every one of 2000 block-rows holds block column 3: its list is cut
+    into 63 chunks, more than the reduce pass reads four rounds of lanes
+    at a time, and summed in chunk order."""
+    a = _random_bell(dev, 2000, 20, 4, 16, storage, 13, hot=3)
+    idx = a.column_index()
+    assert int(idx.col_chunks[4] - idx.col_chunks[3]) == 63
+    for nx in (1, 16, 40):
+        X = torch.randn(a.shape[0], nx, generator=_gen(dev, nx), device=dev)
+        got = bsr.bsr_rmatmul(a, X)
+        want = bsr.bsr_rmatmul_plain(a, X)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= TOL_SUM
+        assert torch.equal(got, bsr.bsr_rmatmul(a, X))
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nx", [1, 4, 16, 33, 512])
+def test_bsr_rmatmul_offset_x_matches_its_aligned_copy(dev, storage, nx):
+    """X that starts off a 16-byte boundary goes in element by element, an
+    aligned X (nx a multiple of 4) in 16-byte pieces: the same bits."""
+    a = _random_bell(dev, 37, 13, 5, 32, storage, 17 + nx)
+    U = torch.randn(a.shape[0], nx, generator=_gen(dev, 3 * nx), device=dev)
+    got = bsr.bsr_rmatmul(a, _off_boundary(U))
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsr.bsr_rmatmul(a, U))
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("loss", fusedgrad.LOSSES)
 @pytest.mark.parametrize("bs,nbr,nbc,ell", [(8, 301, 40, 7), (32, 150, 16, 16),
@@ -496,9 +567,8 @@ def test_bsr_rmatmul_hot_column(dev, storage):
                                             (64, 33, 700, 3),
                                             (128, 5, 400, 2)])
 def test_fused_grad_bsr_matches_plain(dev, dtype, loss, bs, nbr, nbc, ell):
-    """Staged block-rows (up to 64 KB of f32) and unstaged ones (bs = 128);
-    g in shared memory, and in global memory where n·4 bytes do not fit
-    beside the tile (n = 40000, 44800 and 51200)."""
+    """fused_grad_bsr_multi.cu's one-slot launch on staged block-rows (up
+    to 64 KB of f32) and unstaged ones (bs = 128), at n up to 51200."""
     a = _random_bell(dev, nbr, nbc, ell, bs, dtype, nbr + ell)
     m, n = a.shape
     g = _gen(dev, m)
@@ -567,6 +637,29 @@ def test_fused_grad_bsr_multi_matches_plain(dev, dtype, k, loss, bs, nbr,
     again = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss=loss, param=0.5)
     for u, v in zip(got, again):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("loss", fusedgrad.LOSSES)
+@pytest.mark.parametrize("bs,nbr,nbc,ell", BSR_MULTI_SHAPES)
+def test_fused_grad_bsr_is_slot_0_of_the_multi_kernel(dev, dtype, loss, bs,
+                                                      nbr, nbc, ell):
+    """fused_grad_bsr is fused_grad_bsr_multi.cu's one-slot launch: a
+    request's f, g and z have the bits of slot 0 of a three-slot group, and
+    each wrapper counts its own launches."""
+    a = _random_bell(dev, nbr, nbc, ell, bs, dtype, nbr + 3 * ell)
+    x, t, w = _bsr_multi_inputs(dev, a, 3, loss, bs + ell)
+    before = (fusedgrad.fused_grad_bsr.launches,
+              fusedgrad.fused_grad_bsr_multi.launches)
+    one = fusedgrad.fused_grad_bsr(a, x[0], t[0], w[0], loss=loss, param=0.5)
+    grp = fusedgrad.fused_grad_bsr_multi(a, x, t, w, loss=loss, param=0.5)
+    torch.cuda.synchronize()
+    assert (fusedgrad.fused_grad_bsr.launches,
+            fusedgrad.fused_grad_bsr_multi.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert [v.shape for v in one] == [(), (a.shape[1],), (a.shape[0],)]
+    for u, v in zip(one, grp):
+        assert torch.equal(u, v[0])
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -737,6 +830,25 @@ def test_fused_grad_bsr_multi_int8_composes(dev):
     counts = ops.launch_counts()
     assert (counts["bsr_matmul"], counts["bsr_rmatmul"],
             counts["fused_grad_bsr_multi"]) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("loss", fusedgrad.LOSSES)
+def test_fused_grad_bsr_multi_int8_slot_bits(dev, loss):
+    """An int8 request has the same f, g and z bits alone, in slot 0 and in
+    slot 7 of an eight-slot group: bsr_matmul's and bsr_rmatmul's columns
+    do not depend on nx, and the loss is summed a slot at a time."""
+    a = _random_bell(dev, 300, 9, 3, 32, "int8", 6)
+    x, t, w = _bsr_multi_inputs(dev, a, 8, loss, 7)
+    alone = ops.fused_grad_bsr_multi(a, x[:1], t[:1], w[:1], loss=loss,
+                                     param=0.5)
+    x2, t2, w2 = _bsr_multi_inputs(dev, a, 8, loss, 8)
+    for slot in (0, 7):
+        x3, t3, w3 = x2.clone(), t2.clone(), w2.clone()
+        x3[slot], t3[slot], w3[slot] = x[0], t[0], w[0]
+        grp = ops.fused_grad_bsr_multi(a, x3, t3, w3, loss=loss, param=0.5)
+        torch.cuda.synchronize()
+        for u, v in zip(alone, grp):
+            assert torch.equal(u[0], v[slot]), slot
 
 
 # bf16 attention: the kernel rounds the softmax weights to bf16 before the

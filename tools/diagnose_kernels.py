@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Take the port's tsgram or bsr_matmul kernel apart on one card: where its time goes.
+"""Take the port's tsgram, bsr_matmul or bsr_rmatmul kernel apart on one card: where its time goes.
 
     PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel tsgram [--rounds 2]
     PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel bsr_matmul
+    PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel bsr_rmatmul
 
-Builds patched copies of the kernel's source (``csrc/tsgram.cu`` or
-``csrc/bsr_spmm.cu``) under ``build/diagnose/`` (nvcc, in parallel) and
-times each through the wrapper, the variants in turn, ``--rounds`` times:
+Builds patched copies of the kernel's source (``csrc/tsgram.cu``,
+``csrc/bsr_spmm.cu`` or ``csrc/bsr_rmatmul.cu``) under ``build/diagnose/``
+(nvcc, in parallel) and times each through the wrapper, the variants in
+turn, ``--rounds`` times:
 
   kernel         the source as it is;
   copies_only    the products skipped: only the copies into the ring run;
   products_only  the copies skipped: the products run on stale stages;
+  skeleton       bsr_rmatmul: both skipped, what is left of the kernel (its
+                 index loads, barriers, partial writes and second pass);
 
 and for tsgram also
 
@@ -27,7 +31,8 @@ tsgram runs at chip_smoke.py's A (2^21 x 1024, from a seed) in f32 and
 bf16, and on A's ragged f32 view (1023 columns starting one element into
 its storage); bsr_matmul on chip_smoke.py's S (2^22 x 2^14, 32 x 32
 blocks, 16 a block-row, Zipf(1) block columns) in f32, bf16 and int8 at
-nx = 16.  ``kernel`` and ``sum_rows_128`` compute the same function and
+nx = 16; bsr_rmatmul on S in f32, bf16 and int8 at nx = 1 and in f32 at
+nx = 16 and 512.  ``kernel`` and ``sum_rows_128`` compute the same function and
 are held against the plain version (normwise error, printed); the others
 time parts of the kernel and compute nothing useful.  One JSON line per
 variant, case and round, with the card's name and power limit from
@@ -55,6 +60,21 @@ _TS_SPLIT = ("  hi = __float_as_uint(x) & 0xffffe000u;\n"
 _MM_PRODUCTS = "    for (int c0 = 0; c0 < BS; c0 += 4) {\n"
 _MM_COPY_A = "    for (int e = tid; e < br * L::kPieces; e += nthreads) {\n"
 _MM_COPY_X = "    for (int p = 0; p < 4; ++p) {\n      const int j = col0 + 4 * jp;\n"
+_RM_PRODUCTS = "    for (int ks = 0; ks < L::kKS; ++ks) {\n"
+_RM_COPY_A = "        if (L::kPieces % kThreads == 0 || p < L::kPieces) {\n"
+_RM_COPY_AL = "      for (int p = tid; p < L::kPieces; p += kThreads) {\n"
+_RM_COPY_XV = "      for (int p = tid; p < (BS << per_row_log2); p += kThreads) {\n"
+_RM_COPY_XS = "      for (int p = tid; p < (BS << nt_log2); p += kThreads) {\n"
+_RM_NO_COPIES = [(_RM_COPY_A, "        if (nx < 0 && (L::kPieces % kThreads == 0 "
+                              "|| p < L::kPieces)) {\n"),
+                 (_RM_COPY_AL, "      for (int p = tid; nx < 0 && p < L::kPieces; "
+                               "p += kThreads) {\n"),
+                 (_RM_COPY_XV, "      for (int p = tid; nx < 0 && p < (BS << "
+                               "per_row_log2); p += kThreads) {\n"),
+                 (_RM_COPY_XS, "      for (int p = tid; nx < 0 && p < (BS << "
+                               "nt_log2); p += kThreads) {\n")]
+_RM_NO_PRODUCTS = [(_RM_PRODUCTS, "    for (int ks = 0; nx < 0 && ks < L::kKS; "
+                                  "++ks) {\n")]
 
 PATCHES = {
     "tsgram": {
@@ -88,6 +108,17 @@ PATCHES = {
                              "L::kPieces; e += nthreads) {\n"),
                 (_MM_COPY_X, "    for (int p = 0; nx < 0 && p < 4; ++p) {\n"
                              "      const int j = col0 + 4 * jp;\n")],
+        },
+        "computes": ("kernel",),
+    },
+    "bsr_rmatmul": {
+        "source": "bsr_rmatmul.cu",
+        "entry": "repro_bsr_rmatmul",
+        "variants": {
+            "kernel": [],
+            "copies_only": _RM_NO_PRODUCTS,
+            "products_only": _RM_NO_COPIES,
+            "skeleton": _RM_NO_PRODUCTS + _RM_NO_COPIES,
         },
         "computes": ("kernel",),
     },
@@ -190,6 +221,29 @@ def bsr_matmul_cases(dev):
                    bsr.bsr_matmul_plain(a, X)) for name, a in mats.items()}
 
 
+def bsr_rmatmul_cases(dev):
+    """(case, call, plain) for bsr_rmatmul on S."""
+    from repro_torch.kernels import bsr
+
+    from time_bsr_rmatmul import M, sparse_matrix
+
+    s32 = sparse_matrix(bsr, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    U1 = torch.randn(M, 1, generator=gen, device=dev)
+    mats = {"f32": s32,
+            "bf16": bsr.BlockELL(s32.data.to(torch.bfloat16), s32.cols,
+                                 s32.shape),
+            "int8": s32.quantize_int8()}
+    cases = {f"{name}_nx1": (lambda a=a: bsr.bsr_rmatmul(a, U1),
+                             bsr.bsr_rmatmul_plain(a, U1))
+             for name, a in mats.items()}
+    for nx in (16, 512):
+        U = torch.randn(M, nx, generator=gen, device=dev)
+        cases[f"f32_nx{nx}"] = (lambda U=U: bsr.bsr_rmatmul(s32, U),
+                                bsr.bsr_rmatmul_plain(s32, U))
+    return cases
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=sorted(PATCHES), required=True)
@@ -208,7 +262,8 @@ def main() -> int:
     spec = PATCHES[args.kernel]
     libs = build(_build, spec, _build.BUILD_DIR / "diagnose" / args.kernel)
     dev = torch.device("cuda", 0)
-    cases = (tsgram_cases if args.kernel == "tsgram" else bsr_matmul_cases)(dev)
+    cases = {"tsgram": tsgram_cases, "bsr_matmul": bsr_matmul_cases,
+             "bsr_rmatmul": bsr_rmatmul_cases}[args.kernel](dev)
     for rnd in range(args.rounds):
         order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
         for name in order:
