@@ -14,7 +14,8 @@ with nvcc, then:
               plain version, one PyTorch library call where there is one,
               and the card's bound for the same work (tsgram's f32 bound
               is its route's, three TF32 tensor-core products a product;
-              the f32 CUDA-core bound is printed beside it); tsgram also
+              the f32 CUDA-core bound is printed beside it; gemm's is its
+              route's, TF32 tensor-core products); tsgram and gemm also
               on A's ragged view (2^21 x 1023 starting one element into
               A's storage), bit for bit against its aligned copy;
   3. svd:     api.svd in Gram mode, k = 16, on the f32 A; singular values
@@ -90,8 +91,10 @@ f32 and bf16 storage, one launch a call, slot independence of the other
 slots and of the slot count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16,
 on A_w and on its ragged view of N_W - 1 columns starting one element into
 its storage, each against plain, bit-stable, the view against its aligned
-copy, and timed) and
-fused_grad at A_w's width (the kernel's unstaged path) on A_w, against
+copy, and timed),
+fused_grad at A_w's width (the kernel's unstaged path) on A_w, and gemm at
+its serving shapes (Y = A_w Z with Z of 26 columns, and TSQR's 2^18 x 26
+times 26 x 26, two runs the same bits, timed beside torch.mm), against
 their plain versions, and the four block-sparse kernels (f32, bf16 and
 int8 storage; bsr_matmul at nx = 16, its columns at nx = 1 and 8 bit for
 bit those of nx = 16 and unchanged when X's other columns change,
@@ -102,10 +105,11 @@ fused_grad_bsr for every loss) and fused_grad_bsr_multi (k = 1, 8, 16, 40,
 every loss, f32 and bf16 storage, one launch a call, slot independence;
 the int8 composition at k = 8, its slot bits too) on S, just before
 phase 6.  After the build it prints each multi-slot kernel's,
-flash_attention's, randsketch's, tsgram's, bsr_matmul's and bsr_rmatmul's
-registers and spill bytes from ptxas, and fails if flash_attention's tensor-core variant or tsgram's f32
-kernel spills or has its wgmmas serialized by ptxas, or if a randsketch,
-tsgram, bsr_matmul or bsr_rmatmul kernel spills.  fused_grad is
+flash_attention's, randsketch's, tsgram's, bsr_matmul's, bsr_rmatmul's,
+gemm's and selective_scan's registers and spill bytes from ptxas, and
+fails if flash_attention's tensor-core variant spills or has its wgmmas
+serialized by ptxas, or if a randsketch, tsgram, bsr_matmul, bsr_rmatmul,
+gemm or selective_scan kernel spills or has them serialized.  fused_grad is
 fused_grad_multi's kernel with one slot, and fused_grad_bsr
 fused_grad_bsr_multi's.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
@@ -296,7 +300,8 @@ def one_launch(kernel, call, what: str):
 
 def ptxas_report(sources=("fused_grad_multi.cu", "fused_grad_bsr_multi.cu",
                           "flash_attention.cu", "randsketch.cu", "tsgram.cu",
-                          "bsr_spmm.cu", "bsr_rmatmul.cu")) -> list:
+                          "bsr_spmm.cu", "bsr_rmatmul.cu", "gemm.cu",
+                          "selective_scan.cu")) -> list:
     """Registers and spill bytes of every kernel in `sources`, and whether
     ptxas serialized its wgmmas, from the ptxas report of the build
     (kernels/_build.py's build_log)."""
@@ -432,8 +437,8 @@ def check_kernels(A: torch.Tensor, gen) -> dict:
         torch.cuda.synchronize()
         e = rel_err(got, want)
         require(e <= TOL["gemm"], f"gemm {dt}: relative error {e:.3e}")
-        b_ms, b_by = bound(M * N * isz + N * K_GEMM * 4 + M * K_GEMM * 4,
-                           2.0 * M * N * K_GEMM, a.dtype)
+        require(torch.equal(got, gemm.gemm(a, B, out_dtype=torch.float32)),
+                f"gemm {dt}: two runs differ")
         Bc = B.to(a.dtype)
         out["gemm"][dt] = {
             "rel_err": e, "max_abs_err": max_abs(got, want),
@@ -441,8 +446,24 @@ def check_kernels(A: torch.Tensor, gen) -> dict:
             "plain_ms": time_ms(lambda: gemm.gemm_plain(a, B,
                                                         torch.float32)),
             "library_ms": time_ms(lambda: torch.mm(a, Bc)),
-            "bound_ms": b_ms, "bound_by": b_by}
-        del got, want, Bc, a
+            **gemm_bound(a, B)}
+        del got, want, Bc
+        if dt == "f32":
+            # A's ragged view (N - 1 columns, one element into its
+            # storage): every row starts at another offset from a 16-byte
+            # boundary; bit for bit its aligned copy.
+            ragged = a.view(-1)[1:1 + M * (N - 1)].view(M, N - 1)
+            require(ragged.data_ptr() % 16 != 0, "the ragged view is aligned")
+            got = gemm.gemm(ragged, B[:N - 1], out_dtype=torch.float32)
+            require(rel_err(got, gemm.gemm_plain(ragged, B[:N - 1],
+                                                 torch.float32))
+                    <= TOL["gemm"], "gemm: the ragged view is off plain")
+            require(torch.equal(got, gemm.gemm(ragged.clone(), B[:N - 1],
+                                               out_dtype=torch.float32)),
+                    "gemm: the ragged view and its aligned copy differ")
+            out["gemm"][dt]["ragged_bits_equal"] = True
+            del ragged, got
+        del a
         torch.cuda.empty_cache()
     for name, by_dtype in out.items():
         for dt, rec in by_dtype.items():
@@ -458,6 +479,55 @@ def check_kernels(A: torch.Tensor, gen) -> dict:
                       f"share {r['bound_ms'] / r['ms']:.3f}"
                       + (f"; f32 CUDA-core bound {r['bound_cuda_core_ms']:.3f} "
                          "ms" if "bound_cuda_core_ms" in r else ""))
+    return out
+
+
+def gemm_bound(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """gemm's bound: one read of A and B and one write of C (f32), or
+    2 m K N flops a TF32 product on its route at 495 TFLOP/s (three
+    products for f32 A, two for bf16 A against f32 B)."""
+    (m, k), n = a.shape, b.shape[1]
+    products = 3 if a.dtype == torch.float32 else 2
+    ms, by = bound(m * k * a.element_size() + k * n * b.element_size()
+                   + 4 * m * n, products * 2.0 * m * k * n, "tf32")
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def check_gemm_wide(A_w: torch.Tensor, gen) -> dict:
+    """gemm at its serving shapes against plain: Y = A_w Z (Z of
+    R_SKETCH columns, the randomized SVD's) and TSQR's Q = Y R^-1 (rows of
+    R_SKETCH f32); two runs the same bits; timed beside torch.mm."""
+    from repro_torch.kernels import gemm
+
+    dev = A_w.device
+    z = torch.randn(N_W, R_SKETCH, generator=gen, device=dev) / math.sqrt(N_W)
+    y = torch.randn(M_W, R_SKETCH, generator=gen, device=dev)
+    r_inv = torch.randn(R_SKETCH, R_SKETCH, generator=gen,
+                        device=dev).triu() / math.sqrt(R_SKETCH)
+    out = {}
+    for key, a, b in (("A_w", A_w, z), ("tsqr", y, r_inv)):
+        got = gemm.gemm(a, b, out_dtype=torch.float32)
+        want = gemm.gemm_plain(a, b, torch.float32)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        require(e <= TOL["gemm"], f"gemm {key}: relative error {e:.3e}")
+        require(torch.equal(got, gemm.gemm(a, b, out_dtype=torch.float32)),
+                f"gemm {key}: two runs differ")
+        rec = {"shape": [*a.shape, b.shape[1]], "rel_err": e,
+               "max_abs_err": max_abs(got, want),
+               "ms": time_ms(lambda: gemm.gemm(a, b,
+                                               out_dtype=torch.float32)),
+               "plain_ms": time_ms(lambda: gemm.gemm_plain(
+                   a, b, torch.float32), reps=3),
+               "library_ms": time_ms(lambda: torch.mm(a, b)),
+               **gemm_bound(a, b)}
+        out[key] = rec
+        del got, want
+        print(f"[kernels] gemm {key:5s} {rec['shape']} kernel "
+              f"{rec['ms']:9.3f} ms | plain {rec['plain_ms']:9.3f} ms | "
+              f"library {rec['library_ms']:9.3f} ms | bound "
+              f"{rec['bound_ms']:8.3f} ms ({rec['bound_by']}), share "
+              f"{rec['bound_ms'] / rec['ms']:.3f}")
     return out
 
 
@@ -2166,6 +2236,8 @@ def smoke(dev: torch.device) -> dict:
     kernels["randsketch"] = check_randsketch(A_w, gen5)
     kernels["fused_grad"]["wide"] = check_fused_grad_wide(
         A_w, torch.Generator(device=dev).manual_seed(SEED + 2))
+    kernels["gemm"]["wide"] = check_gemm_wide(
+        A_w, torch.Generator(device=dev).manual_seed(SEED + 9))
 
     # float64 references, made before the main path's counts are zeroed.
     G64 = gram64(A)
@@ -2466,7 +2538,8 @@ def main() -> int:
         and not r["wgmma_serialized"] for r in tc),
         f"flash_attention's tensor-core variant spills or serializes: {tc}")
     for source, count in (("randsketch.cu", 3), ("tsgram.cu", 4),
-                          ("bsr_spmm.cu", 15), ("bsr_rmatmul.cu", 28)):
+                          ("bsr_spmm.cu", 15), ("bsr_rmatmul.cu", 28),
+                          ("gemm.cu", 12), ("selective_scan.cu", 2)):
         rows = [r for r in ptxas if r["source"] == source]
         require(len(rows) >= count and all(
             r["spill_store_bytes"] == r["spill_load_bytes"] == 0

@@ -107,23 +107,6 @@ __host__ __device__ inline int stage_bytes(int nt) {
   return Layout<T, BS>::kBlockBytes + BS * 4 * x_stride_floats(nt) + 16;
 }
 
-// x = hi + lo exactly: hi is x with its low 13 bits cleared (a TF32 value),
-// lo the rest; the mma reads lo's top 19 bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a (16 x 8, tf32) * b (8 x 8, tf32), f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // B fragment (k8 x n8) of k-step ks and n-tile n8 from a staged X slab:
 // b0 (row t, column g), b1 (row t + 4), split into TF32 parts.
 __device__ __forceinline__ void load_b(const float* xs, int xstride, int ks,

@@ -72,23 +72,6 @@ __host__ __device__ inline int stage_bytes(int br, int nt) {
   return br * L::kBlockStride + br * BS * nt * 4 + round16(4 * br);
 }
 
-// One 16-byte (4-byte) piece from global to shared memory; `bytes` = 0
-// writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
-                                                 int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
-                                                int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(bytes)
-               : "memory");
-}
-
 // Elements c0 .. c0 + 3 of staged row r of a block, as f32.
 template <typename T, int BS>
 __device__ __forceinline__ void load_a(const unsigned char* blk, int r, int c0,

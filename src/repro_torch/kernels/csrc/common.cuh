@@ -2,10 +2,12 @@
 //
 // Storage types are f32 or bf16 (and int8 for the block-sparse kernels,
 // with a per-block f32 scale); the kernels upcast what they load to f32 in
-// registers and accumulate in f32 on the CUDA cores (no TF32), as the TPU
-// kernels upcast their VMEM tiles, except flash_attention in bf16, which
-// multiplies bf16 on the tensor cores into f32 (hopper.cuh).  The C entry
-// points take a dtype code per operand and return cudaGetLastError().
+// registers and sum in f32, as the TPU kernels upcast their VMEM tiles.
+// Products run on the CUDA cores or on the tensor cores: in TF32 parts
+// that keep f32's precision (split_tf32 and mma_tf32 below: gemm,
+// randsketch, tsgram, bsr_rmatmul), or in bf16 (flash_attention,
+// hopper.cuh).  The C entry points take a dtype code per operand and
+// return cudaGetLastError().
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +83,23 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                   "l"(src)
                : "memory");
 }
+// One 16-byte (4-byte) piece from global to shared memory: its first
+// `bytes` (0 to 16, or 0 to 4) are read, the rest written as zeros;
+// `bytes` = 0 reads nothing.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(bytes)
+               : "memory");
+}
 // cp_async_wait for a run-time count n <= N.
 template <int N>
 __device__ __forceinline__ void cp_async_wait_n(int n) {
@@ -93,6 +112,31 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   } else {
     cp_async_wait<0>();
   }
+}
+
+// -- TF32 products on the tensor cores -------------------------------------
+// x = hi + lo exactly: hi is x with its low 13 bits cleared (a TF32 value),
+// lo the rest.  The mma reads a .tf32 operand's top 19 bits, so lo enters
+// its products cut to TF32 (within 2^-10 of itself, 2^-20 of x), and
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (3xTF32) keeps nearly f32's precision:
+// it drops a_lo*b_lo (2^-20 of the product) and lo's cut bits.  bf16 is
+// exact in TF32, so a bf16 operand needs no low part.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, tf32) * b (8 x 8, tf32), f32 accumulators.  Fragments
+// (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k t, column g), b1 (k t + 4); d0, d1 at (g,
+// 2t + {0, 1}), d2, d3 at g + 8.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // -- Sums across lanes ------------------------------------------------------

@@ -109,34 +109,6 @@ __device__ __forceinline__ int slot(int k) {
   return (k & 3) * (kRows / 4) + (k >> 2);
 }
 
-// x = hi + lo exactly: hi is x with its low 13 bits cleared (a TF32 value),
-// lo the rest.  The mma reads a .tf32 operand's top 19 bits, so lo enters
-// its products cut to TF32 (within 2^-10 of itself, 2^-20 of x).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a (16 x 8, tf32) * b (8 x 8, tf32), f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One 16-byte piece from global to shared memory; `bytes` = 0 writes zeros
-// and reads nothing.
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
-                                                 int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(bytes)
-               : "memory");
-}
-
 // One stage's products into acc (zeroed by the caller): rows row0 ..
 // row0 + kRows - 1 of A's tile (staged in `as`, row k in slot slot(k),
 // shifted by its s_k) against the same rows of Q's tile (`qs`, split), for

@@ -1,12 +1,19 @@
-"""Dense GEMM: C = A @ B (RowMatrix.multiply_local for the SVD's U, and
-TSQR's Q).
+"""Dense GEMM: C = A @ B (RowMatrix.multiply_local for the SVD's U and the
+randomized SVD's Y = AZ, and TSQR's Q).
 
 Replaces the TPU kernel ``src/repro/kernels/gemm.py:gemm``
-(``_gemm_kernel``).  On the main path it runs skinny, (m × n)@(n × k) with
-k ≤ 64, where it is bound by the bytes of A.  ``csrc/gemm.cu`` is a
-shared-memory tiled SGEMM with a 4 × 4 register tile per thread and a block
-tile that follows N (256 × 16, 128 × 32 or 64 × 64), so that a narrow B
-wastes no 64-wide tile; bf16 operands are upcast on load, sums are f32.
+(``_gemm_kernel``).  On the paths it runs skinny, (m × K) @ (K × N) with
+N ≤ 32, where it is bound by the bytes of A.  ``csrc/gemm.cu`` is one
+kernel for every operand the wrapper takes (A and B f32 or bf16, any K, A
+starting anywhere): products on the tensor cores (TF32 ``wgmma`` in exact
+splits: 3xTF32 for f32 × f32, two products where one operand is bf16, one
+for bf16 × bf16; A from registers, B's k-slice split by each block once a
+stage into the K-major layout the wgmmas read), output tiles of 256 rows by
+``tile_width(N)`` columns owned by one block across all of K (a persistent
+grid, one block an SM), A's rows streamed through a ring of 16-byte
+``cp.async`` copies of each row's 16-byte-aligned window, read back at the
+row's shift.  Two runs give the same bits, and a row's bits do not depend
+on m or on where A starts.
 
 ``gemm_plain`` is the same function in plain torch.
 """
@@ -16,15 +23,22 @@ import torch
 
 from . import _build
 
-
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or a.dtype
     return (a.float() @ b.float()).to(out_dtype)
 
 
+def tile_width(n: int) -> int:
+    """Columns of C an output tile holds for B of n columns: 8, 16 or 32
+    (n8 mma tiles 1, 2 or 4), so that a narrow B spends no products on
+    zero columns; n > 32 takes several tiles."""
+    return 8 if n <= 8 else 16 if n <= 16 else 32
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """Launch csrc/gemm.cu on CUDA operands a (m × K), b (K × N), f32 or
-    bf16; returns (m × N) in `out_dtype` (default a.dtype)."""
+    """Launch csrc/gemm.cu on CUDA operands a (m × K), contiguous and
+    starting anywhere, and b (K × N), f32 or bf16; returns (m × N) in
+    `out_dtype` (default a.dtype), f32 or bf16."""
     dev = _build.check_device(a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}")
@@ -36,12 +50,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.lib()
-    _build.check(lib.repro_gemm(
+    _build.check(_build.lib().repro_gemm(
         dev.index, a.data_ptr(), _build.dtype_code(a, "a"), b.data_ptr(),
         _build.dtype_code(b, "b"), out.data_ptr(),
-        _build.dtype_code(out, "out"), m, k, n, _build.stream(dev)),
-        "gemm launch")
+        _build.dtype_code(out, "out"), m, k, n,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        _build.stream(dev)), "gemm launch")
     gemm.launches += 1
     return out
 

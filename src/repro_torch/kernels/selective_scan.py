@@ -5,12 +5,17 @@ Replaces the TPU kernel ``src/repro/kernels/selective_scan.py:
 selective_scan`` (``_scan_kernel``): the prefill scan of the Mamba1 serving
 path.  On the H100 it is bound by operations, Bt·S·d·N exponentials on the
 special-function units, against one read of x and dt and one write of y,
-which take about as long.  ``csrc/selective_scan.cu`` gives each thread
-one (batch, channel) with its N states in registers and walks S in order;
-a block stages 32-step tiles of x and dt (coalesced across 128 channels)
-and of B_t and C_t (shared by every channel) in shared memory.  It starts
-from an optional h0 and writes the final state, which the reference kernel
-lists as optional but does not write; prefill into a cache needs it.
+which take about as long.  ``csrc/selective_scan.cu`` splits each (batch,
+channel)'s N states over N/4 lanes of a warp (4 states a lane in
+registers), so that enough warps are in flight to hide each step's
+latency; each exponential is one ``ex2.approx`` of dt times A pre-scaled by
+log2(e), y_t is summed over the channel's lanes by an xor butterfly, and the
+walk over S runs in order, unrolled so that later steps' exponentials run
+ahead of the h chain.  16-step tiles of x and dt (32 or 64 channels a
+block) and of B_t and C_t stream through a ring of ``cp.async`` stages, and
+y leaves through a staged tile, coalesced.  It starts from an optional h0
+and writes the final state, which the reference kernel lists as optional
+but does not write; prefill into a cache needs it.
 
 ``selective_scan_plain`` is the same function in plain torch: the
 sequential loop of ``ref.selective_scan_ref``.
@@ -53,6 +58,9 @@ def selective_scan(x, dt, A, B, C, D, h0=None
             raise ValueError(f"{name} must be contiguous")
     if N not in STATE_DIMS:
         raise ValueError(f"state dim {N} is not one of {STATE_DIMS}")
+    # The kernel copies x, dt, B and C in 16-byte pieces from 16-byte
+    # boundaries: a view that starts off one is copied to one that does not.
+    x, dt, B, C = (_build.aligned(t) for t in (x, dt, B, C))
     y = torch.empty_like(x)
     h_out = torch.empty((Bt, d, N), dtype=torch.float32, device=dev)
     _build.check(_build.lib().repro_selective_scan(

@@ -4,7 +4,10 @@ Small shapes that still cover every path of each kernel: ragged m and n,
 f32 and bf16 storage, the staged and the unstaged paths of the
 fused_grad_multi kernel (fused_grad is its one-slot launch), slot counts
 from 1 to 100 (one launch each, across and past 8-slot chunks), a slot's
-bits at k = 1, 40 and 100, every gemm block tile, one and several
+bits at k = 1, 40 and 100; gemm at every operand and output type, K of
+1, 3, 26, 1023 and 16384, N of one to several column tiles, on views off a
+16-byte boundary (the same bits as aligned copies), TSQR's 26-wide rows,
+and rows whose bits do not depend on m; one and several
 randsketch slices and Q tiles, at widths off its tiles and pieces, and
 views of A that start off a 16-byte boundary (the same bits as aligned
 copies); tsgram at n of 1, odd and off its 128-column tile, across slices,
@@ -29,8 +32,9 @@ key lengths off the bf16 kernel's 128-key tile, scores near 50, four KV
 heads each read by the right q heads, the same bits twice and a launch
 count for each variant (bf16 on the tensor cores, f32 on the CUDA cores);
 the selective scan at
-a channel count off the 128-channel block, N = 8 and 16, S of 1, 37 and
-300, from a nonzero state, with its final state.
+channel counts of 1 and off its 32- and 64-channel blocks, N = 8 and 16,
+S of 1 to 2049 on both sides of its 16-step tile, from a nonzero state,
+with its final state, and the same bits twice.
 Skips where there is no CUDA device.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -353,6 +357,101 @@ def test_gemm_matches_plain(dev, a_dtype, b_dtype, m, k, n):
     torch.cuda.synchronize()
     assert _rel(got, want) <= TOL
     assert gemm.gemm(a, b).dtype == a_dtype
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _gemm_tol(out_dtype):
+    # bf16 output: one rounding of each entry, which plain rounds too but
+    # may round the other way from a sum in another order.
+    return TOL if out_dtype == torch.float32 else 1e-2
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("b_dtype", DTYPES)
+@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 16, 26, 64, 130])
+@pytest.mark.parametrize("k", [1, 3, 26, 1023])
+def test_gemm_every_k_and_n_matches_plain(dev, k, n, a_dtype, b_dtype,
+                                          out_dtype):
+    """Every operand and output type, K off the 8-wide k-step and the
+    stage (1, 3, 26, 1023) and N of one, two and four n8 tiles and of
+    several column tiles (1, 16, 26, 64, 130), m off the 256-row tile:
+    within TOL of plain, and the same bits twice."""
+    g = _gen(dev, 31 * k + n)
+    a = torch.randn(777, k, generator=g, device=dev).to(a_dtype)
+    b = torch.randn(k, n, generator=g, device=dev).to(b_dtype)
+    got = gemm.gemm(a, b, out_dtype=out_dtype)
+    want = gemm.gemm_plain(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (777, n)
+    assert _rel(got, want) <= _gemm_tol(out_dtype)
+    assert torch.equal(got, gemm.gemm(a, b, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("a_dtype", DTYPES)
+def test_gemm_long_k(dev, a_dtype):
+    """K = 16384, N = 26: A_w's row length and the sketch's width, with
+    512 (f32) or 256 (bf16) stages a tile summed into one total."""
+    g = _gen(dev, 16384)
+    a = torch.randn(3000, 16384, generator=g, device=dev).to(a_dtype)
+    b = torch.randn(16384, 26, generator=g, device=dev)
+    got = gemm.gemm(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _rel(got, gemm.gemm_plain(a, b, torch.float32)) <= TOL
+
+
+@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1000, 1023, 16), (777, 26, 26),
+                                   (300, 3, 5), (4099, 64, 130)])
+def test_gemm_offset_views_match_their_aligned_copies(dev, a_dtype, m, k, n):
+    """A view that starts 1..3 (f32) or 1..7 (bf16) elements past a 16-byte
+    boundary, with NaNs in the bytes around it, gives the same bits as its
+    aligned copy: each row is staged from its aligned window and read at
+    its shift, and the bytes past K arrive as zeros, so the NaNs are never
+    multiplied."""
+    g = _gen(dev, 5 * m + k + n)
+    a = torch.randn(m, k, generator=g, device=dev).to(a_dtype)
+    b = torch.randn(k, n, generator=g, device=dev)
+    want = gemm.gemm(a, b, out_dtype=torch.float32)
+    assert _rel(want, gemm.gemm_plain(a, b, torch.float32)) <= TOL
+    for off in range(1, 16 // a.element_size()):
+        buf = torch.full((m * k + off + 16,), float("nan"), device=dev,
+                         dtype=a_dtype)
+        view = buf[off:off + m * k].view(m, k)
+        view.copy_(a)
+        assert view.data_ptr() % 16 != 0
+        got = gemm.gemm(view, b, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), off
+
+
+def test_gemm_tsqr_shape(dev):
+    """TSQR's Q = Y R^-1: rows of 26 f32 (104 bytes, so every second row
+    starts 8 bytes off a 16-byte boundary), in Y's own dtype."""
+    g = _gen(dev, 26)
+    y = torch.randn(70000, 26, generator=g, device=dev)
+    r_inv = torch.randn(26, 26, generator=g, device=dev).triu() / 26 ** 0.5
+    got = gemm.gemm(y, r_inv, out_dtype=y.dtype)
+    torch.cuda.synchronize()
+    assert _rel(got, gemm.gemm_plain(y, r_inv, y.dtype)) <= TOL
+    assert torch.equal(got, gemm.gemm(y, r_inv, out_dtype=y.dtype))
+
+
+@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(1024, 16), (26, 26), (1023, 130)])
+def test_gemm_rows_do_not_depend_on_m(dev, a_dtype, k, n):
+    """Rows of gemm(a[:j]) are bit for bit the same rows of gemm(a), for j
+    inside and at the edge of the 256-row tile."""
+    g = _gen(dev, 3 * k + n)
+    a = torch.randn(5000, k, generator=g, device=dev).to(a_dtype)
+    b = torch.randn(k, n, generator=g, device=dev)
+    whole = gemm.gemm(a, b, out_dtype=torch.float32)
+    for j in (1, 255, 256, 257, 4097):
+        part = gemm.gemm(a[:j], b, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:j]), j
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(dev):
@@ -1042,6 +1141,28 @@ def test_selective_scan_matches_plain(dev, Bt, d, N, S, with_h0):
     assert y.shape == (Bt, S, d) and h.shape == (Bt, d, N)
     assert _rel(y, y0) <= TOL
     assert _rel(h, h0_) <= TOL
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("d", [1, 100, 200, 1000])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 300, 2049])
+@pytest.mark.parametrize("N", selective_scan.STATE_DIMS)
+def test_selective_scan_edges_match_plain(dev, N, S, d, with_h0):
+    """S on both sides of the 16-step tile and the 3-stage ring (1, 31, 32,
+    33, 300, 2049), d of one channel, off the 32- and 64-channel block
+    (100, 200, 1000), from zero and from a nonzero state: y and the final
+    state within TOL of plain, and the same bits twice."""
+    args = _scan_args(dev, 2, S, d, N, seed=7 * S + d + N)
+    h0 = (torch.randn(2, d, N, generator=_gen(dev, 3), device=dev)
+          if with_h0 else None)
+    y, h = selective_scan.selective_scan(*args, h0=h0)
+    y0, h0_ = selective_scan.selective_scan_plain(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert y.shape == (2, S, d) and h.shape == (2, d, N)
+    assert _rel(y, y0) <= TOL
+    assert _rel(h, h0_) <= TOL
+    y2, h2 = selective_scan.selective_scan(*args, h0=h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 def test_selective_scan_dispatch_counts_launches(dev):

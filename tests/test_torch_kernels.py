@@ -106,7 +106,8 @@ def test_tsgram_matches_pallas_and_oracle(dtype, m, n):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("m,k,n", [(130, 70, 5), (96, 48, 16), (200, 33, 40)])
+@pytest.mark.parametrize("m,k,n", [(130, 70, 5), (96, 48, 16), (200, 33, 40),
+                                   (97, 1, 16), (1003, 26, 26)])
 def test_gemm_matches_pallas_and_oracle(dtype, m, k, n):
     rng = np.random.default_rng(m + k + n)
     a = rng.normal(size=(m, k)).astype(DTYPES[dtype])
@@ -118,6 +119,14 @@ def test_gemm_matches_pallas_and_oracle(dtype, m, k, n):
     _close(got, want, 1e-4)
     _close(got, ref.gemm_ref(_t(a), _t(b), torch.float32), 1e-4)
     assert ops.gemm(_t(a), _t(b)).dtype == _t(a).dtype
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 26, 32, 33, 130])
+def test_gemm_tile_width_fits_n(n):
+    """An output tile holds 8, 16 or 32 columns (1, 2 or 4 n8 mma tiles):
+    the narrowest that holds N up to 32, else 32 and several tiles."""
+    w = gemm.tile_width(n)
+    assert w == min(x for x in (8, 16, 32) if x >= min(n, 32))
 
 
 def test_fused_grad_returns_g_in_x_dtype():

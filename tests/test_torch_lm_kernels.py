@@ -165,7 +165,7 @@ def _scan_inputs(Bt, S, d, N, seed):
 
 
 SCAN_SHAPES = [(1, 32, 128, 16), (2, 64, 96, 16), (1, 50, 70, 8),
-               (3, 17, 130, 16)]
+               (3, 17, 130, 16), (2, 45, 40, 8), (1, 33, 129, 8)]
 
 
 @pytest.mark.parametrize("Bt,S,d,N", SCAN_SHAPES)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Take the port's tsgram, bsr_matmul or bsr_rmatmul kernel apart on one card: where its time goes.
+"""Take one of the port's kernels apart on one card: where its time goes.
 
     PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel tsgram [--rounds 2]
     PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel bsr_matmul
     PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel bsr_rmatmul
+    PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel gemm
+    PYTHONPATH=src python3 tools/diagnose_kernels.py --kernel selective_scan
 
 Builds patched copies of the kernel's source (``csrc/tsgram.cu``,
-``csrc/bsr_spmm.cu`` or ``csrc/bsr_rmatmul.cu``) under ``build/diagnose/``
+``csrc/bsr_spmm.cu``, ``csrc/bsr_rmatmul.cu``, ``csrc/gemm.cu`` or
+``csrc/selective_scan.cu``) under ``build/diagnose/``
 (nvcc, in parallel) and times each through the wrapper, the variants in
 turn, ``--rounds`` times:
 
@@ -25,15 +28,32 @@ and for tsgram also
   no_split       f32: the operands' TF32 split skipped (the raw bits feed
                  all three products);
   sum_rows_128   the mma accumulators added to the f32 totals every 128
-                 rows, not 64.
+                 rows, not 64;
+
+for gemm also
+
+  tile128        8 warps: tiles of 128 rows, B's k-slice read once a
+                 128-row tile (a ring of 4 stages fits);
+  rows128        stages of 128 bytes of each row, not 256 (4 stages fit);
+
+and for selective_scan
+
+  kernel, no_ex2 (each exponential a plain copy of its argument, no MUFU
+  op), no_xdt_copy (x's and dt's copies skipped: the walk reads stale
+  stages), no_y_write (y's stores skipped) and lanes4 (4 states a lane:
+  4 lanes a channel at N = 16, 2 at N = 8).
 
 tsgram runs at chip_smoke.py's A (2^21 x 1024, from a seed) in f32 and
 bf16, and on A's ragged f32 view (1023 columns starting one element into
 its storage); bsr_matmul on chip_smoke.py's S (2^22 x 2^14, 32 x 32
 blocks, 16 a block-row, Zipf(1) block columns) in f32, bf16 and int8 at
 nx = 16; bsr_rmatmul on S in f32, bf16 and int8 at nx = 1 and in f32 at
-nx = 16 and 512.  ``kernel`` and ``sum_rows_128`` compute the same function and
-are held against the plain version (normwise error, printed); the others
+nx = 16 and 512; gemm at A (2^21 x 1024 times 1024 x 16, f32 and bf16),
+A_w (2^18 x 16384 times 16384 x 26, f32 and bf16) and TSQR's 2^18 x 26
+times 26 x 26 (f32); selective_scan at 4 x 2048 x 8192, N = 16 and 8.
+``kernel``, ``sum_rows_128``, ``tile128``, ``rows128`` and ``lanes4``
+compute the same function and are held against the plain version
+(normwise error, printed); the others
 time parts of the kernel and compute nothing useful.  One JSON line per
 variant, case and round, with the card's name and power limit from
 nvidia-smi.  The patches are text edits of the source: a change to the
@@ -73,6 +93,12 @@ _RM_NO_COPIES = [(_RM_COPY_A, "        if (nx < 0 && (L::kPieces % kThreads == 0
                                "per_row_log2); p += kThreads) {\n"),
                  (_RM_COPY_XS, "      for (int p = tid; nx < 0 && p < (BS << "
                                "nt_log2); p += kThreads) {\n")]
+_GM_PRODUCTS = ("    const unsigned char* sa = smem + buf * S::kStageBytes;\n"
+                "    const unsigned char* sb = sa + S::kABytes;\n")
+_GM_COPY_A = "    for (int r = crow; r < kTileM; r += kCopyRows) {\n"
+_SS_EX2 = '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n'
+_SS_COPY_XDT = ("    for (int e = threadIdx.x; e < kSteps * kPieces; "
+                "e += kThreads) {\n")
 _RM_NO_PRODUCTS = [(_RM_PRODUCTS, "    for (int ks = 0; nx < 0 && ks < L::kKS; "
                                   "++ks) {\n")]
 
@@ -122,6 +148,38 @@ PATCHES = {
         },
         "computes": ("kernel",),
     },
+    "gemm": {
+        "source": "gemm.cu",
+        "entry": "repro_gemm",
+        "variants": {
+            "kernel": [],
+            "copies_only": [(_GM_PRODUCTS, "    if (K >= 0) return;\n"
+                                           + _GM_PRODUCTS)],
+            "products_only": [(_GM_COPY_A, "    for (int r = crow; K < 0 && "
+                                           "r < kTileM; r += kCopyRows) {\n")],
+            "tile128": [("constexpr int kWarps = 16;",
+                         "constexpr int kWarps = 8;")],
+            "rows128": [("constexpr int kRowBytes = 256;",
+                         "constexpr int kRowBytes = 128;")],
+        },
+        "computes": ("kernel", "tile128", "rows128"),
+    },
+    "selective_scan": {
+        "source": "selective_scan.cu",
+        "entry": "repro_selective_scan",
+        "variants": {
+            "kernel": [],
+            "no_ex2": [(_SS_EX2, "  y = x;\n")],
+            "no_xdt_copy": [(_SS_COPY_XDT, "    for (int e = threadIdx.x; "
+                                           "S < 0 && e < kSteps * kPieces; "
+                                           "e += kThreads) {\n")],
+            "no_y_write": [("    if (j > 0) write_y(j - 1);\n", ""),
+                           ("  if (ntiles > 0) write_y(ntiles - 1);\n", "")],
+            "lanes4": [("static constexpr int kStates = N < 8 ? N : 8;",
+                        "static constexpr int kStates = 4;")],
+        },
+        "computes": ("kernel", "lanes4"),
+    },
 }
 ERROR_STRING = ('\nextern "C" const char* repro_error_string(int err) {\n'
                 '  return cudaGetErrorString(static_cast<cudaError_t>(err));\n}\n')
@@ -161,7 +219,8 @@ def build(_build, spec: dict, out_dir: Path) -> dict:
                                  f"{old!r}")
             text = text.replace(old, new)
         cu = out_dir / f"{name}.cu"
-        cu.write_text(text + ERROR_STRING)
+        cu.write_text(text if "repro_error_string" in text
+                      else text + ERROR_STRING)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", "-I",
              str(_build.CSRC), "-o", str(out_dir / f"{name}.so"), str(cu)],
@@ -244,6 +303,48 @@ def bsr_rmatmul_cases(dev):
     return cases
 
 
+def gemm_cases(dev):
+    """(case, call, plain) for gemm at A, A_w and TSQR's shape."""
+    from repro_torch.kernels import gemm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for name, (m, k, n) in (("A", (1 << 21, 1024, 16)),
+                            ("A_w", (1 << 18, 16384, 26)),
+                            ("tsqr", (1 << 18, 26, 26))):
+        a = torch.randn(m, k, generator=gen, device=dev)
+        b = torch.randn(k, n, generator=gen, device=dev) / k ** 0.5
+        dtypes = (torch.float32,) if name == "tsqr" else (torch.float32,
+                                                          torch.bfloat16)
+        for dt in dtypes:
+            ad = a.to(dt)
+            cases[f"{name}_{'f32' if dt == torch.float32 else 'bf16'}"] = (
+                lambda ad=ad, b=b: gemm.gemm(ad, b, out_dtype=torch.float32),
+                gemm.gemm_plain(ad, b, torch.float32))
+        del a
+    return cases
+
+
+def selective_scan_cases(dev):
+    """(case, call, plain) for selective_scan at the falcon prefill's
+    shape, N = 16 and 8 (y; the card tests hold the final state)."""
+    from repro_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bt, s, d = 4, 2048, 8192
+    cases = {}
+    for n in (16, 8):
+        args = (torch.randn(bt, s, d, generator=gen, device=dev),
+                torch.rand(bt, s, d, generator=gen, device=dev) * 0.1,
+                -torch.rand(d, n, generator=gen, device=dev) - 0.1,
+                torch.randn(bt, s, n, generator=gen, device=dev),
+                torch.randn(bt, s, n, generator=gen, device=dev),
+                torch.randn(d, generator=gen, device=dev))
+        cases[f"N{n}"] = (lambda args=args: ss.selective_scan(*args)[0],
+                          ss.selective_scan_plain(*args)[0])
+    return cases
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=sorted(PATCHES), required=True)
@@ -263,7 +364,8 @@ def main() -> int:
     libs = build(_build, spec, _build.BUILD_DIR / "diagnose" / args.kernel)
     dev = torch.device("cuda", 0)
     cases = {"tsgram": tsgram_cases, "bsr_matmul": bsr_matmul_cases,
-             "bsr_rmatmul": bsr_rmatmul_cases}[args.kernel](dev)
+             "bsr_rmatmul": bsr_rmatmul_cases, "gemm": gemm_cases,
+             "selective_scan": selective_scan_cases}[args.kernel](dev)
     for rnd in range(args.rounds):
         order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
         for name in order:
