@@ -67,7 +67,36 @@ with nvcc, then:
               A-passes.  Then bsr_rmatmul on a 512-column strip of S_sim
               and of S (a strip of the sparse Gram) and tsgram on S_sim's
               dense copy against their plain versions.
-
+  9. front door (after phase 7, once its matrices are freed): (a)
+              api.minimize on the four make_problem problems at their
+              default sizes (10000 x 1024; logistic 10000 x 250) through
+              every method, fused="auto", the default caps, each final
+              objective within FIG1_CPU_TOL of the same call on the CPU,
+              the linear runs' gaps to the float64 optimum printed, the
+              backtracking methods' histories descending, and every fused
+              run's A-passes equal to its fused_grad launches; (b)
+              `linear` at 2^20 x 1024 through gra, acc_rb and lbfgs, each
+              stopping before its cap within 1e-5 of the float64 optimum,
+              with its wall ms and the on-device L's; (c) solve_lasso on
+              the same A with 10 planted coefficients, its objective
+              against a float64 evaluation at its x and at the planted x;
+              (d) solve_smoothed_lp on a dense M_LP x N_LP RowMatrix
+              (LP_CONTINUATIONS, LP_ITERS) held to tests/test_tfocs.py's
+              bounds; (e) a 2^18 x 2^14 CoordinateMatrix of 2^27 entries
+              filling 32 x 32 blocks (Zipf(1) block columns): Lanczos
+              SVDs (k = 16) of it (segment-sum products, the same bits
+              every call) and of its to_sparse_row_matrix(bs=32)
+              (bsr_matvec + bsr_rmatmul, bsr_matmul for U), sigma apart
+              by at most 1e-4, float64 residuals, the conversion's block
+              count; (f)
+              BlockMatrix.multiply of two 8192 x 8192 f32 matrices (one
+              gemm launch) within 1e-4 of float64, timed beside torch.mm
+              and its route's bound, and the Lanczos SVD of an
+              IndexedRowMatrix over phase 3's A (made again from its
+              seed) against the Gram sigma; (g) api.compute_svd against
+              api.svd bit for bit on that A, and serve.main at 2^20 x
+              1024 with 16 requests, its group A-passes equal to its
+              fused_grad_multi launches.
   8. lm:      greedy generation (repro_torch.launch.serve_llm.generate:
               prefill, then 31 decode steps) of LM_BATCH = 4 prompts of
               2048 tokens on llama3.2-3b (28 layers, GQA 24:8, bf16) and
@@ -113,13 +142,13 @@ gemm or selective_scan kernel spills or has them serialized.  fused_grad is
 fused_grad_multi's kernel with one slot, and fused_grad_bsr
 fused_grad_bsr_multi's.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
-Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, and phase 8
-one a model: every launch count is set to 0 just before each and read just
+Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, phase 9
+seven (fd_* in PATHS) and phase 8 one a model: every launch count is set to 0 just before each and read just
 after it (in phases 5 and 7, once the grouped server drains, before the
 checks' own launches), and each kernel of the path must have launched
 there.  The last lines are a
-JSON object with the SVDs', the solves', the servers' and phases 6, 7 and
-8's numbers, the card's name and power limit, a JSON object with each
+JSON object with the SVDs', the solves', the servers' and phases 6, 7, 9
+and 8's numbers, the card's name and power limit, a JSON object with each
 kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
@@ -133,6 +162,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -177,6 +207,46 @@ LM_F32_LAYERS = 4              # depth of the f32 prefill-against-decode check
 # (2^-8) at different places in each of 28 (64) layers.
 TOL_LM = {"flash_f32": 1e-4, "flash_bf16": 1e-2, "scan": 1e-4,
           "pvd_f32": 1e-4, "pvd_bf16": 5e-2}
+# Phase 9: the paper's front doors.  (a) the four Figure-1 problems at
+# make_problem's sizes through every method (the default caps), each final
+# objective within FIG1_CPU_TOL of the same call on the CPU, relative; a
+# backtracking method's history ends within FIG1_DESCENT of its lowest
+# value.  One pair is held otherwise: `logistic` is separable (its infimum
+# 0 is not attained), and lbfgs runs on toward it until its own test stops
+# it at about 6e-12 on both devices (on an H100: 3.7e-3 apart relative,
+# 2.3e-14 absolute), where a relative comparison reads only the point each
+# run stopped at.  When both runs of that pair converged, the two
+# objectives are held to FIG1_FLOOR_ULPS f32 ulps of the first iterate's
+# objective (3.65e-3, so 1.7e-9): the two runs agree to the rounding of
+# the objective's scale.
+FIG1_NAMES = ("linear", "linear_l1", "logistic", "logistic_l2")
+FIG1_BACKTRACKING = ("acc_b", "acc_rb", "lbfgs")
+FIG1_CPU_TOL = 1e-5
+FIG1_AT_INFIMUM = ("logistic", "lbfgs")
+FIG1_FLOOR_ULPS = 4
+F32_EPS = float(torch.finfo(torch.float32).eps)
+FIG1_DESCENT = 1e-5
+# (b) `linear` at M_LIN rows (4 GiB f32) and (c) the lasso on its A: stops
+# that f32 reaches within minimize's default cap of LIN_ITERS.  gra and
+# acc_rb stop at a relative step below 1e-6; lbfgs at ||g|| below tol |f|,
+# and x rounded to f32 alone leaves ||g|| = ||A^T A dx|| near
+# m * 4e-7 against f* near 0.005 m (noise 0.1), a ratio of 8e-5, so its
+# tol is 1e-3 (||x - x*|| near 5e-6, f - f* near 1e-9 f*).
+M_LIN = 1 << 20
+LIN_ITERS = 200
+LIN_TOL = {"gra": 1e-6, "acc_rb": 1e-6, "lbfgs": 1e-3}
+LASSO_PLANTED, LASSO_LAM = 10, 1.0
+# (d) the smoothed LP: M_LP constraints, N_LP variables, dense.
+M_LP, N_LP = 1 << 12, 1 << 14
+# Continuations and iterations chosen on an H100 (700 W): at
+# (10, 800) max |x - x*| was 0.076 and feasibility 1.3e-2, at (20, 1000)
+# 0.033 and 8.4e-3, at (40, 1000) 0.014 and 3.6e-3 in 3.4 s.
+LP_CONTINUATIONS, LP_ITERS = 40, 1000
+# (e) the CoordinateMatrix: 2^27 entries filling 32 x 32 blocks.
+M_C, N_C = 1 << 18, 1 << 14
+COO_RESTARTS = 100             # Lanczos restart cap of phase 9's SVDs
+N_BLOCK = 8192                 # (f) BlockMatrix.multiply, square
+SERVE_ARGS = ["--m", "1048576", "--n", "1024", "--requests", "16"]
 SEED = 0
 REPS = 10                      # timed launches per kernel (median taken)
 ROWS64 = 1 << 18               # row chunk of the float64 reference sums
@@ -240,7 +310,15 @@ PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          "serve": ("fused_grad_multi", "randsketch", "gemm"),
          "sparse": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul",
                     "fused_grad_bsr"),
-         "sparse_serve": ("fused_grad_bsr_multi", "bsr_rmatmul", "tsgram")}
+         "sparse_serve": ("fused_grad_bsr_multi", "bsr_rmatmul", "tsgram"),
+         # Phase 9's paths: the Figure-1 problems, linear and the lasso at
+         # 2^20 rows, the converted CoordinateMatrix's Lanczos SVD,
+         # BlockMatrix.multiply, api.compute_svd in Gram mode, serve.main.
+         "fd_figure1": ("fused_grad",), "fd_linear": ("fused_grad",),
+         "fd_lasso": ("fused_grad",),
+         "fd_coordinate": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul"),
+         "fd_block": ("gemm",), "fd_svd": ("tsgram", "gemm"),
+         "fd_serve": ("fused_grad_multi",)}
 
 
 class CheckFailed(RuntimeError):
@@ -831,7 +909,8 @@ def run_svd(api, RowMatrix, A, G64) -> tuple[dict, float]:
     require(res.info["a_passes"] == 2, "svd: a_passes != 2")
     require(res.info["plan"] == "gram", "svd: plan != gram")
     return {"ms": wall, "sigma_rel_err": err_s, "orth_err": err_u,
-            "a_passes": res.info["a_passes"]}, float(s[0]) ** 2
+            "a_passes": res.info["a_passes"], "sigma": s.tolist()}, \
+        float(s[0]) ** 2
 
 
 def run_solve(api, ops, rm, b, **kw) -> tuple[dict, object]:
@@ -1944,6 +2023,511 @@ def check_wide_kernels(S, S_sim, dense_sim) -> dict:
     return out
 
 
+# -- phase 9: the paper's front doors ----------------------------------------
+
+def _descends(hist: list) -> bool:
+    """A backtracking method's history: it ends below where it started and
+    within FIG1_DESCENT of its lowest value (acceleration without restart
+    is not monotone, and at f32's rounding floor values wiggle)."""
+    low = min(hist)
+    return hist[-1] < hist[0] and hist[-1] <= low + FIG1_DESCENT * abs(low)
+
+
+def run_figure1(api, ops, dev) -> dict:
+    """(a) api.minimize on the four make_problem problems at their default
+    sizes through every method, fused="auto", the default caps; each
+    against the same call on the CPU (the plain versions)."""
+    from repro_torch.core import optim
+
+    recs = []
+    for name in FIG1_NAMES:
+        p = optim.make_problem(name, device=dev)
+        pc = optim.make_problem(name, device="cpu")
+        f_star = None
+        if name == "linear":
+            rows = p.linop.A.rows
+            f_star = quad_optimum64(rows, p.smooth.b, gram64(rows))
+        for method in optim.METHODS:
+            before = ops.launch_counts()["fused_grad"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = api.minimize(p, method)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = ops.launch_counts()["fused_grad"] - before
+            xc, infoc = api.minimize(pc, method)
+            f, fc = float(info["objective"]), float(infoc["objective"])
+            k = info["iterations"]
+            hist = info["history"][:k].tolist()
+            rec = {"problem": name, "method": method, "plan": info["plan"],
+                   "iterations": k, "a_passes": info["a_passes"],
+                   "fused_grad_launches": launched,
+                   "converged": bool(info["converged"]), "ms": ms,
+                   "objective": f, "cpu_objective": fc,
+                   "cpu_iterations": infoc["iterations"],
+                   "rel_to_cpu": abs(f - fc) / max(abs(fc), 1e-300),
+                   "cpu_converged": bool(infoc["converged"])}
+            if f_star is not None:
+                rec["gap64"] = (quad_objective64(p.linop.A.rows, p.smooth.b,
+                                                 x) - f_star) / f_star
+            recs.append(rec)
+            print(f"[figure 1] {name}/{method}: plan {rec['plan']}, "
+                  f"{k} iterations, {rec['a_passes']} A-passes, {launched} "
+                  f"fused_grad launches, {ms:.1f} ms, objective {f:.8e} "
+                  f"(CPU {fc:.8e}, relative {rec['rel_to_cpu']:.2e})"
+                  + (f", gap to the float64 optimum {rec['gap64']:.3e}"
+                     if "gap64" in rec else ""))
+            require(bool(torch.isfinite(x).all()),
+                    f"figure 1 {name}/{method}: non-finite x")
+            at_floor = ((name, method) == FIG1_AT_INFIMUM
+                        and rec["converged"] and rec["cpu_converged"]
+                        and abs(f - fc) <= FIG1_FLOOR_ULPS * F32_EPS
+                        * abs(hist[0]))
+            rec["held_at_floor"] = at_floor
+            require(rec["rel_to_cpu"] <= FIG1_CPU_TOL or at_floor,
+                    f"figure 1 {name}/{method}: objective {f:.8e} against "
+                    f"{fc:.8e} on the CPU")
+            if info["plan"] in ("fused", "fused_affine"):
+                require(info["a_passes"] == launched,
+                        f"figure 1 {name}/{method}: {info['a_passes']} "
+                        f"A-passes, {launched} fused_grad launches")
+            else:
+                require(launched == 0, f"figure 1 {name}/{method}: the "
+                        f"{info['plan']} engine launched fused_grad")
+            if method in FIG1_BACKTRACKING:
+                require(_descends(hist), f"figure 1 {name}/{method}: the "
+                        f"history does not descend ({hist[0]:.8e} -> "
+                        f"{hist[-1]:.8e}, lowest {min(hist):.8e})")
+        del p, pc
+    torch.cuda.empty_cache()
+    return {"runs": recs}
+
+
+def run_linear_full(api, ops, dev) -> tuple[dict, object]:
+    """(b) `linear` at M_LIN rows through gra, acc_rb and lbfgs to a stop
+    before the cap; returns the record and the problem (its A serves
+    (c))."""
+    from repro_torch.core import optim
+    from repro_torch.core.optim import problems
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = optim.make_problem("linear", m=M_LIN, device=dev)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    rows, b = p.linop.A.rows, p.smooth.b
+    t0 = time.perf_counter()
+    L = problems._lipschitz_sq_norm(rows)
+    torch.cuda.synchronize()
+    L_ms = (time.perf_counter() - t0) * 1e3
+    require(abs(L - p.L) <= 1e-12 * p.L, f"linear: L {L} then {p.L}")
+    G = gram64(rows)
+    f_star = quad_optimum64(rows, b, G)
+    s64 = torch.linalg.eigvalsh(G)
+    L64 = float(s64[-1])
+    del G
+    # 50 power iterations, the reference's count, stop short of the top
+    # of a spectrum this flat: L is recorded beside the Gram's, not held
+    # to it.
+    print(f"[linear] {M_LIN} x {N}: made in {make_s:.1f} s, on-device L "
+          f"{L:.6e} in {L_ms:.1f} ms (float64 Gram's largest eigenvalue "
+          f"{L64:.6e}), float64 optimum {f_star:.9e}")
+    recs = []
+    for method in ("gra", "acc_rb", "lbfgs"):
+        before = ops.launch_counts()["fused_grad"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = api.minimize(p, method, max_iters=LIN_ITERS,
+                               tol=LIN_TOL[method])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = ops.launch_counts()["fused_grad"] - before
+        gap = (quad_objective64(rows, b, x) - f_star) / f_star
+        rec = {"method": method, "tol": LIN_TOL[method],
+               "plan": info["plan"], "iterations": info["iterations"],
+               "a_passes": info["a_passes"], "fused_grad_launches": launched,
+               "ms": ms, "ms_per_a_pass": ms / max(info["a_passes"], 1),
+               "gap64": gap}
+        recs.append(rec)
+        print(f"[linear] {method}: plan {rec['plan']}, {rec['iterations']} "
+              f"iterations, {rec['a_passes']} A-passes, {launched} "
+              f"fused_grad launches, {ms:.1f} ms, gap to the float64 "
+              f"optimum {gap:.3e}")
+        require(info["iterations"] < LIN_ITERS,
+                f"linear {method}: ran to its cap of {LIN_ITERS}")
+        require(gap <= 1e-5, f"linear {method}: gap {gap:.3e}")
+        require(info["a_passes"] == launched,
+                f"linear {method}: {info['a_passes']} A-passes, {launched} "
+                "fused_grad launches")
+    return {"m": M_LIN, "n": N, "make_s": make_s, "L_ms": L_ms, "L": L,
+            "L64": L64, "solves": recs}, p
+
+
+def run_lasso(ops, rm, dev) -> dict:
+    """(c) solve_lasso on `rm` (the M_LIN x N Gaussian A of (b)) with
+    LASSO_PLANTED planted coefficients, as examples/lasso_tfocs.py plants
+    them: b = A x_t + 0.05 noise, λ = 1."""
+    from repro_torch.core.tfocs import solve_lasso
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x_t = torch.zeros(N, device=dev)
+    x_t[:LASSO_PLANTED] = torch.randn(LASSO_PLANTED, generator=gen,
+                                      device=dev) * 2
+    b = rm.matvec(x_t) + 0.05 * torch.randn(rm.shape[0], generator=gen,
+                                            device=dev)
+    before = ops.launch_counts()["fused_grad"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = solve_lasso(rm, b, LASSO_LAM)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = ops.launch_counts()["fused_grad"] - before
+    f = float(info["objective"])
+    f64, f_planted = (quad_objective64(rm.rows, b, v)
+                      + LASSO_LAM * float(v.double().abs().sum())
+                      for v in (x, x_t))
+    support = int((x != 0).sum())
+    rec = {"plan": info["plan"], "iterations": info["iterations"],
+           "a_passes": info["a_passes"], "fused_grad_launches": launched,
+           "n_backtracks": info["n_backtracks"],
+           "n_restarts": info["n_restarts"], "ms": ms, "objective": f,
+           "objective64": f64, "planted_objective64": f_planted,
+           "support": support,
+           "max_err_planted": float((x - x_t).abs().max())}
+    print(f"[lasso] {rm.shape[0]} x {N}, {LASSO_PLANTED} planted, lambda "
+          f"{LASSO_LAM}: plan {rec['plan']}, {rec['iterations']} iterations, "
+          f"{rec['a_passes']} A-passes, {launched} fused_grad launches, "
+          f"{ms:.1f} ms; objective {f:.9e} (float64 at x {f64:.9e}, at the "
+          f"planted x {f_planted:.9e}), support {support}")
+    require(info["iterations"] < 500, "lasso: ran to its cap of 500")
+    require(abs(f - f64) <= 1e-5 * f64,
+            f"lasso: objective {f:.9e} against float64 {f64:.9e}")
+    require(f64 <= f_planted, f"lasso: objective {f64:.9e} above the planted "
+            f"x's {f_planted:.9e}")
+    require(info["a_passes"] == launched and info["plan"] == "fused_affine",
+            f"lasso: plan {info['plan']}, {info['a_passes']} A-passes, "
+            f"{launched} fused_grad launches")
+    return rec
+
+
+def run_lp(dev) -> dict:
+    """(d) solve_smoothed_lp on a dense RowMatrix constraint matrix of
+    M_LP x N_LP with a known optimum by strict complementarity, as
+    tests/test_tfocs.py builds it (numpy, seed 7; M_LP / 2 active)."""
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.core.tfocs import (LinopMatrix, TfocsOptions,
+                                        solve_smoothed_lp)
+
+    rng = np.random.default_rng(7)
+    k = M_LP // 2
+    A = rng.normal(size=(M_LP, N_LP)).astype(np.float32)
+    x_star = np.zeros(N_LP, np.float32)
+    x_star[:k] = rng.random(k).astype(np.float32) + 0.5
+    b = A @ x_star
+    y = rng.normal(size=M_LP).astype(np.float32)
+    s = np.zeros(N_LP, np.float32)
+    s[k:] = rng.random(N_LP - k).astype(np.float32) + 0.1
+    c = A.T @ y + s
+    linop = LinopMatrix(RowMatrix.create(A, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, lam, info = solve_smoothed_lp(
+        c, linop, b, mu=1e-2, continuations=LP_CONTINUATIONS,
+        opts=TfocsOptions(max_iters=LP_ITERS, backtracking=True,
+                          restart=True))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    kkt = info["kkt"]
+    feas = kkt["primal_feasibility"] / float(np.linalg.norm(b))
+    dx = float(np.abs(x.cpu().numpy() - x_star).max())
+    its = [i["iterations"] for i in info["continuations"]]
+    rec = {"m": M_LP, "n": N_LP, "continuations": LP_CONTINUATIONS,
+           "max_iters": LP_ITERS, "iterations": its, "ms": ms,
+           "primal_feasibility_rel": feas,
+           "nonneg_violation": kkt["nonneg_violation"], "max_abs_dx": dx,
+           "objective": kkt["objective"],
+           "known_objective": float(c.astype(np.float64) @ x_star)}
+    print(f"[lp] {M_LP} x {N_LP}, {LP_CONTINUATIONS} continuations of at "
+          f"most {LP_ITERS}: iterations {its}, {ms:.1f} ms; primal "
+          f"feasibility {feas:.3e} of ||b||, nonneg violation "
+          f"{kkt['nonneg_violation']}, max |x - x*| {dx:.4f}, objective "
+          f"{kkt['objective']:.6e} (known {rec['known_objective']:.6e})")
+    require(kkt["nonneg_violation"] == 0.0, "lp: negative x")
+    require(dx <= 0.05, f"lp: max |x - x*| = {dx:.4f} > 0.05")
+    require(feas < 1e-2, f"lp: primal feasibility {feas:.3e} of ||b||")
+    return rec
+
+
+def coordinate_matrix(dev):
+    """C (M_C x N_C): every entry of BS_S x BS_S blocks, ELL_S a block-row,
+    block columns from the Zipf(1) law of S's pattern (sparse_columns),
+    Gaussian values; seed SEED + 11."""
+    from repro_torch.core.distmat import CoordinateMatrix
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    nbr = M_C // BS_S
+    cols = sparse_columns(nbr, gen, dev, nbc=N_C // BS_S).long()
+    r = torch.arange(BS_S, device=dev)
+    rows = (torch.arange(nbr, device=dev)[:, None, None, None] * BS_S
+            + r[None, None, :, None]).expand(nbr, ELL_S, BS_S, BS_S)
+    cs = (cols[:, :, None, None] * BS_S
+          + r[None, None, None, :]).expand(nbr, ELL_S, BS_S, BS_S)
+    ri = rows.reshape(-1).to(torch.int32)
+    ci = cs.reshape(-1).to(torch.int32)
+    del rows, cs
+    va = torch.randn(ri.shape[0], generator=gen, device=dev)
+    return CoordinateMatrix.create(ri, ci, va, (M_C, N_C), device=dev), \
+        nbr * ELL_S
+
+
+def run_coordinate(api, ops, dev) -> dict:
+    """(e) compute_svd(k=16, mode="lanczos") of C itself (segment-sum
+    products) and of its to_sparse_row_matrix(bs=32) (bsr_matvec +
+    bsr_rmatmul, bsr_matmul for U), on the path's counts."""
+    t0 = time.perf_counter()
+    C, blocks = coordinate_matrix(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    opts = {"max_restarts": COO_RESTARTS}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_c = api.svd(api.SvdRequest(A=C, k=K_SVD, mode="lanczos",
+                                   options=opts, device=dev))
+    torch.cuda.synchronize()
+    coo_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    S_c = C.to_sparse_row_matrix(bs=BS_S)
+    torch.cuda.synchronize()
+    conv_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    res_s = api.svd(api.SvdRequest(A=S_c, k=K_SVD, mode="lanczos",
+                                   options=opts, device=dev))
+    torch.cuda.synchronize()
+    bsr_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    # ------------------------------------------------------------------
+    a = S_c._local()
+    stored = int((S_c.data != 0).flatten(2).any(-1).sum())
+    out = {"m": M_C, "n": N_C, "nnz": C.nnz, "build_s": build_s,
+           "convert_ms": conv_ms, "blocks": stored, "ell": S_c.ell,
+           "launches": launches}
+    s_ref = None
+    for key, res, ms in (("coordinate", res_c, coo_ms),
+                         ("sparse_row", res_s, bsr_ms)):
+        U, s, V = res.factors
+        V64, s64 = V.double(), s.double()
+        R = rapply64(a, apply64(a, V64)) - V64 * s64 ** 2
+        resid = float((torch.linalg.vector_norm(R, dim=0)
+                       / s64[0] ** 2).max())
+        info = res.info
+        out[key] = {"ms": ms, "restarts": info["restarts"],
+                    "op_calls": info["op_calls"],
+                    "a_passes": info["a_passes"],
+                    "converged": info["converged"], "sigma_1": float(s[0]),
+                    "sigma_16": float(s[-1]),
+                    "max_residual_over_sigma1sq": resid,
+                    "has_u": U is not None}
+        print(f"[coordinate] Lanczos SVD k={K_SVD} of {key}: {ms:.1f} ms, "
+              f"{info['restarts']} restarts, {info['op_calls']} operator "
+              f"calls, converged {info['converged']}, sigma_1 "
+              f"{float(s[0]):.4f}, max residual {resid:.3e} sigma_1^2")
+        require(resid <= 1e-4, f"coordinate {key}: residual {resid:.3e}")
+        if s_ref is None:
+            s_ref = s
+    rel = float(((res_s.factors[1].double() - s_ref.double()).abs()
+                 / s_ref.double()).max())
+    out["sigma_rel_diff"] = rel
+    op_calls = res_s.info["op_calls"]
+    print(f"[coordinate] {M_C} x {N_C}, {C.nnz} entries built in "
+          f"{build_s:.1f} s, converted to bs {BS_S} in {conv_ms:.1f} ms "
+          f"({stored} blocks, ell {S_c.ell}); sigma of the two runs apart "
+          f"by {rel:.3e}; launches {launches}")
+    require(rel <= 1e-4, f"coordinate: sigma apart by {rel:.3e}")
+    require(stored == blocks and S_c.ell == ELL_S,
+            f"coordinate: {stored} blocks (ell {S_c.ell}), {blocks} distinct")
+    require(res_c.factors[0] is None and res_s.factors[0] is not None,
+            "coordinate: U for the wrong type")
+    require(launches["bsr_matvec"] == op_calls
+            and launches["bsr_rmatmul"] == op_calls
+            and launches["bsr_matmul"] == 1,
+            f"coordinate: launches {launches} for {op_calls} operator calls")
+    # One product of each kind, timed alone.
+    v = torch.randn(N_C, device=dev)
+    u = torch.randn(M_C, device=dev)
+    same = (torch.equal(C.matvec(v), C.matvec(v))
+            and torch.equal(C.rmatvec(u), C.rmatvec(u)))
+    out["coo_products_repeat_bits"] = same
+    require(same, "coordinate: two products of C differ in their bits")
+    out["coo_matvec_ms"] = time_ms(lambda: C.matvec(v))
+    out["coo_rmatvec_ms"] = time_ms(lambda: C.rmatvec(u))
+    out["bsr_matvec_ms"] = time_ms(lambda: S_c.matvec(v))
+    out["bsr_rmatvec_ms"] = time_ms(lambda: S_c.rmatvec(u))
+    print(f"[coordinate] A v {out['coo_matvec_ms']:.3f} ms, A^T u "
+          f"{out['coo_rmatvec_ms']:.3f} ms (segment sums, same bits each "
+          f"call); bs {BS_S}: "
+          f"{out['bsr_matvec_ms']:.3f}, {out['bsr_rmatvec_ms']:.3f} ms")
+    return out
+
+
+def run_block(ops, dev) -> tuple[dict, dict]:
+    """(f) BlockMatrix.multiply of two N_BLOCK x N_BLOCK f32 matrices (one
+    gemm launch) against a float64 product, timed beside torch.mm and the
+    route's bound; returns (path record, gemm check record)."""
+    from repro_torch.core.distmat import BlockMatrix
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    a = torch.randn(N_BLOCK, N_BLOCK, generator=gen, device=dev)
+    b = torch.randn(N_BLOCK, N_BLOCK, generator=gen, device=dev)
+    X = BlockMatrix.create(a, device=dev)
+    Y = BlockMatrix.create(b, device=dev)
+    ops.reset_launch_counts()
+    P = X.multiply(Y)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # ------------------------------------------------------------------
+    want = a.double() @ b.double()
+    err = rel_err(P.data, want)
+    mad = max_abs(P.data, want)
+    del want
+    ms = time_ms(lambda: X.multiply(Y))
+    mm_ms = time_ms(lambda: torch.mm(a, b))
+    plain = torch.empty_like(a)
+    from repro_torch.kernels import gemm as _gemm
+    plain_ms = time_ms(lambda: plain.copy_(_gemm.gemm_plain(a, b)))
+    flops = 2.0 * N_BLOCK ** 3
+    nbytes = 3.0 * N_BLOCK * N_BLOCK * 4
+    bound_ms, by = bound(nbytes, 3 * flops, "tf32")
+    fma_ms, _ = bound(nbytes, flops, torch.float32)
+    rec = {"max_abs_err": mad, "rel_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": by, "fma_bound_ms": fma_ms,
+           "library_ms": mm_ms, "shape": [N_BLOCK, N_BLOCK, N_BLOCK]}
+    print(f"[block] {N_BLOCK}^2 @ {N_BLOCK}^2 (one gemm launch: "
+          f"{launches['gemm']}): {ms:.3f} ms, torch.mm {mm_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}, 3xTF32; f32 "
+          f"FMA {fma_ms:.3f}), {err:.3e} normwise from float64")
+    require(err <= 1e-4, f"block: {err:.3e} from the float64 product")
+    require(launches["gemm"] == 1, f"block: launches {launches}")
+    return {"launches": launches, "gemm": rec}, rec
+
+
+def run_front_doors(api, ops, dev, sigma3: torch.Tensor) -> dict:
+    """(f)'s IndexedRowMatrix SVD and (g): phase 3's A made again from its
+    seed; api.compute_svd against api.svd bit for bit, the Lanczos SVD of
+    the IndexedRowMatrix over A against the Gram sigma; then serve.main on
+    the card."""
+    from repro_torch.core.distmat import IndexedRowMatrix, RowMatrix
+    from repro_torch.launch import serve
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = 1.0 + 2.0 * 0.95 ** torch.arange(N, device=dev, dtype=torch.float32)
+    A = torch.randn(M, N, generator=gen, device=dev)
+    A.mul_(d / math.sqrt(N))
+    rm = RowMatrix.create(A, device=dev)
+    want = api.svd(api.SvdRequest(A=rm, k=K_SVD, mode="gram", device=dev))
+    require(torch.equal(want.factors[1], sigma3),
+            "front doors: A made again gives another Gram sigma")
+    ops.reset_launch_counts()
+    U, s, V, info = api.compute_svd(rm, K_SVD, mode="gram", device=dev)
+    torch.cuda.synchronize()
+    svd_launches = ops.launch_counts()
+    # ------------------------------------------------------------------
+    same = (torch.equal(s, want.factors[1]) and torch.equal(V, want.factors[2])
+            and torch.equal(U.rows, want.factors[0].rows))
+    print(f"[front doors] api.compute_svd(mode='gram') against api.svd: "
+          f"same bits {same}; launches {svd_launches}")
+    require(same, "front doors: compute_svd and svd differ")
+    irm = IndexedRowMatrix.create(torch.arange(M, device=dev), A, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Ui, si, Vi, infoi = api.compute_svd(irm, K_SVD, device=dev,
+                                        max_restarts=COO_RESTARTS)
+    torch.cuda.synchronize()
+    irm_ms = (time.perf_counter() - t0) * 1e3
+    rel = float(((si.double() - sigma3.double()).abs()
+                 / sigma3.double()).max())
+    irm_rec = {"ms": irm_ms, "mode": infoi["mode"],
+               "restarts": infoi["restarts"], "op_calls": infoi["op_calls"],
+               "converged": infoi["converged"], "sigma_rel_to_gram": rel}
+    print(f"[front doors] IndexedRowMatrix over A: Lanczos SVD k={K_SVD} "
+          f"{irm_ms:.1f} ms, {infoi['restarts']} restarts, "
+          f"{infoi['op_calls']} operator calls, sigma {rel:.3e} from the "
+          f"Gram sigma")
+    require(infoi["mode"] == "lanczos" and Ui is None,
+            f"indexed: mode {infoi['mode']}, U {Ui is not None}")
+    require(rel <= 1e-4, f"indexed: sigma {rel:.3e} from the Gram sigma")
+    del A, rm, irm, want, U, V, Vi
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server = serve.main(SERVE_ARGS + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    # ------------------------------------------------------------------
+    served = len(server.latencies())
+    serve_rec = {"args": SERVE_ARGS, "s": serve_s, "served": served,
+                 "stats": {k: v for k, v in server.stats.items()
+                           if k != "degraded"},
+                 "launches": serve_launches}
+    print(f"[front doors] serve.main {' '.join(SERVE_ARGS)}: {served} "
+          f"served in {serve_s:.1f} s, group A-passes "
+          f"{server.stats['a_passes']}, launches {serve_launches}")
+    require(served == 16 and server.stats["admitted"] == 16,
+            f"serve.main: {served} served")
+    require(serve_launches["fused_grad_multi"] == server.stats["a_passes"],
+            f"serve.main: {serve_launches['fused_grad_multi']} "
+            f"fused_grad_multi launches, {server.stats['a_passes']} A-passes")
+    return {"svd_launches": svd_launches, "indexed": irm_rec,
+            "serve": serve_rec}
+
+
+def run_phase9(api, ops, dev, sigma3) -> tuple[dict, dict, dict]:
+    """Phase 9 (a)-(g); returns (record, launches by path, gemm's
+    check)."""
+    t9 = time.perf_counter()
+    ops.reset_launch_counts()
+    fig1 = run_figure1(api, ops, dev)
+    torch.cuda.synchronize()
+    paths = {"fd_figure1": ops.launch_counts()}
+    # ------------------------------------------------------------------
+    ops.reset_launch_counts()
+    linear, p = run_linear_full(api, ops, dev)
+    torch.cuda.synchronize()
+    paths["fd_linear"] = ops.launch_counts()
+    # ------------------------------------------------------------------
+    ops.reset_launch_counts()
+    lasso = run_lasso(ops, p.linop.A, dev)
+    torch.cuda.synchronize()
+    paths["fd_lasso"] = ops.launch_counts()
+    # ------------------------------------------------------------------
+    del p
+    torch.cuda.empty_cache()
+    lp = run_lp(dev)
+    torch.cuda.empty_cache()
+    coo = run_coordinate(api, ops, dev)
+    paths["fd_coordinate"] = coo["launches"]
+    torch.cuda.empty_cache()
+    block, gemm_rec = run_block(ops, dev)
+    paths["fd_block"] = block["launches"]
+    torch.cuda.empty_cache()
+    doors = run_front_doors(api, ops, dev, sigma3)
+    paths["fd_svd"] = doors["svd_launches"]
+    paths["fd_serve"] = doors["serve"]["launches"]
+    for path, names in PATHS.items():
+        if path.startswith("fd_"):
+            for name in names:
+                require(paths[path][name] > 0,
+                        f"{name} never launched on the {path} path")
+    rec = {"figure1": fig1, "linear": linear, "lasso": lasso, "lp": lp,
+           "coordinate": coo, "block": block, "front_doors": doors,
+           "s": time.perf_counter() - t9}
+    print(f"[front door] phase 9 in {rec['s']:.1f} s")
+    return rec, paths, gemm_rec
+
+
 # -- phase 8: LM serving ----------------------------------------------------
 
 def attn_inputs(params, cfg, tokens):
@@ -2451,8 +3035,14 @@ def smoke(dev: torch.device) -> dict:
     print(f"[sparse serve] sampled DIMSUM warm "
           f"{serve7_rec['dimsum']['warm_ms']:.1f} ms, S_sim's Gram "
           f"{serve7_rec['dimsum']['gram_ms']:.1f} ms")
-    # The sparse matrices are done with: phase 8 has the card to itself.
+    # The sparse matrices are done with: phase 9 has the card to itself.
     del S, S_sim, refs7, pairs
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the front doors; run_phase9 zeroes and reads the counts
+    # around each of its paths ------------------------------------------------
+    front, fd_paths, kernels["gemm"]["block"] = run_phase9(
+        api, ops, dev, torch.tensor(svd_rec["sigma"], device=dev))
     torch.cuda.empty_cache()
 
     # -- phase 8: LM serving; run_lm zeroes and reads the counts around each
@@ -2460,7 +3050,7 @@ def smoke(dev: torch.device) -> dict:
     lm = run_lm(dev)
     by_path = {"solve_svd": launches, "serve": serve_launches,
                "sparse": sparse_launches, "sparse_serve": serve7_launches,
-               **{f"lm:{arch}": rec["launches"]
+               **fd_paths, **{f"lm:{arch}": rec["launches"]
                   for arch, rec in lm["models"].items()}}
 
     rows = []
@@ -2506,7 +3096,8 @@ def smoke(dev: torch.device) -> dict:
             "checks": recs})
     return {"kernels": rows, "svd": svd_rec, "solves": solves,
             "serve": serve_rec, "sparse": sparse_rec,
-            "sparse_serve": serve7_rec, "lm": lm["models"],
+            "sparse_serve": serve7_rec, "front_door": front,
+            "lm": lm["models"],
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
@@ -2552,6 +3143,7 @@ def main() -> int:
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
                       "sparse_serve": summary["sparse_serve"],
+                      "front_door": summary["front_door"],
                       "lm": summary["lm"], "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])

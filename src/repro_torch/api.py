@@ -23,6 +23,11 @@ Requests run on the card: `device` defaults to "cuda" and raises when there
 is no card; pass device="cpu" to run on the CPU.  The request validation is
 the reference's.  What the port does not have yet raises
 NotImplementedError naming its ROADMAP item.
+
+The thin wrappers `minimize` (a Figure-1 `Problem` through
+`solve(SolveRequest(problem=...))`, core.optim.minimize underneath),
+`compute_svd` (an SvdRequest on any §2 matrix type, returning
+(U, s, V, info)) and `column_similarities` keep the reference's signatures.
 """
 from __future__ import annotations
 
@@ -35,9 +40,10 @@ import torch
 
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
-from repro_torch.core.distmat.sparserow import SparseRowMatrix
 from repro_torch.core.linalg.svd import compute_svd as _compute_svd
+from repro_torch.core.optim.api import minimize as _minimize
 from repro_torch.core.optim.first_order import minimize_first_order
+from repro_torch.core.optim.problems import Problem
 from repro_torch.core.tfocs.linop import LinopMatrix
 from repro_torch.core.tfocs.prox import ProxL1, ProxL2Sq, ProxZero
 from repro_torch.core.tfocs.smooth import (SmoothHuber, SmoothLogLoss,
@@ -81,7 +87,9 @@ def _not_yet(what: str, item: str):
 class SolveRequest:
     """minimize f(Ax) + h(x): a design matrix `A` (RowMatrix,
     SparseRowMatrix or a local matrix), a target `b` and a row-separable
-    `loss`; `smooth` / `prox` are escape hatches for prebuilt components."""
+    `loss`; `problem` (a core.optim Problem, run by core.optim.minimize)
+    and `smooth` / `prox` are escape hatches for prebuilt composites, served
+    one-shot."""
     A: Any = None                 # RowMatrix | SparseRowMatrix | tensor | array
     b: Any = None                 # (m,) target / labels / counts
     loss: str = "quad"            # quad | logistic | huber | poisson
@@ -98,6 +106,7 @@ class SolveRequest:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 10
     resume: bool = False
+    problem: Problem | None = None
     smooth: Any = None
     prox: Any = None
     telemetry: Any = None
@@ -105,7 +114,7 @@ class SolveRequest:
     request_id: str = field(default_factory=lambda: _next_id("solve"))
 
     def __post_init__(self):
-        if self.smooth is None:
+        if self.problem is None and self.smooth is None:
             if self.loss not in LOSSES:
                 raise ValueError(f"loss must be one of {LOSSES}, "
                                  f"got {self.loss!r}")
@@ -113,8 +122,8 @@ class SolveRequest:
                 raise ValueError(f"reg must be one of {REGS}, "
                                  f"got {self.reg!r}")
             if self.A is None or self.b is None:
-                raise ValueError("SolveRequest needs (A, b) or a smooth "
-                                 "escape hatch")
+                raise ValueError("SolveRequest needs (A, b) or a "
+                                 "problem/smooth escape hatch")
         _check_scalar("tol", self.tol, minimum=0.0)
         _check_scalar("lam", self.lam, minimum=0.0)
         _check_scalar("L0", self.L0, minimum=0.0, exclusive=True)
@@ -141,8 +150,9 @@ class SolveRequest:
 
 @dataclass
 class SvdRequest:
-    """Truncated SVD of a RowMatrix or SparseRowMatrix
-    (core.linalg.compute_svd)."""
+    """Truncated SVD of one of the §2 matrix types (RowMatrix,
+    SparseRowMatrix, IndexedRowMatrix, CoordinateMatrix, BlockMatrix) or a
+    local matrix (core.linalg.compute_svd)."""
     A: Any
     k: int
     compute_u: bool = True
@@ -209,10 +219,10 @@ class Overloaded(Result):
         self.info.setdefault("plan", "rejected")
 
 
-def _on_device(A, device) -> RowMatrix | SparseRowMatrix | torch.Tensor:
+def _on_device(A, device) -> T.DistMatrix | torch.Tensor:
     """The request's matrix on the request's device."""
     dev = T.resolve_device(device)
-    if isinstance(A, (RowMatrix, SparseRowMatrix, torch.Tensor)):
+    if isinstance(A, (T.DistMatrix, torch.Tensor)):
         if A.device.type != dev.type:
             raise ValueError(f"A lies on {A.device}, the request on {dev}")
         return A
@@ -259,6 +269,14 @@ def solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
     server's groups; on this path it waits for the elastic executor."""
     if req.deadline_s is not None:
         _not_yet("deadline_s on the direct path", FAULT_TOLERANCE_ITEM)
+    if req.problem is not None:
+        x, info = _minimize(req.problem, req.method,
+                            max_iters=req.max_iters, tol=req.tol,
+                            fused=fused)
+        info = dict(info)
+        info.setdefault("degraded", None)
+        info.setdefault("precision", "f32")
+        return Result(x=x, info=info, request_id=req.request_id)
     linop = solve_linop(req)
     smooth = solve_smooth(req, linop)
     prox = solve_prox(req)
@@ -309,6 +327,32 @@ def similarities(req: SimilarityRequest) -> Result:
 
 
 # -- thin signature-compatible wrappers ---------------------------------------
+
+def minimize(problem: Problem, method: str, *, max_iters: int = 200,
+             step_size: float | None = None, tol: float = 1e-10,
+             fused: bool | str = "auto"):
+    """Thin wrapper: a Problem-shaped SolveRequest through the path the
+    server drives, on the problem's device.  Returns (x, info) as
+    core.optim.minimize does."""
+    if step_size is not None:
+        # A problem request resolves L0 inside core.optim.minimize.
+        return _minimize(problem, method, max_iters=max_iters,
+                         step_size=step_size, tol=tol, fused=fused)
+    res = solve(SolveRequest(problem=problem, method=method, tol=tol,
+                             max_iters=max_iters,
+                             device=problem.linop.device), fused=fused)
+    return res.x, res.info
+
+
+def compute_svd(A, k: int, *, compute_u: bool = True, mode: str = "auto",
+                device="cuda", **options):
+    """Thin wrapper: an SvdRequest through the request path.  Returns
+    (U, s, V, info) unpacked from the Result."""
+    res = svd(SvdRequest(A=A, k=k, compute_u=compute_u, mode=mode,
+                         options=options, device=device))
+    U, s, V = res.factors
+    return U, s, V, res.info
+
 
 def column_similarities(A, threshold: float = 0.0, *,
                         gamma: float | None = None, seed: int = 0,

@@ -12,6 +12,9 @@ randomized SVD's projection AᵀQ through the randsketch kernel and the
 small-factor product through the gemm kernel (kernels/ops: plain torch for
 CPU tensors).  DIMSUM column similarities (``column_similarities``) run on
 tsgram.
+
+`IndexedRowMatrix` (paper §2.1) is a RowMatrix with meaningful row indices;
+its `create` takes `device=` in the place of the reference's `mesh=`.
 """
 from __future__ import annotations
 
@@ -211,6 +214,13 @@ class RowMatrix(T.DistMatrix):
         self.rows.square_()
         return self
 
+    def to_sparse_row_matrix(self, bs: int | str = "auto"):
+        """Block-compress into the block-sparse row type on this device;
+        bs="auto" raises until the planner lands, as from_dense does."""
+        from .sparserow import SparseRowMatrix
+        return SparseRowMatrix.from_dense(self.to_local(), bs=bs,
+                                          device=self.device)
+
     # -- materialization ----------------------------------------------------
     def to_local(self) -> torch.Tensor:
         return self.rows[: self.n_rows]
@@ -227,3 +237,45 @@ class RowMatrix(T.DistMatrix):
     def tall_skinny_qr(self):
         from repro_torch.core.linalg.tsqr import tsqr
         return tsqr(self)
+
+
+@dataclass(frozen=True)
+class IndexedRowMatrix(T.DistMatrix):
+    """RowMatrix plus meaningful row indices (paper §2.1)."""
+    indices: torch.Tensor            # (m_padded,) int64
+    inner: RowMatrix
+
+    @staticmethod
+    def create(indices, rows, *, device="cuda") -> "IndexedRowMatrix":
+        rm = RowMatrix.create(rows, device=device)
+        idx = torch.as_tensor(indices, device=rm.device).to(torch.int64)
+        if idx.shape != (rm.n_rows,):
+            raise ValueError(f"{tuple(idx.shape)} indices for {rm.n_rows} "
+                             "rows")
+        return IndexedRowMatrix(indices=idx, inner=rm)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.inner.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.inner.device
+
+    def to_row_matrix(self) -> RowMatrix:
+        return self.inner
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return self.inner.matvec(v)
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        return self.inner.rmatvec(u)
+
+    def to_local(self) -> torch.Tensor:
+        """Rows placed at their indices in a (max index + 1, n) matrix."""
+        idx = self.indices[: self.inner.n_rows]
+        dense = self.inner.to_local()
+        rows = int(idx.max()) + 1 if idx.numel() else 0
+        out = dense.new_zeros((rows, dense.shape[1]))
+        out[idx] = dense
+        return out

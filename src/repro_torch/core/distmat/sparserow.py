@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -92,35 +91,35 @@ class SparseRowMatrix(T.DistMatrix):
     @staticmethod
     def from_entries(row_idx, col_idx, values, shape: tuple[int, int],
                      bs: int | str, *, device="cuda") -> "SparseRowMatrix":
-        """COO entries → block-ELL without the dense matrix: entries are
-        binned into (block-row, block-column) keys with one np.unique and
-        one np.add.at, as in the reference; duplicates add up."""
+        """COO entries → block-ELL without the dense matrix, on `device`:
+        entries are binned into (block-row, block-column) keys with one
+        torch.unique and one accumulating index_put_, as the reference bins
+        them with np.unique and np.add.at; duplicates add up."""
         bs = _check_bs(bs)
-        ri = np.asarray(row_idx, np.int64)
-        ci = np.asarray(col_idx, np.int64)
-        va = np.asarray(values)
-        if va.dtype == np.float64:
-            va = va.astype(np.float32)
+        dev = T.resolve_device(device)
+        ri = torch.as_tensor(row_idx, device=dev).long()
+        ci = torch.as_tensor(col_idx, device=dev).long()
+        va = T.as_float_tensor(values, dev)
         m, n = shape
         nbc = _rup(n, bs) // bs
         nbr = _rup(max(m, 1), bs) // bs
-        key = (ri // bs) * nbc + (ci // bs)
-        uniq, inv = np.unique(key, return_inverse=True)
-        blocks = np.zeros((max(len(uniq), 1), bs, bs), va.dtype)
-        np.add.at(blocks, (inv, ri % bs, ci % bs), va)
+        key = (ri // bs) * nbc + ci // bs
+        uniq, inv = torch.unique(key, return_inverse=True)
+        nb = uniq.shape[0]
+        blocks = va.new_zeros((max(nb, 1), bs, bs))
+        blocks.index_put_((inv, ri % bs, ci % bs), va, accumulate=True)
+        del key, inv
         ubi, ubj = uniq // nbc, uniq % nbc
-        counts = np.bincount(ubi, minlength=nbr)
-        ell = max(1, int(counts.max(initial=0)))
-        starts = np.concatenate([[0], np.cumsum(counts)])
-        slot = np.arange(len(uniq)) - starts[ubi]
-        data = np.zeros((nbr, ell, bs, bs), va.dtype)
-        cols = np.zeros((nbr, ell), np.int32)
-        data[ubi, slot] = blocks[: len(uniq)]
-        cols[ubi, slot] = ubj
-        dev = T.resolve_device(device)
-        return SparseRowMatrix(torch.from_numpy(data).to(dev),
-                               torch.from_numpy(cols).to(dev), dims=(m, n),
-                               nnz=int(np.count_nonzero(blocks)))
+        counts = torch.bincount(ubi, minlength=nbr)
+        ell = max(1, int(counts.max())) if nb else 1
+        slot = torch.arange(nb, device=dev) - (torch.cumsum(counts, 0)
+                                               - counts)[ubi]
+        data = va.new_zeros((nbr, ell, bs, bs))
+        cols = torch.zeros((nbr, ell), dtype=torch.int32, device=dev)
+        data[ubi, slot] = blocks[:nb]
+        cols[ubi, slot] = ubj.to(torch.int32)
+        return SparseRowMatrix(data, cols, dims=(m, n),
+                               nnz=int(torch.count_nonzero(blocks)))
 
     # -- bookkeeping ---------------------------------------------------------
     @property

@@ -1,5 +1,5 @@
-"""computeSVD / computePCA (paper §3.1) for a RowMatrix or a
-SparseRowMatrix.
+"""computeSVD / computePCA (paper §3.1) for the §2 matrix types: RowMatrix,
+SparseRowMatrix, IndexedRowMatrix, CoordinateMatrix and BlockMatrix.
 
 Counterpart of src/repro/core/linalg/svd.py, with its three modes:
 
@@ -14,11 +14,16 @@ Counterpart of src/repro/core/linalg/svd.py, with its three modes:
     Lanczos on AᵀA, two A-passes per operator call (for a SparseRowMatrix
     bsr_matvec and bsr_rmatmul), then the U pass.
 
-Wide inputs (m < n) go through the transpose and swap the factors back.
-`mode="auto"` follows the reference planner's rule (launch/planner.py, op
-"svd"): Lanczos for a SparseRowMatrix; for a RowMatrix gram for
-n ≤ gram_threshold, else randomized for k ≤ randomized_k_threshold, else
-Lanczos.
+Wide inputs (m < n) go through the transpose where the type has one
+(RowMatrix and SparseRowMatrix by a copy, CoordinateMatrix for free
+by swapping its index tensors) and swap the factors back; when the
+transposed type returns no U (a CoordinateMatrix), V comes back as
+AᵀV′Σ⁻¹, k matvecs.  IndexedRowMatrix and BlockMatrix have no transpose
+here and take Lanczos on AᵀA directly.  `mode="auto"` follows the
+reference planner's rule (launch/planner.py, op "svd"): Lanczos for every
+type but RowMatrix; for a RowMatrix gram for n ≤ gram_threshold, else
+randomized for k ≤ randomized_k_threshold, else Lanczos.  U comes back
+for RowMatrix and SparseRowMatrix only, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.distmat.rowmatrix import RowMatrix
+from repro_torch.core.distmat.blockmatrix import BlockMatrix
+from repro_torch.core.distmat.coordinatematrix import CoordinateMatrix
+from repro_torch.core.distmat.rowmatrix import IndexedRowMatrix, RowMatrix
 from repro_torch.core.distmat.sparserow import SparseRowMatrix
 from . import lanczos as _lanczos
 from . import randsvd as _randsvd
@@ -37,6 +44,8 @@ GRAM_THRESHOLD = 8192
 # the (2 + 2q)-pass sketch.
 RANDOMIZED_K_THRESHOLD = 128
 _MODES = ("auto", "gram", "lanczos", "randomized")
+_TYPES = (RowMatrix, SparseRowMatrix, IndexedRowMatrix, CoordinateMatrix,
+          BlockMatrix)
 
 
 @dataclass(frozen=True)
@@ -56,26 +65,39 @@ def _recover_u(A, s: torch.Tensor, V: torch.Tensor,
 
 
 def _transpose(A):
-    if isinstance(A, SparseRowMatrix):
+    """Aᵀ for the wide-input route, or None for a type without one
+    (BlockMatrix, IndexedRowMatrix), which keeps the direct Lanczos path."""
+    if isinstance(A, (CoordinateMatrix, SparseRowMatrix)):
         return A.transpose()
-    return RowMatrix.create(A.to_local().T, device=A.device)
+    if isinstance(A, RowMatrix):
+        return RowMatrix.create(A.to_local().T, device=A.device)
+    return None
 
 
-def _swap_transposed(A, res: SVDResult,
-                     compute_u: bool) -> SVDResult:
-    """SVD(Aᵀ) = U'ΣV'ᵀ ⇒ A = V'ΣU'ᵀ: V of A is U', U of A is V'."""
-    V = res.U.to_local()
+def _swap_transposed(A, At, res: SVDResult, compute_u: bool,
+                     rcond: float) -> SVDResult:
+    """SVD(Aᵀ) = U'ΣV'ᵀ ⇒ A = V'ΣU'ᵀ: V of A is U' (or AᵀV'Σ⁻¹ by k matvecs
+    when the transposed type returned no U'), U of A is V'."""
+    s = res.s
+    if res.U is not None:
+        V = res.U.to_local()
+    else:
+        inv = torch.where(s > rcond * torch.max(s),
+                          1.0 / torch.clamp(s, min=1e-30), 0.0)
+        V = torch.stack([At.matvec(res.V[:, i]) * inv[i]
+                         for i in range(res.V.shape[1])], dim=1)
     U = RowMatrix.create(res.V, device=A.device) if compute_u else None
-    return SVDResult(U=U, s=res.s, V=V,
+    return SVDResult(U=U, s=s, V=V,
                      info=dict(res.info or {}, transposed=True))
 
 
 def auto_mode(n: int, k: int, *, gram_threshold: int = GRAM_THRESHOLD,
               randomized_k_threshold: int = RANDOMIZED_K_THRESHOLD,
-              sparse: bool = False) -> str:
-    """The reference planner's mode for n columns and k asked triplets:
-    a sparse operator always takes the matrix-free Lanczos iteration."""
-    if sparse:
+              kind: str = "row") -> str:
+    """The reference planner's mode for n columns and k asked triplets of a
+    matrix of `kind` "row" (a RowMatrix) or any other: every type but
+    RowMatrix takes the matrix-free Lanczos iteration."""
+    if kind != "row":
         return "lanczos"
     if n <= gram_threshold:
         return "gram"
@@ -91,27 +113,28 @@ def compute_svd(A, k: int, *, compute_u: bool = True,
                 power_iters: int = _randsvd.POWER_ITERS,
                 rcond: float = 1e-9, seed: int = 0,
                 **lanczos_kw) -> SVDResult:
-    """Top-k singular triplets of a RowMatrix or SparseRowMatrix.
+    """Top-k singular triplets of one of the §2 matrix types.
     `lanczos_kw` (ncv, max_restarts, tol) go to the Lanczos mode."""
-    if not isinstance(A, (RowMatrix, SparseRowMatrix)):
-        raise TypeError(f"compute_svd needs a RowMatrix or SparseRowMatrix, "
+    if not isinstance(A, _TYPES):
+        raise TypeError("compute_svd needs a RowMatrix, SparseRowMatrix, "
+                        "IndexedRowMatrix, CoordinateMatrix or BlockMatrix, "
                         f"got {type(A).__name__}")
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}; expected auto | gram | "
                          "lanczos | randomized")
     m, n = A.shape
     k = min(k, min(m, n))
-    if m < n:
-        res = compute_svd(_transpose(A), k, compute_u=True, mode=mode,
+    if m < n and (At := _transpose(A)) is not None:
+        res = compute_svd(At, k, compute_u=True, mode=mode,
                           gram_threshold=gram_threshold,
                           randomized_k_threshold=randomized_k_threshold,
                           oversampling=oversampling, power_iters=power_iters,
                           rcond=rcond, seed=seed, **lanczos_kw)
-        return _swap_transposed(A, res, compute_u)
+        return _swap_transposed(A, At, res, compute_u, rcond)
     if mode == "auto":
         mode = auto_mode(n, k, gram_threshold=gram_threshold,
                          randomized_k_threshold=randomized_k_threshold,
-                         sparse=isinstance(A, SparseRowMatrix))
+                         kind="row" if isinstance(A, RowMatrix) else "other")
     if mode == "lanczos":
         # Each operator call is a matvec and an rmatvec: 2 A-passes.
         s, V, info = _lanczos.svd_via_lanczos(A, k, seed=seed, **lanczos_kw)
@@ -131,6 +154,9 @@ def compute_svd(A, k: int, *, compute_u: bool = True,
         info = dict(info, plan="randomized", iterations=power_iters,
                     a_passes=info["passes_over_A"], converged=True)
         return SVDResult(U=U, s=s, V=V, info=info)
+    if not isinstance(A, (RowMatrix, SparseRowMatrix)):
+        raise ValueError("mode='gram' needs a RowMatrix or SparseRowMatrix "
+                         f"(a Gram primitive), got {type(A).__name__}")
     G = A.gram().float()
     w, V = torch.linalg.eigh(G)
     w, V = w.flip(0)[:k], V.flip(1)[:, :k]
@@ -143,7 +169,7 @@ def compute_svd(A, k: int, *, compute_u: bool = True,
 def _with_u(A, s: torch.Tensor, V: torch.Tensor, info: dict,
             compute_u: bool, rcond: float) -> SVDResult:
     U = None
-    if compute_u:
+    if compute_u and isinstance(A, (RowMatrix, SparseRowMatrix)):
         U = _recover_u(A, s, V, rcond)
         info["a_passes"] += 1          # the U = A(VΣ⁻¹) pass
     return SVDResult(U=U, s=s, V=V, info=info)

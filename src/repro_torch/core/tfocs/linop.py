@@ -4,7 +4,8 @@ Counterpart of src/repro/core/tfocs/linop.py.  `apply` maps the solver's
 variable into data space, `adjoint` maps back, `fused_grad` does a
 row-separable smooth's value, gradient and image in one pass over A, and
 `fused_grad_multi` does the same for a group of k right-hand sides in one
-pass.
+pass.  `LinopAdjoint` swaps another operator's apply and adjoint (the
+smoothed-LP dual).
 """
 from __future__ import annotations
 
@@ -173,3 +174,35 @@ class CountingLinop:
 
     def row_weights(self):
         return self.base.row_weights()
+
+
+@dataclass(frozen=True)
+class LinopAdjoint:
+    """The formal adjoint of another operator (the SCD dual solver's, whose
+    variable lives in the base operator's data space)."""
+    base: object
+
+    @property
+    def in_shape(self):
+        return self.base.out_shape
+
+    @property
+    def out_shape(self):
+        return self.base.in_shape
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def apply(self, x):
+        return self.base.adjoint(x)
+
+    def adjoint(self, y):
+        return self.base.apply(y)
+
+    def pad_data(self, b):
+        return b
+
+    def row_weights(self):
+        return torch.ones(self.out_shape, dtype=torch.float32,
+                          device=T.resolve_device(self.device))

@@ -1,9 +1,10 @@
 """Smooth components of composite objectives (paper §3.2.2 `SmoothQuad`).
 
-Counterpart of src/repro/core/tfocs/smooth.py (the row-separable four).  A
-smooth is evaluated at the output of the linear operator, the data-space
-vector; `weights` masks padding rows and doubles as per-example weights.
-Values are 0-dim tensors.
+Counterpart of src/repro/core/tfocs/smooth.py: the row-separable four, and
+SmoothLinear (the smoothed-LP dual), SmoothHuberL1 and SmoothSum.  A smooth
+is evaluated at the output of the linear operator, the data-space vector;
+`weights` masks padding rows and doubles as per-example weights.  Values
+are 0-dim tensors.
 """
 from __future__ import annotations
 
@@ -106,3 +107,44 @@ class SmoothPoisson:
 
     def as_row_separable(self) -> RowSeparable:
         return RowSeparable("poisson", self.y, self.weights)
+
+
+@dataclass(frozen=True)
+class SmoothLinear:
+    """f(z) = cᵀz, used by the smoothed-LP dual."""
+    c: torch.Tensor
+
+    def value(self, z):
+        return torch.dot(self.c, z)
+
+    def grad(self, z):
+        return self.c
+
+
+@dataclass(frozen=True)
+class SmoothHuberL1:
+    """Huber-smoothed λ‖z‖₁ (for methods that need a smooth L1, such as
+    L-BFGS in the Figure-1 problems)."""
+    lam: float
+    delta: float = 1e-4
+
+    def value(self, z):
+        a = torch.abs(z)
+        quad = 0.5 * z * z / self.delta
+        return self.lam * torch.sum(torch.where(a <= self.delta, quad,
+                                                a - 0.5 * self.delta))
+
+    def grad(self, z):
+        return self.lam * torch.clamp(z / self.delta, -1.0, 1.0)
+
+
+@dataclass(frozen=True)
+class SmoothSum:
+    """Pointwise sum of smooth components over the same argument."""
+    parts: tuple
+
+    def value(self, z):
+        return sum(p.value(z) for p in self.parts)
+
+    def grad(self, z):
+        return sum(p.grad(z) for p in self.parts)

@@ -6,16 +6,19 @@ selective_scan`` (``_scan_kernel``): the prefill scan of the Mamba1 serving
 path.  On the H100 it is bound by operations, Bt·S·d·N exponentials on the
 special-function units, against one read of x and dt and one write of y,
 which take about as long.  ``csrc/selective_scan.cu`` splits each (batch,
-channel)'s N states over N/4 lanes of a warp (4 states a lane in
-registers), so that enough warps are in flight to hide each step's
-latency; each exponential is one ``ex2.approx`` of dt times A pre-scaled by
-log2(e), y_t is summed over the channel's lanes by an xor butterfly, and the
-walk over S runs in order, unrolled so that later steps' exponentials run
-ahead of the h chain.  16-step tiles of x and dt (32 or 64 channels a
-block) and of B_t and C_t stream through a ring of ``cp.async`` stages, and
-y leaves through a staged tile, coalesced.  It starts from an optional h0
-and writes the final state, which the reference kernel lists as optional
-but does not write; prefill into a cache needs it.
+channel)'s N states over N/8 adjacent lanes of a warp (8 states a lane in
+registers: two lanes a channel at N = 16, one at N = 8), so that enough
+warps are in flight to hide each step's latency; each exponential is one
+``ex2.approx`` of dt times A pre-scaled by log2(e), and every 4 steps the
+lanes of a channel sum their parts of y by a ``reduce_scatter``, each lane
+ending with whole sums of its own steps.  The walk over S runs in order.
+16-step tiles of x and dt (the block's 64 or 128 channels: 128 threads
+over the lanes of a channel) and of B_t and C_t stream through a 3-stage
+ring of 16-byte ``cp.async`` copies, each step's row of x and dt from its
+16-byte-aligned window, and y leaves through a staged tile, coalesced.  It
+starts from an optional h0 and writes the final state, which the reference
+kernel lists as optional but does not write; prefill into a cache needs
+it.
 
 ``selective_scan_plain`` is the same function in plain torch: the
 sequential loop of ``ref.selective_scan_ref``.

@@ -1,5 +1,8 @@
 """Solver serving frontend: concurrent matrix jobs, one A-pass per group.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --m 512 \
+        --n 64 [--device cpu]
+
 Counterpart of src/repro/launch/serve.py.  When several clients solve
 against the SAME design matrix A (multi-user regression, per-target least
 squares, one-vs-rest logistic), their iterations share each pass over A:
@@ -21,10 +24,10 @@ squares, one-vs-rest logistic), their iterations share each pass over A:
     (``budget_s``), which waits for ROADMAP queue 1 item 11.
 
 SVD and similarity requests and non-batchable solves (escape-hatch
-smooths or proxes, non-quadratic accelerated requests) run as one-shot jobs
-through the same FIFO queue, via the same ``repro_torch.api`` executors; an
-SVD wide enough for the randomized mode runs it (core/linalg/randsvd, the
-randsketch kernel), and a similarity request runs DIMSUM on the matrix's
+problems, smooths or proxes, non-quadratic accelerated requests) run as
+one-shot jobs through the same FIFO queue, via the same ``repro_torch.api``
+executors; an SVD wide enough for the randomized mode runs it
+(core/linalg/randsvd, the randsketch kernel), and a similarity request runs DIMSUM on the matrix's
 Gram (tsgram dense, bsr_rmatmul sparse).  A group's matrix may be a
 RowMatrix, a SparseRowMatrix or a plain tensor: its group pass is
 fused_grad_multi, or fused_grad_bsr_multi on the stored blocks.  A grouped request's ``deadline_s`` retires it with its best
@@ -36,13 +39,22 @@ is the number of GROUP passes taken while the request was resident.  The
 server's counters are always live (``stats``), with ``serve.queue_wait_s``
 and ``serve.latency_s`` histograms; scheduler spans are recorded when the
 server is built under ``telemetry.enable()`` or given a recorder.
+
+``main`` is the demo CLI: a RowMatrix of the reference's numpy draws on
+``--device`` (the card unless asked for the CPU), ``--requests`` quad/gra
+requests against it, and the served count, group A-passes and latencies.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from typing import Any
 
+import numpy as np
+import torch
+
 from repro_torch import api
+from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.core.optim import elastic as _elastic
 from repro_torch.launch import telemetry as _tel
 
@@ -66,7 +78,7 @@ def group_key(req: api.SolveRequest):
 def batchable(req: Any) -> bool:
     """Solve requests in the (A, b) form whose engine has a batched group;
     accelerated groups exist for quadratic losses only."""
-    return (isinstance(req, api.SolveRequest)
+    return (isinstance(req, api.SolveRequest) and req.problem is None
             and req.smooth is None and req.prox is None
             and req.method in GROUP_METHODS
             and (req.loss == "quad"
@@ -243,8 +255,8 @@ class SolverServer:
 
     def submit(self, req) -> str:
         if isinstance(req, api.SolveRequest):
-            if req.smooth is None and req.method == "lbfgs" \
-                    and req.reg != "none":
+            if req.problem is None and req.smooth is None \
+                    and req.method == "lbfgs" and req.reg != "none":
                 raise ValueError("method='lbfgs' needs reg='none'")
             if req.deadline_s is not None and not batchable(req):
                 raise NotImplementedError(
@@ -392,3 +404,56 @@ class SolverServer:
         while self.busy() and self._c["steps"].value < max_steps:
             out.extend(self.step())
         return out
+
+
+# -- demo CLI -----------------------------------------------------------------
+
+def main(argv: list[str] | None = None) -> SolverServer:
+    """Serve `--requests` quad/gra requests on one m × n matrix and print
+    the served count and rate, the group A-passes and the latencies, then
+    the first three requests' counts; returns the drained server.  A and
+    each request's x are the reference's numpy draws (seed 0); A goes to
+    the device once and each b = A x is made there."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--m", type=int, default=512)
+    ap.add_argument("--n", type=int, default=64)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--budget-us", type=float, default=None,
+                    help="per-step device-time budget (modeled µs); waits "
+                         "for the planner")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    rng = np.random.default_rng(0)
+    A = RowMatrix.create(rng.normal(size=(args.m, args.n)).astype(np.float32),
+                         device=args.device)
+    server = SolverServer(
+        slots=args.slots,
+        budget_s=args.budget_us * 1e-6 if args.budget_us else None)
+    t0 = time.perf_counter()
+    ids = []
+    for _ in range(args.requests):
+        x = torch.from_numpy(rng.normal(size=args.n)).to(A.device).float()
+        ids.append(server.submit(api.SolveRequest(
+            A=A, b=A.matvec(x), loss="quad", method="gra", tol=1e-6,
+            max_iters=200, device=A.device)))
+    results = server.run()
+    wall = time.perf_counter() - t0
+    lats = sorted(server.latencies())
+    print(f"served {len(results)} requests in {wall:.3f}s "
+          f"({len(results) / wall:.1f} req/s)")
+    print(f"group A-passes: {server.stats['a_passes']} "
+          f"(scheduler steps: {server.stats['steps']})")
+    print(f"latency p50 {lats[len(lats) // 2] * 1e3:.1f}ms  "
+          f"p99 {lats[int(len(lats) * 0.99)] * 1e3:.1f}ms")
+    for rid in ids[:3]:
+        info = server.result(rid).info
+        print(f"  {rid}: iters={info['iterations']} "
+              f"a_passes={info['a_passes']} converged={info['converged']}")
+    return server
+
+
+if __name__ == "__main__":
+    main()

@@ -126,9 +126,7 @@ def test_request_validation_matches_reference(bad):
         japi.SolveRequest(**kw)
     with pytest.raises(ValueError) as port_err:
         api.SolveRequest(device="cpu", **kw)
-    # The port has no `problem` escape hatch; otherwise the words agree.
-    assert str(port_err.value) == str(ref_err.value).replace(
-        "problem/smooth", "smooth")
+    assert str(port_err.value) == str(ref_err.value)
 
 
 @pytest.mark.parametrize("extra,item", [

@@ -34,7 +34,10 @@ count for each variant (bf16 on the tensor cores, f32 on the CUDA cores);
 the selective scan at
 channel counts of 1 and off its 32- and 64-channel blocks, N = 8 and 16,
 S of 1 to 2049 on both sides of its 16-step tile, from a nonzero state,
-with its final state, and the same bits twice.
+with its final state, and the same bits twice; BlockMatrix.multiply (one
+gemm launch) at square and ragged shapes in f32 and bf16, the same bits
+twice; CoordinateMatrix products and its block-sparse conversion against
+the CPU's; make_problem's L on the card against the CPU's.
 Skips where there is no CUDA device.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -1184,3 +1187,65 @@ def test_selective_scan_refuses_what_it_does_not_take(dev):
                                       C[..., :4].contiguous(), D)
     with pytest.raises(ValueError, match="shape"):
         selective_scan.selective_scan(x, dt[:, :4], A, B, C, D)
+
+
+# -- the §2 matrix types and the Figure-1 problems on the card ---------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1000, 777, 1333), (4096, 4096, 4096)])
+def test_block_multiply_runs_gemm(dev, dtype, m, k, n):
+    """BlockMatrix.multiply is one gemm launch, f32 accumulation, A's type
+    out; the same bits twice."""
+    from repro_torch.core.distmat import BlockMatrix
+    g = torch.Generator(device=dev).manual_seed(31)
+    a = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    b = torch.randn(k, n, generator=g, device=dev).to(dtype)
+    A, B = BlockMatrix.create(a, device=dev), BlockMatrix.create(b, device=dev)
+    ops.reset_launch_counts()
+    got = A.multiply(B)
+    assert ops.launch_counts()["gemm"] == 1
+    want = gemm.gemm_plain(a, b, torch.float32).to(dtype)
+    torch.cuda.synchronize()
+    assert got.data.dtype == dtype and got.shape == (m, n)
+    assert _rel(got.data, want) <= _gemm_tol(dtype)
+    assert torch.equal(got.data, A.multiply(B).data)
+
+
+def test_coordinate_products_and_conversion_on_the_card(dev):
+    import numpy as np
+    from repro_torch.core.distmat import CoordinateMatrix
+    rng = np.random.default_rng(32)
+    m, n, nnz = 3000, 700, 40000
+    ri, ci = rng.integers(0, m, nnz), rng.integers(0, n, nnz)
+    va = rng.normal(size=nnz).astype(np.float32)
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=m).astype(np.float32))
+    gpu = CoordinateMatrix.create(ri, ci, va, (m, n), device=dev)
+    cpu = CoordinateMatrix.create(ri, ci, va, (m, n), device="cpu")
+    assert _rel(gpu.matvec(x.to(dev)).cpu(), cpu.matvec(x)) <= TOL
+    assert _rel(gpu.rmatvec(y.to(dev)).cpu(), cpu.rmatvec(y)) <= TOL
+    # Sorted runs summed by segment_reduce: the same bits every call.
+    assert torch.equal(gpu.matvec(x.to(dev)), gpu.matvec(x.to(dev)))
+    assert torch.equal(gpu.rmatvec(y.to(dev)), gpu.rmatvec(y.to(dev)))
+    for bs in (8, 32):
+        s_gpu, s_cpu = gpu.to_sparse_row_matrix(bs), cpu.to_sparse_row_matrix(bs)
+        assert s_gpu.device == dev
+        assert torch.equal(s_gpu.cols.cpu(), s_cpu.cols)
+        # Duplicate entries add up by atomics on the card: their sums may
+        # round apart.
+        assert _rel(s_gpu.data.cpu(), s_cpu.data) <= 1e-6
+        assert s_gpu.nnz == s_cpu.nnz
+        ops.reset_launch_counts()
+        got = s_gpu.matvec(x.to(dev))
+        assert ops.launch_counts()["bsr_matvec"] == 1
+        assert _rel(got.cpu()[:m], cpu.matvec(x)) <= TOL
+
+
+def test_make_problem_lipschitz_on_the_card(dev):
+    from repro_torch.core import optim
+    for name in ("linear", "logistic_l2"):
+        gpu = optim.make_problem(name, m=3000, n=200, device=dev)
+        cpu = optim.make_problem(name, m=3000, n=200, device="cpu")
+        assert gpu.linop.device == dev
+        assert torch.equal(gpu.linop.A.rows.cpu(), cpu.linop.A.rows)
+        assert abs(gpu.L - cpu.L) <= 1e-9 * cpu.L
