@@ -115,6 +115,28 @@ with nvcc, then:
               against decode: the last-position logits of a prefill of
               S + 1 tokens against a prefill of S and one decode step, at
               full size in bf16 and at full width and 4 layers in f32.
+  10. planner (after phase 8, every earlier path done; about 10 s):
+              with an empty autotune cache (REPRO_TORCH_AUTOTUNE_CACHE, a
+              fresh temporary directory for the run) and the built-in H100
+              model, autotune.resolve(tune="auto") equals today's launch at
+              every shape the paths ran (gemm's tile width; every other
+              kernel has one launch and resolves to no choice); at
+              efficiency 1 the model's time of each kernel row is its bound within 1%;
+              plan().explain() for grad and gram at A, sparse_matmul and
+              bsr_bs at S, svd for A, A_w and S; quantize="auto" on S at
+              tol 1e-3 picks int8 and dispatch="auto" the BlockELL
+              kernels; gemm's output tile swept at A x 16 and A_w x 26
+              (CUDA events, each candidate against plain), the winner
+              recorded and the next resolve a memo hit; quad/gra on A
+              (cap PLAN_ITERS) in f32 and bf16 at tol 1e-5 (bf16's
+              fused_grad launches on a bf16 A, its float64 objective
+              within 100 x tol of f32's) and precision="auto" at 1e-4
+              (reported) and 1e-9 (f32); phase 5's requests through a
+              SolverServer budgeted at two group passes, every one
+              finished; then planner.calibrate() over records of the
+              kernel medians phases 2, 5, 6 and 8 took: the fitted
+              efficiencies and launch cost, error() no larger after the
+              fit, and every printed decision that flips.
 Phase 2 also holds fused_grad_multi (k = 1, 8, 16, 40, all four losses,
 f32 and bf16 storage, one launch a call, slot independence of the other
 slots and of the slot count, zero-weight slots) on A, and randsketch (r = 26, f32 and bf16,
@@ -147,8 +169,8 @@ seven (fd_* in PATHS) and phase 8 one a model: every launch count is set to 0 ju
 after it (in phases 5 and 7, once the grouped server drains, before the
 checks' own launches), and each kernel of the path must have launched
 there.  The last lines are a
-JSON object with the SVDs', the solves', the servers' and phases 6, 7, 9
-and 8's numbers, the card's name and power limit, a JSON object with each
+JSON object with the SVDs', the solves', the servers' and phases 6, 7, 9,
+8 and 10's numbers, the card's name and power limit, a JSON object with each
 kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
@@ -156,9 +178,11 @@ sources are not beside this script.
 """
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -166,6 +190,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# The port's sources beside this script; without them the import below
+# fails and the script exits non-zero before it prints anything.
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch import machine as _machine  # noqa: E402
 M, N = 1 << 21, 1024           # A: rows x columns, the paper's tall-skinny
 K_SVD = 16                     # singular triplets asked of the SVD
 K_GEMM = 16                    # columns of B in the gemm check
@@ -253,19 +281,18 @@ ROWS64 = 1 << 18               # row chunk of the float64 reference sums
 ROWS64_W = 1 << 14             # the same for A_w (2 GB of float64 a chunk)
 BROWS64_S = 8192               # block-rows of S a float64 chunk (1 GB)
 
-# Published H100 SXM peaks (NVIDIA data sheet), the bound's denominators.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12,       # f32 FMA on the CUDA cores
-              torch.bfloat16: 989e12,     # bf16 tensor cores, dense
-              torch.int8: 1979e12,        # int8 tensor cores, dense
+# The bound's denominators: the NVIDIA H100 SXM data-sheet peaks, whose one
+# home is the port's machine model (src/repro_torch/launch/machine.py).
+HBM_BYTES_PER_S = _machine.HBM_BYTES_PER_S
+PEAK_FLOPS = {torch.float32: _machine.F32_FMA_FLOPS,   # CUDA-core f32 FMA
+              torch.bfloat16: _machine.BF16_FLOPS,     # tensor cores, dense
+              torch.int8: _machine.INT8_FLOPS,         # tensor cores, dense
               # TF32 tensor cores, dense: tsgram's route for f32, three
               # TF32 products (3xTF32) for each product, so its bound is
               # 3x its flops at this rate (the f32 CUDA-core figure is
               # printed beside it).
-              "tf32": 495e12}
-# Exponentials: the special-function units issue 16 a clock an SM against
-# 128 f32 FMA lanes (256 flops), so a sixteenth of the f32 rate.
-EXP_PER_S = 67e12 / 16
+              "tf32": _machine.TF32_FLOPS}
+EXP_PER_S = _machine.EXP_PER_S            # the special-function units
 
 # Normwise relative tolerances, kernel against plain: g and the Gram sum
 # over 2^21 rows in another order than cuBLAS does.
@@ -2799,6 +2826,473 @@ def run_lm(dev) -> dict:
     return out
 
 
+# -- phase 10: the planner ----------------------------------------------------
+
+# quad/gra on A three ways: bf16 forced at bf16's guard, "auto" at a
+# loose and at a tight tolerance.  The reference's bound: the low-precision
+# answer within 100 x tol of the f32 one (tests/test_precision.py).
+PLAN_ITERS = 200
+PLAN_TOL = {"bf16": 1e-5, "auto_loose": 1e-4, "auto_tight": 1e-9}
+LLAMA_ATTN = {"bh": LM_BATCH * 24, "bkv": LM_BATCH * 8, "sq": LM_PROMPT,
+              "sk": LM_PROMPT, "d": 128, "causal": 1}
+MAMBA_SCAN = {"bt": LM_BATCH, "s": LM_PROMPT, "d": 8192, "n": 16}
+
+
+def planner_shapes() -> list:
+    """(kernel, dims, dtype) of the launches the script's paths make, for
+    the check that tune="auto" resolves to today's launch."""
+    f32, bf16 = "float32", "bfloat16"
+    S = {"m": M_S, "n": N_S, "bs": BS_S, "ell": ELL_S}
+    SIM = {"m": M_SIM, "n": N_SIM, "bs": BS_S, "ell": ELL_S}
+    out = []
+    for dt in (f32, bf16):
+        out += [("gemm", {"m": M, "k": N, "n": K_GEMM}, dt),
+                ("gemm", {"m": M_W, "k": N_W, "n": R_SKETCH}, dt),
+                ("tsgram", {"m": M, "n": N}, dt),
+                ("randsketch", {"m": M_W, "n": N_W, "r": R_SKETCH}, dt),
+                ("fused_grad", {"m": M, "n": N}, dt),
+                ("fused_grad", {"m": M_W, "n": N_W}, dt),
+                ("fused_grad_multi", {"m": M, "n": N}, dt),
+                ("fused_grad_bsr", S, dt), ("fused_grad_bsr_multi", S, dt)]
+    out += [("gemm", {"m": M, "k": N - 1, "n": K_GEMM}, f32),
+            ("gemm", {"m": M_W, "k": R_SKETCH, "n": R_SKETCH}, f32),
+            ("gemm", {"m": M, "k": N, "n": K_SVD}, f32),
+            ("gemm", {"m": N_BLOCK, "k": N_BLOCK, "n": N_BLOCK}, f32),
+            ("tsgram", {"m": M, "n": N - 1}, f32),
+            ("tsgram", {"m": M_SIM, "n": N_SIM}, f32),
+            ("randsketch", {"m": M_W, "n": N_W - 1, "r": R_SKETCH}, f32),
+            ("fused_grad", {"m": M_LIN, "n": N}, f32),
+            ("fused_grad", {"m": 10000, "n": 1024}, f32),
+            ("fused_grad", {"m": 10000, "n": 250}, f32),
+            ("fused_grad_multi", {"m": M_LIN, "n": N}, f32),
+            ("bsr_rmatmul", dict(S, nx=512), f32),
+            ("bsr_rmatmul", dict(SIM, nx=512), f32),
+            ("flash_attention", LLAMA_ATTN, bf16),
+            ("selective_scan", MAMBA_SCAN, f32)]
+    for dt in (f32, bf16, "int8"):
+        out.append(("bsr_matvec", dict(S, nx=1), dt))
+        for nx in (1, 8, 16):
+            out += [("bsr_matmul", dict(S, nx=nx), dt),
+                    ("bsr_rmatmul", dict(S, nx=nx), dt)]
+    return out
+
+
+def todays_launch(kernel: str, d: dict) -> dict:
+    """The launch choice each wrapper made before the autotuner: what
+    tune="auto" must resolve to with no sweep and no calibration.  gemm's
+    tile width is gemm.tile_width's; every other kernel has one launch,
+    its wrapper's own rule, and no choice to resolve."""
+    from repro_torch.kernels import gemm
+    return {"bn": gemm.tile_width(d["n"])} if kernel == "gemm" else {}
+
+
+def check_resolves() -> list:
+    """tune="auto" with an empty cache and the built-in model resolves to
+    today's launch at every shape of planner_shapes()."""
+    from repro_torch.kernels import autotune as at
+
+    rows = []
+    for kernel, d, dtype in planner_shapes():
+        got = at.resolve(kernel, d, dtype, {}, tune="auto", backend="cuda")
+        want = todays_launch(kernel, d)
+        require(got == want,
+                f"{kernel} {d} {dtype}: tune='auto' resolves to {got}, "
+                f"today's launch is {want}")
+        rows.append(f"{kernel}{[d.get(k) for k in at.KERNELS[kernel].dims]}"
+                    f"/{dtype}: {want or 'one launch'}")
+    print(f"[planner] tune='auto' = today's launch at {len(rows)} shapes: "
+          + "; ".join(rows))
+    return rows
+
+
+def row_dims(row) -> tuple[dict, str]:
+    """The planner's dims and dtype of a kernel row (its PERF.md §6 shape)."""
+    S = {"m": M_S, "n": N_S, "bs": BS_S, "ell": ELL_S}
+    return {"fused_grad": ({"m": M, "n": N}, "float32"),
+            "tsgram": ({"m": M, "n": N}, "float32"),
+            "gemm": ({"m": M, "k": N, "n": K_GEMM}, "float32"),
+            "fused_grad_multi": ({"m": M, "n": N, "k": SLOTS}, "float32"),
+            "randsketch": ({"m": M_W, "n": N_W, "r": R_SKETCH}, "float32"),
+            "bsr_matvec": (dict(S, nx=1), "float32"),
+            "bsr_matmul": (dict(S, nx=K_U), "float32"),
+            "bsr_rmatmul": (dict(S, nx=1), "float32"),
+            "fused_grad_bsr": (S, "float32"),
+            "fused_grad_bsr_multi": (dict(S, k=SLOTS), "float32"),
+            "flash_attention": (LLAMA_ATTN, "bfloat16"),
+            "selective_scan": (MAMBA_SCAN, "float32")}[row["name"]]
+
+
+def check_model_bounds(rows) -> dict:
+    """At efficiency 1 the built-in model's time of each kernel row is its
+    bound within 1% (the bound's bytes and flops on the kernel's route)."""
+    from repro_torch.kernels import autotune as at
+
+    out = {}
+    for row in rows:
+        d, dtype = row_dims(row)
+        model_ms = at.model_time(row["name"], at.legacy(row["name"], d, dtype),
+                                 d, dtype, machine=_machine.H100) * 1e3
+        out[row["name"]] = {"model_ms": model_ms, "bound_ms": row["bound_ms"]}
+        require(abs(model_ms - row["bound_ms"]) <= 0.01 * row["bound_ms"],
+                f"{row['name']}: modeled {model_ms:.4f} ms at efficiency 1, "
+                f"bound {row['bound_ms']:.4f} ms")
+    print("[planner] model at efficiency 1 against the bound: " + ", ".join(
+        f"{k} {v['model_ms']:.3f}/{v['bound_ms']:.3f} ms"
+        for k, v in out.items()))
+    return out
+
+
+def planner_decisions(S) -> dict:
+    """The plans phase 10 prints, before and after calibration."""
+    from repro_torch.launch import planner
+
+    A = {"m": M, "n": N}
+    plans = {
+        "grad": planner.plan("grad", A, backend="cuda"),
+        "grad tol 1e-4": planner.plan("grad", A, backend="cuda",
+                                      context={"tol": 1e-4}),
+        "gram": planner.plan("gram", A, backend="cuda"),
+        "svd A": planner.plan("svd", {"m": M, "n": N, "k": K_SVD},
+                              backend="cuda", context={"kind": "row"}),
+        "svd A_w": planner.plan("svd", {"m": M_W, "n": N_W, "k": K_SVD},
+                                backend="cuda", context={"kind": "row"}),
+        "svd S": planner.plan("svd", {"m": M_S, "n": N_S, "k": K_SVD},
+                              backend="cuda",
+                              context={"kind": "sparse",
+                                       "nnz": M_S * ELL_S * BS_S})}
+    sdims = {"m": S.m_pad, "n": S.n_pad, "ell": S.ell, "bs": S.bs, "nx": 1}
+    plans["sparse_matmul S"] = planner.plan("sparse_matmul", sdims,
+                                            backend="cuda")
+    plans["sparse_matmul S tol 1e-3"] = planner.plan(
+        "sparse_matmul", sdims, backend="cuda", context={"tol": 1e-3})
+    plans["bsr_bs S"] = planner.plan(
+        "bsr_bs", {"m": M_S, "n": N_S, "nx": 1}, backend="cuda",
+        context={"ell_by_bs": ell_by_bs(S)})
+    return plans
+
+
+def ell_by_bs(S) -> dict:
+    """S's ELL width at each candidate block size: its 32 x 32 blocks are
+    dense (Gaussian), so a finer block size splits each into (32/bs)^2
+    stored blocks, and a coarser one merges the distinct block columns of
+    each run of block-rows."""
+    out = {}
+    nbr, nbc = S.cols.shape[0], S.n_pad // S.bs
+    for bs in (8, 16, 32, 64, 128):
+        if bs <= S.bs:
+            out[bs] = S.ell * (S.bs // bs)
+            continue
+        f = bs // S.bs
+        rows = torch.arange(nbr, device=S.device)[:, None] // f
+        key = torch.unique(rows * (nbc // f) + S.cols.long() // f)
+        out[bs] = int(torch.bincount(key // (nbc // f)).max())
+    return out
+
+
+def sweep_gemm(dev, A, A_w) -> dict:
+    """gemm's output-tile sweep at A x 16 and A_w x 26: every candidate
+    held to TOL["gemm"] against plain with one launch a call, timed with
+    CUDA events; the winner recorded into the (temporary) autotune cache,
+    and the next resolve a memo hit."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import gemm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    out = {}
+    for key, a, n in (("A", A, K_GEMM), ("A_w", A_w, R_SKETCH)):
+        b = torch.randn(a.shape[1], n, generator=gen, device=dev)
+        want = gemm.gemm_plain(a, b, torch.float32)
+        dims = {"m": a.shape[0], "k": a.shape[1], "n": n}
+        errs = {}
+
+        def run(choice):
+            got = one_launch(gemm.gemm, lambda: gemm.gemm(
+                a, b, out_dtype=torch.float32, bn=choice["bn"]),
+                f"gemm sweep {key} {choice}")
+            errs[choice["bn"]] = rel_err(got, want)
+            return time_ms(lambda: gemm.gemm(
+                a, b, out_dtype=torch.float32, bn=choice["bn"]),
+                reps=5) * 1e-3
+
+        timed = at.sweep("gemm", dims, "float32", run, top_n=3, reps=1)
+        for bn, e in errs.items():
+            require(e <= TOL["gemm"], f"gemm sweep {key} bn={bn}: relative "
+                    f"error {e:.3e} > {TOL['gemm']}")
+        best_s, best = timed[0]
+        at.record("gemm", dims, "float32", best, backend="cuda",
+                  us=best_s * 1e6)
+        hits = at.stats["memo_hits"]
+        again = at.resolve("gemm", dims, "float32", {}, backend="cuda")
+        require(at.stats["memo_hits"] == hits + 1 and again["bn"] ==
+                best["bn"], f"gemm sweep {key}: the resolve after record "
+                "missed the memo")
+        out[key] = {"shape": [a.shape[0], a.shape[1], n],
+                    "ms": {str(c["bn"]): s * 1e3 for s, c in timed},
+                    "rel_err": {str(k): v for k, v in errs.items()},
+                    "winner": best, "legacy": at.legacy("gemm", dims,
+                                                        "float32")}
+        print(f"[planner] gemm sweep at {out[key]['shape']}: "
+              + ", ".join(f"bn={c['bn']} {s * 1e3:.3f} ms" for s, c in timed)
+              + f"; recorded bn={best['bn']} (today's "
+              f"{out[key]['legacy']['bn']})")
+        del b, want
+    return out
+
+
+def precision_solves(api, ops, A, L0) -> dict:
+    """quad/gra on A three ways (see PLAN_TOL), each held to its bound;
+    bf16's fused_grad launches checked to run on a bf16 A."""
+    from repro_torch.core.distmat import RowMatrix
+
+    dev = A.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x_true = torch.randn(N, generator=gen, device=dev)
+    b = A @ x_true + 0.5 * torch.randn(M, generator=gen, device=dev)
+    rm = RowMatrix.create(A, device=dev)
+    seen = []
+    plain_fused_grad = ops.fused_grad
+
+    def spy(a, *args, **kw):
+        seen.append(a.dtype)
+        return plain_fused_grad(a, *args, **kw)
+
+    def solve(precision, tol):
+        seen.clear()
+        before = ops.launch_counts()["fused_grad"]
+        ops.fused_grad = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = api.solve(api.SolveRequest(
+                A=rm, b=b, loss="quad", method="gra", L0=L0, tol=tol,
+                max_iters=PLAN_ITERS, precision=precision, device=dev))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ops.fused_grad = plain_fused_grad
+        info = res.info
+        rec = {"precision": info["precision"], "tol": tol,
+               "iterations": info["iterations"],
+               "a_passes": info["a_passes"],
+               "fused_grad_launches": ops.launch_counts()["fused_grad"]
+               - before, "storage": sorted({str(t) for t in seen}),
+               "ms": ms, "ms_per_iteration": ms / max(info["iterations"], 1),
+               "objective64": quad_objective64(A, b, res.x)}
+        require(rec["fused_grad_launches"] == info["a_passes"],
+                f"precision {precision}: {rec['fused_grad_launches']} "
+                f"fused_grad launches != {info['a_passes']} A-passes")
+        return rec
+
+    out = {"f32": solve("f32", PLAN_TOL["bf16"]),
+           "bf16": solve("bf16", PLAN_TOL["bf16"]),
+           "auto_loose": solve("auto", PLAN_TOL["auto_loose"]),
+           "auto_tight": solve("auto", PLAN_TOL["auto_tight"])}
+    bf, f32 = out["bf16"], out["f32"]
+    gap = abs(bf["objective64"] - f32["objective64"]) / abs(f32["objective64"])
+    bf["objective_rel_to_f32"] = gap
+    require(bf["precision"] == "bf16" and bf["storage"] == ["torch.bfloat16"],
+            f"precision bf16: ran {bf['precision']} on {bf['storage']}")
+    require(f32["storage"] == ["torch.float32"], "precision f32: storage "
+            f"{f32['storage']}")
+    require(gap <= 100 * PLAN_TOL["bf16"], f"precision bf16: objective "
+            f"{gap:.3e} from f32's, over 100 x {PLAN_TOL['bf16']}")
+    require(out["auto_tight"]["precision"] == "f32",
+            f"precision auto at tol {PLAN_TOL['auto_tight']}: "
+            f"{out['auto_tight']['precision']}")
+    for key, r in out.items():
+        print(f"[planner] quad/gra {key}: ran {r['precision']} on "
+              f"{r['storage']}, tol {r['tol']:g}, {r['iterations']} "
+              f"iterations, {r['a_passes']} A-passes, "
+              f"{r['ms_per_iteration']:.3f} ms/iteration, float64 objective "
+              f"{r['objective64']:.9e}")
+    print(f"[planner] bf16 objective {gap:.3e} from f32's (limit "
+          f"{100 * PLAN_TOL['bf16']:g})")
+    del rm, b
+    return out
+
+
+def budget_serve(api, A, L0) -> dict:
+    """Phase 5's solve requests once more, through a SolverServer whose
+    budget is twice one group's modeled pass: three groups, so the third
+    waits for one to drain; every request must finish."""
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.launch import planner
+    from repro_torch.launch.serve import SolverServer
+
+    dev = A.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    X = torch.randn(32, N, generator=gen, device=dev)
+    Z = (A @ X.T).T
+    B_quad = Z[:24] + 0.05 * torch.randn(24, M, generator=gen, device=dev)
+    B_log = torch.where(Z[24:] + torch.randn(8, M, generator=gen, device=dev)
+                        > 0, 1.0, -1.0)
+    del Z
+    rm = RowMatrix.create(A, device=dev)
+    cost = planner.plan("fused_grad", {"m": M, "n": N}, backend="cuda").cost_s
+    server = SolverServer(slots=SLOTS, budget_s=2 * cost, backend="cuda")
+    reqs = serve_requests(api, rm, B_quad, B_log, L0, lambda i: True)
+    ids = [server.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = [server.result(i) for i in ids]
+    require(all(r is not None for r in done) and not server.busy(),
+            "budgeted server: a request did not finish")
+    stats = server.stats
+    rec = {"budget_s": 2 * cost, "group_pass_model_s": cost,
+           "requests": len(ids), "steps": stats["steps"],
+           "admitted": stats["admitted"],
+           "deferred_steps": stats["deferred_steps"],
+           "a_passes": stats["a_passes"], "wall_s": wall}
+    print(f"[planner] budgeted server (budget {2 * cost * 1e6:.1f} us, "
+          f"two group passes): {len(ids)} requests, {stats['steps']} steps, "
+          f"{stats['admitted']} admissions, {stats['deferred_steps']} "
+          f"deferred steps, {stats['a_passes']} group A-passes, "
+          f"{wall:.2f} s")
+    del rm, B_quad, B_log
+    return rec
+
+
+def calibration_inputs(kernels, lm_kernels) -> list:
+    """(kernel, dims, dtype, measured s) from the kernel medians phases 2,
+    5, 6 and 8 took, at the shapes they took them."""
+    S = {"m": M_S, "n": N_S, "bs": BS_S, "ell": ELL_S}
+    dn = {"f32": "float32", "bf16": "bfloat16", "int8": "int8"}
+    out = []
+    for dt in ("f32", "bf16"):
+        k = kernels
+        out += [("fused_grad", {"m": M, "n": N}, dn[dt],
+                 k["fused_grad"][dt]["quad"]["ms"]),
+                ("fused_grad", {"m": M_W, "n": N_W}, dn[dt],
+                 k["fused_grad"]["wide"][dt]["ms"]),
+                ("tsgram", {"m": M, "n": N}, dn[dt], k["tsgram"][dt]["ms"]),
+                ("gemm", {"m": M, "k": N, "n": K_GEMM}, dn[dt],
+                 k["gemm"][dt]["ms"]),
+                ("randsketch", {"m": M_W, "n": N_W, "r": R_SKETCH}, dn[dt],
+                 k["randsketch"][dt]["ms"]),
+                ("fused_grad_bsr", S, dn[dt],
+                 k["fused_grad_bsr"][dt]["quad"]["ms"])]
+        out += [("fused_grad_multi", {"m": M, "n": N, "k": km}, dn[dt],
+                 r["ms"]) for km, r in k["fused_grad_multi"][dt].items()]
+        out += [("fused_grad_bsr_multi", dict(S, k=km), dn[dt], r["ms"])
+                for km, r in k["fused_grad_bsr_multi"][dt].items()]
+    out += [("gemm", {"m": M_W, "k": N_W, "n": R_SKETCH}, "float32",
+             kernels["gemm"]["wide"]["A_w"]["ms"]),
+            ("gemm", {"m": M_W, "k": R_SKETCH, "n": R_SKETCH}, "float32",
+             kernels["gemm"]["wide"]["tsqr"]["ms"])]
+    for dt in ("f32", "bf16", "int8"):
+        out += [("bsr_matvec", dict(S, nx=1), dn[dt],
+                 kernels["bsr_matvec"][dt]["ms"]),
+                ("bsr_matmul", dict(S, nx=K_U), dn[dt],
+                 kernels["bsr_matmul"][dt]["ms"]),
+                ("bsr_rmatmul", dict(S, nx=1), dn[dt],
+                 kernels["bsr_rmatmul"][dt]["ms"]),
+                ("bsr_rmatmul", dict(S, nx=K_U), dn[dt],
+                 kernels["bsr_rmatmul"][f"{dt}_nx{K_U}"]["ms"])]
+    out += [("flash_attention", LLAMA_ATTN, "bfloat16",
+             lm_kernels["flash_attention"]["bf16"]["ms"]),
+            ("selective_scan", MAMBA_SCAN, "float32",
+             lm_kernels["selective_scan"]["f32"]["ms"])]
+    return [(kn, d, dt, ms * 1e-3) for kn, d, dt, ms in out]
+
+
+def run_calibration(kernels, lm_kernels, before_plans, S) -> dict:
+    """calibrate() over records of the script's kernel medians; the fitted
+    efficiencies, error() before and after (after must be no larger) and
+    every printed decision that flips under the calibrated model."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch import planner
+
+    records = []
+    for kernel, d, dtype, secs in calibration_inputs(kernels, lm_kernels):
+        records.append(planner.calibration_record(
+            kernel, d, at.legacy(kernel, d, dtype), dtype, secs))
+    fitted, err0, err1 = planner.calibrate(records, backend="cuda")
+    require(err1 <= err0, f"calibration: error {err0:.4f} -> {err1:.4f}")
+    effs = {dt: {"mxu_eff": fitted.mxu_eff.get(dt),
+                 "hbm_eff": fitted.hbm_eff.get(dt)}
+            for dt in sorted({r["dtype"] for r in records})}
+    after = planner_decisions(S)
+    flips = {k: [before_plans[k].choice + (f"/{before_plans[k].precision}"
+                                            if before_plans[k].precision
+                                            else ""),
+                 p.choice + (f"/{p.precision}" if p.precision else "")]
+             for k, p in after.items()
+             if (p.choice, p.precision, dict(p.blocks)) !=
+             (before_plans[k].choice, before_plans[k].precision,
+              dict(before_plans[k].blocks))}
+    print(f"[planner] calibrate(): {len(records)} records, mean relative "
+          f"error {err0:.4f} -> {err1:.4f}, step_overhead_s "
+          f"{fitted.step_overhead_s:.3e}; "
+          + "; ".join(f"{dt} mxu_eff {e['mxu_eff']} hbm_eff {e['hbm_eff']}"
+                      for dt, e in effs.items()))
+    print(f"[planner] decisions that flip under the calibrated model: "
+          f"{flips or 'none'}")
+    for key in flips:
+        print(f"[planner] calibrated {key}:\n{after[key].explain()}")
+    return {"records": len(records), "error_before": err0,
+            "error_after": err1, "efficiencies": effs,
+            "step_overhead_s": fitted.step_overhead_s, "flips": flips,
+            "calibrated_costs_ms": {k: p.cost_s * 1e3
+                                    for k, p in after.items()}}
+
+
+def run_phase10(api, ops, dev, rows, kernels, lm_kernels, L0) -> dict:
+    """Phase 10: the planner on the card (see the module docstring)."""
+    from repro_torch.kernels import bsr
+
+    t10 = time.perf_counter()
+    rec = {"resolves": len(check_resolves()),
+           "model_vs_bound": check_model_bounds(rows)}
+    # The sparse decisions on S, made again from its seed.
+    S = sparse_matrix(dev)
+    before = planner_decisions(S)
+    for key, p in before.items():
+        print(f"[planner] {key}:\n{p.explain()}")
+    quant = bsr.auto_quantize(S.m_pad, S.n_pad, S.ell, S.bs, 1e-3, "cuda")
+    use_bsr = S._use_bsr(1, "auto")
+    ops.reset_launch_counts()
+    y = S.matvec(torch.ones(N_S, device=dev))
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["bsr_matvec"]
+    require(quant == "int8", f"quantize='auto' on S at tol 1e-3: {quant}")
+    require(use_bsr and launched == 1 and bool(torch.isfinite(y).all()),
+            f"dispatch='auto' on S: bsr {use_bsr}, {launched} bsr_matvec "
+            "launches")
+    rec["sparse"] = {"quantize_auto_tol_1e-3": quant,
+                     "dispatch_auto": "bsr" if use_bsr else "dense",
+                     "ell_by_bs": ell_by_bs(S)}
+    print(f"[planner] S: quantize='auto' at tol 1e-3 -> {quant}; "
+          f"dispatch='auto' -> {rec['sparse']['dispatch_auto']} "
+          f"({launched} bsr_matvec launch)")
+    del y
+    torch.cuda.empty_cache()
+    # A and A_w made again from their seeds, as phases 2-5 made them.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = 1.0 + 2.0 * 0.95 ** torch.arange(N, device=dev, dtype=torch.float32)
+    A = torch.randn(M, N, generator=gen, device=dev)
+    A.mul_(d / math.sqrt(N))
+    A_w = wide_matrix(dev, torch.Generator(device=dev).manual_seed(SEED + 1))
+    rec["gemm_sweep"] = sweep_gemm(dev, A, A_w)
+    del A_w
+    torch.cuda.empty_cache()
+    rec["solves"] = precision_solves(api, ops, A, L0)
+    rec["budget_serve"] = budget_serve(api, A, L0)
+    del A
+    torch.cuda.empty_cache()
+    rec["calibration"] = run_calibration(kernels, lm_kernels, before, S)
+    rec["decisions"] = {k: {"choice": p.choice, "precision": p.precision,
+                            "blocks": dict(p.blocks),
+                            "modeled_ms": p.cost_s * 1e3}
+                        for k, p in before.items()}
+    del S
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t10
+    print(f"[planner] phase 10 in {rec['phase_s']:.1f} s")
+    return rec
+
+
 def smoke(dev: torch.device) -> dict:
     """Phases 2 to 8 on `dev`; returns the numbers to report."""
     from repro_torch import api
@@ -3094,10 +3588,13 @@ def smoke(dev: torch.device) -> dict:
                 "variant_launches": recs["variant_launches"]}
                if name == "flash_attention" else {}),
             "checks": recs})
+    # -- phase 10: the planner (after every path, with the kernels' rows) --
+    planner_rec = run_phase10(api, ops, dev, rows, kernels, lm["kernels"],
+                              svd_rec["sigma"][0] ** 2)
     return {"kernels": rows, "svd": svd_rec, "solves": solves,
             "serve": serve_rec, "sparse": sparse_rec,
             "sparse_serve": serve7_rec, "front_door": front,
-            "lm": lm["models"],
+            "lm": lm["models"], "planner": planner_rec,
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
@@ -3105,7 +3602,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    # Phase 10 sweeps and calibrates into a fresh cache, so every run
+    # starts from the built-in model and leaves nothing for the next.
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+            Path(cache) / "autotune.json")
+        return run()
+
+
+def run() -> int:
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3144,7 +3649,8 @@ def main() -> int:
                       "sparse": summary["sparse"],
                       "sparse_serve": summary["sparse_serve"],
                       "front_door": summary["front_door"],
-                      "lm": summary["lm"], "ptxas": summary["ptxas"],
+                      "lm": summary["lm"], "planner": summary["planner"],
+                      "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": summary["kernels"]}))

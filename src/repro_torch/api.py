@@ -16,8 +16,10 @@ per group iteration.  Every
                ...)
   degraded   — None for a full-quality answer, else why it was cut short
                ("deadline", "max_iterations", "fault", "overloaded")
-  precision  — what ran ("f32"; "auto" runs f32 until the planner is
-               ported)
+  precision  — what ran: "f32" or "bf16" ("auto" asks the planner's
+               precision sweep at the request's tol; "psum8" runs f32 on a
+               local operand and raises on a RowMatrix or SparseRowMatrix
+               until multi-GPU lands)
 
 Requests run on the card: `device` defaults to "cuda" and raises when there
 is no card; pass device="cpu" to run on the CPU.  The request validation is
@@ -53,7 +55,6 @@ from repro_torch.kernels.fusedgrad import LOSSES
 
 REGS = ("none", "l1", "l2")
 FAULT_TOLERANCE_ITEM = "ROADMAP queue 1 item 14 (fault tolerance and telemetry)"
-LOW_PRECISION_ITEM = "ROADMAP queue 1 item 12 (low precision)"
 _ids = itertools.count()
 
 
@@ -101,7 +102,10 @@ class SolveRequest:
     max_iters: int = 200
     L0: float = 1.0               # initial Lipschitz estimate (1/step)
     x0: Any = None
-    precision: str = "auto"       # "auto" and "f32" run f32
+    # Compute/storage precision: "auto" lets the planner's precision sweep
+    # pick within the tolerance's error guard; "f32"/"bf16"/"psum8" force
+    # the choice.  Result.info["precision"] reports what ran.
+    precision: str = "auto"
     deadline_s: float | None = None   # wall budget, honoured by the server
     checkpoint_dir: str | None = None
     checkpoint_every: int = 10
@@ -139,8 +143,6 @@ class SolveRequest:
                              f"got {self.precision!r}")
         if self.resume and self.checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir")
-        if self.precision in ("bf16", "psum8"):
-            _not_yet(f"precision={self.precision!r}", LOW_PRECISION_ITEM)
         for name in ("checkpoint_dir", "telemetry"):
             if getattr(self, name) is not None:
                 _not_yet(name, FAULT_TOLERANCE_ITEM)

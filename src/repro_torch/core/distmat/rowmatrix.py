@@ -36,6 +36,18 @@ def _check_chunks(chunks) -> None:
             f"chunks={chunks!r}: only 1 until {_CHUNKS_ITEM} lands")
 
 
+_LOW_PRECISION_ITEM = "ROADMAP queue 1 item 12 (low precision: fp8 storage)"
+
+
+def _check_store(dtype) -> None:
+    if dtype == torch.float8_e4m3fn:
+        raise NotImplementedError(
+            f"float8_e4m3fn storage waits for {_LOW_PRECISION_ITEM}: the "
+            "kernels take float32 and bfloat16")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"storage must be float32 or bfloat16, got {dtype}")
+
+
 @dataclass(frozen=True)
 class RowMatrix(T.DistMatrix):
     rows: torch.Tensor               # (m_padded, n) on one device
@@ -51,9 +63,9 @@ class RowMatrix(T.DistMatrix):
         dev = T.resolve_device(device)
         rows = T.as_float_tensor(rows, dev)
         if store_dtype is not None:
+            _check_store(store_dtype)
             rows = rows.to(store_dtype)
-        if rows.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"storage must be float32 or bfloat16, got {rows.dtype}")
+        _check_store(rows.dtype)
         padded, m = T.pad_rows(rows.contiguous(), 1)
         return RowMatrix(rows=padded, n_rows=m)
 
@@ -73,7 +85,10 @@ class RowMatrix(T.DistMatrix):
         return torch.float32 if d.itemsize < 4 else d
 
     def astype_store(self, dtype) -> "RowMatrix":
-        """Recast the storage; identity when the dtype already matches."""
+        """Recast the storage (the planner's bf16 pick lands here); identity
+        when the dtype already matches.  The recast is a second copy of A
+        beside this one (bf16: half its f32 size), which stays as it is."""
+        _check_store(dtype)
         if dtype == self.rows.dtype:
             return self
         return replace(self, rows=self.rows.to(dtype))
@@ -216,7 +231,7 @@ class RowMatrix(T.DistMatrix):
 
     def to_sparse_row_matrix(self, bs: int | str = "auto"):
         """Block-compress into the block-sparse row type on this device;
-        bs="auto" raises until the planner lands, as from_dense does."""
+        bs="auto" takes plan("bsr_bs")'s block size, as from_dense does."""
         from .sparserow import SparseRowMatrix
         return SparseRowMatrix.from_dense(self.to_local(), bs=bs,
                                           device=self.device)

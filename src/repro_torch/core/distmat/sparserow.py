@@ -14,14 +14,16 @@ multiply_local (the U = A(VΣ⁻¹) product) → bsr_matmul, the fused gradient
 → fused_grad_bsr (for int8 storage bsr_matvec and bsr_rmatmul) and its
 request-batched form, the serving path's group pass → fused_grad_bsr_multi
 (for int8 storage bsr_matmul and bsr_rmatmul).  ``dispatch="dense"``
-densifies and takes the dense kernels instead.  DIMSUM column similarities
+densifies and takes the dense kernels instead, and ``dispatch="auto"``
+(the default) asks the planner (launch/planner.plan("sparse_matmul"))
+which of the two the product's shape favours.  ``bs="auto"`` prices each
+candidate block size at its actual ELL width (plan("bsr_bs")), and
+``quantize="auto"`` stores int8 blocks where the planner's precision sweep
+admits them at ``tol``.  DIMSUM column similarities
 (``column_similarities``) run on the sparse Gram.
 
-Differences from the reference, each until its ROADMAP item lands: the
-reference's ``dispatch="auto"`` asks the planner whether BSR beats the
-dense product; here it means "bsr" (queue 1 item 11), and ``bs="auto"``
-and ``quantize="auto"`` raise (item 11).  ``chunks`` stays at 1 and
-``residual=`` raises (item 13).
+Differences from the reference, each until its ROADMAP item lands:
+``chunks`` stays at 1 and ``residual=`` raises (item 13).
 """
 from __future__ import annotations
 
@@ -32,12 +34,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import bsr as _bsr
 from repro_torch.kernels import ops as _ops
+from repro_torch.launch import planner as _planner
 from . import types as T
 from .types import dimsum_gamma  # noqa: F401  (the reference's home)
 from .rowmatrix import _CHUNKS_ITEM as MULTI_GPU_ITEM
 from .rowmatrix import RowMatrix, _check_chunks
 
-PLANNER_ITEM = _bsr.PLANNER_ITEM
 _DISPATCH = ("auto", "bsr", "dense")
 # Column-strip width of AᵀX with a wide X (the sparse Gram), as in the
 # reference: each strip's partials stay (chunks × bs × 512) f32.
@@ -52,12 +54,56 @@ def _rup(x: int, m: int) -> int:
 
 
 def _check_bs(bs) -> int:
-    if bs == "auto":
-        raise NotImplementedError(f"bs='auto' waits for {PLANNER_ITEM}")
     bs = int(bs)
     if bs not in _bsr.BS_CANDIDATES:
         raise ValueError(f"bs must be one of {_bsr.BS_CANDIDATES}, got {bs}")
     return bs
+
+
+def _best_block_size(shape: tuple[int, int], dtype, ell_of_bs,
+                     nx_hint: int, backend: str) -> int:
+    """The block size plan("bsr_bs") picks, each candidate priced at the
+    ELL width `ell_of_bs(bs)` it gives this matrix.  Shared by the dense
+    and the COO "auto" constructors, so both pick the same block size for
+    the same matrix."""
+    ell_by_bs = {bs: ell_of_bs(bs) for bs in _planner.BS_CANDIDATES}
+    p = _planner.plan("bsr_bs", {"m": shape[0], "n": shape[1],
+                                 "nx": nx_hint}, dtype, backend=backend,
+                      context={"ell_by_bs": ell_by_bs})
+    return int(p.blocks["bs"])
+
+
+def _auto_block_size(a: torch.Tensor, nx_hint: int) -> int:
+    """Auto block size for a dense matrix: each candidate's widest
+    block-row, counted on a's device."""
+    m, n = a.shape
+    nz = a != 0
+
+    def ell_of_bs(bs):
+        mp, npd = _rup(max(m, 1), bs), _rup(n, bs)
+        padded = F.pad(nz, (0, npd - n, 0, mp - m))
+        blocks = padded.reshape(mp // bs, bs, npd // bs, bs).any(dim=3) \
+            .any(dim=1)
+        return max(1, int(blocks.sum(dim=1).max()))
+
+    return _best_block_size(a.shape, a.dtype, ell_of_bs, nx_hint,
+                            a.device.type)
+
+
+def _entries_block_size(ri, ci, shape, dtype, backend: str, *,
+                        nx_hint: int = 128) -> int:
+    """Auto block size for COO input: each candidate's widest block-row
+    from the index arrays alone (no densification)."""
+    n = shape[1]
+
+    def ell_of_bs(bs):
+        nbc = _rup(n, bs) // bs
+        key = torch.unique((ri // bs) * nbc + (ci // bs))
+        if key.numel() == 0:
+            return 1
+        return max(1, int(torch.bincount(key // nbc).max()))
+
+    return _best_block_size(shape, dtype, ell_of_bs, nx_hint, backend)
 
 
 @dataclass(frozen=True)
@@ -73,34 +119,44 @@ class SparseRowMatrix(T.DistMatrix):
 
     # -- construction --------------------------------------------------------
     @staticmethod
-    def from_dense(a, bs: int | str, *, device="cuda",
-                   quantize: str = "none") -> "SparseRowMatrix":
+    def from_dense(a, bs: int | str = "auto", *, device="cuda",
+                   nx_hint: int = 128, quantize: str = "none",
+                   tol: float = 1e-3) -> "SparseRowMatrix":
         """Block-compress a dense matrix on `device` (the card unless the
-        caller asks for the CPU).  `quantize` "int8" stores int8 blocks
-        with per-block f32 scales; "auto" raises until the planner lands."""
-        bs = _check_bs(bs)
+        caller asks for the CPU).  bs="auto" takes plan("bsr_bs")'s block
+        size for products of `nx_hint` columns.  `quantize` "int8" stores
+        int8 blocks with per-block f32 scales; "auto" stores them where the
+        planner's precision sweep admits int8 at `tol`."""
         dev = T.resolve_device(device)
         a = T.as_float_tensor(a, dev)
         m, n = a.shape
+        if bs == "auto":
+            bs = _auto_block_size(a, nx_hint)
+        bs = _check_bs(bs)
         padded = F.pad(a, (0, _rup(n, bs) - n, 0, _rup(max(m, 1), bs) - m))
-        bell = _bsr.BlockELL.from_dense(padded, bs, quantize=quantize)
+        bell = _bsr.BlockELL.from_dense(padded, bs, quantize=quantize,
+                                        tol=tol)
         return SparseRowMatrix(bell.data, bell.cols, dims=(m, n),
                                nnz=int(torch.count_nonzero(a)),
                                scales=bell.scales)
 
     @staticmethod
     def from_entries(row_idx, col_idx, values, shape: tuple[int, int],
-                     bs: int | str, *, device="cuda") -> "SparseRowMatrix":
+                     bs: int | str = "auto", *,
+                     device="cuda") -> "SparseRowMatrix":
         """COO entries → block-ELL without the dense matrix, on `device`:
         entries are binned into (block-row, block-column) keys with one
         torch.unique and one accumulating index_put_, as the reference bins
-        them with np.unique and np.add.at; duplicates add up."""
-        bs = _check_bs(bs)
+        them with np.unique and np.add.at; duplicates add up.  bs="auto"
+        prices each candidate at the ELL width the indices give it."""
         dev = T.resolve_device(device)
         ri = torch.as_tensor(row_idx, device=dev).long()
         ci = torch.as_tensor(col_idx, device=dev).long()
         va = T.as_float_tensor(values, dev)
         m, n = shape
+        if bs == "auto":
+            bs = _entries_block_size(ri, ci, shape, va.dtype, dev.type)
+        bs = _check_bs(bs)
         nbc = _rup(n, bs) // bs
         nbr = _rup(max(m, 1), bs) // bs
         key = (ri // bs) * nbc + ci // bs
@@ -189,11 +245,24 @@ class SparseRowMatrix(T.DistMatrix):
                 self.data, self.cols, (self.m_pad, self.n_pad), self.scales)
         return self._cache["local"]
 
-    def _use_bsr(self, dispatch: str) -> bool:
-        if dispatch not in _DISPATCH:
+    def _use_bsr(self, nx: int, dispatch: str) -> bool:
+        """BlockELL kernels or the densified dense ones for a product with
+        nx columns: "auto" asks plan("sparse_matmul") once per nx and
+        keeps the answer until the planner's caches are cleared (a
+        recalibration), so a solve's products pay no planning."""
+        if dispatch in ("bsr", "dense"):
+            return dispatch == "bsr"
+        if dispatch != "auto":
             raise ValueError(f"dispatch must be auto | bsr | dense, "
                              f"got {dispatch!r}")
-        return dispatch != "dense"
+        key = ("use_bsr", max(nx, 1), _planner.generation)
+        if key not in self._cache:
+            self._cache[key] = _planner.plan(
+                "sparse_matmul",
+                {"m": self.m_pad, "n": self.n_pad, "nx": max(nx, 1),
+                 "ell": self.ell, "bs": self.bs}, self.data.dtype,
+                backend=self.device.type).choice == "bsr"
+        return self._cache[key]
 
     def _dense(self) -> torch.Tensor:
         """The padded strip densified (f32 for int8 storage)."""
@@ -210,7 +279,7 @@ class SparseRowMatrix(T.DistMatrix):
         """A v → (m_pad,)."""
         v = torch.as_tensor(v)
         vp = F.pad(v, (0, self.n_pad - self.dims[1]))
-        if self._use_bsr(dispatch):
+        if self._use_bsr(1, dispatch):
             return _ops.bsr_matvec(self._local(), vp)
         dense = self._dense()
         dt = torch.promote_types(dense.dtype, v.dtype)
@@ -221,7 +290,7 @@ class SparseRowMatrix(T.DistMatrix):
         """Aᵀ u for a data-space u (up to m_pad rows) → (n,)."""
         u = torch.as_tensor(u)
         up = F.pad(u, (0, self.m_pad - u.shape[0]))
-        if self._use_bsr(dispatch):
+        if self._use_bsr(1, dispatch):
             out = _ops.bsr_rmatmul(self._local(), up[:, None])[:, 0]
         else:
             dense = self._dense()
@@ -236,7 +305,7 @@ class SparseRowMatrix(T.DistMatrix):
         m_pad stored rows."""
         B = torch.as_tensor(B)
         Bp = F.pad(B, (0, 0, 0, self.n_pad - self.dims[1]))
-        if self._use_bsr(dispatch):
+        if self._use_bsr(B.shape[1], dispatch):
             out = _ops.bsr_matmul(self._local(), Bp)
         else:
             out = _ops.gemm(self._dense(), Bp, out_dtype=B.dtype)
@@ -257,7 +326,7 @@ class SparseRowMatrix(T.DistMatrix):
                                                  self._row_mask)
         x = torch.as_tensor(x)
         xp = F.pad(x, (0, self.n_pad - x.shape[0]))
-        if self._use_bsr(dispatch):
+        if self._use_bsr(1, dispatch):
             f, g, z = _ops.fused_grad_bsr(self._local(), xp, t, w, loss=kind,
                                           param=prm)
         else:
@@ -282,7 +351,7 @@ class SparseRowMatrix(T.DistMatrix):
                                                        self._row_mask)
         x = torch.atleast_2d(torch.as_tensor(x))
         xp = F.pad(x, (0, self.n_pad - x.shape[1]))
-        if self._use_bsr(dispatch):
+        if self._use_bsr(1, dispatch):
             f, g, z = _ops.fused_grad_bsr_multi(self._local(), xp, t, w,
                                                 loss=kind, param=prm)
         else:
@@ -298,7 +367,7 @@ class SparseRowMatrix(T.DistMatrix):
         against one densified 512-column strip of A at a time (flops ∝
         stored blocks · n; the whole m_pad × n_pad matrix is never built),
         or the dense tsgram kernel with dispatch="dense"."""
-        if self._use_bsr(dispatch):
+        if self._use_bsr(self.n_pad, dispatch):
             local = self._local()
             strips = []
             for c0 in range(0, self.n_pad, _RMATMUL_STRIP):

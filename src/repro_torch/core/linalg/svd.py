@@ -93,17 +93,21 @@ def _swap_transposed(A, At, res: SVDResult, compute_u: bool,
 
 def auto_mode(n: int, k: int, *, gram_threshold: int = GRAM_THRESHOLD,
               randomized_k_threshold: int = RANDOMIZED_K_THRESHOLD,
-              kind: str = "row") -> str:
-    """The reference planner's mode for n columns and k asked triplets of a
-    matrix of `kind` "row" (a RowMatrix) or any other: every type but
-    RowMatrix takes the matrix-free Lanczos iteration."""
-    if kind != "row":
-        return "lanczos"
-    if n <= gram_threshold:
-        return "gram"
-    if k <= randomized_k_threshold:
-        return "randomized"
-    return "lanczos"
+              kind: str = "row", m: int | None = None, nnz: int | None = None,
+              oversampling: int = _randsvd.OVERSAMPLING,
+              power_iters: int = _randsvd.POWER_ITERS) -> str:
+    """mode="auto": the execution planner's choice,
+    launch/planner.plan("svd", ...), for n columns and k asked triplets of
+    a matrix of `kind` "row" (a RowMatrix), "sparse" or any other: every
+    type but RowMatrix takes the matrix-free Lanczos iteration."""
+    from repro_torch.launch import planner as _planner
+    ctx = {"kind": kind, "gram_threshold": gram_threshold,
+           "randomized_k_threshold": randomized_k_threshold,
+           "oversampling": oversampling, "power_iters": power_iters}
+    if nnz is not None:
+        ctx["nnz"] = int(nnz)
+    return _planner.plan("svd", {"m": m or n, "n": n, "k": k},
+                         context=ctx).choice
 
 
 def compute_svd(A, k: int, *, compute_u: bool = True,
@@ -132,9 +136,13 @@ def compute_svd(A, k: int, *, compute_u: bool = True,
                           rcond=rcond, seed=seed, **lanczos_kw)
         return _swap_transposed(A, At, res, compute_u, rcond)
     if mode == "auto":
+        kind = ("sparse" if isinstance(A, SparseRowMatrix)
+                else "row" if isinstance(A, RowMatrix) else "other")
         mode = auto_mode(n, k, gram_threshold=gram_threshold,
                          randomized_k_threshold=randomized_k_threshold,
-                         kind="row" if isinstance(A, RowMatrix) else "other")
+                         kind=kind, m=m,
+                         nnz=A.nnz if kind == "sparse" else None,
+                         oversampling=oversampling, power_iters=power_iters)
     if mode == "lanczos":
         # Each operator call is a matvec and an rmatvec: 2 A-passes.
         s, V, info = _lanczos.svd_via_lanczos(A, k, seed=seed, **lanczos_kw)

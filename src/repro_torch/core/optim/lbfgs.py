@@ -20,7 +20,8 @@ from repro_torch.core.tfocs.prox import ProxZero
 from repro_torch.core.tfocs.smooth import row_separable
 from repro_torch.core.tfocs.solver import (TfocsOptions,
                                            fused_gradient_enabled,
-                                           resolve_precision)
+                                           resolve_precision,
+                                           store_precision)
 
 
 def _two_loop(g: torch.Tensor, S: torch.Tensor, Y: torch.Tensor,
@@ -114,15 +115,20 @@ def lbfgs_composite(smooth, linop, prox=None, x0: torch.Tensor | None = None,
     composite as the TFOCS-engine methods.  The objective must be smooth:
     only ProxZero is accepted.  A row-separable smooth takes the single-pass
     fused gradient (one read of A per evaluation instead of apply +
-    adjoint's two); `opts.fused=False` opts out.  `opts.precision` runs f32
-    until the low-precision slice lands, as in the TFOCS engines."""
+    adjoint's two); `opts.fused=False` opts out.  `opts.precision` runs
+    the planner's precision sweep as the TFOCS engines do: a "bf16" pick
+    works on a bf16 copy of the operand's storage.  The compressed "psum8"
+    wire is not taken here (line-search probes are not accepted gradient
+    points, which its error feedback assumes), so it reports f32, as in the
+    reference."""
     prox = prox or ProxZero()
     if not isinstance(prox, ProxZero):
         raise ValueError("lbfgs needs a smooth objective; fold the "
                          "regularizer into the smooth part (e.g. "
                          "SmoothHuberL1) or use acc_rb.")
     opts = opts or TfocsOptions()
-    prec = resolve_precision(opts)
+    linop, prec = store_precision(linop, resolve_precision(linop, opts),
+                                  wire=False)
     if x0 is None:
         x0 = torch.zeros(linop.in_shape, dtype=torch.float32,
                          device=linop.device)

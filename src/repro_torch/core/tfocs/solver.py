@@ -19,9 +19,12 @@ tensors here, so each stopping test and each backtracking test is a host
 sync.  L, θ and the objective scalars stay float32, as in the reference, so
 the tests fall the same way on both sides.
 
-Differences from the reference: no planner yet, so `fused="auto"` is the
-structure gate alone; `precision` "auto" and "f32" both run f32 (bf16 and
-psum8 wait for the low-precision slice).
+`fused="auto"` and `precision="auto"` consult the execution planner
+(launch/planner.plan("grad", ...)), as in the reference.  "bf16" runs the
+operand's bf16 copy (``linop.astype_store``); "psum8" (the compressed
+all-reduce) falls back to f32 on a local operand, as the reference does,
+and raises on a RowMatrix or SparseRowMatrix until ROADMAP queue 1 item 13
+(multi-GPU) brings the wire it compresses.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from .smooth import row_separable
 
 _PRECISIONS = ("auto", "f32", "bf16", "psum8")
-_LOW_PRECISION_ITEM = "ROADMAP queue 1 item 12 (low precision)"
+_MULTI_GPU_ITEM = "ROADMAP queue 1 item 13 (multi-GPU)"
 
 
 @dataclass(frozen=True)
@@ -48,7 +51,9 @@ class TfocsOptions:
     backtracking: bool = True
     restart: bool = False        # O'Donoghue–Candès gradient-test restart
     fused: bool | str = "auto"   # single-pass fused gradient (False opts out)
-    precision: str = "auto"      # "auto" and "f32" run f32
+    # "auto" asks the planner's precision sweep at `tol`; "f32", "bf16" and
+    # "psum8" force the choice; info["precision"] reports what ran.
+    precision: str = "auto"
 
 
 def _fused_capable(linop) -> bool:
@@ -60,13 +65,19 @@ def _fused_capable(linop) -> bool:
     return True if base is None else _fused_capable(base)
 
 
+def _backend(linop) -> str | None:
+    dev = getattr(linop, "device", None)
+    return None if dev is None else torch.device(dev).type
+
+
 def fused_gradient_enabled(smooth, linop, fused: bool | str = "auto",
                            *, needs_theta_one: bool = False,
                            accel: bool = False) -> bool:
     """Whether a (smooth, linop) composite takes the single-pass fused
-    gradient: a row-separable smooth, a fused-capable operator and, with
-    `needs_theta_one`, no acceleration.  "auto" is this structure gate
-    alone until the planner is ported."""
+    gradient.  Structure gates first (a row-separable smooth, a
+    fused-capable operator and, with `needs_theta_one`, no acceleration);
+    "auto" then consults the planner (plan("grad", ...): one read of A
+    against two, priced on the calibrated machine model)."""
     if fused is False or (needs_theta_one and accel):
         return False
     ok = row_separable(smooth) is not None and _fused_capable(linop)
@@ -77,17 +88,66 @@ def fused_gradient_enabled(smooth, linop, fused: bool | str = "auto",
         return True
     if fused != "auto":
         raise ValueError(f"fused must be True, False or 'auto', got {fused!r}")
-    return ok
+    if not ok:
+        return False
+    try:
+        m, n = int(linop.out_shape[0]), int(linop.in_shape[0])
+        dtype = linop.operand_dtype() if hasattr(linop, "operand_dtype") \
+            else torch.float32
+    except (AttributeError, TypeError):
+        return True
+    from repro_torch.launch import planner as _planner
+    return _planner.plan("grad", {"m": max(m, 1), "n": n}, dtype,
+                         backend=_backend(linop)).choice == "fused"
 
 
-def resolve_precision(opts: TfocsOptions) -> str:
+def resolve_precision(linop, opts: TfocsOptions) -> str:
+    """The solver's precision: "auto" runs the planner's precision sweep,
+    plan("grad", dims, context={"tol": opts.tol}), which admits bf16
+    storage only when its error guard clears opts.tol and its modeled
+    savings clear the planner's floor.  Explicit values force the choice;
+    a non-f32 operand (already recast) and a non-matrix operator resolve
+    to "f32"."""
     if opts.precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, "
                          f"got {opts.precision!r}")
-    if opts.precision in ("bf16", "psum8"):
-        raise NotImplementedError(
-            f"precision={opts.precision!r} waits for {_LOW_PRECISION_ITEM}")
-    return "f32"
+    if opts.precision != "auto":
+        return opts.precision
+    if not (_fused_capable(linop) and hasattr(linop, "operand_dtype")):
+        return "f32"
+    try:
+        if linop.operand_dtype() != torch.float32:
+            return "f32"
+        m, n = int(linop.out_shape[0]), int(linop.in_shape[0])
+    except (AttributeError, TypeError):
+        return "f32"
+    from repro_torch.launch import planner as _planner
+    p = _planner.plan("grad", {"m": max(m, 1), "n": n}, "float32",
+                      backend=_backend(linop),
+                      context={"tol": float(opts.tol)})
+    return p.precision or "f32"
+
+
+def store_precision(linop, prec: str, *, wire: bool):
+    """(operand, precision) to run `prec` with: "bf16" recasts the
+    operand's storage (f32 where it has none); "psum8" falls back to f32
+    on a local operand and raises on a RowMatrix or SparseRowMatrix, whose
+    compressed all-reduce waits for multi-GPU (`wire` False: an engine
+    that never takes the compressed wire reports f32)."""
+    if prec == "bf16":
+        try:
+            return linop.astype_store(torch.bfloat16), "bf16"
+        except AttributeError:
+            return linop, "f32"
+    if prec == "psum8":
+        from repro_torch.core.distmat import RowMatrix, SparseRowMatrix
+        if wire and isinstance(getattr(linop, "A", None),
+                               (RowMatrix, SparseRowMatrix)):
+            raise NotImplementedError(
+                "precision='psum8' compresses the all-reduce of a "
+                f"multi-device matrix; waits for {_MULTI_GPU_ITEM}")
+        return linop, "f32"
+    return linop, prec
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
@@ -255,11 +315,19 @@ def tfocs(smooth, linop, prox, x0: torch.Tensor,
           opts: TfocsOptions = TfocsOptions()):
     """Run the solver; returns (x*, info) with the standard keys
     (iterations, a_passes, converged, plan), the per-iteration history and
-    info["precision"]."""
-    prec = resolve_precision(opts)
+    info["precision"].  A bf16 run works on a bf16 copy of the operand
+    (``astype_store``); the caller's matrix stays as it is."""
+    prec = resolve_precision(linop, opts)
+    if prec == "bf16":
+        linop, prec = store_precision(linop, prec, wire=False)
     sep = row_separable(smooth)
-    if fused_gradient_enabled(smooth, linop, opts.fused,
-                              needs_theta_one=True, accel=opts.accel):
+    theta_one = fused_gradient_enabled(smooth, linop, opts.fused,
+                                       needs_theta_one=True,
+                                       accel=opts.accel)
+    # psum8 rides the θ ≡ 1 fused engine's wire alone (the reference's
+    # rule); every other engine reports f32.
+    linop, prec = store_precision(linop, prec, wire=theta_one)
+    if theta_one:
         x, info = _tfocs_fused(smooth, linop, prox, x0, opts, sep)
     elif (opts.accel and sep is not None and sep.kind == "quad"
             and _fused_capable(linop)

@@ -50,8 +50,9 @@ _SIGNATURES = {
     # device, a, dtype, m, n, slices, rows_per_slice, part, out, out_dtype,
     # stream
     "repro_tsgram": [_I, _P, _I, _LL, _I, _I, _LL, _P, _P, _I, _P],
-    # device, a, a_dtype, b, b_dtype, c, c_dtype, m, K, N, blocks, stream
-    "repro_gemm": [_I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P],
+    # device, a, a_dtype, b, b_dtype, c, c_dtype, m, K, N, nt, blocks,
+    # stream
+    "repro_gemm": [_I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _I, _P],
     # device, data, dtype, scales, cols, nbr, ell, bs, x, y, stream
     "repro_bsr_spmv": [_I, _P, _I, _P, _P, _LL, _I, _I, _P, _P, _P],
     # device, data, dtype, scales, cols, nbr, ell, bs, x, nx, ldx, nt, br,

@@ -37,7 +37,6 @@ import torch
 from . import _build
 
 BS_CANDIDATES = (8, 16, 32, 64, 128)
-PLANNER_ITEM = "ROADMAP queue 1 item 11 (planner)"
 # Slots of one block column that the rmatmul kernel sums before writing a
 # partial (a unit of its work): bounds the work of a hot column's unit.
 # csrc/bsr_rmatmul.cu stages a unit's index lists for at most this many
@@ -60,6 +59,18 @@ MATMUL_MAX_TILE = 32
 MATMUL_MAX_STAGES = 4
 SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
+
+
+def auto_quantize(m: int, n: int, ell: int, bs: int, tol: float,
+                  backend: str | None = None) -> str:
+    """quantize="auto"'s answer for an (m × n) BlockELL of `ell` stored
+    bs × bs blocks a block-row: "int8" iff plan("sparse_matmul", ...,
+    context={"tol": tol}) picks the int8 precision, else "none"."""
+    from repro_torch.launch import planner
+    p = planner.plan("sparse_matmul",
+                     {"m": m, "n": n, "nx": 1, "ell": ell, "bs": bs},
+                     backend=backend, context={"tol": float(tol)})
+    return "int8" if p.precision == "int8" else "none"
 
 
 @dataclass(frozen=True)
@@ -241,18 +252,18 @@ class BlockELL:
         return self.data.shape[1]
 
     @staticmethod
-    def from_dense(a, bs: int, quantize: str = "none") -> "BlockELL":
+    def from_dense(a, bs: int, quantize: str = "none",
+                   tol: float = 1e-3) -> "BlockELL":
         """Pack a dense (m × n) tensor into BlockELL, on its device, with the
         reference's layout: a stable sort packs each block-row's nonzero
         block columns into the leading slots in ascending order.
 
         ``quantize``: "none" keeps a.dtype; "int8" stores int8 blocks with
-        per-block f32 scales; "auto" (the planner's choice) raises until
-        the planner is ported."""
-        if quantize == "auto":
-            raise NotImplementedError(f"quantize='auto' waits for "
-                                      f"{PLANNER_ITEM}")
-        if quantize not in ("none", "int8"):
+        per-block f32 scales; "auto" asks the planner: int8 iff
+        plan("sparse_matmul", ..., context={"tol": tol}) picks the int8
+        precision (the tolerance clears int8's guard and the modeled byte
+        savings clear the floor)."""
+        if quantize not in ("none", "int8", "auto"):
             raise ValueError(f"quantize must be 'none'|'int8'|'auto', "
                              f"got {quantize!r}")
         a = torch.as_tensor(a)
@@ -271,6 +282,8 @@ class BlockELL:
         rows = torch.arange(nbr, device=a.device)[:, None]
         data = blocks[rows, order] * valid[..., None, None].to(a.dtype)
         out = BlockELL(data.contiguous(), cols.contiguous(), (m, n))
+        if quantize == "auto":
+            quantize = auto_quantize(m, n, ell, bs, tol, a.device.type)
         return out.quantize_int8() if quantize == "int8" else out
 
     def quantize_int8(self) -> "BlockELL":

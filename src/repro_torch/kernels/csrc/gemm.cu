@@ -381,9 +381,6 @@ gemm_tc(const TA* __restrict__ a, const TB* __restrict__ b,
   cp_async_wait<0>();   // no copy outlives the block (the last are empty)
 }
 
-// n8 tiles a column tile holds for N columns (gemm.py:tile_width / 8).
-int tile_n8(int N) { return N <= 8 ? 1 : N <= 16 ? 2 : 4; }
-
 template <typename TA, typename TB, int NT>
 cudaError_t launch(const void* a, const void* b, void* c, int c_bf16,
                    long long m, int K, int N, int blocks, cudaStream_t s) {
@@ -403,8 +400,9 @@ cudaError_t launch(const void* a, const void* b, void* c, int c_bf16,
 
 template <typename TA, typename TB>
 cudaError_t launch_nt(const void* a, const void* b, void* c, int c_bf16,
-                      long long m, int K, int N, int blocks, cudaStream_t s) {
-  switch (tile_n8(N)) {
+                      long long m, int K, int N, int nt, int blocks,
+                      cudaStream_t s) {
+  switch (nt) {
     case 1: return launch<TA, TB, 1>(a, b, c, c_bf16, m, K, N, blocks, s);
     case 2: return launch<TA, TB, 2>(a, b, c, c_bf16, m, K, N, blocks, s);
     default: return launch<TA, TB, 4>(a, b, c, c_bf16, m, K, N, blocks, s);
@@ -414,16 +412,17 @@ cudaError_t launch_nt(const void* a, const void* b, void* c, int c_bf16,
 }  // namespace
 
 // a (m, K) f32 or bf16, contiguous, any start; b (K, N) f32 or bf16,
-// contiguous; c (m, N) in c_dtype; `blocks` the persistent grid's size
-// (the card's SMs).
+// contiguous; c (m, N) in c_dtype; `nt` the n8 tiles of an output tile (1,
+// 2 or 4; gemm.py:tile_width / 8 unless the autotuner chose another) and
+// `blocks` the persistent grid's size (the card's SMs).
 extern "C" int repro_gemm(int device, const void* a, int a_dtype,
                           const void* b, int b_dtype, void* c, int c_dtype,
-                          long long m, int K, int N, int blocks,
+                          long long m, int K, int N, int nt, int blocks,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int nt = tile_n8(N);
   if (m <= 0 || N <= 0 || K < 0 || blocks <= 0 ||
+      (nt != 1 && nt != 2 && nt != 4) ||
       (m + kTileM - 1) / kTileM * ((N + 8 * nt - 1) / (8 * nt)) >= (1LL << 31) ||
       (a_dtype != DT_F32 && a_dtype != DT_BF16) ||
       (b_dtype != DT_F32 && b_dtype != DT_BF16) ||
@@ -434,13 +433,14 @@ extern "C" int repro_gemm(int device, const void* a, int a_dtype,
   if (a_dtype == DT_BF16)
     return b_dtype == DT_BF16
                ? launch_nt<__nv_bfloat16, __nv_bfloat16>(a, b, c, c_bf16, m,
-                                                         K, N, blocks, s)
+                                                         K, N, nt, blocks, s)
                : launch_nt<__nv_bfloat16, float>(a, b, c, c_bf16, m, K, N,
-                                                 blocks, s);
+                                                 nt, blocks, s);
   return b_dtype == DT_BF16
-             ? launch_nt<float, __nv_bfloat16>(a, b, c, c_bf16, m, K, N,
+             ? launch_nt<float, __nv_bfloat16>(a, b, c, c_bf16, m, K, N, nt,
                                                blocks, s)
-             : launch_nt<float, float>(a, b, c, c_bf16, m, K, N, blocks, s);
+             : launch_nt<float, float>(a, b, c, c_bf16, m, K, N, nt, blocks,
+                                       s);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -35,10 +35,13 @@ def tile_width(n: int) -> int:
     return 8 if n <= 8 else 16 if n <= 16 else 32
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+         bn: int | None = None) -> torch.Tensor:
     """Launch csrc/gemm.cu on CUDA operands a (m × K), contiguous and
     starting anywhere, and b (K × N), f32 or bf16; returns (m × N) in
-    `out_dtype` (default a.dtype), f32 or bf16."""
+    `out_dtype` (default a.dtype), f32 or bf16.  `bn` is the output tile's
+    width (8, 16 or 32; default ``tile_width(N)``), the autotuner's choice
+    (kernels/autotune.py)."""
     dev = _build.check_device(a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}")
@@ -47,13 +50,17 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     b = b.contiguous()
     out_dtype = out_dtype or a.dtype
     (m, k), n = a.shape, b.shape[1]
+    bn = tile_width(n) if bn is None else bn
+    if bn not in (8, 16, 32):
+        raise ValueError(f"gemm's output tile takes 8, 16 or 32 columns, "
+                         f"got {bn}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
     _build.check(_build.lib().repro_gemm(
         dev.index, a.data_ptr(), _build.dtype_code(a, "a"), b.data_ptr(),
         _build.dtype_code(b, "b"), out.data_ptr(),
-        _build.dtype_code(out, "out"), m, k, n,
+        _build.dtype_code(out, "out"), m, k, n, bn // 8,
         torch.cuda.get_device_properties(dev).multi_processor_count,
         _build.stream(dev)), "gemm launch")
     gemm.launches += 1

@@ -6,11 +6,23 @@ which raises unless the card is sm_90.  There is no other route: no
 fallback from the kernel to the plain version.  The kernels mask ragged
 edges themselves, so nothing is padded here (the TPU wrappers padded only
 for the (8, 128) tiling).
+
+gemm is the one kernel with a launch choice the autotuner tunes, its
+output tile width: ``tune="auto"`` resolves it per (backend, dtype,
+shape) through kernels/autotune.py, from a swept winner where one was
+recorded, else from the machine model's ranking, whose ties go to the
+width gemm.tile_width picks (``tune="off"``).  ``bn`` overrides it, and a
+width the kernel cannot take raises ValueError.  Every other kernel has
+one launch, its own rule; a reference tile argument with no counterpart
+raises NotImplementedError and says why.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from . import autotune as _tune
 from . import bsr as _bsr
 from . import flash_attention as _fa
 from . import fusedgrad as _fg
@@ -51,11 +63,21 @@ def reset_launch_counts() -> None:
             fn.variant_launches[variant] = 0
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """C = A @ B in f32 accumulation, cast to `out_dtype` (default a.dtype)."""
+def gemm(a: torch.Tensor, b: torch.Tensor, *, bn: int | None = None,
+         tune: str = "auto", out_dtype=None) -> torch.Tensor:
+    """C = A @ B in f32 accumulation, cast to `out_dtype` (default a.dtype).
+    `bn` is the output tile's width (8, 16 or 32 columns); `tune` resolves
+    it when it is not given.  The CPU path resolves it too (it checks `bn`)
+    and runs the plain version."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}")
+    (m, k), n = a.shape, b.shape[1]
+    cfg = _tune.resolve("gemm", {"m": m, "k": k, "n": n,
+                                 "b_itemsize": b.element_size()}, a.dtype,
+                        {"bn": bn}, tune=tune, backend=a.device.type)
     if _on_cpu(a, b):
         return _gemm.gemm_plain(a, b, out_dtype)
-    return _gemm.gemm(a, b, out_dtype=out_dtype)
+    return _gemm.gemm(a, b, out_dtype=out_dtype, bn=cfg["bn"])
 
 
 def tsgram(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
@@ -184,14 +206,35 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     return f, g.to(x.dtype), z
 
 
-def _no_tiles(**tiles) -> None:
-    """The kernels choose their own tiles until the autotuner is ported
-    (ROADMAP.md queue 1 item 11)."""
+def bsr_block_size(m: int, n: int, nnz: int, *, nx: int = 128,
+                   dtype=torch.float32, tune: str = "auto") -> int:
+    """The BlockELL block size for an (m × n) matrix with `nnz` nonzeros
+    scattered uniformly: plan("bsr_bs") over BS_CANDIDATES, each priced
+    at the ELL width the scatter gives it (P(block stored) = 1 − (1 −
+    nnz/mn)^(bs²)).  tune="off" gives the reference's legacy 8."""
+    if tune == "off":
+        return 8
+    if tune != "auto":
+        raise ValueError(f"tune must be 'auto' or 'off', got {tune!r}")
+    from repro_torch.launch import planner as _planner
+    density = min(1.0, float(nnz) / max(m * n, 1))
+    ell_by_bs = {}
+    for bs in _planner.BS_CANDIDATES:
+        nbc = max(-(-n // bs), 1)
+        p_block = 1.0 - (1.0 - density) ** (bs * bs)
+        ell_by_bs[bs] = max(1, math.ceil(nbc * p_block))
+    return int(_planner.plan("bsr_bs", {"m": m, "n": n, "nx": nx}, dtype,
+                             context={"ell_by_bs": ell_by_bs}).blocks["bs"])
+
+
+def _no_tiles(kernel: str, why: str, **tiles) -> None:
+    """Raise for a reference tile argument: the kernel's design fixes its
+    tiles (`why`), so the autotuner has nothing to choose there."""
     given = sorted(k for k, v in tiles.items() if v is not None)
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the port's kernels choose their own tiles "
-            "until kernels/autotune.py is ported (ROADMAP.md queue 1 item 11)")
+            f"{', '.join(given)}: {kernel}'s CUDA kernel fixes its tiles "
+            f"({why}); kernels/autotune.py tunes gemm's alone")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -203,7 +246,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     = q head // (Hq / Hkv).  The causal mask is top-left, as the
     reference's default dispatch defines it (``tril`` of (Sq, Sk)): query
     row i sees keys 0..i, so rows ≥ Sk see every key."""
-    _no_tiles(bq=bq, bk=bk)
+    _no_tiles("flash_attention", "bf16: 128 queries by 128 keys, what two "
+              "consumer warpgroups' registers hold; f32: 64 by 64", bq=bq,
+              bk=bk)
     B, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv:
@@ -223,7 +268,8 @@ def selective_scan(x, dt, A, B, C, D, *, h0=None, q: int | None = None
     D: (d,); h0: (Bt, d, N) or None (zeros).  Returns (y (Bt, S, d), f32
     final state (Bt, d, N)); the reference returns y alone, and prefill
     into a cache needs the state."""
-    _no_tiles(q=q)
+    _no_tiles("selective_scan", "16 time steps a stage of its 3-stage "
+              "ring", q=q)
     tensors = (x, dt, A, B, C, D) + (() if h0 is None else (h0,))
     if _on_cpu(*tensors):
         return _ss.selective_scan_plain(x, dt, A, B, C, D, h0=h0)

@@ -17,11 +17,14 @@ squares, one-vs-rest logistic), their iterations share each pass over A:
   * continuous batching: a fixed number of slots per group, requests
     admitted and retired BETWEEN solver iterations by editing slot rows,
     inactive slots frozen by the engines' per-slot masks;
+  * planner-priced admission: ``budget_s`` bounds the modeled device
+    seconds a scheduler step may spend (launch/planner.plan: a group's
+    fused pass a step, a one-shot's whole job).  Joining an active group
+    is free; opening one or running a one-shot consumes budget; when
+    nothing spends budget the head is always admitted;
   * the queue is strictly FIFO: a request that cannot be admitted (its
-    group is full) blocks those behind it, so overload degrades in arrival
-    order.  Joining an active group and opening a new one both take no
-    budget: the reference prices opening with the planner
-    (``budget_s``), which waits for ROADMAP queue 1 item 11.
+    group is full, or the budget is spent) blocks those behind it, so
+    overload degrades in arrival order.
 
 SVD and similarity requests and non-batchable solves (escape-hatch
 problems, smooths or proxes, non-quadratic accelerated requests) run as
@@ -56,11 +59,12 @@ import torch
 from repro_torch import api
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.core.optim import elastic as _elastic
+from repro_torch.core.distmat.sparserow import SparseRowMatrix
+from repro_torch.launch import planner as _planner
 from repro_torch.launch import telemetry as _tel
 
 # Engines the group runner batches; everything else is served one-shot.
 GROUP_METHODS = _elastic.GROUP_METHODS
-PLANNER_ITEM = "ROADMAP queue 1 item 11 (planner)"
 
 # The server's aggregate counters (rendered by SolverServer.stats).
 _STAT_KEYS = ("steps", "a_passes", "admitted", "oneshot", "deferred_steps",
@@ -106,6 +110,9 @@ class GroupRunner:
         self.kind, self.param = kind, param
         self.reg, self.method, self.slots = reg, method, slots
         self.meta: list[dict | None] = [None] * slots
+        # Modeled device seconds of one group pass (the server's budget
+        # pricing sets it when it opens the group).
+        self.price_s = 0.0
 
     # -- delegated solver state (the executor owns it) ------------------------
 
@@ -202,20 +209,21 @@ class GroupRunner:
 
 
 class SolverServer:
-    """FIFO request queue + continuous batching.
+    """FIFO request queue + planner-priced admission + continuous batching.
 
     ``submit`` enqueues a repro_torch.api request; ``step`` admits what the
-    slots allow, runs one solver iteration per active group, and returns
-    the requests that finished.  ``run`` drives steps until the queue and
-    all groups drain."""
+    slots and the per-step device-time budget allow, runs one solver
+    iteration per active group, and returns the requests that finished.
+    ``run`` drives steps until the queue and all groups drain.  `backend`
+    ("cuda" or "cpu") names the machine model the budget is priced on
+    (the card's where there is one)."""
 
     def __init__(self, *, slots: int = 8, budget_s: float | None = None,
+                 backend: str | None = None,
                  max_pending: int | None = None, elastic_factory=None,
                  telemetry: _tel.Recorder | None = None):
-        if budget_s is not None:
-            raise NotImplementedError(
-                f"budget_s (planner-priced admission) waits for "
-                f"{PLANNER_ITEM}")
+        self.budget_s = budget_s
+        self.backend = backend
         if elastic_factory is not None:
             raise NotImplementedError(
                 f"elastic_factory waits for {_elastic.FAULT_TOLERANCE_ITEM}")
@@ -284,14 +292,51 @@ class SolverServer:
         """Per-request submit→finish wall seconds, in completion order."""
         return [t1 - t0 for _, t0, t1 in self._events]
 
+    # -- planner pricing ------------------------------------------------------
+
+    def _price(self, req) -> float:
+        """Modeled device seconds: a step's for a group (one fused pass,
+        however many requests share it), the whole job's for a one-shot."""
+        if isinstance(req, api.SolveRequest):
+            if req.problem is not None:
+                m, n = (req.problem.linop.out_shape[0],
+                        req.problem.linop.in_shape[0])
+            elif isinstance(req.A, SparseRowMatrix):
+                return _planner.plan(
+                    "fused_grad_bsr", {"m": req.A.m_pad, "n": req.A.n_pad,
+                                       "bs": req.A.bs, "ell": req.A.ell},
+                    req.A.data.dtype, backend=self.backend).cost_s
+            else:
+                m, n = req.A.shape
+            return _planner.plan("fused_grad", {"m": int(m), "n": int(n)},
+                                 backend=self.backend).cost_s
+        m, n = req.A.shape
+        # A similarity request's Gram pass is the whole job: priced as the
+        # Gram-mode SVD of the same matrix.
+        k = int(req.k) if isinstance(req, api.SvdRequest) else 1
+        return _planner.plan("svd", {"m": int(m), "n": int(n), "k": k},
+                             backend=self.backend).cost_s
+
+    def _active_cost(self) -> float:
+        return sum(r.price_s for r in self._runners.values() if r.busy())
+
+    def _over_budget(self, spent: float, cost: float) -> bool:
+        return (self.budget_s is not None and spent > 0
+                and spent + cost > self.budget_s)
+
     # -- scheduling -----------------------------------------------------------
 
     def _admit(self) -> list[api.Result]:
-        """FIFO admission.  A request joins its group's runner while it has
-        a free slot, or opens the group; a full group blocks the head of
-        the queue and everything behind it (strict arrival-order
-        degradation).  Returns the results of the one-shot jobs it ran."""
+        """FIFO admission under the device-time budget.  A request joins
+        its group's runner while it has a free slot (free of budget), or
+        opens the group (its price); a full group or a spent budget blocks
+        the head of the queue and everything behind it (strict
+        arrival-order degradation).  When nothing spends budget the head is
+        always admitted, so a budget under one group's pass cannot
+        deadlock the queue.  Returns the results of the one-shot jobs it
+        ran."""
         done = []
+        spent = self._active_cost()
         while self._queue:
             req = self._queue[0]
             expired = self._expire_queued(req)
@@ -310,6 +355,9 @@ class SolverServer:
                                        request_id=req.request_id):
                         runner.admit(req)          # marginal cost: zero
                 else:
+                    cost = self._price(req)
+                    if self._over_budget(spent, cost):
+                        break                      # no budget → wait
                     with self.tel.span("serve.admit", mode="open",
                                        request_id=req.request_id):
                         if runner is None:
@@ -318,11 +366,17 @@ class SolverServer:
                                 reg=req.reg, method=req.method,
                                 slots=self.slots, telemetry=self.tel)
                             self._runners[key] = runner
+                        runner.price_s = cost
                         runner.admit(req)
+                    spent += cost
                 self._c["admitted"].inc()
                 self._observe_wait(req)
                 self._queue.pop(0)
             else:
+                cost = self._price(req)
+                if self._over_budget(spent, cost):
+                    break
+                spent += cost
                 self._queue.pop(0)
                 self._observe_wait(req)
                 with self.tel.span("serve.oneshot",
@@ -420,8 +474,7 @@ def main(argv: list[str] | None = None) -> SolverServer:
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--budget-us", type=float, default=None,
-                    help="per-step device-time budget (modeled µs); waits "
-                         "for the planner")
+                    help="per-step device-time budget (modeled µs)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -431,7 +484,8 @@ def main(argv: list[str] | None = None) -> SolverServer:
                          device=args.device)
     server = SolverServer(
         slots=args.slots,
-        budget_s=args.budget_us * 1e-6 if args.budget_us else None)
+        budget_s=args.budget_us * 1e-6 if args.budget_us else None,
+        backend=A.device.type)
     t0 = time.perf_counter()
     ids = []
     for _ in range(args.requests):

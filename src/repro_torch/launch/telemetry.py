@@ -15,9 +15,11 @@ as the port's own copy.  Two layers:
     per-reason ``degraded`` counters.
 
 Exporters: ``snapshot()``, ``summary()``, ``events()`` and
-``export_chrome_trace(path)`` (Chrome/Perfetto ``traceEvents``).  The
-plan-vs-actual records (``record_plan_actual``, ``calibration_records``)
-wait for the planner, ROADMAP queue 1 item 11.
+``export_chrome_trace(path)`` (Chrome/Perfetto ``traceEvents``).
+**Plan-vs-actual**: ``record_plan_actual(plan, measured_s)`` keeps an
+ExecutionPlan's modeled cost beside a measured time (with the plan's raw
+terms), and ``calibration_records()`` feeds them to
+``planner.calibrate()`` unchanged.
 
 Everything is off by default: the module-level recorder is a
 ``NullRecorder`` whose ``span()`` returns one shared no-op context manager
@@ -295,6 +297,7 @@ class Recorder:
         self.spans: list[Span] = []
         self.spans_dropped = 0
         self._metrics: dict[str, Any] = {}
+        self._plan_actual: list[dict] = []
         self._lock = threading.Lock()
         self._ids = iter(range(1, 1 << 62)).__next__
         self._local = threading.local()
@@ -350,6 +353,28 @@ class Recorder:
                 lbl = ",".join(f"{k}={v}" for k, v in sorted(m.labels.items()))
                 out[lbl or "total"] = m.value
         return out
+
+    # -- plan-vs-actual -------------------------------------------------------
+
+    def record_plan_actual(self, plan, measured_s: float, **attrs) -> dict:
+        """Attach a measured time to an ExecutionPlan: op, choice, modeled,
+        measured and their ratio (the drift), and the plan's raw terms, so
+        the record feeds ``planner.calibrate()`` unchanged."""
+        from repro_torch.launch import planner as _planner
+        rec = _planner.actual_record(plan, measured_s)
+        rec.update(attrs)
+        with self._lock:
+            self._plan_actual.append(rec)
+        return rec
+
+    def plan_actual(self) -> list[dict]:
+        with self._lock:
+            return list(self._plan_actual)
+
+    def calibration_records(self) -> list[dict]:
+        """The plan-vs-actual records that carry raw terms: what
+        ``planner.calibrate()`` and ``MachineModel.calibrate()`` take."""
+        return [r for r in self.plan_actual() if "flops" in r]
 
     # -- exporters ------------------------------------------------------------
 
@@ -452,6 +477,9 @@ class NullRecorder(Recorder):
 
     def histogram(self, name: str, **labels):
         return _NULL_METRIC
+
+    def record_plan_actual(self, plan, measured_s: float, **attrs) -> dict:
+        return {}
 
 
 NULL = NullRecorder()

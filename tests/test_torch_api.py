@@ -19,6 +19,7 @@ import torch
 from repro import api as japi
 from repro.core.distmat import RowMatrix as JRowMatrix
 from repro_torch import api, convert
+from repro_torch.core.distmat import RowMatrix
 
 ROOT = Path(__file__).resolve().parents[1]
 STANDARD_KEYS = {"iterations", "a_passes", "converged", "plan", "degraded",
@@ -130,7 +131,9 @@ def test_request_validation_matches_reference(bad):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(precision="bf16"), "low precision"),
+    # bf16 runs (tests/test_torch_precision.py); the compressed psum of a
+    # RowMatrix waits for multi-GPU.
+    (dict(precision="psum8"), "multi-GPU"),
     (dict(checkpoint_dir="ckpt"), "fault tolerance"),
     (dict(deadline_s=5.0), "fault tolerance"),
     (dict(telemetry=True), "fault tolerance"),
@@ -139,8 +142,9 @@ def test_what_waits_for_later_slices_raises(extra, item):
     """At request construction, or on the direct path for a deadline (the
     server honours deadlines; tests/test_torch_serve.py)."""
     a, b, _ = _data("quad")
+    rm = RowMatrix.create(a, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        api.solve(api.SolveRequest(A=a, b=b, device="cpu", **extra))
+        api.solve(api.SolveRequest(A=rm, b=b, device="cpu", **extra))
 
 
 def test_svd_request_validation():

@@ -99,8 +99,18 @@ def test_quantize_int8_matches_the_reference(bs):
 
 
 def test_quantize_auto_waits_for_the_planner():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bsr.BlockELL.from_dense(torch.zeros(16, 16), 8, quantize="auto")
+    # quantize="auto" asks the planner: a tiny shape stays exact (int8's
+    # modeled savings are under the planner's floor), a large one at a
+    # tolerance over int8's guard is quantized (tests/test_torch_planner.py
+    # holds the decision itself).
+    assert bsr.BlockELL.from_dense(torch.zeros(16, 16), 8,
+                                   quantize="auto").scales is None
+    big = torch.zeros(32768, 256)
+    big[:, :128] = 1.0
+    assert bsr.BlockELL.from_dense(big, 128, quantize="auto",
+                                   tol=1e-3).scales is not None
+    assert bsr.BlockELL.from_dense(big, 128, quantize="auto",
+                                   tol=1e-8).scales is None
     with pytest.raises(ValueError, match="quantize"):
         bsr.BlockELL.from_dense(torch.zeros(16, 16), 8, quantize="fp8")
     with pytest.raises(ValueError, match="multiple"):

@@ -876,7 +876,17 @@ def test_fused_grad_bsr_multi_refuses_what_it_does_not_take(dev):
                                        w[:2], loss="quad")
 
 
-@pytest.mark.parametrize("matrix", ["dense", "sparse"])
+# The kernel a 40-slot group launches: a SparseRowMatrix dispatches as
+# plan("sparse_matmul") decides.  At 40% density nearly every block-row
+# stores all 6 block columns (ELL width 6 of 6), so the dense product wins
+# and the group takes fused_grad_multi; one or two stored blocks a
+# block-row (ELL width 2, ragged, the short rows padded) keep BlockELL.
+FORTY_SLOT_KERNEL = {"dense": "fused_grad_multi",
+                     "sparse": "fused_grad_multi",
+                     "sparse_ragged": "fused_grad_bsr_multi"}
+
+
+@pytest.mark.parametrize("matrix", ["dense", "sparse", "sparse_ragged"])
 def test_forty_slot_group_launches_once_a_pass(dev, matrix):
     """A SolverServer group of 40 acc_rb requests on the card: one fused
     kernel launch for each of the server's A-passes (every 40-slot pass is
@@ -892,6 +902,12 @@ def test_forty_slot_group_launches_once_a_pass(dev, matrix):
     a = rng.normal(size=(m, n)) / np.sqrt(n)
     if matrix == "sparse":
         a *= np.kron(rng.random((m // 16, n // 16)) < 0.4, np.ones((16, 16)))
+    elif matrix == "sparse_ragged":
+        mask = np.zeros((m // 16, n // 16), bool)
+        for i in range(m // 16):
+            mask[i, rng.choice(n // 16, rng.integers(1, 3),
+                               replace=False)] = True
+        a *= np.kron(mask, np.ones((16, 16)))
     a = a.astype(np.float32)
     B = (a @ rng.normal(size=(n, k)) + 0.01 * rng.normal(size=(m, k))).T
     B = B.astype(np.float32)
@@ -905,8 +921,11 @@ def test_forty_slot_group_launches_once_a_pass(dev, matrix):
     ops.reset_launch_counts()
     srv.run()
     torch.cuda.synchronize()
-    kernel = "fused_grad_multi" if matrix == "dense" else "fused_grad_bsr_multi"
-    assert ops.launch_counts()[kernel] == srv.stats["a_passes"] > 0
+    counts = ops.launch_counts()
+    kernel = FORTY_SLOT_KERNEL[matrix]
+    other = ({"fused_grad_multi", "fused_grad_bsr_multi"} - {kernel}).pop()
+    assert counts[kernel] == srv.stats["a_passes"] > 0
+    assert counts[other] == 0
     X = np.linalg.lstsq(a.astype(np.float64), B.T.astype(np.float64),
                         rcond=None)[0]
     for j, rid in enumerate(ids):
@@ -1236,7 +1255,9 @@ def test_coordinate_products_and_conversion_on_the_card(dev):
         assert _rel(s_gpu.data.cpu(), s_cpu.data) <= 1e-6
         assert s_gpu.nnz == s_cpu.nnz
         ops.reset_launch_counts()
-        got = s_gpu.matvec(x.to(dev))
+        # Uniform entries fill most blocks: dispatch="auto" would take the
+        # dense product here, so the BlockELL kernel is asked for.
+        got = s_gpu.matvec(x.to(dev), dispatch="bsr")
         assert ops.launch_counts()["bsr_matvec"] == 1
         assert _rel(got.cpu()[:m], cpu.matvec(x)) <= TOL
 

@@ -20,6 +20,7 @@ from repro_torch import api
 from repro_torch.core import distmat as d
 from repro_torch.core.linalg import compute_svd
 from repro_torch.core.linalg.svd import auto_mode
+from repro_torch.launch.planner import BS_CANDIDATES
 
 RNG = np.random.default_rng(0)
 LANCZOS = dict(tol=1e-7, max_restarts=100)
@@ -157,8 +158,11 @@ def test_coordinate_to_sparse_row_matrix(bs):
     x = np.random.default_rng(5).normal(size=27).astype(np.float32)
     _close(srm.matvec(torch.from_numpy(x))[:40], D @ x, rtol=1e-4,
            atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cm.to_sparse_row_matrix()
+    # bs="auto" takes plan("bsr_bs")'s block size on the entries' ELL
+    # widths (tests/test_torch_planner.py holds the decision itself).
+    auto = cm.to_sparse_row_matrix()
+    assert auto.bs in BS_CANDIDATES
+    _close(auto.to_local(), D, rtol=1e-6, atol=1e-7)
 
 
 def test_rowmatrix_to_sparse_row_matrix():
@@ -169,8 +173,9 @@ def test_rowmatrix_to_sparse_row_matrix():
     np.testing.assert_array_equal(srm.cols.numpy(), np.asarray(jsrm.cols))
     _close(srm.data, jsrm.data, rtol=0, atol=0)
     assert srm.nnz == jsrm.nnz
-    with pytest.raises(NotImplementedError, match="item 11"):
-        d.RowMatrix.create(a, device="cpu").to_sparse_row_matrix()
+    auto = d.RowMatrix.create(a, device="cpu").to_sparse_row_matrix()
+    assert auto.bs in BS_CANDIDATES
+    _close(auto.to_local(), a, rtol=0, atol=0)
 
 
 # -- BlockMatrix --------------------------------------------------------------

@@ -262,6 +262,9 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert len(lines) == 6 and all(l.startswith("  solve-")
                                    for l in lines[3:])
     assert server.stats["admitted"] == 16 and not server.busy()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve.main(["--device", "cpu", "--m", "8", "--n", "2",
-                    "--budget-us", "50"])
+    # --budget-us prices admission with the planner; one matrix is one
+    # group, which every request joins for free.
+    budgeted = serve.main(["--device", "cpu", "--m", "8", "--n", "2",
+                           "--budget-us", "50"])
+    assert budgeted.budget_s == pytest.approx(50e-6)
+    assert budgeted.stats["admitted"] == 16 and not budgeted.busy()

@@ -31,6 +31,7 @@ from repro_torch.core.tfocs import (CountingLinop, LinopIdentity,
                                     TfocsOptions, fused_gradient_enabled,
                                     tfocs)
 from repro_torch.core.tfocs import solver as tsolver
+from repro_torch.core.distmat import RowMatrix
 
 M, N = 160, 20
 
@@ -177,13 +178,21 @@ def test_fused_gate_and_precision():
         fused_gradient_enabled(object(), lin, True)
     with pytest.raises(ValueError, match="fused must be"):
         fused_gradient_enabled(s, lin, "yes")
+    # "auto" asks the planner: a small operand stays f32 at any tol (the
+    # savings floor); explicit values pass through; bf16 runs
+    # (tests/test_torch_precision.py) and psum8 on a RowMatrix waits for
+    # multi-GPU.
     for prec in ("auto", "f32"):
-        assert tsolver.resolve_precision(TfocsOptions(precision=prec)) == "f32"
+        assert tsolver.resolve_precision(
+            lin, TfocsOptions(precision=prec, tol=1e-3)) == "f32"
     for prec in ("bf16", "psum8"):
-        with pytest.raises(NotImplementedError, match="low precision"):
-            tsolver.resolve_precision(TfocsOptions(precision=prec))
+        assert tsolver.resolve_precision(
+            lin, TfocsOptions(precision=prec)) == prec
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tsolver.store_precision(LinopMatrix(RowMatrix.create(
+            torch.zeros(4, 2), device="cpu")), "psum8", wire=True)
     with pytest.raises(ValueError, match="precision must be"):
-        tsolver.resolve_precision(TfocsOptions(precision="f16"))
+        tsolver.resolve_precision(lin, TfocsOptions(precision="f16"))
 
 
 def test_methods_and_lbfgs():

@@ -191,12 +191,15 @@ def test_what_waits_for_later_slices_raises():
     _, port = _pair(_matrix(40, 24, seed=2))
     x = torch.zeros(24)
     sm = psmooth.SmoothQuad(b=torch.zeros(port.m_pad))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SparseRowMatrix.from_dense(np.eye(16, dtype=np.float32), "auto",
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SparseRowMatrix.from_dense(np.eye(16, dtype=np.float32), 8,
-                                   device="cpu", quantize="auto")
+    # bs="auto" and quantize="auto" ask the planner
+    # (tests/test_torch_planner.py): a tiny identity stays exact.
+    eye = SparseRowMatrix.from_dense(np.eye(16, dtype=np.float32), "auto",
+                                     device="cpu")
+    assert eye.bs in (8, 16, 32, 64, 128)
+    assert torch.equal(eye.to_local(), torch.eye(16))
+    assert SparseRowMatrix.from_dense(np.eye(16, dtype=np.float32), 8,
+                                      device="cpu",
+                                      quantize="auto").scales is None
     with pytest.raises(ValueError, match="bs must be"):
         SparseRowMatrix.from_dense(np.eye(16, dtype=np.float32), 4,
                                    device="cpu")

@@ -33,8 +33,7 @@ import torch
 M, N, BS, ELL = 1 << 22, 1 << 14, 32, 16
 NXS = (16, 8)
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-F32_FMA_FLOPS = 67e12
+from repro_torch.launch.machine import F32_FMA_FLOPS, HBM_BYTES_PER_S
 TOL = 1e-4
 
 

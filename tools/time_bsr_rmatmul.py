@@ -44,9 +44,8 @@ NXS = (1, 8, 16)
 LIBRARY_NXS = (1, 16, 512)
 WIDE = 512
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-F32_FMA_FLOPS = 67e12
-TF32_FLOPS = 495e12
+from repro_torch.launch.machine import (F32_FMA_FLOPS, HBM_BYTES_PER_S,
+                                       TF32_FLOPS)
 TOL = 5e-4
 
 

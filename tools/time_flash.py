@@ -33,8 +33,9 @@ import torch.nn.functional as F
 
 B, HQ, HKV, S, D = 4, 24, 8, 2048, 128
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+from repro_torch.launch.machine import (BF16_FLOPS, F32_FMA_FLOPS,
+                                       HBM_BYTES_PER_S)
+PEAK_FLOPS = {torch.float32: F32_FMA_FLOPS, torch.bfloat16: BF16_FLOPS}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 

@@ -28,8 +28,9 @@ import torch
 SHAPES = [(1 << 21, 1024), (1 << 20, 2048), (1 << 19, 4096),
           (1 << 18, 8192), (1 << 18, 16384)]
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+from repro_torch.launch.machine import (BF16_FLOPS, F32_FMA_FLOPS,
+                                       HBM_BYTES_PER_S)
+PEAK_FLOPS = {torch.float32: F32_FMA_FLOPS, torch.bfloat16: BF16_FLOPS}
 
 
 def time_ms(fn) -> float:

@@ -43,8 +43,7 @@ import torch
 
 M, N, BS, ELL = 1 << 22, 1 << 14, 32, 16
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-F32_FMA_FLOPS = 67e12
+from repro_torch.launch.machine import F32_FMA_FLOPS, HBM_BYTES_PER_S
 TOL = {"f": 1e-4, "g": 5e-4, "z": 1e-4}
 GROUP_SLOTS = (8, 40)
 

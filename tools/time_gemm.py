@@ -37,8 +37,7 @@ M, N = 1 << 21, 1024
 M_W, N_W = 1 << 18, 16384
 K_U, K_SKETCH = 16, 26
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-TF32_FLOPS = 495e12
+from repro_torch.launch.machine import HBM_BYTES_PER_S, TF32_FLOPS
 TOL = 1e-4
 
 

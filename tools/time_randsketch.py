@@ -38,8 +38,9 @@ import torch
 
 M, N, R = 1 << 18, 16384, 26
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+from repro_torch.launch.machine import (BF16_FLOPS, F32_FMA_FLOPS,
+                                       HBM_BYTES_PER_S)
+PEAK_FLOPS = {torch.float32: F32_FMA_FLOPS, torch.bfloat16: BF16_FLOPS}
 TOL = 1e-4
 
 

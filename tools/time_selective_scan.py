@@ -32,8 +32,7 @@ import torch
 
 BT, D_INNER = 4, 8192
 REPS = 10
-HBM_BYTES_PER_S = 3.35e12
-EXP_PER_S = 67e12 / 16
+from repro_torch.launch.machine import EXP_PER_S, HBM_BYTES_PER_S
 TOL = 1e-4
 
 

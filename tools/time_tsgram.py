@@ -36,8 +36,8 @@ import torch
 M, N = 1 << 21, 1024
 M_SIM, N_SIM = 1 << 20, 4096
 REPS = 5
-HBM_BYTES_PER_S = 3.35e12
-TF32_FLOPS, BF16_FLOPS, F32_FMA_FLOPS = 495e12, 989e12, 67e12
+from repro_torch.launch.machine import (BF16_FLOPS, F32_FMA_FLOPS,
+                                       HBM_BYTES_PER_S, TF32_FLOPS)
 TOL = 5e-4
 
 
