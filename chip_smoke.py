@@ -164,8 +164,28 @@ gemm or selective_scan kernel spills or has them serialized.  fused_grad is
 fused_grad_multi's kernel with one slot, and fused_grad_bsr
 fused_grad_bsr_multi's.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
+  11. cluster (last, after phase 10 with every earlier matrix freed;
+              about 60 s): phase 3's A (2^21 x 1024) and phase 6's S,
+              each drawn whole from its seed on every rank, their rows
+              split over the ranks of a torch.distributed group started
+              by repro_torch.launch.mesh.spawn: a one-rank NCCL group,
+              then (one card) two gloo ranks sharing the card or (more
+              cards) NCCL, one rank a card.  On each: fused_grad at a
+              fixed x, the Gram eager and at chunks=4 (randsketch a
+              segment), api.svd in Gram and randomized mode (k = 16),
+              TSQR, quad/gra and quad/acc_rb at tol 0 (every iteration
+              run), quad/gra in f32 and precision="psum8" (the int8 wire),
+              and quad/gra fused on S's strips.  The multi-rank group
+              against the one-rank group: f, g and z (CLUSTER_TOL), the
+              Grams, sigma, R, the objectives and A-passes; every rank
+              ends with the same x; each rank's fused_grad (fused_grad_bsr)
+              launches equal its A-passes; psum8's objective within
+              100 x tol of f32's.  Prints the backend, world size and
+              each rank's device, and each all_reduce's median ms with
+              its payload beside the card's name and power limit.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, phase 9
-seven (fd_* in PATHS) and phase 8 one a model: every launch count is set to 0 just before each and read just
+seven (fd_* in PATHS), phase 11 one on every rank and phase 8 one a
+model: every launch count is set to 0 just before each and read just
 after it (in phases 5 and 7, once the grouped server drains, before the
 checks' own launches), and each kernel of the path must have launched
 there.  The last lines are a
@@ -345,7 +365,12 @@ PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          "fd_lasso": ("fused_grad",),
          "fd_coordinate": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul"),
          "fd_block": ("gemm",), "fd_svd": ("tsgram", "gemm"),
-         "fd_serve": ("fused_grad_multi",)}
+         "fd_serve": ("fused_grad_multi",),
+         # Phase 11: A's and S's rows over the ranks of a process group
+         # (every rank's counts; run_phase11 checks them).
+         "cluster": ("fused_grad", "tsgram", "gemm", "randsketch",
+                     "fused_grad_bsr", "fused_grad_multi", "bsr_matvec",
+                     "bsr_rmatmul")}
 
 
 class CheckFailed(RuntimeError):
@@ -3293,6 +3318,335 @@ def run_phase10(api, ops, dev, rows, kernels, lm_kernels, L0) -> dict:
     return rec
 
 
+# -- phase 11: the cluster path -----------------------------------------------
+# Phase 3's A and phase 6's S, their rows split over the ranks of a
+# torch.distributed group (launch/mesh.spawn, one process a rank): with
+# one card a one-rank NCCL group and a two-rank gloo group whose ranks
+# share the card (NCCL takes one rank a card), with more cards NCCL, one
+# rank a card.  Every rank draws the whole matrix from its seed and keeps
+# its strip; the multi-rank group is held to the one-rank group.
+CLUSTER_CHUNKS = 4             # the chunked Gram's column segments
+# Iteration caps of the cluster solves, run at tol 0 so every run takes
+# them all and the A-pass counts compare exactly: quad/gra and quad/acc_rb
+# on A, the psum8 pair (gra at PSUM8_TOL against its f32 twin) and
+# quad/gra fused on S.  acc_rb backtracks: 15 iterations keep its
+# backtracking tests off the f32 rounding floor, where they fall either
+# way (ROADMAP queue 3); at 60 the one- and two-rank runs took 11 and 29
+# backtracks on the CPU at a small size.
+CLUSTER_ITERS = {"gra": 100, "acc_rb": 15, "psum8": 200, "sparse": 30}
+CLUSTER_SLOTS = 8              # fused_grad_multi's right-hand sides
+PSUM8_TOL = 1e-5               # tests/test_precision.py's solve tolerance
+CLUSTER_POWER_ITERS = 20       # S's L0: power iterations on SᵀS, x 1.5
+CLUSTER_TIMEOUT_S = 120        # each process group's collective timeout
+# Normwise relative limits, the multi-rank group against the one-rank:
+# another order of summation for g, the Gram and the solves' objectives.
+CLUSTER_TOL = {"f": TOL["f"], "g": TOL["g"], "z": TOL["z"],
+               "gram": TOL["tsgram"], "sigma": 1e-4, "r": 1e-4,
+               "objective": 1e-5, "orthogonality": 1e-3}
+# all_reduce payloads timed: the fused pass's (g, f), the Gram, psum8's
+# int8 gradient.
+ALLREDUCE_PAYLOADS = (("fused_grad (g, f) f32", N + 1, torch.float32),
+                      ("gram f32", N * N, torch.float32),
+                      ("psum8 g int8", N, torch.int8))
+ALLREDUCE_REPS = 20
+
+
+def _allreduce_ms(group, n: int, dtype, dev) -> float:
+    """Median host-clock ms of one all_reduce of n elements over `group`
+    (synchronized before and after: a collective staged through the host
+    is not on the card's event clock)."""
+    import torch.distributed as dist
+    t = torch.ones(n, dtype=dtype, device=dev)
+    times = []
+    for i in range(ALLREDUCE_REPS + 2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize(dev)
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _wall_ms(fn, dev, reps: int = 5) -> float:
+    """Median host-clock ms of `fn` (synchronized before and after) over
+    `reps` calls after one warm call: a body with collectives staged
+    through the host is not on the card's event clock."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _cluster_solve(api, ops, A, b, method, iters, L0, kernel, dev,
+                   **kw) -> dict:
+    """One api.solve on a sharded matrix at tol 0 (it runs all `iters`):
+    its objective, A-passes, x and the launches of `kernel` it made."""
+    before = ops.launch_counts()[kernel]
+    res = api.solve(api.SolveRequest(A=A, b=b, method=method, tol=0.0,
+                                     max_iters=iters, L0=L0, device=dev,
+                                     **kw))
+    torch.cuda.synchronize(dev)
+    return {"objective": float(res.info["objective"]),
+            "a_passes": int(res.info["a_passes"]),
+            "iterations": int(res.info["iterations"]),
+            "precision": res.info["precision"], "plan": res.info["plan"],
+            "launches": ops.launch_counts()[kernel] - before,
+            "x": res.x.cpu()}
+
+
+def cluster_rank(rank: int, L0: float | None, L0_S: float | None) -> dict:
+    """Phase 11 on one rank of the group launch/mesh.spawn started: the
+    cluster path with the counts zeroed just before and read just after,
+    then the all_reduce timings.  `L0` and `L0_S` (the one-rank group's)
+    are computed here when None.  Returns this rank's results on the
+    CPU."""
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.core.distmat import types as T
+    from repro_torch.core.tfocs.smooth import SmoothQuad
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    mesh = T.make_mesh((world, 1), ("data", "model"), device=dev)
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev), "device_name": torch.cuda.get_device_name(dev)}
+    # Phase 3's A from its seed, then b and x from their own generator;
+    # every rank draws the whole of each and keeps its strip.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = 1.0 + 2.0 * 0.95 ** torch.arange(N, device=dev, dtype=torch.float32)
+    A = torch.randn(M, N, generator=gen, device=dev)
+    A.mul_(d / math.sqrt(N))
+    gen11 = torch.Generator(device=dev).manual_seed(SEED + 11)
+    b = A @ torch.randn(N, generator=gen11, device=dev) \
+        + 0.5 * torch.randn(M, generator=gen11, device=dev)
+    x_fix = 0.1 * torch.randn(N, generator=gen11, device=dev)
+    rm = RowMatrix.create(A, mesh=mesh)
+    del A
+    S_whole = sparse_matrix(dev)
+    xs = torch.randn(N_S, generator=gen11, device=dev) / math.sqrt(
+        ELL_S * BS_S)
+    b_s = S_whole.matvec(xs) + 0.5 * torch.randn(M_S, generator=gen11,
+                                                 device=dev)
+    S = S_whole.remesh(mesh)
+    del S_whole
+    torch.cuda.empty_cache()
+    # fused_grad_multi's slots (x_fix moved, b rescaled) and the vector
+    # of the sparse normal product SᵀS v.
+    X_multi = x_fix + 0.01 * torch.randn(CLUSTER_SLOTS, N, generator=gen11,
+                                         device=dev)
+    quads = [SmoothQuad((1.0 + 0.1 * j) * b) for j in range(CLUSTER_SLOTS)]
+    v_s = torch.randn(N_S, generator=gen11, device=dev) / math.sqrt(N_S)
+    rec["rows"] = [rm.rows.shape[0], S.data.shape[0] * S.bs]
+
+    # -- the cluster path: counts zeroed just before, read just after -----
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    f, g, z = rm.fused_grad(x_fix, SmoothQuad(b))
+    rec["fused_grad"] = {"f": f.cpu(), "g": g.cpu(), "z": z.cpu(),
+                         "shard": rm.shard}
+    f, g, z = rm.fused_grad_multi(X_multi, quads)
+    rec["fused_grad_multi"] = {"f": f.cpu(), "g": g.cpu(), "z": z.cpu()}
+    rec["sparse_normal"] = S.rmatvec(S.matvec(v_s)).cpu()
+    del f, g, z
+    rec["gram"] = rm.gram(chunks=1).cpu()
+    rec["gram_chunked"] = rm.gram(chunks=CLUSTER_CHUNKS).cpu()
+    U, s, _, svd_info = api.compute_svd(rm, K_SVD, mode="gram", device=dev)
+    rec["svd"] = {"sigma": s.cpu(), "a_passes": svd_info["a_passes"],
+                  "u_orthogonality": float(
+                      (U.gram() - torch.eye(K_SVD, device=dev)).abs().max())}
+    Q, R = rm.tall_skinny_qr()
+    rec["tsqr"] = {"R": R.cpu(), "orthogonality": float(
+        (Q.gram() - torch.eye(N, device=dev)).abs().max())}
+    del Q, U
+    rsvd = api.svd(api.SvdRequest(A=rm, k=K_SVD, mode="randomized",
+                                  device=dev))
+    rec["randomized"] = {"sigma": rsvd.factors[1].cpu(),
+                         "a_passes": rsvd.info["a_passes"]}
+    L0 = L0 or float(s[0]) ** 2
+    rec["L0"] = L0
+    rec["solves"] = {
+        method: _cluster_solve(api, ops, rm, b, method,
+                               CLUSTER_ITERS[method], L0, "fused_grad", dev,
+                               precision="f32")
+        for method in ("gra", "acc_rb")}
+    for prec in ("f32", "psum8"):
+        r = api.solve(api.SolveRequest(
+            A=rm, b=b, method="gra", tol=PSUM8_TOL,
+            max_iters=CLUSTER_ITERS["psum8"], L0=L0, precision=prec,
+            device=dev))
+        rec["solves"][f"psum8_{prec}"] = {
+            "objective": float(r.info["objective"]),
+            "iterations": int(r.info["iterations"]),
+            "precision": r.info["precision"], "x": r.x.cpu()}
+    if L0_S is None:
+        v = torch.ones(N_S, device=dev) / math.sqrt(N_S)
+        for _ in range(CLUSTER_POWER_ITERS):
+            w = S.rmatvec(S.matvec(v))
+            lam = float(torch.linalg.vector_norm(w))
+            v = w / lam
+        L0_S = 1.5 * lam
+    rec["L0_S"] = L0_S
+    rec["solves"]["sparse"] = _cluster_solve(
+        api, ops, S, b_s, "gra", CLUSTER_ITERS["sparse"], L0_S,
+        "fused_grad_bsr", dev, precision="f32")
+    torch.cuda.synchronize(dev)
+    rec["path_s"] = time.perf_counter() - t0
+    rec["launches"] = ops.launch_counts()
+    # -----------------------------------------------------------------------
+    group = mesh.group(("data",)) if world > 1 else dist.group.WORLD
+    rec["allreduce_ms"] = {name: {"bytes": n * torch.tensor(
+        [], dtype=dt).element_size(), "ms": _allreduce_ms(group, n, dt, dev)}
+        for name, n, dt in ALLREDUCE_PAYLOADS}
+    # The bodies whole, eager against the overlapped schedule and the f32
+    # wire against psum8's, on this rank's strip with its collectives.
+    quad = SmoothQuad(b)
+    res0 = rm.init_psum_residual()
+    rec["bodies_ms"] = {
+        "gram eager": _wall_ms(lambda: rm.gram(chunks=1), dev),
+        f"gram chunks={CLUSTER_CHUNKS}": _wall_ms(
+            lambda: rm.gram(chunks=CLUSTER_CHUNKS), dev),
+        "fused_grad eager": _wall_ms(lambda: rm.fused_grad(x_fix, quad),
+                                     dev),
+        f"fused_grad chunks={CLUSTER_CHUNKS}": _wall_ms(
+            lambda: rm.fused_grad(x_fix, quad, chunks=CLUSTER_CHUNKS), dev),
+        "fused_grad psum8": _wall_ms(
+            lambda: rm.fused_grad(x_fix, quad, residual=res0), dev)}
+    return rec
+
+
+def check_cluster(one: dict, ranks: list) -> dict:
+    """The multi-rank group's results against the one-rank group's, and
+    each rank's own launch counts."""
+    world = len(ranks)
+    for r in ranks:
+        shard = r["fused_grad"]["shard"]
+        for key in ("fused_grad", "fused_grad_multi"):
+            got_fg, want_fg = r[key], one[key]
+            for part in ("f", "g"):
+                e = rel_err(got_fg[part], want_fg[part])
+                require(e <= CLUSTER_TOL[part], f"cluster rank {r['rank']} "
+                        f"{key}: {part} off by {e:.3e}")
+            # This rank's image rows against the same rows of one rank's.
+            m_local = got_fg["z"].shape[-1]
+            want = want_fg["z"][..., shard * m_local:(shard + 1) * m_local]
+            got = got_fg["z"][..., :want.shape[-1]]
+            require(rel_err(got, want) <= CLUSTER_TOL["z"],
+                    f"cluster rank {r['rank']} {key}: z off by "
+                    f"{rel_err(got, want):.3e}")
+        e = rel_err(r["sparse_normal"], one["sparse_normal"])
+        require(e <= CLUSTER_TOL["g"], f"cluster rank {r['rank']}: SᵀS v "
+                f"off by {e:.3e}")
+        for key in ("gram", "gram_chunked"):
+            e = rel_err(r[key], one["gram"])
+            require(e <= CLUSTER_TOL["gram"], f"cluster {key}: {e:.3e}")
+        e = rel_err(r["svd"]["sigma"], one["svd"]["sigma"])
+        require(e <= CLUSTER_TOL["sigma"], f"cluster Gram SVD sigma {e:.3e}")
+        require(r["svd"]["u_orthogonality"] <= CLUSTER_TOL["orthogonality"],
+                f"cluster U: |U^T U - I| {r['svd']['u_orthogonality']:.3e}")
+        e = rel_err(r["tsqr"]["R"], one["tsqr"]["R"])
+        require(e <= CLUSTER_TOL["r"], f"cluster TSQR R {e:.3e}")
+        require(r["tsqr"]["orthogonality"] <= CLUSTER_TOL["orthogonality"],
+                f"cluster TSQR Q: {r['tsqr']['orthogonality']:.3e}")
+        e = rel_err(r["randomized"]["sigma"], one["randomized"]["sigma"])
+        require(e <= CLUSTER_TOL["sigma"], f"cluster randomized sigma "
+                f"{e:.3e}")
+        for key in ("gra", "acc_rb", "sparse"):
+            got, want = r["solves"][key], one["solves"][key]
+            e = abs(got["objective"] - want["objective"]) \
+                / abs(want["objective"])
+            require(e <= CLUSTER_TOL["objective"]
+                    and got["a_passes"] == want["a_passes"],
+                    f"cluster {key}: objective {got['objective']} against "
+                    f"{want['objective']} ({e:.3e}), A-passes "
+                    f"{got['a_passes']} against {want['a_passes']}")
+            require(got["launches"] == got["a_passes"],
+                    f"cluster rank {r['rank']} {key}: {got['launches']} "
+                    f"launches for {got['a_passes']} A-passes")
+        p8, p32 = r["solves"]["psum8_psum8"], r["solves"]["psum8_f32"]
+        e = abs(p8["objective"] - p32["objective"]) / abs(p32["objective"])
+        require(p8["precision"] == "psum8" and e <= 100 * PSUM8_TOL,
+                f"cluster psum8: {p8['precision']}, objective {e:.3e} from "
+                "the f32 solve's")
+        for name in PATHS["cluster"]:
+            require(r["launches"][name] > 0, f"{name} never launched on "
+                    f"the cluster path (rank {r['rank']})")
+    for key in ("gra", "acc_rb", "sparse", "psum8_psum8"):
+        xs = [r["solves"][key]["x"] for r in ranks]
+        require(all(torch.equal(x, xs[0]) for x in xs),
+                f"cluster {key}: x differs between ranks")
+    head = ranks[0]
+    return {
+        "world": world, "backend": head["backend"],
+        "devices": [r["device"] for r in ranks],
+        "path_s": [r["path_s"] for r in ranks],
+        "one_rank_path_s": one["path_s"],
+        "launches": [r["launches"] for r in ranks],
+        "allreduce_ms": head["allreduce_ms"],
+        "one_rank_allreduce_ms": one["allreduce_ms"],
+        "bodies_ms": head["bodies_ms"],
+        "one_rank_bodies_ms": one["bodies_ms"],
+        "solves": {k: {kk: v for kk, v in s.items() if kk != "x"}
+                   for k, s in head["solves"].items()},
+        "one_rank_solves": {k: {kk: v for kk, v in s.items() if kk != "x"}
+                            for k, s in one["solves"].items()},
+        "sigma_rel": rel_err(head["svd"]["sigma"], one["svd"]["sigma"]),
+        "gram_chunked_rel": rel_err(head["gram_chunked"], head["gram"])}
+
+
+def run_phase11(info: dict) -> dict:
+    """Phase 11: the one-rank group, then the multi-rank group held to
+    it (see the comment above CLUSTER_CHUNKS)."""
+    from repro_torch.launch import mesh as lmesh
+
+    t11 = time.perf_counter()
+    n = torch.cuda.device_count()
+    kw = dict(device="cuda", timeout_s=CLUSTER_TIMEOUT_S, deadline_s=900)
+    one = lmesh.spawn(cluster_rank, 1, args=(None, None), backend="nccl",
+                      **kw)[0]
+    backend, world = ("nccl", n) if n >= 2 else ("gloo", 2)
+    ranks = lmesh.spawn(cluster_rank, world, args=(one["L0"], one["L0_S"]),
+                        backend=backend, **kw)
+    for r in [one] + ranks:
+        print(f"[cluster] backend {r['backend']}, world {r['world']}, rank "
+              f"{r['rank']} on {r['device']} ({r['device_name']}), "
+              f"{r['rows'][0]} rows of A and {r['rows'][1]} of S, path "
+              f"{r['path_s']:.1f} s")
+    rec = check_cluster(one, ranks)
+    for who, r in (("one rank", one), (f"{world} ranks", ranks[0])):
+        for name, t in r["allreduce_ms"].items():
+            print(f"[cluster] all_reduce {name}, {t['bytes']} B, {who} "
+                  f"({r['backend']}): median {t['ms']:.3f} ms; "
+                  f"{info['nvidia_smi']}")
+    for key, s in rec["solves"].items():
+        o = rec["one_rank_solves"][key]
+        print(f"[cluster] {key}: objective {s['objective']:.9e} against "
+              f"{o['objective']:.9e} on one rank, "
+              + (f"{s['a_passes']} A-passes ({s['launches']} launches), "
+                 if "a_passes" in s else "")
+              + f"precision {s['precision']}")
+    for who, r in (("one rank", one), (f"{world} ranks", ranks[0])):
+        print(f"[cluster] bodies, {who} ({r['backend']}), median ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["bodies_ms"].items())
+              + f"; {info['nvidia_smi']}")
+    print(f"[cluster] Gram SVD sigma {rec['sigma_rel']:.3e} from one "
+          f"rank's; chunked Gram {rec['gram_chunked_rel']:.3e} from eager; "
+          f"launches (rank 0) {rec['launches'][0]}")
+    rec["phase_s"] = time.perf_counter() - t11
+    print(f"[cluster] phase 11 in {rec['phase_s']:.1f} s")
+    return rec
+
+
 def smoke(dev: torch.device) -> dict:
     """Phases 2 to 8 on `dev`; returns the numbers to report."""
     from repro_torch import api
@@ -3644,12 +3998,21 @@ def run() -> int:
 
     summary = smoke(dev)
     summary["ptxas"] = ptxas
+    # -- phase 11: the cluster path, in process groups of its own, after
+    # every earlier matrix is freed; each rank zeroes and reads its counts
+    # around the path --------------------------------------------------------
+    torch.cuda.empty_cache()
+    summary["cluster"] = run_phase11(info)
+    for row in summary["kernels"]:
+        row["launches_by_path"]["cluster"] = \
+            summary["cluster"]["launches"][0].get(row["name"], 0)
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
                       "sparse_serve": summary["sparse_serve"],
                       "front_door": summary["front_door"],
                       "lm": summary["lm"], "planner": summary["planner"],
+                      "cluster": summary["cluster"],
                       "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])

@@ -30,9 +30,11 @@ class BlockMatrix(T.DistMatrix):
 
     @staticmethod
     def create(x, *, device="cuda", block_rows: int | None = None,
-               block_cols: int | None = None) -> "BlockMatrix":
+               block_cols: int | None = None, mesh=None) -> "BlockMatrix":
         """`block_rows`/`block_cols` are advisory (Spark's rowsPerBlock):
-        the tile is the whole matrix on one device."""
+        the tile is the whole matrix on one device.  A `mesh` of more
+        than one rank raises (ROADMAP queue 1 item 13)."""
+        device = T.one_device(mesh, device, "BlockMatrix")
         x = T.as_float_tensor(x, T.resolve_device(device))
         if x.dim() != 2:
             raise ValueError(f"BlockMatrix needs a 2-D matrix, got shape "

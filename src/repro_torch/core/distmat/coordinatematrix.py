@@ -67,8 +67,11 @@ class CoordinateMatrix(T.DistMatrix):
 
     @staticmethod
     def create(row_idx, col_idx, values, shape: tuple[int, int], *,
-               device="cuda") -> "CoordinateMatrix":
-        dev = T.resolve_device(device)
+               device="cuda", mesh=None) -> "CoordinateMatrix":
+        """The entries on `device`; a `mesh` of more than one rank raises
+        (ROADMAP queue 1 item 13)."""
+        dev = T.resolve_device(T.one_device(mesh, device,
+                                            "CoordinateMatrix"))
         va = T.as_float_tensor(values, dev)
         ri = torch.as_tensor(row_idx, device=dev).to(torch.int32)
         ci = torch.as_tensor(col_idx, device=dev).to(torch.int32)

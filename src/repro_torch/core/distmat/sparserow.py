@@ -1,11 +1,14 @@
-"""SparseRowMatrix: a row-partitioned block-sparse matrix on one device.
+"""SparseRowMatrix: a row-partitioned block-sparse matrix.
 
 Counterpart of src/repro/core/distmat/sparserow.py.  The reference keeps
 one BlockELL strip of block-rows per device of a TPU mesh and runs each op
-as a shard_map body with a psum; here there is one strip, so each op is
-its body alone.  The stored block-rows may outnumber the true rows (a
-matrix carried over from a multi-device reference keeps its padding);
-padding rows are zero blocks and weigh 0 in every loss.
+as a shard_map body with a psum.  Here each rank of a `Mesh`
+(core/distmat/types) keeps its contiguous strip of block-rows, each op
+runs its body on the strip, and each psum is an all_reduce over the row
+group (compat.py); without a mesh there is one strip on one device and no
+collective.  Every strip has the whole matrix's ELL width.  The stored
+block-rows may outnumber the true rows; padding rows are zero blocks and
+weigh 0 in every loss.
 
 The products run the block-sparse kernels through kernels/ops (plain torch
 for CPU tensors): matvec → bsr_matvec, rmatvec and the sparse Gram →
@@ -20,10 +23,12 @@ which of the two the product's shape favours.  ``bs="auto"`` prices each
 candidate block size at its actual ELL width (plan("bsr_bs")), and
 ``quantize="auto"`` stores int8 blocks where the planner's precision sweep
 admits them at ``tol``.  DIMSUM column similarities
-(``column_similarities``) run on the sparse Gram.
-
-Differences from the reference, each until its ROADMAP item lands:
-``chunks`` stays at 1 and ``residual=`` raises (item 13).
+(``column_similarities``) run on the sparse Gram.  ``residual=`` sends the
+fused gradient over the compressed int8 all_reduce ("psum8"), and
+``chunks`` > 1 all_reduces it a column segment at a time behind the next
+segment's (both arms keep their one fused pass over the stored blocks;
+the reference's dense arm splits its pass, a difference within
+tolerance).
 """
 from __future__ import annotations
 
@@ -35,10 +40,11 @@ import torch.nn.functional as F
 from repro_torch.kernels import bsr as _bsr
 from repro_torch.kernels import ops as _ops
 from repro_torch.launch import planner as _planner
+from repro_torch import compat
 from . import types as T
 from .types import dimsum_gamma  # noqa: F401  (the reference's home)
-from .rowmatrix import _CHUNKS_ITEM as MULTI_GPU_ITEM
-from .rowmatrix import RowMatrix, _check_chunks
+from .rowmatrix import (_SHARD_SEED_STEP, RowMatrix, _record_collective,
+                        _segmented_psum, _Sharded, chunk_bounds)
 
 _DISPATCH = ("auto", "bsr", "dense")
 # Column-strip width of AᵀX with a wide X (the sparse Gram), as in the
@@ -107,13 +113,15 @@ def _entries_block_size(ri, ci, shape, dtype, backend: str, *,
 
 
 @dataclass(frozen=True)
-class SparseRowMatrix(T.DistMatrix):
-    data: torch.Tensor            # (nbr_pad, ell, bs, bs)
-    cols: torch.Tensor            # (nbr_pad, ell) int32
-    dims: tuple[int, int]         # true (m, n) before any padding
+class SparseRowMatrix(_Sharded, T.DistMatrix):
+    data: torch.Tensor            # this strip's (nbr_local, ell, bs, bs)
+    cols: torch.Tensor            # (nbr_local, ell) int32
+    dims: tuple[int, int]         # true global (m, n) before any padding
     nnz: int
-    # Per-stored-block f32 scales (nbr_pad, ell), set iff data is int8.
+    # Per-stored-block f32 scales (nbr_local, ell), set iff data is int8.
     scales: torch.Tensor | None = None
+    mesh: T.Mesh | None = field(default=None, repr=False, compare=False)
+    row_axes: tuple[str, ...] = T.ROW_AXES
     _cache: dict = field(default_factory=dict, init=False, repr=False,
                          compare=False)
 
@@ -121,13 +129,22 @@ class SparseRowMatrix(T.DistMatrix):
     @staticmethod
     def from_dense(a, bs: int | str = "auto", *, device="cuda",
                    nx_hint: int = 128, quantize: str = "none",
-                   tol: float = 1e-3) -> "SparseRowMatrix":
+                   tol: float = 1e-3, mesh=None,
+                   row_axes=None) -> "SparseRowMatrix":
         """Block-compress a dense matrix on `device` (the card unless the
         caller asks for the CPU).  bs="auto" takes plan("bsr_bs")'s block
         size for products of `nx_hint` columns.  `quantize` "int8" stores
         int8 blocks with per-block f32 scales; "auto" stores them where the
-        planner's precision sweep admits int8 at `tol`."""
-        dev = T.resolve_device(device)
+        planner's precision sweep admits int8 at `tol`.  With `mesh`,
+        every rank converts the whole matrix on its device (driver scale,
+        as the reference converts on the host) and keeps its strip of
+        block-rows (``remesh``)."""
+        if mesh is not None and mesh.size > 1:
+            whole = SparseRowMatrix.from_dense(
+                a, bs, device=mesh.device, nx_hint=nx_hint,
+                quantize=quantize, tol=tol)
+            return whole.remesh(mesh, row_axes)
+        dev = T.resolve_device(mesh.device if mesh is not None else device)
         a = T.as_float_tensor(a, dev)
         m, n = a.shape
         if bs == "auto":
@@ -142,14 +159,20 @@ class SparseRowMatrix(T.DistMatrix):
 
     @staticmethod
     def from_entries(row_idx, col_idx, values, shape: tuple[int, int],
-                     bs: int | str = "auto", *,
-                     device="cuda") -> "SparseRowMatrix":
+                     bs: int | str = "auto", *, device="cuda", mesh=None,
+                     row_axes=None) -> "SparseRowMatrix":
         """COO entries → block-ELL without the dense matrix, on `device`:
         entries are binned into (block-row, block-column) keys with one
         torch.unique and one accumulating index_put_, as the reference bins
         them with np.unique and np.add.at; duplicates add up.  bs="auto"
-        prices each candidate at the ELL width the indices give it."""
-        dev = T.resolve_device(device)
+        prices each candidate at the ELL width the indices give it.  With
+        `mesh`, every rank bins all entries and keeps its strip of
+        block-rows (``remesh``)."""
+        if mesh is not None and mesh.size > 1:
+            whole = SparseRowMatrix.from_entries(
+                row_idx, col_idx, values, shape, bs, device=mesh.device)
+            return whole.remesh(mesh, row_axes)
+        dev = T.resolve_device(mesh.device if mesh is not None else device)
         ri = torch.as_tensor(row_idx, device=dev).long()
         ci = torch.as_tensor(col_idx, device=dev).long()
         va = T.as_float_tensor(values, dev)
@@ -199,8 +222,13 @@ class SparseRowMatrix(T.DistMatrix):
         return _rup(self.dims[1], self.bs)
 
     @property
-    def m_pad(self) -> int:
+    def _m_local(self) -> int:
         return self.data.shape[0] * self.bs
+
+    @property
+    def m_pad(self) -> int:
+        """Padded global row count: the strips' block-rows together."""
+        return self._m_local * self.nshards
 
     def block_density(self) -> float:
         """Stored block fraction."""
@@ -242,7 +270,8 @@ class SparseRowMatrix(T.DistMatrix):
         first AᵀX) is built once."""
         if "local" not in self._cache:
             self._cache["local"] = _bsr.BlockELL(
-                self.data, self.cols, (self.m_pad, self.n_pad), self.scales)
+                self.data, self.cols, (self._m_local, self.n_pad),
+                self.scales)
         return self._cache["local"]
 
     def _use_bsr(self, nx: int, dispatch: str) -> bool:
@@ -259,7 +288,7 @@ class SparseRowMatrix(T.DistMatrix):
         if key not in self._cache:
             self._cache[key] = _planner.plan(
                 "sparse_matmul",
-                {"m": self.m_pad, "n": self.n_pad, "nx": max(nx, 1),
+                {"m": self._m_local, "n": self.n_pad, "nx": max(nx, 1),
                  "ell": self.ell, "bs": self.bs}, self.data.dtype,
                 backend=self.device.type).choice == "bsr"
         return self._cache[key]
@@ -268,15 +297,11 @@ class SparseRowMatrix(T.DistMatrix):
         """The padded strip densified (f32 for int8 storage)."""
         return self._local().to_dense()
 
-    def _row_mask(self) -> torch.Tensor:
-        """{0,1} mask of true (non-padding) rows."""
-        idx = torch.arange(self.m_pad, device=self.device)
-        return (idx < self.dims[0]).to(self.out_dtype)
-
     # -- matrix ops ----------------------------------------------------------
     def matvec(self, v: torch.Tensor, *,
                dispatch: str = "auto") -> torch.Tensor:
-        """A v → (m_pad,)."""
+        """A v for a replicated v → this strip's rows (m_pad on one
+        device)."""
         v = torch.as_tensor(v)
         vp = F.pad(v, (0, self.n_pad - self.dims[1]))
         if self._use_bsr(1, dispatch):
@@ -287,54 +312,105 @@ class SparseRowMatrix(T.DistMatrix):
 
     def rmatvec(self, u: torch.Tensor, *,
                 dispatch: str = "auto") -> torch.Tensor:
-        """Aᵀ u for a data-space u (up to m_pad rows) → (n,)."""
-        u = torch.as_tensor(u)
-        up = F.pad(u, (0, self.m_pad - u.shape[0]))
+        """Aᵀ u for a data-space u (the strip's piece, or a global vector
+        cut to it) → (n,) on every rank (one all_reduce)."""
+        up = self._local_data(u)
         if self._use_bsr(1, dispatch):
             out = _ops.bsr_rmatmul(self._local(), up[:, None])[:, 0]
         else:
             dense = self._dense()
-            dt = torch.promote_types(dense.dtype, u.dtype)
+            dt = torch.promote_types(dense.dtype, up.dtype)
             out = dense.to(dt).T @ up.to(dt)
-        return out[: self.dims[1]]
+        return self._psum(out)[: self.dims[1]]
 
     def multiply_local(self, B: torch.Tensor, *,
                        dispatch: str = "auto") -> RowMatrix:
-        """A @ B for a small B, the `U = A (VΣ⁻¹)` pattern.  A sparse matrix
-        times a dense factor is dense, so the result is a RowMatrix of
-        m_pad stored rows."""
+        """A @ B for a small replicated B, the `U = A (VΣ⁻¹)` pattern, on
+        each strip.  A sparse matrix times a dense factor is dense, so the
+        result is a RowMatrix of the strip's stored rows, on this mesh."""
         B = torch.as_tensor(B)
         Bp = F.pad(B, (0, 0, 0, self.n_pad - self.dims[1]))
         if self._use_bsr(B.shape[1], dispatch):
             out = _ops.bsr_matmul(self._local(), Bp)
         else:
             out = _ops.gemm(self._dense(), Bp, out_dtype=B.dtype)
-        return RowMatrix(rows=out, n_rows=self.dims[0])
+        return RowMatrix(rows=out, n_rows=self.dims[0], mesh=self.mesh,
+                         row_axes=self.row_axes)
+
+    def init_psum_residual(self) -> torch.Tensor:
+        """Zeroed f32 error-feedback residual of the compressed ("psum8")
+        fused_grad reduction: this strip's (1, n_pad) row (the kernel's
+        gradient is n_pad long)."""
+        return torch.zeros((1, self.n_pad), dtype=torch.float32,
+                           device=self.device)
 
     def fused_grad(self, x: torch.Tensor, smooth, *, dispatch: str = "auto",
-                   chunks: int = 1, residual=None):
-        """(f(Ax), Aᵀ∇f(Ax), Ax) in one pass over the stored blocks
+                   chunks: int | str = "auto", residual=None):
+        """(f(Ax), Aᵀ∇f(Ax), Ax) in one pass over the strip's stored blocks
         (fused_grad_bsr); `dispatch="dense"` densifies and takes the dense
         fused_grad.  `smooth` is a row-separable smooth or its RowSeparable
-        form; its target/weights get padded to m_pad rows, padding rows
-        weighted 0.  Returns (f32 scalar, (n,) gradient, (m_pad,) image)."""
-        _check_chunks(chunks)
-        if residual is not None:
-            raise NotImplementedError(f"residual= (the compressed gradient "
-                                      f"psum) waits for {MULTI_GPU_ITEM}")
-        kind, t, w, prm = T.row_separable_inputs(smooth, self.m_pad,
-                                                 self._row_mask)
+        form; its target/weights are data-space vectors (global, cut to the
+        strip, or the strip's piece), padding rows weighted 0.  Returns
+        (f32 scalar and (n,) gradient, all_reduced over the row group; the
+        strip's image).
+
+        `chunks` > 1 (planner-chosen on "auto", plan("grad") with this
+        mesh's axis sizes) all_reduces the gradient a column segment at a
+        time, each segment's issued behind the next's.  `residual` (from
+        init_psum_residual) sends it over the compressed int8 wire with
+        error feedback, as RowMatrix.fused_grad does, and returns (f, g,
+        z, new_residual)."""
+        kind, t, w, prm = T.row_separable_inputs(
+            smooth, self._m_local, self._row_mask, self._local_data)
         x = torch.as_tensor(x)
         xp = F.pad(x, (0, self.n_pad - x.shape[0]))
+        n = self.dims[1]
+        if self._one_eager(chunks, residual):
+            f, g, z = self._fused_pass(xp, kind, t, w, prm, dispatch)
+            return f, g[:n], z
+        from repro_torch.launch import telemetry as _tel
+        c, plan = self._resolve_chunks(
+            "grad", chunks, {"m": self._m_local, "n": self.n_pad},
+            self.data.dtype)
+        wire = "int8" if residual is not None else "f32"
+        with _tel.current().span("collective.fused_grad", op="grad",
+                                 n=self.n_pad, chunks=c, wire=wire) as sp:
+            f, g, z = self._fused_pass(xp, kind, t, w, prm, dispatch)
+            out = self._reduce_grad(f, g, z, c, residual)
+            sp.sync_on(out[1])
+        _record_collective(plan, sp, collective="psum", chunks=c, wire=wire)
+        return (out[0], out[1][:n]) + tuple(out[2:])
+
+    def _fused_pass(self, xp, kind, t, w, prm, dispatch):
+        """The strip's (f, g, z) before any reduction: fused_grad_bsr over
+        the stored blocks, or the dense fused_grad on the densified strip."""
         if self._use_bsr(1, dispatch):
-            f, g, z = _ops.fused_grad_bsr(self._local(), xp, t, w, loss=kind,
-                                          param=prm)
-        else:
-            dense = self._dense()
-            if dense.dtype not in (torch.float32, torch.bfloat16):
-                dense = dense.float()
-            f, g, z = _ops.fused_grad(dense, xp, t, w, loss=kind, param=prm)
-        return f, g[: self.dims[1]], z
+            return _ops.fused_grad_bsr(self._local(), xp, t, w, loss=kind,
+                                       param=prm)
+        dense = self._dense()
+        if dense.dtype not in (torch.float32, torch.bfloat16):
+            dense = dense.float()
+        return _ops.fused_grad(dense, xp, t, w, loss=kind, param=prm)
+
+    def _reduce_grad(self, f, g, z, c: int, residual):
+        """(f, g) all_reduced over the row group: g in `c` column segments
+        (each issued behind the next), over the int8 wire when a residual
+        came in (then its update rides along)."""
+        from repro_torch.train import compression as _comp
+        mesh, axes, nsh = self.mesh, self.row_axes, self.nshards
+        bounds = chunk_bounds(self.n_pad, c) if c > 1 \
+            else ((0, self.n_pad),)
+        if residual is not None:
+            outs = [_comp.psum_int8(g[s0:s1], residual[0, s0:s1], mesh,
+                                    axes, nsh) for s0, s1 in bounds]
+            return (self._psum(f), torch.cat([o[0] for o in outs]), z,
+                    torch.cat([o[1] for o in outs])[None])
+        if c > 1:
+            return (self._psum(f),
+                    _segmented_psum([g[s0:s1] for s0, s1 in bounds], mesh,
+                                    axes), z)
+        fg = self._psum(torch.cat([g, f.reshape(1).to(g.dtype)]))
+        return fg[-1].to(f.dtype), fg[:-1], z
 
     def fused_grad_multi(self, x: torch.Tensor, smooths, *,
                          dispatch: str = "auto"):
@@ -347,8 +423,8 @@ class SparseRowMatrix(T.DistMatrix):
         with stacked targets, padded to m_pad rows with padding rows
         weighted 0.  Returns ((k,) values, (k × n) gradients, (k × m_pad)
         images)."""
-        kind, t, w, prm = T.row_separable_batch_inputs(smooths, self.m_pad,
-                                                       self._row_mask)
+        kind, t, w, prm = T.row_separable_batch_inputs(
+            smooths, self._m_local, self._row_mask, self._local_data)
         x = torch.atleast_2d(torch.as_tensor(x))
         xp = F.pad(x, (0, self.n_pad - x.shape[1]))
         if self._use_bsr(1, dispatch):
@@ -360,6 +436,10 @@ class SparseRowMatrix(T.DistMatrix):
                 dense = dense.float()
             f, g, z = _ops.fused_grad_multi(dense, xp, t, w, loss=kind,
                                             param=prm)
+        if self.nshards > 1:
+            k = g.shape[0]
+            fg = self._psum(torch.cat([g.reshape(-1), f.to(g.dtype)]))
+            f, g = fg[-k:].to(f.dtype), fg[:-k].reshape(g.shape)
         return f, g[:, : self.dims[1]], z
 
     def gram(self, *, dispatch: str = "auto") -> torch.Tensor:
@@ -382,7 +462,7 @@ class SparseRowMatrix(T.DistMatrix):
                 dense = dense.float()
             g = _ops.tsgram(dense, out_dtype=torch.float32)
         n = self.dims[1]
-        return g[:n, :n].to(self.out_dtype)
+        return self._psum(g)[:n, :n].to(self.out_dtype)
 
     def _dense_columns(self, c0: int, c1: int) -> torch.Tensor:
         """Columns [c0, c1) of the padded strip densified in f32 (c0 and c1
@@ -405,7 +485,7 @@ class SparseRowMatrix(T.DistMatrix):
 
     def frobenius_norm(self) -> torch.Tensor:
         d = self.dequantize().data.float()
-        return torch.sqrt((d * d).sum())
+        return torch.sqrt(self._psum((d * d).sum()))
 
     def column_norms(self) -> torch.Tensor:
         """Per-column L2 norms in f32 (the DIMSUM scaling vector), summed
@@ -428,7 +508,8 @@ class SparseRowMatrix(T.DistMatrix):
                                 minlength=self.n_pad // bs)
         ends = torch.cumsum(counts, dim=0)
         out = prefix[ends] - prefix[ends - counts]    # (nbc, bs)
-        return torch.sqrt(out.reshape(-1)[: self.dims[1]]).float()
+        out = self._psum(out.reshape(-1))
+        return torch.sqrt(out[: self.dims[1]]).float()
 
     def scale_columns(self, d: torch.Tensor) -> "SparseRowMatrix":
         """A · diag(d), scaling the stored blocks (the pattern is
@@ -458,7 +539,11 @@ class SparseRowMatrix(T.DistMatrix):
 
     def _sampled(self, p, scale, gen) -> "SparseRowMatrix":
         """Sampled DIMSUM's copy of the stored blocks: entry (k, i) kept
-        with probability p[i] and scaled by scale[i], in f32."""
+        with probability p[i] and scaled by scale[i], in f32.  Strip i > 0
+        reseeds `gen` (as RowMatrix._sampled does)."""
+        if self.shard:
+            gen.manual_seed((gen.initial_seed()
+                             + self.shard * _SHARD_SEED_STEP) % (1 << 63))
         pad = self.n_pad - self.dims[1]
         pb = F.pad(p, (0, pad)).reshape(-1, self.bs)
         sb = F.pad(scale, (0, pad)).reshape(-1, self.bs)
@@ -479,30 +564,75 @@ class SparseRowMatrix(T.DistMatrix):
         self.data.square_()
         return self
 
-    # -- what waits for later slices ------------------------------------------
-    def remesh(self, *args, **kw):
-        raise NotImplementedError(f"remesh waits for {MULTI_GPU_ITEM}")
+    # -- meshes --------------------------------------------------------------
+    def _whole(self) -> tuple:
+        """(data, cols, scales) of every block-row, on every rank (the
+        strips all_gathered in order; the stored tensors on one strip)."""
+        if self.nshards == 1:
+            return self.data, self.cols, self.scales
 
-    def init_psum_residual(self):
-        raise NotImplementedError(
-            f"init_psum_residual waits for {MULTI_GPU_ITEM}")
+        def gather(t):
+            p = compat.all_gather(t, self.mesh, self.row_axes)
+            return p.reshape(-1, *t.shape[1:])
+
+        return (gather(self.data), gather(self.cols),
+                None if self.scales is None else gather(self.scales))
+
+    def remesh(self, mesh: T.Mesh | None,
+               row_axes=None) -> "SparseRowMatrix":
+        """The same logical matrix on another mesh (every rank of both
+        calls it): the block-rows gathered, re-padded for the new shard
+        count (padding block-rows hold zero blocks at column 0, int8 scale
+        1, which add nothing) and cut to this rank's strip.  Block size,
+        ELL width and the stored blocks are unchanged."""
+        data, cols, scales = self._whole()
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        row_axes = tuple(row_axes) if row_axes else T.row_axes_for(mesh)
+        nsh = T.axes_size(mesh, row_axes)
+        nbr_true = _rup(self.dims[0], self.bs) // self.bs
+        nbr_pad = _rup(max(nbr_true, 1), nsh)
+        r0, nbr_local = T.shard_range(nbr_pad, nsh,
+                                      compat.axis_index(mesh, row_axes))
+
+        def strip(t, fill):
+            piece = t[r0:min(r0 + nbr_local, t.shape[0])]
+            extra = nbr_local - piece.shape[0]
+            if extra:
+                piece = torch.cat([piece, torch.full(
+                    (extra, *t.shape[1:]), fill, dtype=t.dtype,
+                    device=t.device)])
+            return piece.clone()
+
+        return SparseRowMatrix(
+            strip(data, 0), strip(cols, 0), dims=self.dims, nnz=self.nnz,
+            scales=None if scales is None else strip(scales, 1.0),
+            mesh=mesh, row_axes=row_axes)
 
     # -- conversions ---------------------------------------------------------
     def to_row_matrix(self) -> RowMatrix:
-        """The strip densified in place: a RowMatrix of m_pad stored rows."""
+        """The strip densified in place: a RowMatrix of the strip's stored
+        rows, on this mesh."""
         dense = self._dense()[:, : self.dims[1]]
         if dense.dtype not in (torch.float32, torch.bfloat16):
             dense = dense.float()
-        return RowMatrix(rows=dense.contiguous(), n_rows=self.dims[0])
+        return RowMatrix(rows=dense.contiguous(), n_rows=self.dims[0],
+                         mesh=self.mesh, row_axes=self.row_axes)
 
     def to_local(self) -> torch.Tensor:
-        return self._dense()[: self.dims[0], : self.dims[1]]
+        """The whole matrix densified, on every rank (driver scale)."""
+        dense = self._dense()
+        if self.nshards > 1:
+            dense = compat.all_gather(dense, self.mesh, self.row_axes)
+            dense = dense.reshape(-1, self.n_pad)
+        return dense[: self.dims[0], : self.dims[1]]
 
     def transpose(self) -> "SparseRowMatrix":
         """Aᵀ with the same block size, through the dense matrix (the
-        reference's driver-scale transpose)."""
-        return SparseRowMatrix.from_dense(self.to_local().T, bs=self.bs,
-                                          device=self.device)
+        reference's driver-scale transpose), on this mesh."""
+        return SparseRowMatrix.from_dense(
+            self.to_local().T, bs=self.bs, device=self.device,
+            mesh=self.mesh, row_axes=self.row_axes)
 
     # -- linalg entry point --------------------------------------------------
     def compute_svd(self, k: int, **kw):

@@ -1,19 +1,205 @@
-"""Device resolution, row padding and the DistMatrix protocol.
+"""Meshes, device resolution, row padding and the DistMatrix protocol.
 
 Counterpart of src/repro/core/distmat/types.py.  The reference lays a
-matrix out over a TPU mesh; the port runs on one device, so there is one
-row shard and the cross-shard sum (psum) is the identity.  The padded-row
-semantics stay: `rows` may hold more rows than `n_rows`, and padding rows
-carry weight 0 in every loss.
+matrix out over a TPU mesh (a NamedSharding); the port lays it out over a
+`Mesh` of torch.distributed ranks, one process a rank.  Rows shard over
+every axis but "model" (``row_axes_for``): each rank holds the contiguous,
+zero-padded strip of rows its flat index along the row axes names
+(``shard_range``) as a plain local tensor, and the ranks that differ only
+along "model" hold the same rows.  "Driver" quantities (the paper's
+vectors) are plain tensors with the same bits on every rank.  A matrix
+made without a mesh lives on one device: one row shard, and every
+collective is the identity.  Padding rows carry weight 0 in every loss.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+# Default logical axis names, as in the reference: rows shard over the
+# batch-like axes ("pod" and "data"), "model" replicates them.
+ROW_AXES = ("data",)
+COL_AXIS = "model"
+
+
+def _axes(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Mesh:
+    """A grid of torch.distributed ranks with named axes (the reference's
+    ``jax.sharding.Mesh``).  `shape` maps each axis name to its size, as
+    the reference's ``mesh.shape`` does; `device` is this rank's device.
+    A mesh of more than one rank wraps
+    ``torch.distributed.device_mesh.init_device_mesh`` (one process group
+    an axis) and adds one group for its row axes when they are several
+    ("pod" x "data"); build it with ``make_mesh`` on every rank alike."""
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str],
+                 device: torch.device, device_mesh=None):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.device = device
+        self.device_mesh = device_mesh
+        self.coordinate = tuple(device_mesh.get_coordinate()) \
+            if device_mesh is not None else (0,) * len(self.axis_names)
+        self._groups: dict = {}
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, device={self.device})"
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    def _ordered(self, axes) -> tuple[str, ...]:
+        axes = set(_axes(axes))
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's flat index along `axes`, major to minor in the
+        mesh's axis order."""
+        idx = 0
+        for a in self._ordered(axes):
+            idx = idx * self.shape[a] + \
+                self.coordinate[self.axis_names.index(a)]
+        return idx
+
+    def members(self, axes) -> list[int]:
+        """Global ranks of this rank's group along `axes`, in flat-index
+        order (the order ``index`` counts in)."""
+        if self.device_mesh is None:
+            return [0]
+        grid = self.device_mesh.mesh
+        sel = tuple(slice(None) if a in _axes(axes) else c
+                    for a, c in zip(self.axis_names, self.coordinate))
+        return [int(r) for r in grid[sel].reshape(-1)]
+
+    def group(self, axes):
+        """The process group of this rank's ranks along `axes`."""
+        key = self._ordered(axes)
+        if key in self._groups:
+            return self._groups[key]
+        if len(key) == 1:
+            return self.device_mesh.get_group(key[0])
+        raise ValueError(f"no process group for axes {key}: make_mesh "
+                         "creates the row axes' group only")
+
+
+def _make_group(mesh: Mesh, axes: tuple[str, ...]) -> None:
+    """Create the group of several axes on every rank (a collective
+    call: every rank enumerates every group in the same order)."""
+    grid = mesh.device_mesh.mesh
+    pos = [mesh.axis_names.index(a) for a in axes]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in pos]
+    groups = grid.permute(*rest, *pos).reshape(-1, mesh.axes_size(axes))
+    mine, _ = dist.new_subgroups_by_enumeration(groups.tolist())
+    mesh._groups[axes] = mine
+
+
+@functools.cache
+def _single(device: torch.device) -> Mesh:
+    return Mesh((1, 1), ("data", "model"), device)
+
+
+def single_device_mesh(device="cuda") -> Mesh:
+    """A (1, 1) mesh on one device: one row shard, no collective."""
+    return _single(resolve_device(device))
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], *,
+              device="cuda") -> Mesh:
+    """The mesh `shape` over axes `names`, on every rank of the default
+    process group (its world size must be the mesh's size); `device` is
+    this rank's (the card unless the caller asks for the CPU).  A
+    one-rank mesh needs no process group."""
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    dev = resolve_device(device)
+    if math.prod(shape) == 1:
+        return Mesh(shape, names, dev)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape} mesh needs torch.distributed's "
+                           "process group (launch/mesh.spawn, or torchrun)")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
+                         f"process group has {dist.get_world_size()}")
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    mesh = Mesh(shape, names, dev, dm)
+    rows = row_axes_for(mesh)
+    if len(rows) > 1:
+        _make_group(mesh, rows)
+    return mesh
+
+
+MULTI_GPU_ITEM = "ROADMAP queue 1 item 13 (multi-GPU)"
+
+
+def one_device(mesh: Mesh | None, device, what: str):
+    """The device of a type that lives on one device: `device`, or a
+    one-rank mesh's; a mesh of more ranks raises, naming the item."""
+    if mesh is None:
+        return device
+    if mesh.size > 1:
+        raise NotImplementedError(f"{what} on a mesh of {mesh.size} ranks "
+                                  f"waits for {MULTI_GPU_ITEM}")
+    return mesh.device
+
+
+def row_axes_for(mesh: Mesh | None) -> tuple[str, ...]:
+    """Every mesh axis that shards rows: ("pod", "data") on a multi-pod
+    mesh."""
+    if mesh is None:
+        return ROW_AXES
+    return tuple(n for n in mesh.axis_names if n != COL_AXIS)
+
+
+def axes_size(mesh: Mesh | None, axes: Sequence[str]) -> int:
+    return 1 if mesh is None else mesh.axes_size(axes)
+
+
+def shard_range(m: int, nshards: int, index: int) -> tuple[int, int]:
+    """Rows [r0, r0 + m_local) of a matrix of `m` rows that shard `index`
+    of `nshards` owns, the rows padded to a multiple of `nshards` (rows
+    past `m` are padding)."""
+    m_local = -(-m // max(nshards, 1))
+    return index * m_local, m_local
+
+
+def shard_rows(x, nshards: int, index: int, device: torch.device
+               ) -> torch.Tensor:
+    """Shard `index`'s zero-padded strip of `x`'s rows (axis 0), on
+    `device`; `x` is global (numpy or tensor) and only the strip moves."""
+    x = torch.as_tensor(x)
+    r0, m_local = shard_range(x.shape[0], nshards, index)
+    piece = as_float_tensor(x[r0:r0 + m_local], device).contiguous()
+    short = m_local - piece.shape[0]
+    return torch.cat([piece, piece.new_zeros((short, *piece.shape[1:]))]) \
+        if short else piece
+
+
+def local_data(v, m_local: int, nshards: int, index: int) -> torch.Tensor:
+    """This shard's piece of a data-space vector (last axis): a global
+    vector (the true or the padded row count) is cut to the shard's rows;
+    one of the shard's length passes through; a shorter one is padded."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(v)
+    if v.shape[-1] == m_local:
+        return v
+    if nshards > 1:
+        r0 = index * m_local
+        v = v[..., r0:r0 + m_local]
+    return F.pad(v, (0, m_local - v.shape[-1])) \
+        if v.shape[-1] < m_local else v
 
 
 def resolve_device(device) -> torch.device:
@@ -48,24 +234,27 @@ def _pad1(v: torch.Tensor, m_pad: int) -> torch.Tensor:
     return F.pad(v, (0, m_pad - v.shape[0])) if v.shape[0] < m_pad else v
 
 
-def row_separable_inputs(smooth, m_pad: int, row_mask_fn: Callable):
+def row_separable_inputs(smooth, m_pad: int, row_mask_fn: Callable,
+                         local: Callable | None = None):
     """Resolve a smooth (or its RowSeparable form) into fused-gradient
     kernel inputs: (kind, target, weights, param) with the data-space
-    vectors padded to `m_pad` rows.  Default weights come from
+    vectors padded to `m_pad` rows, or cut to this shard's by `local`
+    (a distributed matrix's ``_local_data``).  Default weights come from
     `row_mask_fn()` so padding rows contribute nothing; explicit weights are
     zero-padded, same effect."""
+    local = local or (lambda v: _pad1(torch.as_tensor(v), m_pad))
     sep = smooth if hasattr(smooth, "kind") else (
         smooth.as_row_separable()
         if hasattr(smooth, "as_row_separable") else None)
     if sep is None:
         raise ValueError("fused_grad needs a row-separable smooth")
-    t = _pad1(torch.as_tensor(sep.target), m_pad)
-    w = row_mask_fn() if sep.weights is None \
-        else _pad1(torch.as_tensor(sep.weights), m_pad)
+    t = local(sep.target)
+    w = row_mask_fn() if sep.weights is None else local(sep.weights)
     return sep.kind, t, w, float(getattr(sep, "param", 1.0))
 
 
-def row_separable_batch_inputs(smooths, m_pad: int, row_mask_fn: Callable):
+def row_separable_batch_inputs(smooths, m_pad: int, row_mask_fn: Callable,
+                               local: Callable | None = None):
     """Resolve a group of row-separable smooths into multi-RHS fused kernel
     inputs: (kind, targets (k × m_pad), weights (k × m_pad), param).
 
@@ -99,9 +288,10 @@ def row_separable_batch_inputs(smooths, m_pad: int, row_mask_fn: Callable):
         raise ValueError(
             f"a fused group must share one loss kind/param, got "
             f"{sorted(kinds)} / {sorted(params)}")
+    local = local or (lambda v: _pad1(v, m_pad))
     mask = row_mask_fn()
-    t2 = torch.stack([_pad1(t, m_pad) for t in ts])
-    w2 = torch.stack([mask if w is None else _pad1(w, m_pad) for w in ws])
+    t2 = torch.stack([local(t) for t in ts])
+    w2 = torch.stack([mask if w is None else local(w) for w in ws])
     return kinds.pop(), t2, w2, params.pop()
 
 

@@ -24,6 +24,11 @@ reference planner's rule (launch/planner.py, op "svd"): Lanczos for every
 type but RowMatrix; for a RowMatrix gram for n ≤ gram_threshold, else
 randomized for k ≤ randomized_k_threshold, else Lanczos.  U comes back
 for RowMatrix and SparseRowMatrix only, as in the reference.
+
+On a mesh every mode runs on the row shards: the Gram and the projections
+all_reduce over the row group, TSQR gathers the shards' R factors, and
+every small factorization runs on each rank alike, so s and V have the
+same bits on every rank and U comes back as a RowMatrix sharded like A.
 """
 from __future__ import annotations
 
@@ -70,7 +75,8 @@ def _transpose(A):
     if isinstance(A, (CoordinateMatrix, SparseRowMatrix)):
         return A.transpose()
     if isinstance(A, RowMatrix):
-        return RowMatrix.create(A.to_local().T, device=A.device)
+        return RowMatrix.create(A.to_local().T, device=A.device,
+                                mesh=A.mesh, row_axes=A.row_axes)
     return None
 
 
@@ -86,7 +92,10 @@ def _swap_transposed(A, At, res: SVDResult, compute_u: bool,
                           1.0 / torch.clamp(s, min=1e-30), 0.0)
         V = torch.stack([At.matvec(res.V[:, i]) * inv[i]
                          for i in range(res.V.shape[1])], dim=1)
-    U = RowMatrix.create(res.V, device=A.device) if compute_u else None
+    U = RowMatrix.create(res.V, device=A.device,
+                         mesh=getattr(A, "mesh", None),
+                         row_axes=getattr(A, "row_axes", None)) \
+        if compute_u else None
     return SVDResult(U=U, s=s, V=V,
                      info=dict(res.info or {}, transposed=True))
 

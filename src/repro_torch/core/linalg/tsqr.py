@@ -1,9 +1,11 @@
 """Tall-and-skinny QR (paper §3.4, Benson–Gleich–Demmel indirect TSQR).
 
-Counterpart of src/repro/core/linalg/tsqr.py on one device: the map step is
-a local QR keeping R, the reduce step re-factors the (single) stacked R, and
-Q = A R⁻¹ comes back through the gemm kernel, the same "broadcast the small
-factor" pattern as U recovery in the SVD.
+Counterpart of src/repro/core/linalg/tsqr.py: the map step is each
+shard's local QR keeping R, the reduce step gathers the shards' Rs on
+every rank (one all_gather) and re-factors the stack there, the same on
+every rank, and Q = A R⁻¹ comes back through the gemm kernel on each
+shard, the same "broadcast the small factor" pattern as U recovery in the
+SVD.  On one shard the stack is that shard's R.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from dataclasses import replace
 
 import torch
 
+from repro_torch import compat
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.kernels import ops as _ops
 
@@ -23,13 +26,16 @@ def _nonneg_diag(R: torch.Tensor) -> torch.Tensor:
 
 
 def tsqr(A: RowMatrix) -> tuple[RowMatrix, torch.Tensor]:
-    """Returns (Q as RowMatrix, R (n, n)) with A = Q R."""
+    """Returns (Q as RowMatrix, sharded like A; R (n, n) on every rank)
+    with A = Q R."""
     a = A.rows
     n = a.shape[1]
     # Map: local QR, keep R (padding rows are zero and change nothing).
     local = _nonneg_diag(torch.linalg.qr(a.float(), mode="r")[1])
-    # Reduce: QR of the stacked R factors (one shard here).
-    R = _nonneg_diag(torch.linalg.qr(local, mode="r")[1])
+    # Reduce: QR of the shards' R factors stacked in shard order.
+    stacked = compat.all_gather(local, A.mesh, A.row_axes)
+    R = _nonneg_diag(torch.linalg.qr(stacked.reshape(-1, n),
+                                     mode="r")[1])
     r_inv = torch.linalg.solve_triangular(
         R, torch.eye(n, dtype=R.dtype, device=R.device), upper=True)
     return replace(A, rows=_ops.gemm(a, r_inv, out_dtype=a.dtype)), R

@@ -127,8 +127,8 @@ def lbfgs_composite(smooth, linop, prox=None, x0: torch.Tensor | None = None,
                          "regularizer into the smooth part (e.g. "
                          "SmoothHuberL1) or use acc_rb.")
     opts = opts or TfocsOptions()
-    linop, prec = store_precision(linop, resolve_precision(linop, opts),
-                                  wire=False)
+    linop, prec, _ = store_precision(linop, resolve_precision(linop, opts),
+                                     wire=False)
     if x0 is None:
         x0 = torch.zeros(linop.in_shape, dtype=torch.float32,
                          device=linop.device)
@@ -142,9 +142,11 @@ def lbfgs_composite(smooth, linop, prox=None, x0: torch.Tensor | None = None,
 
         passes_per_eval = 1
     else:
+        dsum = getattr(linop, "data_sum", None) or (lambda t: t)
+
         def value_and_grad(x):
             z = linop.apply(x)
-            return smooth.value(z), linop.adjoint(smooth.grad(z))
+            return dsum(smooth.value(z)), linop.adjoint(smooth.grad(z))
 
         passes_per_eval = 2
 

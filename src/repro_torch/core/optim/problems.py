@@ -12,11 +12,14 @@ reference's numpy draws, call for call, so A, b and y are bit for bit the
 reference's; the composite lives on a RowMatrix on `device` (the card
 unless the caller asks for the CPU).
 
-Differences from the reference: `device=` takes the place of `mesh=` (a
-mesh waits for ROADMAP queue 1 item 13), and L's power iteration runs on
+`mesh=` shards A's rows over a mesh (core/distmat/types); every rank
+draws the same numpy data and keeps its strip, and b and y are cut to the
+strip by the operator's `pad_data`.  Differences from the reference:
+`device=` places a one-device problem, and L's power iteration runs on
 A's device (the same numpy start vector and 50 iterations of Aᵀ(A v) in
-float64, A read a float32 chunk of rows at a time), where the reference
-runs it in numpy on the host.
+float64, A read a float32 chunk of rows at a time, each step's Aᵀ(A v)
+all_reduced over the row shards), where the reference runs it in numpy
+on the host.
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.core.distmat import types as T
-from repro_torch.core.distmat.rowmatrix import _CHUNKS_ITEM as MULTI_GPU_ITEM
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.core.tfocs import (LinopMatrix, ProxL1, ProxL2Sq, ProxZero,
                                     SmoothHuberL1, SmoothLogLoss, SmoothQuad)
@@ -47,11 +50,19 @@ class Problem:
     L: float                     # Lipschitz bound (‖A‖² · curvature)
 
 
-def _lipschitz_sq_norm(rows: torch.Tensor) -> float:
+def _lipschitz_sq_norm(A) -> float:
     """‖A‖₂² by 50 power iterations in float64 on A's device, from the
-    reference's numpy start vector; each iteration reads A once, a chunk of
-    rows at a time."""
+    reference's numpy start vector; each iteration reads A (a tensor or a
+    RowMatrix) once, a chunk of rows at a time (a RowMatrix's shard, the
+    sums all_reduced over its row group)."""
+    if isinstance(A, RowMatrix):
+        rows, mesh, axes = A.rows, A.mesh, A.row_axes
+    else:
+        rows, mesh, axes = A, None, ()
     n = rows.shape[1]
+
+    def psum(t):
+        return compat.psum(t, mesh, axes)
     step = max(1, _CHUNK_ELEMS // max(n, 1))
     v = torch.from_numpy(np.random.default_rng(0).normal(size=n)).to(
         rows.device)
@@ -64,17 +75,15 @@ def _lipschitz_sq_norm(rows: torch.Tensor) -> float:
         w = torch.zeros_like(v)
         for c in chunks():
             w += c.T @ (c @ v)
+        w = psum(w)
         v = w / torch.linalg.vector_norm(w)
-    return float(sum(torch.sum((c @ v) ** 2) for c in chunks()))
+    return float(psum(sum(torch.sum((c @ v) ** 2) for c in chunks())))
 
 
 def make_problem(name: str, *, m: int = 10000, n: int = 1024,
                  device="cuda", mesh=None, seed: int = 0,
                  lam: float | None = None, dtype=np.float32) -> Problem:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= waits for {MULTI_GPU_ITEM}; "
-                                  "pass device= instead")
-    dev = T.resolve_device(device)
+    dev = mesh.device if mesh is not None else T.resolve_device(device)
     rng = np.random.default_rng(seed)
     if name.startswith("linear"):
         n_eff = n
@@ -84,11 +93,11 @@ def make_problem(name: str, *, m: int = 10000, n: int = 1024,
         xtrue[:k_true] = rng.normal(size=k_true).astype(dtype)
         b = (A @ xtrue + 0.1 * rng.normal(size=m)).astype(dtype)
         lam = 1.0 if lam is None else lam
-        linop = LinopMatrix(RowMatrix.create(A, device=dev))
+        linop = LinopMatrix(RowMatrix.create(A, device=dev, mesh=mesh))
         del A
         quad = SmoothQuad(b=linop.pad_data(torch.from_numpy(b).to(dev)),
                           weights=linop.row_weights())
-        L = _lipschitz_sq_norm(linop.A.rows)
+        L = _lipschitz_sq_norm(linop.A)
         if name == "linear":
             return Problem(name, linop, quad, ProxZero(), quad, L)
         if name == "linear_l1":
@@ -101,11 +110,11 @@ def make_problem(name: str, *, m: int = 10000, n: int = 1024,
         A = (y[:, None] * mu[None, :]
              + rng.normal(size=(m, n_eff))).astype(dtype)
         lam = 1e-2 if lam is None else lam
-        linop = LinopMatrix(RowMatrix.create(A, device=dev))
+        linop = LinopMatrix(RowMatrix.create(A, device=dev, mesh=mesh))
         del A
         ll = SmoothLogLoss(y=linop.pad_data(torch.from_numpy(y).to(dev)),
                            weights=linop.row_weights())
-        L = 0.25 * _lipschitz_sq_norm(linop.A.rows)    # σ'' ≤ 1/4
+        L = 0.25 * _lipschitz_sq_norm(linop.A)    # σ'' ≤ 1/4
         if name == "logistic":
             return Problem(name, linop, ll, ProxZero(), ll, L)
         if name == "logistic_l2":
@@ -135,7 +144,8 @@ class _WithL2:
 
 def composite_value(problem: Problem, x: torch.Tensor) -> torch.Tensor:
     z = problem.linop.apply(x)
-    return problem.smooth.value(z) + problem.prox.value(x)
+    return (problem.linop.data_sum(problem.smooth.value(z))
+            + problem.prox.value(x))
 
 
 def lbfgs_value_and_grad(problem: Problem, fused: bool | str = "auto"):
@@ -152,7 +162,7 @@ def lbfgs_value_and_grad(problem: Problem, fused: bool | str = "auto"):
             f, g, _ = linop.fused_grad(x, sep)       # ← ONE A-pass
         else:
             z = linop.apply(x)
-            f = problem.smooth.value(z)
+            f = linop.data_sum(problem.smooth.value(z))
             g = linop.adjoint(problem.smooth.grad(z))
         if isinstance(prox, ProxL1):
             reg = SmoothHuberL1(prox.lam)

@@ -6,6 +6,14 @@ row-separable smooth's value, gradient and image in one pass over A, and
 `fused_grad_multi` does the same for a group of k right-hand sides in one
 pass.  `LinopAdjoint` swaps another operator's apply and adjoint (the
 smoothed-LP dual).
+
+The reference's solver math "sees global arrays".  In the port an
+operator over a row-sharded matrix hands each rank its shard of the data
+space: `apply` returns the shard's rows of Ax, `pad_data` cuts a global
+data-space vector to the shard, and `data_sum` all_reduces a partial sum
+over data space (a smooth's value, a data-space dot) across the row
+group, so the engines' scalars have the same bits on every rank.  The
+variable x and `adjoint`'s output stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.core.distmat.sparserow import SparseRowMatrix
@@ -34,10 +43,10 @@ class LinopMatrix:
 
     @property
     def out_shape(self) -> tuple[int, ...]:
-        # Padded row count: data-space vectors are padded to it (pad_data).
-        if isinstance(self.A, RowMatrix):
-            return (self.A.rows.shape[0],)
-        if isinstance(self.A, SparseRowMatrix):
+        # Padded global row count, as the reference's; each rank's
+        # data-space vectors hold out_shape[0] // row_shards() of it
+        # (pad_data).
+        if isinstance(self.A, _DIST):
             return (self.A.m_pad,)
         return (self.A.shape[0],)
 
@@ -55,10 +64,15 @@ class LinopMatrix:
             return self.A.rmatvec(y)
         return self.A.T @ y
 
-    def fused_grad(self, x: torch.Tensor, sep):
+    def fused_grad(self, x: torch.Tensor, sep, residual=None):
         """(f(Ax), Aᵀ∇f(Ax), Ax) in one streaming pass over A for a
-        row-separable smooth; `sep` is its RowSeparable form."""
+        row-separable smooth; `sep` is its RowSeparable form.  `residual`
+        (a distributed operand's init_psum_residual) sends the gradient
+        over the compressed int8 wire and returns (f, g, z,
+        new_residual)."""
         if isinstance(self.A, _DIST):
+            if residual is not None:
+                return self.A.fused_grad(x, sep, residual=residual)
             return self.A.fused_grad(x, sep)
         kind, t, w, prm = T.row_separable_inputs(
             sep, self.out_shape[0], self.row_weights)
@@ -94,14 +108,44 @@ class LinopMatrix:
             return self.A.data.dtype
         return self.A.dtype
 
+    def init_psum_residual(self):
+        """Zeroed error-feedback residual of the compressed gradient
+        all_reduce; None for a local operand (no wire to compress)."""
+        if isinstance(self.A, _DIST):
+            return self.A.init_psum_residual()
+        return None
+
+    def row_shards(self) -> int:
+        """Row shards the operand is split into (the fused-vs-unfused
+        roofline is priced per shard)."""
+        return self.A.nshards if isinstance(self.A, _DIST) else 1
+
+    def axis_sizes(self) -> tuple[int, ...]:
+        """The row axes' sizes the planner prices collectives over; ()
+        on one shard."""
+        if not isinstance(self.A, _DIST) or self.A.nshards == 1:
+            return ()
+        from repro_torch.launch import mesh as _mesh
+        return _mesh.axis_sizes(self.A.mesh, self.A.row_axes)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ over the row shards of a partial data-space sum (the
+        identity on one shard)."""
+        if isinstance(self.A, _DIST):
+            return compat.psum(t, self.A.mesh, self.A.row_axes)
+        return t
+
     def pad_data(self, b: torch.Tensor) -> torch.Tensor:
-        """Pad a data-space vector to the padded row count."""
+        """A data-space vector on this rank: padded to the padded row
+        count, or, on a row-sharded operand, cut to this shard's rows."""
+        if isinstance(self.A, _DIST):
+            return self.A._local_data(b)
         m = self.out_shape[0]
         return F.pad(b, (0, m - b.shape[0])) if b.shape[0] < m else b
 
     def row_weights(self) -> torch.Tensor:
-        """{0,1} mask of true rows: weights that keep padding rows out of
-        the smooth."""
+        """{0,1} mask of (this shard's) true rows: weights that keep
+        padding rows out of the smooth."""
         if isinstance(self.A, _DIST):
             return self.A._row_mask()
         return torch.ones(self.out_shape, dtype=torch.float32,
@@ -171,8 +215,10 @@ class CountingLinop:
         self.counts["adjoint"] += 1
         return self.base.adjoint(y)
 
-    def fused_grad(self, x, sep):
+    def fused_grad(self, x, sep, residual=None):
         self.counts["fused_grad"] += 1
+        if residual is not None:
+            return self.base.fused_grad(x, sep, residual=residual)
         return self.base.fused_grad(x, sep)
 
     def fused_grad_multi(self, x, seps):
@@ -190,6 +236,18 @@ class CountingLinop:
 
     def operand_dtype(self):
         return self.base.operand_dtype()
+
+    def init_psum_residual(self):
+        return self.base.init_psum_residual()
+
+    def row_shards(self) -> int:
+        return self.base.row_shards()
+
+    def axis_sizes(self) -> tuple[int, ...]:
+        return self.base.axis_sizes()
+
+    def data_sum(self, t):
+        return self.base.data_sum(t)
 
     def pad_data(self, b):
         return self.base.pad_data(b)

@@ -10,6 +10,12 @@ adjoint and one apply an evaluation, so the dual ascent is a TFOCS
 composite on λ, which lives in the constraint space.  Continuation
 re-centres x₀ ← x*(λ*) and solves again.
 
+On a row-sharded constraint matrix λ lives in the constraint space,
+which the reference holds row-sharded.  The port keeps λ whole on every
+rank instead: A x is all_gathered from the shards (m floats an apply), Aᵀλ
+cuts λ to each shard and all_reduces, and so the dual ascent's scalars,
+and its decisions, are the same bits on every rank.
+
 Differences from the reference: λ, x₀ and the vectors built from c and b
 live on the operator's device (`linop.device`; an operator without one
 is refused), where the reference makes them with `jnp.zeros` on the default
@@ -22,6 +28,9 @@ from dataclasses import dataclass
 
 import torch
 
+import torch.nn.functional as F
+
+from repro_torch import compat
 from repro_torch.core.distmat import types as T
 from .linop import LinopAdjoint, LinopIdentity
 from .prox import ProxZero
@@ -66,6 +75,34 @@ class _AffineWrap:
         return self.linop.adjoint(self.inner.grad(u)) - self.b
 
 
+@dataclass(frozen=True)
+class _GatheredRows:
+    """A row-sharded operator with its data space made whole on every
+    rank: apply all_gathers the shards' rows of A x; adjoint takes a
+    whole λ (the operator cuts it to each shard) and all_reduces."""
+    base: object
+
+    @property
+    def in_shape(self):
+        return self.base.in_shape
+
+    @property
+    def out_shape(self):
+        return self.base.out_shape
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def apply(self, x):
+        A = self.base.A
+        return compat.all_gather(self.base.apply(x), A.mesh,
+                                 A.row_axes).reshape(-1)
+
+    def adjoint(self, y):
+        return self.base.adjoint(y)
+
+
 def solve_smoothed_lp(c, linop, b, *, mu: float = 1e-2,
                       x0: torch.Tensor | None = None, continuations: int = 3,
                       opts: TfocsOptions | None = None):
@@ -78,10 +115,13 @@ def solve_smoothed_lp(c, linop, b, *, mu: float = 1e-2,
         raise ValueError("solve_smoothed_lp: the operator has no device; "
                          "give it a `device` attribute (λ and x live there)")
     dev = T.resolve_device(dev)
+    if getattr(linop, "row_shards", lambda: 1)() > 1:
+        linop = _GatheredRows(linop)
     n = linop.in_shape[0]
     m = linop.out_shape[0]
     c = T.as_float_tensor(c, dev)
     b = T.as_float_tensor(b, dev)
+    b = F.pad(b, (0, m - b.shape[0]))        # padding rows: 0 = 0
     x0 = torch.zeros(n, dtype=torch.float32, device=dev) if x0 is None \
         else T.as_float_tensor(x0, dev)
     opts = opts or TfocsOptions(max_iters=400, restart=True,

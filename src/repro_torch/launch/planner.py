@@ -42,9 +42,12 @@ int8 BlockELL, the int8 compressed psum} against PRECISION_GUARDS and a
 savings floor (tiny shapes stay f32); ``precision`` names the pick.
 
 Collectives are priced by ``MachineModel.collective`` (ring or tree) for
-``context["axes"]``; the port executes one rank, so a plan that prices
-several ranks or picks ``chunks`` > 1 is a price, not a path (running it
-raises and names ROADMAP queue 1 item 13).  Decisions are memoized;
+``context["axes"]``.  A RowMatrix or SparseRowMatrix on a mesh passes its
+row axes' sizes (core/distmat/rowmatrix.py ``_collective_plan``), so a
+plan that picks ``chunks`` > 1 runs the overlapped schedule, and the
+solver's precision sweep (core/tfocs/solver.py ``resolve_precision``) can
+pick the int8 compressed psum; on one rank there is no collective and
+``chunks="auto"`` is eager without asking.  Decisions are memoized;
 ``kernels.autotune.reset()`` clears every layer at once.
 """
 from __future__ import annotations

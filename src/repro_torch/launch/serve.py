@@ -262,6 +262,14 @@ class SolverServer:
     # -- queue ----------------------------------------------------------------
 
     def submit(self, req) -> str:
+        problem = getattr(req, "problem", None)
+        A = getattr(req, "A", None) if problem is None \
+            else getattr(getattr(problem, "linop", None), "A", None)
+        if getattr(A, "nshards", 1) > 1:
+            raise NotImplementedError(
+                "serving a row-sharded matrix waits for ROADMAP queue 1 "
+                "item 13 (multi-GPU): every rank would have to admit the "
+                "same requests in the same order")
         if isinstance(req, api.SolveRequest):
             if req.problem is None and req.smooth is None \
                     and req.method == "lbfgs" and req.reg != "none":

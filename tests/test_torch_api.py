@@ -131,9 +131,8 @@ def test_request_validation_matches_reference(bad):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # bf16 runs (tests/test_torch_precision.py); the compressed psum of a
-    # RowMatrix waits for multi-GPU.
-    (dict(precision="psum8"), "multi-GPU"),
+    # bf16 runs (tests/test_torch_precision.py) and so does the compressed
+    # psum of a RowMatrix (test_psum8_takes_the_int8_wire below).
     (dict(checkpoint_dir="ckpt"), "fault tolerance"),
     (dict(deadline_s=5.0), "fault tolerance"),
     (dict(telemetry=True), "fault tolerance"),
@@ -145,6 +144,28 @@ def test_what_waits_for_later_slices_raises(extra, item):
     rm = RowMatrix.create(a, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         api.solve(api.SolveRequest(A=rm, b=b, device="cpu", **extra))
+
+
+def test_psum8_takes_the_int8_wire():
+    """precision="psum8" on a RowMatrix through gra runs the error-feedback
+    int8 wire and reports it, as the reference does (one shard here; four
+    in tests/test_torch_compression.py)."""
+    a, b, _ = _data("quad")
+    L = float(np.linalg.norm(a, 2) ** 2)
+    kw = dict(b=b, method="gra", tol=1e-5, max_iters=400, L0=L)
+    low = api.solve(api.SolveRequest(A=RowMatrix.create(a, device="cpu"),
+                                     precision="psum8", device="cpu", **kw))
+    f32 = api.solve(api.SolveRequest(A=RowMatrix.create(a, device="cpu"),
+                                     precision="f32", device="cpu", **kw))
+    ref = japi.solve(japi.SolveRequest(A=JRowMatrix.create(jnp.asarray(a)),
+                                       precision="psum8", **kw))
+    assert low.info["precision"] == ref.info["precision"] == "psum8"
+    assert low.info["plan"] == "fused"
+    scale = float(np.linalg.norm(np.asarray(ref.x)))
+    assert float(np.linalg.norm(low.x.numpy() - np.asarray(ref.x))) \
+        < 100 * 1e-5 * scale
+    assert float(torch.linalg.vector_norm(low.x - f32.x)) \
+        < 100 * 1e-5 * scale
 
 
 def test_svd_request_validation():
@@ -199,6 +220,20 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/compat.py", "src/repro_torch/launch/mesh.py",
+    "src/repro_torch/train/compression.py", "tests/torch_cluster_cases.py"])
+def test_cluster_modules_import_neither_jax_nor_the_reference(rel):
+    """The cluster path's modules, and the rank bodies its multi-rank
+    tests spawn, exist and import no jax (the ranks never load it)."""
+    path = ROOT / rel
+    assert path.is_file(), rel
+    names = list(_imports(path))
+    assert names
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "repro")], names
 
 
 def test_importing_the_port_loads_no_jax():

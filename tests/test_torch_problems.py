@@ -72,8 +72,16 @@ def test_make_problem_draws_the_reference_data(name, n):
 
 
 def test_make_problem_refuses_a_mesh_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        optim.make_problem("linear", m=16, n=4, device="cpu", mesh=object())
+    """A one-device mesh gives the device= problem bit for bit (the
+    multi-rank problems: tests/test_torch_cluster.py); unknown names
+    still raise."""
+    from repro_torch.core.distmat import types as T
+    on_mesh = optim.make_problem("linear", m=16, n=4,
+                                 mesh=T.single_device_mesh("cpu"))
+    plain = optim.make_problem("linear", m=16, n=4, device="cpu")
+    assert torch.equal(on_mesh.linop.A.rows, plain.linop.A.rows)
+    assert torch.equal(on_mesh.smooth.b, plain.smooth.b)
+    assert on_mesh.L == plain.L
     with pytest.raises(ValueError, match="unknown problem"):
         optim.make_problem("quadratic", m=16, n=4, device="cpu")
 

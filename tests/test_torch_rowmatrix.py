@@ -110,12 +110,29 @@ def test_gram_matvec_rmatvec(store, pad):
 
 
 def test_chunks_other_than_one_wait_for_multi_gpu():
-    _, port = _pair()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port.gram(chunks=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port.fused_grad(torch.zeros(N), SmoothQuad(torch.zeros(M)),
-                        chunks="auto")
+    """Since the cluster path landed, chunks > 1 runs the overlapped
+    bodies on one device too: the chunked Gram and fused gradient against
+    the reference's chunked bodies and the port's eager ones, within
+    tolerance (queue 3: not bit for bit); "auto" on one shard is eager."""
+    ref, port = _pair()
+    _close(port.gram(chunks=2), ref.gram(chunks=2), 5e-5)
+    _close(port.gram(chunks=4), port.gram(chunks=1), 5e-5)
+    assert torch.equal(port.gram(chunks="auto"), port.gram(chunks=1))
+    rng = np.random.default_rng(7)
+    x = (0.1 * rng.normal(size=N)).astype(np.float32)
+    b = rng.normal(size=M).astype(np.float32)
+    f, g, z = port.fused_grad(torch.from_numpy(x),
+                              SmoothQuad(torch.from_numpy(b)), chunks=3)
+    jf, jg, jz = ref.fused_grad(jnp.asarray(x), JQuad(jnp.asarray(b)),
+                                chunks=3)
+    _close(f, jf, 1e-5)
+    _close(g, jg, 1e-4)
+    _close(z[:M], np.asarray(jz)[:M], 1e-4)
+    ef, eg, ez = port.fused_grad(torch.from_numpy(x),
+                                 SmoothQuad(torch.from_numpy(b)),
+                                 chunks="auto")
+    assert torch.equal(ef, f) and torch.equal(ez, z)
+    _close(g, eg, 1e-5)
 
 
 SMOOTHS = {

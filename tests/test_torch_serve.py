@@ -425,3 +425,50 @@ def test_module_recorder_switches():
             "solver.fused_pass", "serve.retire"} <= names
     assert scoped.counter("serve.admitted").value == 1
     assert tel.NULL.counter("c").inc() == 0
+
+
+class _PlainOperator:
+    """A linear operator with no matrix behind an ``.A``: only apply and
+    adjoint, as a user's own operator may be."""
+
+    def __init__(self, a: torch.Tensor):
+        self.a = a
+
+    @property
+    def in_shape(self):
+        return (self.a.shape[1],)
+
+    @property
+    def out_shape(self):
+        return (self.a.shape[0],)
+
+    @property
+    def device(self):
+        return self.a.device
+
+    def apply(self, x):
+        return self.a @ x
+
+    def adjoint(self, y):
+        return self.a.T @ y
+
+
+def test_problem_over_a_plain_operator_is_served():
+    """A problem whose operator has no ``.A`` is admitted (only a
+    row-sharded matrix is refused) and served as api.solve answers it."""
+    import dataclasses
+
+    from repro_torch.core.optim.problems import make_problem
+    p = make_problem("linear", m=64, n=16, device="cpu")
+    plain = dataclasses.replace(p, linop=_PlainOperator(p.linop.A.rows))
+
+    def request():
+        return api.SolveRequest(problem=plain, method="gra", max_iters=50,
+                                tol=1e-6, device="cpu")
+
+    srv = SolverServer(slots=1)
+    rid = srv.submit(request())
+    srv.run()
+    got, want = srv.result(rid), api.solve(request())
+    assert torch.equal(got.x, want.x)
+    assert got.info["iterations"] == want.info["iterations"]

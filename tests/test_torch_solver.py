@@ -180,17 +180,26 @@ def test_fused_gate_and_precision():
         fused_gradient_enabled(s, lin, "yes")
     # "auto" asks the planner: a small operand stays f32 at any tol (the
     # savings floor); explicit values pass through; bf16 runs
-    # (tests/test_torch_precision.py) and psum8 on a RowMatrix waits for
-    # multi-GPU.
+    # (tests/test_torch_precision.py), and psum8 on a RowMatrix gives the
+    # θ ≡ 1 engine the zeroed residual of its int8 wire (f32 elsewhere and
+    # on a local operand, as in the reference).
     for prec in ("auto", "f32"):
         assert tsolver.resolve_precision(
             lin, TfocsOptions(precision=prec, tol=1e-3)) == "f32"
     for prec in ("bf16", "psum8"):
         assert tsolver.resolve_precision(
             lin, TfocsOptions(precision=prec)) == prec
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tsolver.store_precision(LinopMatrix(RowMatrix.create(
-            torch.zeros(4, 2), device="cpu")), "psum8", wire=True)
+    rm_lin = LinopMatrix(RowMatrix.create(torch.zeros(4, 2), device="cpu"))
+    op, prec, res = tsolver.store_precision(rm_lin, "psum8", wire=True)
+    assert op is rm_lin and prec == "psum8"
+    assert res.shape == (1, 2) and not res.any()
+    assert tsolver.store_precision(rm_lin, "psum8", wire=False)[1:] == \
+        ("f32", None)
+    assert tsolver.store_precision(LinopMatrix(torch.zeros(4, 2)), "psum8",
+                                   wire=True)[1:] == ("f32", None)
+    assert jsolver.resolve_precision(
+        jlinop.LinopMatrix(JRowMatrix.create(jnp.zeros((4, 2)))),
+        jsolver.TfocsOptions(precision="psum8")) == "psum8"
     with pytest.raises(ValueError, match="precision must be"):
         tsolver.resolve_precision(lin, TfocsOptions(precision="f16"))
 

@@ -1,0 +1,354 @@
+"""Rank bodies of the port's multi-rank CPU tests (tests/test_torch_cluster.py
+and tests/test_torch_compression.py).
+
+Each function runs on every rank of a gloo group started by
+``repro_torch.launch.mesh.spawn`` and returns a dict of tensors that the
+test process compares against the JAX reference on one device.  This
+module imports torch and the port only (the spawned ranks never import
+jax), and is not a test module itself.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import api, compat
+from repro_torch.core.distmat import RowMatrix, SparseRowMatrix
+from repro_torch.core.distmat import types as T
+from repro_torch.core.tfocs.linop import LinopMatrix
+from repro_torch.core.tfocs.smooth import (SmoothHuber, SmoothLogLoss,
+                                           SmoothPoisson, SmoothQuad,
+                                           row_separable)
+
+LOSSES = ("quad", "logistic", "huber", "poisson")
+MESHES = {"4x1": (4, 1), "2x2": (2, 2)}
+SOLVE_METHODS = ("gra", "acc_rb", "lbfgs")
+# gra and acc_rb stop at a relative step below 1e-9; lbfgs at
+# ||g|| < tol |f|, which f32 reaches near 1e-5 on this problem.
+SOLVE_TOL = {"gra": 1e-9, "acc_rb": 1e-9, "lbfgs": 1e-4}
+SOLVE_ITERS = 3000
+PSUM8_TOL = 1e-5
+PSUM8_ITERS = 600              # tests/test_precision.py's cap
+PROBLEM = dict(m=200, n=16)
+PROBLEM_ITERS = 300
+LP = dict(mu=1e-2, continuations=6)
+
+
+def make_data(seed: int = 0) -> dict:
+    """The numpy inputs every rank and the reference share: A (37 × 11,
+    tests/test_multidevice.py's shape) with its vectors, a least-squares
+    problem (90 × 8), a block-sparse D (150 × 44 in 8 × 8 blocks, two a
+    block-row) with its vectors, and tests/test_tfocs.py's LP."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    def labels(m):
+        return np.where(rng.normal(size=m) > 0, 1.0, -1.0).astype(np.float32)
+
+    d = dict(A=f32(37, 11), v=f32(11), b=f32(37), y=labels(37),
+             x=f32(11, scale=0.3), u=f32(37), X=f32(3, 11, scale=0.3),
+             B=f32(3, 37))
+    As = f32(90, 8)
+    d.update(As=As, bsol=(As @ rng.normal(size=8)
+                          + 0.1 * rng.normal(size=90)).astype(np.float32),
+             L=float(np.linalg.norm(As, 2) ** 2))
+    D = np.zeros((150, 44), np.float32)
+    for i in range(0, 150, 8):
+        for j in rng.choice(6, 2, replace=False):
+            blk = D[i:i + 8, 8 * j:8 * j + 8]
+            blk[...] = rng.normal(size=blk.shape)
+    d.update(D=D, xs=f32(44, scale=0.3), bs=f32(150), ys=labels(150),
+             Ls=float(np.linalg.norm(D, 2) ** 2))
+    lp = np.random.default_rng(7)
+    mc, nc = 6, 14
+    Ac = lp.normal(size=(mc, nc)).astype(np.float32)
+    xstar = np.zeros(nc, np.float32)
+    xstar[:3] = lp.random(3).astype(np.float32) + 0.5
+    yl = lp.normal(size=mc).astype(np.float32)
+    sl = np.zeros(nc, np.float32)
+    sl[3:] = lp.random(nc - 3).astype(np.float32) + 0.1
+    d.update(Ac=Ac, bc=Ac @ xstar, c=Ac.T @ yl + sl, xstar=xstar)
+    return d
+
+
+def smooth_for(loss: str, t, w=None):
+    if loss == "quad":
+        return SmoothQuad(b=t, weights=w)
+    if loss == "logistic":
+        return SmoothLogLoss(y=t, weights=w)
+    if loss == "huber":
+        return SmoothHuber(b=t, delta=0.5, weights=w)
+    return SmoothPoisson(y=t, weights=w)
+
+
+def targets(loss: str, b: np.ndarray, y: np.ndarray) -> np.ndarray:
+    return {"quad": b, "huber": b, "logistic": y,
+            "poisson": np.abs(np.round(b))}[loss]
+
+
+def _whole(rm: RowMatrix, v: torch.Tensor) -> torch.Tensor:
+    """A shard-sized data-space vector (or (k, m_local) stack) gathered
+    to the global rows, padding cut."""
+    parts = compat.all_gather(v, rm.mesh, rm.row_axes)
+    if v.dim() == 1:
+        return parts.reshape(-1)[: rm.n_rows]
+    return parts.permute(1, 0, 2).reshape(v.shape[0], -1)[:, : rm.n_rows]
+
+
+def _dense_cases(rm: RowMatrix, data: dict) -> dict:
+    out = {}
+    v, b, y, x = data["v"], data["b"], data["y"], data["x"]
+    out["gram"] = rm.gram(chunks=1)
+    out["gram_chunked"] = rm.gram(chunks=4)
+    out["gram_auto"] = rm.gram()
+    u = rm.matvec(torch.as_tensor(v))
+    out["matvec"] = _whole(rm, u)
+    out["rmatvec"] = rm.rmatvec(u)
+    out["rmatvec_global"] = rm.rmatvec(torch.as_tensor(data["u"]))
+    for key, val in rm.column_stats().items():
+        out[f"stats_{key}"] = val
+    out["frobenius"] = rm.frobenius_norm()
+    xt = torch.as_tensor(x)
+    for loss in LOSSES:
+        sep = row_separable(smooth_for(loss, torch.as_tensor(
+            targets(loss, b, y))))
+        f, g, z = rm.fused_grad(xt, sep, chunks=1)
+        out[f"fg_{loss}_f"], out[f"fg_{loss}_g"] = f, g
+        out[f"fg_{loss}_z"] = _whole(rm, z)
+        f, g, z = rm.fused_grad(xt, sep, chunks=4)
+        out[f"fgc_{loss}_f"], out[f"fgc_{loss}_g"] = f, g
+    X = torch.as_tensor(data["X"])
+    seps = [row_separable(SmoothQuad(b=torch.as_tensor(t)))
+            for t in data["B"]]
+    f, g, z = rm.fused_grad_multi(X, seps)
+    out["fgm_f"], out["fgm_g"], out["fgm_z"] = f, g, _whole(rm, z)
+    return out
+
+
+def _svd_cases(rm: RowMatrix) -> dict:
+    out = {}
+    for mode, k in (("gram", 4), ("randomized", 3), ("lanczos", 3)):
+        U, s, V, info = api.compute_svd(rm, k, mode=mode, device="cpu")
+        out[f"svd_{mode}_s"], out[f"svd_{mode}_V"] = s, V
+        out[f"svd_{mode}_U"] = U.to_local()
+        out[f"svd_{mode}_passes"] = torch.tensor(info["a_passes"])
+    Q, R = rm.tall_skinny_qr()
+    out["tsqr_Q"], out["tsqr_R"] = Q.to_local(), R
+    return out
+
+
+def _solve_cases(mesh, A: np.ndarray, b: np.ndarray, L: float) -> dict:
+    out = {}
+    rm = RowMatrix.create(A, mesh=mesh)
+    for method in SOLVE_METHODS:
+        r = api.solve(api.SolveRequest(
+            A=rm, b=b, method=method, tol=SOLVE_TOL[method],
+            max_iters=SOLVE_ITERS, L0=L, device="cpu"))
+        out[f"solve_{method}_x"] = r.x
+        out[f"solve_{method}_iters"] = torch.tensor(r.info["iterations"])
+        out[f"solve_{method}_passes"] = torch.tensor(r.info["a_passes"])
+    for prec in ("f32", "psum8"):
+        r = api.solve(api.SolveRequest(
+            A=rm, b=b, method="gra", tol=PSUM8_TOL, max_iters=PSUM8_ITERS,
+            L0=L, precision=prec, device="cpu"))
+        out[f"prec_{prec}_iters"] = torch.tensor(r.info["iterations"])
+        out[f"prec_{prec}_x"] = r.x
+        out[f"prec_{prec}_reported"] = r.info["precision"]
+    return out
+
+
+def _sparse_cases(mesh, D: np.ndarray, data: dict, L: float) -> dict:
+    out = {}
+    S = SparseRowMatrix.from_dense(D, bs=8, mesh=mesh)
+    out["sp_ell"] = torch.tensor(S.ell)
+    xt = torch.as_tensor(data["xs"])
+    for dispatch in ("bsr", "dense"):
+        for loss in ("quad", "logistic"):
+            sep = row_separable(smooth_for(loss, torch.as_tensor(
+                targets(loss, data["bs"], data["ys"]))))
+            f, g, z = S.fused_grad(xt, sep, dispatch=dispatch, chunks=1)
+            out[f"sp_{dispatch}_{loss}_f"] = f
+            out[f"sp_{dispatch}_{loss}_g"] = g
+            parts = compat.all_gather(z, S.mesh, S.row_axes)
+            out[f"sp_{dispatch}_{loss}_z"] = parts.reshape(-1)[: D.shape[0]]
+            f, g, _ = S.fused_grad(xt, sep, dispatch=dispatch, chunks=4)
+            out[f"spc_{dispatch}_{loss}_f"] = f
+            out[f"spc_{dispatch}_{loss}_g"] = g
+    out["sp_gram"] = S.gram()
+    out["sp_rmatvec"] = S.rmatvec(torch.as_tensor(data["bs"]))
+    out["sp_norms"] = S.column_norms()
+    half = S.remesh(T.make_mesh((2, 2), ("data", "model"), device="cpu"))
+    out["sp_remesh_strip"] = torch.tensor(half.data.shape[0])
+    out["sp_remesh_dense"] = half.to_local()
+    sep = row_separable(SmoothQuad(b=torch.as_tensor(data["bs"])))
+    f, g, _ = half.fused_grad(xt, sep, dispatch="bsr")
+    out["sp_remesh_f"], out["sp_remesh_g"] = f, g
+    r = api.solve(api.SolveRequest(A=S, b=data["bs"], method="gra",
+                                   tol=SOLVE_TOL["gra"],
+                                   max_iters=SOLVE_ITERS, L0=L, device="cpu"))
+    out["sp_solve_x"] = r.x
+    out["sp_solve_plan"] = r.info["plan"]
+    return out
+
+
+def _front_door_cases(mesh, data: dict) -> dict:
+    """make_problem(mesh=) through api.minimize, and the smoothed LP on a
+    row-sharded constraint matrix."""
+    from repro_torch.core.optim import make_problem
+    from repro_torch.core.tfocs import TfocsOptions, solve_smoothed_lp
+    out = {}
+    p = make_problem("linear", mesh=mesh, **PROBLEM)
+    out["problem_L"] = torch.tensor(p.L, dtype=torch.float64)
+    x, info = api.minimize(p, "acc_rb", max_iters=PROBLEM_ITERS, tol=1e-6)
+    out["problem_x"] = x
+    out["problem_iters"] = torch.tensor(info["iterations"])
+    lp = LinopMatrix(RowMatrix.create(data["Ac"], mesh=mesh))
+    x, lam, info = solve_smoothed_lp(
+        data["c"], lp, data["bc"], opts=TfocsOptions(
+            max_iters=500, backtracking=True, restart=True), **LP)
+    out["lp_x"], out["lp_lam"] = x, lam
+    out["lp_feasibility"] = torch.tensor(
+        info["kkt"]["primal_feasibility"])
+    return out
+
+
+def _telemetry_cases(rm: RowMatrix, data: dict) -> dict:
+    """The collectives' spans and plan-vs-actual records under a
+    recorder."""
+    from repro_torch.launch import telemetry as tel
+    sep = row_separable(SmoothQuad(b=torch.as_tensor(data["b"])))
+    with tel.recording() as rec:
+        rm.gram(chunks=2)
+        rm.rmatvec(torch.as_tensor(data["u"]))
+        rm.fused_grad(torch.as_tensor(data["x"]), sep)
+    spans = sorted({e["name"] for e in rec.events() if e["type"] == "span"})
+    acts = [(r["op"], r.get("chunks"), r.get("wire"),
+             r.get("collective")) for r in rec.plan_actual()]
+    return {"tel_spans": spans, "tel_plan_actual": acts}
+
+
+def _later_cases(mesh, rm: RowMatrix) -> dict:
+    """What waits for the rest of ROADMAP queue 1 item 13 raises on a
+    mesh, naming the item: BlockMatrix, CoordinateMatrix and a server
+    over a sharded matrix."""
+    from repro_torch.core.distmat import BlockMatrix, CoordinateMatrix
+    from repro_torch.launch.serve import SolverServer
+    calls = {
+        "block": lambda: BlockMatrix.create(np.eye(4, dtype=np.float32),
+                                            mesh=mesh),
+        "coordinate": lambda: CoordinateMatrix.create(
+            [0], [0], [1.0], (2, 2), mesh=mesh),
+        "server": lambda: SolverServer(slots=2).submit(api.SolveRequest(
+            A=rm, b=np.zeros(rm.shape[0], np.float32), device="cpu"))}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[f"later_{name}"] = "ran"
+        except NotImplementedError as e:
+            out[f"later_{name}"] = str(e)
+    return out
+
+
+def cluster_rank(rank: int, name: str, data: dict) -> dict:
+    """Every case of one mesh on this rank."""
+    torch.manual_seed(0)
+    mesh = T.make_mesh(MESHES[name], ("data", "model"), device="cpu")
+    rm = RowMatrix.create(data["A"], mesh=mesh)
+    out = {"shard_rows": torch.tensor(rm.rows.shape[0]),
+           "shard": torch.tensor(rm.shard)}
+    out.update(_dense_cases(rm, data))
+    out.update(_svd_cases(rm))
+    out.update(_solve_cases(mesh, data["As"], data["bsol"], data["L"]))
+    out.update(_sparse_cases(mesh, data["D"], data, data["Ls"]))
+    out.update(_front_door_cases(mesh, data))
+    out.update(_telemetry_cases(rm, data))
+    out.update(_later_cases(mesh, rm))
+    from repro_torch.core.distmat import IndexedRowMatrix
+    irm = IndexedRowMatrix.create(np.arange(37) * 2, data["A"], mesh=mesh)
+    out["irm_local"] = irm.to_local()
+    out["irm_rmatvec"] = irm.rmatvec(torch.as_tensor(data["u"]))
+    pod = T.make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")
+    on_pod = RowMatrix.create(data["A"], mesh=pod)
+    out["pod_shard"] = torch.tensor(on_pod.shard)
+    out["pod_axes"] = list(on_pod.row_axes)
+    out["pod_gram"] = on_pod.gram()
+    out["pod_local"] = on_pod.to_local()
+    c, plan = rm._resolve_chunks("grad", "auto", {"m": rm.rows.shape[0],
+                                                  "n": rm.shape[1]},
+                                 rm.rows.dtype)
+    out["auto_chunks"], out["auto_notes"] = c, list(plan.notes)
+    half = rm.remesh(T.make_mesh((2, 2), ("data", "model"), device="cpu"))
+    out["remesh_rows"] = torch.tensor(half.rows.shape[0])
+    out["remesh_gram"] = half.gram()
+    out["remesh_local"] = half.to_local()
+    return out
+
+
+def psum8_rank(rank: int, data: dict) -> dict:
+    """psum_int8 on each rank's own partial, a psum8 fused pass and its
+    error-feedback identity on a (4, 1) mesh, and a psum8 gra solve."""
+    from repro_torch.train.compression import psum_int8
+    mesh = T.make_mesh((4, 1), ("data", "model"), device="cpu")
+    out = {}
+    tot, res = psum_int8(torch.as_tensor(data["parts"][rank]),
+                         torch.as_tensor(data["res"][rank]), mesh,
+                         ("data",), 4)
+    out["psum_total"], out["psum_res"] = tot, res
+    rm = RowMatrix.create(data["A"], mesh=mesh)
+    lin = LinopMatrix(rm)
+    sep = row_separable(SmoothQuad(lin.pad_data(torch.as_tensor(data["b"])),
+                                   lin.row_weights()))
+    x = torch.as_tensor(data["x"])
+    f32 = rm.fused_grad(x, sep)
+    res0 = rm.init_psum_residual()
+    f8, g8, _, res1 = rm.fused_grad(x, sep, residual=res0)
+    # The shard's exact partial: the f32 pass on this shard alone.
+    from repro_torch.kernels import ops
+    kind, t, w, prm = T.row_separable_inputs(sep, rm.rows.shape[0],
+                                             rm._row_mask, rm._local_data)
+    _, g_local, _ = ops.fused_grad(rm.rows, x, t, w, loss=kind, param=prm)
+    out.update(f32_f=f32[0], f32_g=f32[1], f8=f8, g8=g8, res1=res1[0],
+               g_local=g_local)
+    for prec in ("f32", "psum8"):
+        r = api.solve(api.SolveRequest(
+            A=rm, b=data["b"], method="gra", tol=PSUM8_TOL,
+            max_iters=PSUM8_ITERS, L0=data["L"], precision=prec,
+            device="cpu"))
+        out[f"solve_{prec}_x"] = r.x
+        out[f"solve_{prec}_reported"] = r.info["precision"]
+    return out
+
+
+def cluster_rank_keys() -> list[str]:
+    """The keys of cluster_rank's results (every one but "shard" and
+    "shard_rows" the same on every rank)."""
+    keys = ["shard", "shard_rows", "pod_shard", "gram", "gram_chunked", "gram_auto",
+            "matvec", "rmatvec", "rmatvec_global", "frobenius", "fgm_f",
+            "fgm_g", "fgm_z", "tsqr_Q", "tsqr_R", "sp_ell", "sp_gram",
+            "sp_rmatvec", "sp_norms", "sp_remesh_strip", "sp_remesh_dense",
+            "sp_remesh_f", "sp_remesh_g", "sp_solve_x", "sp_solve_plan",
+            "problem_L", "problem_x", "problem_iters", "lp_x", "lp_lam",
+            "lp_feasibility", "remesh_rows", "remesh_gram", "remesh_local",
+            "tel_spans", "tel_plan_actual", "later_block",
+            "later_coordinate", "later_server", "auto_chunks", "auto_notes",
+            "pod_axes", "pod_gram", "pod_local", "irm_local",
+            "irm_rmatvec"]
+    keys += [f"stats_{k}" for k in ("mean", "variance", "num_nonzeros",
+                                    "min", "max", "norm_l2")]
+    for loss in LOSSES:
+        keys += [f"fg_{loss}_{p}" for p in "fgz"]
+        keys += [f"fgc_{loss}_{p}" for p in "fg"]
+    for mode in ("gram", "randomized", "lanczos"):
+        keys += [f"svd_{mode}_{p}" for p in ("s", "V", "U", "passes")]
+    for method in SOLVE_METHODS:
+        keys += [f"solve_{method}_{p}" for p in ("x", "iters", "passes")]
+    for prec in ("f32", "psum8"):
+        keys += [f"prec_{prec}_{p}" for p in ("x", "reported", "iters")]
+    for dispatch in ("bsr", "dense"):
+        for loss in ("quad", "logistic"):
+            keys += [f"sp_{dispatch}_{loss}_{p}" for p in "fgz"]
+            keys += [f"spc_{dispatch}_{loss}_{p}" for p in "fg"]
+    return keys

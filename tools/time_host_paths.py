@@ -18,6 +18,17 @@ in the order A, B, B, A.  Cases, every operand drawn from a seed:
   wrapper/bsr_matvec   SparseRowMatrix.matvec with the default dispatch on
                        8192 x 1024 with 16 x 16 blocks, two stored a
                        block-row, the same;
+  distmat/METHOD       RowMatrix.fused_grad, .rmatvec and .gram on the
+                       10000 x 1024 A and SparseRowMatrix.fused_grad on
+                       the sparse one, on one device with their default
+                       arguments: each kernel's call plus the method's
+                       host work (padding, chunk and collective choices),
+                       the same;
+  distmat/*_kernel     the two fused_grad cases' kernel calls alone, on
+                       the inputs the methods pass them (the default
+                       weights made as the method makes them), so a
+                       method's own host cost is its case less this one
+                       within one process;
   figure1/NAME/METHOD  api.minimize on make_problem(NAME) through METHOD at
                        its defaults (cap 200), the 24 runs chip_smoke.py's
                        phase 9 makes, each timed on the host clock from a
@@ -67,7 +78,8 @@ def main() -> int:
         return 1
     from repro_torch import api
     from repro_torch.core import optim
-    from repro_torch.core.distmat import SparseRowMatrix
+    from repro_torch.core.distmat import RowMatrix, SparseRowMatrix
+    from repro_torch.core.tfocs.smooth import SmoothQuad
     from repro_torch.kernels import _build, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -93,10 +105,21 @@ def main() -> int:
                 rng.normal(size=(BS_S, BS_S))
     S = SparseRowMatrix.from_dense(dense, BS_S, device=dev)
     v = torch.randn(N_S, generator=gen, device=dev)
+    rm = RowMatrix.create(a, device=dev)
+    quad, quad_s = SmoothQuad(t), SmoothQuad(torch.randn(
+        M_S, generator=gen, device=dev))
     wrappers = {
         "wrapper/fused_grad": lambda: ops.fused_grad(a, x, t, w, loss="quad"),
         "wrapper/gemm": lambda: ops.gemm(a, b, out_dtype=torch.float32),
         "wrapper/bsr_matvec": lambda: S.matvec(v),
+        "distmat/rowmatrix_fused_grad": lambda: rm.fused_grad(x, quad),
+        "distmat/rowmatrix_rmatvec": lambda: rm.rmatvec(t),
+        "distmat/rowmatrix_gram": lambda: rm.gram(),
+        "distmat/sparserow_fused_grad": lambda: S.fused_grad(v, quad_s),
+        "distmat/rowmatrix_fused_grad_kernel": lambda: ops.fused_grad(
+            a, x, t, rm._row_mask(), loss="quad"),
+        "distmat/sparserow_fused_grad_kernel": lambda: ops.fused_grad_bsr(
+            S._local(), v, quad_s.b, S._row_mask(), loss="quad"),
     }
     out = {}
     for _ in range(args.reps):
