@@ -164,7 +164,7 @@ gemm or selective_scan kernel spills or has them serialized.  fused_grad is
 fused_grad_multi's kernel with one slot, and fused_grad_bsr
 fused_grad_bsr_multi's.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
-  11. cluster (last, after phase 10 with every earlier matrix freed;
+  11. cluster (after phase 10 with every earlier matrix freed;
               about 60 s): phase 3's A (2^21 x 1024) and phase 6's S,
               each drawn whole from its seed on every rank, their rows
               split over the ranks of a torch.distributed group started
@@ -183,14 +183,39 @@ A, held to the float64 cosines of phase 3's Gram.
               100 x tol of f32's.  Prints the backend, world size and
               each rank's device, and each all_reduce's median ms with
               its payload beside the card's name and power limit.
+  12. elastic (last, after phase 11; about 60 s): phase 3's A drawn
+              again from its seed, through the elastic executor
+              (core/optim/elastic, quad/gra at tol 0, ELASTIC_ITERS
+              iterations): a clean solve_elastic; the same solve
+              checkpointed every ELASTIC_EVERY iterations, abandoned at
+              ELASTIC_CUT and resumed (x bit for bit the clean one's); a
+              failed pass and a NaN smooth value, each retried (x bit for
+              bit); api.solve with deadline_s (degraded="deadline", a
+              finite best iterate); a SolverServer(elastic_factory=) of
+              ELASTIC_SERVE requests with a straggler wrapped around its
+              group, against the same requests through a plain server,
+              re-meshed at least once; then, in a two-rank group (gloo on
+              one card, NCCL one rank a card where there are two), a
+              straggler re-mesh on A's strips and a device loss on phase
+              6's S (fused_grad_bsr_multi), each rank drawing the matrix
+              whole and keeping its strip, the dropped rank returning
+              with info["dropped"].  The survivor on A is held to the
+              one-rank clean solve (ELASTIC_CLUSTER, ELASTIC_TOL); on S,
+              bit for bit to the one-rank solve started from the
+              two-rank clean solve's iterate and L at the loss, with the
+              backtracking steps of both runs printed beside those of
+              the one-rank clean solve (see ELASTIC_LOSS).  Each case's
+              fused_grad_multi (fused_grad_bsr_multi) launches equal its
+              A-passes; prints each case's wall ms, the re-mesh's and the
+              checkpoints' ms beside the card's name and power limit.
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, phase 9
-seven (fd_* in PATHS), phase 11 one on every rank and phase 8 one a
-model: every launch count is set to 0 just before each and read just
+seven (fd_* in PATHS), phase 11 one on every rank, phase 12 one a case
+and phase 8 one a model: every launch count is set to 0 just before each and read just
 after it (in phases 5 and 7, once the grouped server drains, before the
 checks' own launches), and each kernel of the path must have launched
 there.  The last lines are a
 JSON object with the SVDs', the solves', the servers' and phases 6, 7, 9,
-8 and 10's numbers, the card's name and power limit, a JSON object with each
+8, 10, 11 and 12's numbers, the card's name and power limit, a JSON object with each
 kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check exits non-zero before
 those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
@@ -370,7 +395,11 @@ PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          # (every rank's counts; run_phase11 checks them).
          "cluster": ("fused_grad", "tsgram", "gemm", "randsketch",
                      "fused_grad_bsr", "fused_grad_multi", "bsr_matvec",
-                     "bsr_rmatmul")}
+                     "bsr_rmatmul"),
+         # Phase 12: the elastic executor's one-slot groups and server on
+         # A, and the two-rank re-meshes on A and S (run_phase12 sums the
+         # parent's cases and rank 0's).
+         "elastic": ("fused_grad_multi", "fused_grad_bsr_multi")}
 
 
 class CheckFailed(RuntimeError):
@@ -3647,6 +3676,484 @@ def run_phase11(info: dict) -> dict:
     return rec
 
 
+# -- phase 12: fault-tolerant solves ------------------------------------------
+#
+# Phase 3's A (and phase 6's S for the sparse re-mesh), drawn again from
+# their seeds once every earlier matrix is freed, through the elastic
+# executor (core/optim/elastic): quad/gra at tol 0 runs every one of its
+# ELASTIC_ITERS iterations, so its x can be held bit for bit.  The
+# checkpointed solve snapshots every ELASTIC_EVERY iterations and is
+# abandoned at ELASTIC_CUT; the fault plans inject a failed pass and a NaN
+# smooth value (each retried); the deadline request asks for more
+# iterations than ELASTIC_DEADLINE_S allows.  Detection runs on the seeded
+# synthetic shard times of train/faults (the injected delay is not slept).
+ELASTIC_ITERS = 40
+ELASTIC_EVERY, ELASTIC_CUT = 10, 20
+ELASTIC_FAULTS = dict(fail_steps=(5,), nan_steps=(12,))
+ELASTIC_STRAGGLER = dict(shard_delays={0: 0.2}, delay_from=6)
+ELASTIC_MONITOR = dict(warmup_steps=2, threshold=2.0, trip_limit=2)
+ELASTIC_DEADLINE_S = 0.05
+ELASTIC_SERVE = 8              # requests of the elastic server (one group)
+ELASTIC_SERVE_ITERS = 60
+# The two-rank group: a straggler on shard 0 (A), and shard 1's device
+# lost at iteration 3 (S).  The iterations before the re-mesh sum over two
+# strips, so they differ from one rank's by rounding, and the group's
+# backtracking test (f(x⁺) against the model, in f32 over all rows) may
+# fall the other way where a step is close to the line.  The solve on A
+# runs to its stop (tol 1e-6, about 50 iterations at cond(A) near 3) and
+# is held to the one-rank clean solve (max-abs x within
+# tests/test_fault_tolerance.py's 5e-4 of a clean solve, the objective
+# within 1e-5 relative).  The one on S runs 30 iterations at tol 0 from
+# phase 11's L0 (1.5 x the top eigenvalue of SᵀS), so it backtracks after
+# the re-mesh.  Its survivor is held bit for bit to the one-rank solve
+# started from the two-rank clean solve's iterate and L at the loss (the
+# re-mesh's promise: the same state, the matrix moved, F/G re-seeded),
+# step for step in group passes; and the two-rank and one-rank clean
+# solves' objectives agree within 1e-5 up to the first iteration whose
+# group passes differ (a backtracking test that fell the other way).
+# Where no step differs, the survivor is held to the one-rank clean solve
+# as on A.
+ELASTIC_LOSS = dict(lose_shard_at=3, lost_shard=1)
+ELASTIC_CLUSTER = {"A": dict(tol=1e-6, max_iters=300),
+                   "S": dict(tol=0.0, max_iters=30)}
+ELASTIC_TOL = {"x": 5e-4, "objective": 1e-5, "serve": 1e-5}
+
+
+def _nosleep(_dt):
+    """The injected delays' sleep: detection reads the seeded shard
+    times, so the phase spends no wall time on them."""
+
+
+def elastic_inputs(dev, sparse: bool):
+    """Phase 3's A (or phase 6's S) from its seed, and b from generator
+    SEED + 12 (SEED + 13 for S): b = A x + 0.5 noise."""
+    if sparse:
+        S = sparse_matrix(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        xs = torch.randn(N_S, generator=gen, device=dev) / math.sqrt(
+            ELL_S * BS_S)
+        return S, S.matvec(xs) + 0.5 * torch.randn(M_S, generator=gen,
+                                                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = 1.0 + 2.0 * 0.95 ** torch.arange(N, device=dev, dtype=torch.float32)
+    A = torch.randn(M, N, generator=gen, device=dev)
+    A.mul_(d / math.sqrt(N))
+    gen12 = torch.Generator(device=dev).manual_seed(SEED + 12)
+    b = A @ torch.randn(N, generator=gen12, device=dev) \
+        + 0.5 * torch.randn(M, generator=gen12, device=dev)
+    return A, b
+
+
+def sparse_l0(S, factor: float = 1.5) -> float:
+    """`factor` x the top eigenvalue of SᵀS by CLUSTER_POWER_ITERS power
+    iterations (1.5: phase 11's L0 of S)."""
+    v = torch.ones(N_S, device=S.device) / math.sqrt(N_S)
+    for _ in range(CLUSTER_POWER_ITERS):
+        w = S.rmatvec(S.matvec(v))
+        lam = float(torch.linalg.vector_norm(w))
+        v = w / lam
+    return factor * lam
+
+
+def _elastic_case(ops, dev, kernel: str, run) -> dict:
+    """One elastic path: the launch counts zeroed just before `run()` and
+    read just after, under a telemetry recorder; `run` returns (x, info).
+    The record: info, x on the host, wall ms, the launches of `kernel`,
+    the group passes of each engine step (its fused_pass spans' tries, a
+    step a re-mesh cut short included), the re-mesh and checkpoint spans'
+    ms and the checkpoint writes' ms."""
+    from repro_torch.launch import telemetry as tel
+
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    with tel.recording() as rec:
+        t0 = time.perf_counter()
+        x, info = run()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    spans = {}
+    for s in rec.spans:
+        spans.setdefault(s.name, []).append(s.dur_s * 1e3)
+    writes = rec.histogram("checkpoint.write_s")
+    info = {k: v for k, v in info.items() if k != "trace"}
+    return {"info": info, "x": x.detach().cpu(), "wall_ms": wall,
+            "launches": counts[kernel], "counts": counts,
+            "tries": [s.attrs["tries"] for s in rec.spans
+                      if s.name == "solver.fused_pass"],
+            "remesh_ms": spans.get("solver.remesh", []),
+            "checkpoint_ms": spans.get("solver.checkpoint", []),
+            "checkpoint_write_ms": ([writes.sum / writes.count * 1e3]
+                                    if writes.count else [])}
+
+
+def group_run(lin, b, L0: float, iters: int, x0=None, cut: int = 0):
+    """quad/gra at tol 0 on a one-slot ElasticGroup stepped `iters` times
+    (solve_elastic's loop without its ladder), read after every step:
+    (x, info) with the objective of each iteration in info["objectives"]
+    and, after iteration `cut`, the iterate and L in info["cut"]."""
+    from repro_torch.core.optim.elastic import ElasticGroup
+
+    g = ElasticGroup(lin, "quad", slots=1)
+    g.admit_slot(b, tol=0.0, x0=x0, L0=L0)
+    objectives = []
+    for it in range(1, iters + 1):
+        g.step_iteration()
+        objectives.append(float(g.state.obj[0]))
+        if it == cut:
+            at_cut = (g.state.X[0].cpu(), float(g.state.L[0]))
+    return g.state.X[0].clone(), {
+        "iterations": int(g.state.k[0]), "a_passes": g.a_passes,
+        "converged": bool(g.state.done[0]),
+        "objective": objectives[-1], "objectives": objectives,
+        "cut": at_cut if cut else None}
+
+
+def elastic_rank(rank: int, L0: float, L0_S: float) -> dict:
+    """Phase 12's two-rank cases on one rank of the group
+    launch/mesh.spawn started: a straggler re-mesh on A's strips, then on
+    S's strips a clean run (its iterate and L at the loss kept) and a
+    device loss, each under a recorder with its counts zeroed just before
+    and read just after."""
+    import torch.distributed as dist
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.core.distmat import types as T
+    from repro_torch.core.optim.elastic import ElasticConfig, solve_elastic
+    from repro_torch.core.tfocs.linop import LinopMatrix
+    from repro_torch.kernels import ops
+    from repro_torch.train.faults import FaultPlan, FaultyLinop, FaultyMesh
+    from repro_torch.train.straggler import ShardMonitor, StragglerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": str(dev)}
+    for name, plan, monitor, kernel, L in (
+            ("A", ELASTIC_STRAGGLER, True, "fused_grad_multi", L0),
+            ("S", ELASTIC_LOSS, False, "fused_grad_bsr_multi", L0_S)):
+        mesh = T.make_mesh((world, 1), ("data", "model"), device=dev)
+        whole, b = elastic_inputs(dev, sparse=name == "S")
+        mat = whole.remesh(mesh) if name == "S" \
+            else RowMatrix.create(whole, mesh=mesh)
+        del whole
+        torch.cuda.empty_cache()
+        if name == "S":
+            rec["S_clean"] = _elastic_case(
+                ops, dev, kernel, lambda: group_run(
+                    LinopMatrix(mat), b, L, ELASTIC_CLUSTER["S"]["max_iters"],
+                    cut=ELASTIC_LOSS["lose_shard_at"]))
+        lin = FaultyLinop(LinopMatrix(mat), FaultPlan(**plan),
+                          sleep=_nosleep)
+        del mat
+        fm = FaultyMesh(mesh)
+        cfg = ElasticConfig(
+            monitor=ShardMonitor(world, StragglerConfig(**ELASTIC_MONITOR))
+            if monitor else None, remesh_to=fm.drop)
+        rec[name] = _elastic_case(ops, dev, kernel, lambda: solve_elastic(
+            lin, "quad", b, L0=L, elastic=cfg, **ELASTIC_CLUSTER[name]))
+        rec[name]["casualties"] = fm.casualties
+        del lin, cfg, fm, b
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _first_difference(a: list, b: list):
+    """The first index where the two lists differ (None where they agree
+    over the shorter one's length)."""
+    return next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), None)
+
+
+def run_phase12(info: dict) -> dict:
+    """Phase 12: the elastic executor on cuda:0 (see the comment above
+    ELASTIC_ITERS); every case zeroes and reads its launch counts, and
+    fused_grad_multi (fused_grad_bsr_multi) launches must equal the
+    A-passes its solve reports."""
+    from repro_torch import api
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.core.optim.elastic import (ElasticConfig,
+                                                SolveCheckpoint,
+                                                solve_elastic)
+    from repro_torch.core.tfocs.linop import LinopMatrix
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.serve import SolverServer
+    from repro_torch.train.faults import FaultPlan, FaultyLinop, FaultyMesh
+    from repro_torch.train.straggler import ShardMonitor, StragglerConfig
+
+    t12 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    A, b = elastic_inputs(dev, sparse=False)
+    rm = RowMatrix.create(A, device=dev)
+    del A
+    L0 = float(api.compute_svd(rm, 1, compute_u=False, mode="gram",
+                               device=dev)[1][0]) ** 2
+    kw = dict(L0=L0, tol=0.0)
+    cases = {}
+
+    def solve(iters=ELASTIC_ITERS, lin=None, **elastic):
+        return lambda: solve_elastic(
+            lin or LinopMatrix(rm), "quad", b, max_iters=iters,
+            elastic=ElasticConfig(**elastic) if elastic else None, **kw)
+
+    cases["clean"] = _elastic_case(ops, dev, "fused_grad_multi", solve())
+    with tempfile.TemporaryDirectory() as d:
+        def ck():
+            return SolveCheckpoint(d, every=ELASTIC_EVERY)
+        cases["cut"] = _elastic_case(ops, dev, "fused_grad_multi", solve(
+            ELASTIC_CUT, checkpoint=ck()))
+        cases["resumed"] = _elastic_case(
+            ops, dev, "fused_grad_multi", lambda: solve_elastic(
+                LinopMatrix(rm), "quad", b, max_iters=ELASTIC_ITERS,
+                resume=True, elastic=ElasticConfig(checkpoint=ck()), **kw))
+    cases["faults"] = _elastic_case(ops, dev, "fused_grad_multi", solve(
+        lin=FaultyLinop(LinopMatrix(rm), FaultPlan(**ELASTIC_FAULTS),
+                        sleep=_nosleep), backoff_s=1e-3))
+    def deadline_request():
+        res = api.solve(api.SolveRequest(
+            A=rm, b=b, tol=0.0, max_iters=100_000, L0=L0,
+            deadline_s=ELASTIC_DEADLINE_S, device=dev))
+        return res.x, res.info
+
+    cases["deadline"] = _elastic_case(ops, dev, "fused_grad_multi",
+                                      deadline_request)
+    clean = cases["clean"]
+    for key in ("clean", "cut", "faults", "deadline"):
+        c = cases[key]
+        require(c["launches"] == c["info"]["a_passes"],
+                f"elastic {key}: {c['launches']} fused_grad_multi launches "
+                f"for {c['info']['a_passes']} A-passes")
+    require(cases["cut"]["launches"] + cases["resumed"]["launches"]
+            == cases["resumed"]["info"]["a_passes"],
+            "elastic resume: launches of the cut and resumed runs "
+            f"{cases['cut']['launches']} + {cases['resumed']['launches']} "
+            f"!= {cases['resumed']['info']['a_passes']} A-passes")
+    require(clean["info"]["iterations"] == ELASTIC_ITERS
+            and bool(torch.isfinite(clean["x"]).all()),
+            f"elastic clean: {clean['info']}")
+    r = cases["resumed"]["info"]
+    require(r["resumed_from"] == ELASTIC_CUT and r["iterations"]
+            == ELASTIC_ITERS and cases["cut"]["info"]["checkpoint_saves"]
+            == ELASTIC_CUT // ELASTIC_EVERY,
+            f"elastic resume: {r}, cut {cases['cut']['info']}")
+    require(torch.equal(cases["resumed"]["x"], clean["x"]),
+            "elastic resume: x differs from the clean solve's")
+    f = cases["faults"]["info"]
+    require(f["retries"] == 2 and f["iterations"] == ELASTIC_ITERS
+            and torch.equal(cases["faults"]["x"], clean["x"]),
+            f"elastic faults: {f}, x equal "
+            f"{torch.equal(cases['faults']['x'], clean['x'])}")
+    dl = cases["deadline"]
+    require(dl["info"]["degraded"] == "deadline"
+            and dl["info"]["plan"] == "elastic"
+            and 0 < dl["info"]["iterations"] < 100_000
+            and bool(torch.isfinite(dl["x"]).all()),
+            f"elastic deadline: {dl['info']}")
+
+    # The elastic server against the plain one: ELASTIC_SERVE quad/gra
+    # requests, one group; the straggler wrapped around the group's linop
+    # after its first step (tests/test_fault_tolerance.py's way).
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    B = torch.stack([rm.matvec(torch.randn(N, generator=gen, device=dev))
+                     for _ in range(ELASTIC_SERVE)])
+    served = {}
+    for name in ("plain", "elastic"):
+        fm = FaultyMesh(None)
+        srv = SolverServer(slots=SLOTS, elastic_factory=(
+            lambda: ElasticConfig(
+                monitor=ShardMonitor(1, StragglerConfig(**ELASTIC_MONITOR)),
+                remesh_to=fm.drop)) if name == "elastic" else None)
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids = [srv.submit(api.SolveRequest(
+            A=rm, b=B[j], L0=L0, tol=0.0, max_iters=ELASTIC_SERVE_ITERS,
+            device=dev)) for j in range(ELASTIC_SERVE)]
+        srv.step()
+        if name == "elastic":
+            runner = next(iter(srv._runners.values()))
+            runner._eg.linop = FaultyLinop(
+                runner._eg.linop, FaultPlan(**ELASTIC_STRAGGLER),
+                sleep=_nosleep)
+        srv.run()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()["fused_grad_multi"]
+        require(launches == srv.stats["a_passes"],
+                f"elastic server ({name}): {launches} launches for "
+                f"{srv.stats['a_passes']} group A-passes")
+        served[name] = {"x": [srv.result(i).x for i in ids],
+                        "stats": srv.stats, "wall_ms": wall,
+                        "launches": launches}
+    require(served["elastic"]["stats"]["remeshes"] >= 1,
+            f"elastic server: {served['elastic']['stats']}")
+    serve_err = max(rel_err(x, y) for x, y in zip(
+        served["elastic"]["x"], served["plain"]["x"]))
+    require(serve_err <= ELASTIC_TOL["serve"],
+            f"elastic server: answers {serve_err:.3e} from the plain's")
+
+    # The one-rank clean references of the two-rank cases.
+    del B, served["plain"]["x"], served["elastic"]["x"]
+    one = {"A": _elastic_case(ops, dev, "fused_grad_multi", lambda: (
+        solve_elastic(LinopMatrix(rm), "quad", b, L0=L0,
+                      **ELASTIC_CLUSTER["A"])))}
+    del rm, b
+    torch.cuda.empty_cache()
+    S, b_s = elastic_inputs(dev, sparse=True)
+    L0_S = sparse_l0(S)
+    s_iters, loss_at = (ELASTIC_CLUSTER["S"]["max_iters"],
+                        ELASTIC_LOSS["lose_shard_at"])
+    one["S"] = _elastic_case(
+        ops, dev, "fused_grad_bsr_multi", lambda: group_run(
+            LinopMatrix(S), b_s, L0_S, s_iters))
+
+    t0 = time.perf_counter()
+    ranks = lmesh.spawn(elastic_rank, 2, args=(L0, L0_S),
+                        backend="nccl" if torch.cuda.device_count() >= 2
+                        else "gloo", device="cuda",
+                        timeout_s=CLUSTER_TIMEOUT_S, deadline_s=900)
+    spawn_s = time.perf_counter() - t0
+    # The one-rank solve from the two-rank clean solve's state at the loss.
+    x_cut, L_cut = ranks[0]["S_clean"]["info"]["cut"]
+    stitched = _elastic_case(
+        ops, dev, "fused_grad_bsr_multi", lambda: group_run(
+            LinopMatrix(S), b_s, L_cut, s_iters - loss_at,
+            x0=x_cut.to(dev)))
+    del S, b_s
+    torch.cuda.empty_cache()
+    dropped = {"A": next(iter(ELASTIC_STRAGGLER["shard_delays"])),
+               "S": ELASTIC_LOSS["lost_shard"]}
+    cluster = {}
+    for name, kernel in (("A", "fused_grad_multi"),
+                         ("S", "fused_grad_bsr_multi")):
+        rs = [r[name] for r in ranks]
+        surv = [c for i, c in enumerate(rs) if i != dropped[name]]
+        lost = rs[dropped[name]]
+        for i, c in enumerate(rs):
+            require(c["casualties"] == [dropped[name]]
+                    and c["info"]["remeshes"] == 1
+                    and c["launches"] == c["info"]["a_passes"] > 0,
+                    f"elastic cluster {name} rank {i}: {c['info']}, "
+                    f"casualties {c['casualties']}, {c['launches']} "
+                    f"{kernel} launches")
+        require(lost["info"].get("dropped") is True
+                and all("dropped" not in c["info"] for c in surv),
+                f"elastic cluster {name}: rank {dropped[name]} not dropped")
+        require(all(torch.equal(c["x"], surv[0]["x"]) for c in surv),
+                f"elastic cluster {name}: survivors' x differ")
+        ref = one[name]
+        ex = max_abs(surv[0]["x"], ref["x"])
+        eo = abs(surv[0]["info"]["objective"] - ref["info"]["objective"]) \
+            / abs(ref["info"]["objective"])
+        print(f"[elastic] {len(rs)} ranks ({ranks[0]['backend']}) on {name}: "
+              f"rank {dropped[name]} dropped, re-mesh ms "
+              f"{[c['remesh_ms'] for c in rs]}, wall ms "
+              f"{[round(c['wall_ms'], 1) for c in rs]} (one rank "
+              f"{ref['wall_ms']:.1f}), A-passes "
+              f"{[c['info']['a_passes'] for c in rs]} (one rank "
+              f"{ref['info']['a_passes']}), x {ex:.3e} (max abs) and "
+              f"objective {eo:.3e} from one rank's; {info['nvidia_smi']}")
+        flips = {}
+        if name == "S":
+            # Group passes a step: the one-rank and two-rank clean runs,
+            # the survivor (its step at the loss, cut short by the
+            # re-mesh, left out) and the one-rank run from the loss.
+            two = ranks[0]["S_clean"]
+            steps = {"one rank": ref["tries"], "two ranks": two["tries"],
+                     "survivor": (surv[0]["tries"][:loss_at]
+                                  + surv[0]["tries"][loss_at + 1:]),
+                     "from the loss": stitched["tries"]}
+            flips = {k: _first_difference(steps["one rank"], v)
+                     for k, v in steps.items()
+                     if k in ("two ranks", "survivor")}
+            d = _first_difference(ref["tries"][loss_at:], stitched["tries"])
+            flips["from the loss"] = None if d is None else loss_at + d
+            upto = flips["two ranks"]
+            o1 = ref["info"]["objectives"][:upto]
+            o2 = two["info"]["objectives"][:upto]
+            eo_before = max((abs(u - v) / abs(u) for u, v in zip(o1, o2)),
+                            default=0.0)
+            es = max_abs(surv[0]["x"], stitched["x"])
+            print(f"[elastic] S group passes a step: "
+                  + "; ".join(f"{k} {v}" for k, v in steps.items())
+                  + f"; first step that differs from one rank's: {flips}; "
+                  f"objectives of two ranks and one before it "
+                  f"{eo_before:.3e} apart (relative); survivor "
+                  f"{es:.3e} (max abs) from the one-rank run from the "
+                  f"loss; {info['nvidia_smi']}")
+            require(two["launches"] == two["info"]["a_passes"]
+                    and stitched["launches"] == stitched["info"]["a_passes"],
+                    f"elastic cluster S: clean {two['launches']} launches "
+                    f"for {two['info']['a_passes']} A-passes, from the loss "
+                    f"{stitched['launches']} for "
+                    f"{stitched['info']['a_passes']}")
+            require(eo_before <= ELASTIC_TOL["objective"],
+                    f"elastic cluster S: two ranks' objectives {eo_before:.3e}"
+                    " from one rank's before any step differs")
+            require(torch.equal(surv[0]["x"], stitched["x"])
+                    and steps["survivor"][loss_at:] == stitched["tries"]
+                    and sum(stitched["tries"]) > len(stitched["tries"]),
+                    "elastic cluster S: the survivor is not the one-rank run "
+                    f"from the loss bit for bit ({es:.3e} max abs), or no "
+                    "step backtracked after the re-mesh")
+        if flips.get("survivor") is None:
+            require(ex <= ELASTIC_TOL["x"] and eo <= ELASTIC_TOL["objective"]
+                    and surv[0]["info"]["converged"]
+                    == ref["info"]["converged"],
+                    f"elastic cluster {name}: x {ex:.3e}, objective "
+                    f"{eo:.3e} from one rank's, {surv[0]['info']}")
+        cluster[name] = {
+            "world": len(rs), "backend": ranks[0]["backend"],
+            "dropped_rank": dropped[name], "x_max_abs": ex,
+            "objective_rel": eo,
+            "wall_ms": [c["wall_ms"] for c in rs],
+            "remesh_ms": [c["remesh_ms"] for c in rs],
+            "a_passes": [c["info"]["a_passes"] for c in rs],
+            "launches": [c["launches"] for c in rs],
+            "one_rank": {"wall_ms": ref["wall_ms"],
+                         "a_passes": ref["info"]["a_passes"]},
+            "first_step_differing": flips}
+    launches = {k: 0 for k in ops.launch_counts()}
+    for c in list(cases.values()) + [ranks[0]["A"], ranks[0]["S"]]:
+        for k, v in c["counts"].items():
+            launches[k] += v
+    launches["fused_grad_multi"] += served["elastic"]["launches"]
+    for name in PATHS["elastic"]:
+        require(launches[name] > 0, f"{name} never launched on the "
+                "elastic path")
+
+    rec = {"cases": {k: {"info": c["info"], "wall_ms": c["wall_ms"],
+                         "launches": c["launches"],
+                         "remesh_ms": c["remesh_ms"],
+                         "checkpoint_ms": c["checkpoint_ms"],
+                         "checkpoint_write_ms": c["checkpoint_write_ms"]}
+                     for k, c in cases.items()},
+           "server": {k: {kk: v for kk, v in s.items() if kk != "x"}
+                      for k, s in served.items()},
+           "serve_rel": serve_err, "cluster": cluster,
+           "spawn_s": spawn_s, "launches": launches,
+           "phase_s": time.perf_counter() - t12}
+    for k, c in rec["cases"].items():
+        print(f"[elastic] {k}: {c['info']['iterations']} iterations, "
+              f"{c['info']['a_passes']} A-passes ({c['launches']} "
+              f"fused_grad_multi launches), {c['wall_ms']:.1f} ms, "
+              f"degraded {c['info']['degraded']}, retries "
+              f"{c['info']['retries']}, saves "
+              f"{c['info']['checkpoint_saves']}"
+              + (f", checkpoint {c['checkpoint_ms']} ms (writes "
+                 f"{c['checkpoint_write_ms']} ms)"
+                 if c["checkpoint_ms"] else "")
+              + f"; {info['nvidia_smi']}")
+    for k, s in rec["server"].items():
+        print(f"[elastic] server {k}: {ELASTIC_SERVE} requests, "
+              f"{s['stats']['a_passes']} group A-passes, remeshes "
+              f"{s['stats']['remeshes']}, {s['wall_ms']:.1f} ms; "
+              f"{info['nvidia_smi']}")
+    print(f"[elastic] phase 12 in {rec['phase_s']:.1f} s (spawn "
+          f"{spawn_s:.1f} s); launches {launches}")
+    return rec
+
+
 def smoke(dev: torch.device) -> dict:
     """Phases 2 to 8 on `dev`; returns the numbers to report."""
     from repro_torch import api
@@ -4003,9 +4510,15 @@ def run() -> int:
     # around the path --------------------------------------------------------
     torch.cuda.empty_cache()
     summary["cluster"] = run_phase11(info)
+    # -- phase 12: fault-tolerant solves on A and S, after phase 11's
+    # groups are gone; each case zeroes and reads its counts -------------
+    torch.cuda.empty_cache()
+    summary["elastic"] = run_phase12(info)
     for row in summary["kernels"]:
         row["launches_by_path"]["cluster"] = \
             summary["cluster"]["launches"][0].get(row["name"], 0)
+        row["launches_by_path"]["elastic"] = \
+            summary["elastic"]["launches"].get(row["name"], 0)
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
@@ -4013,6 +4526,7 @@ def run() -> int:
                       "front_door": summary["front_door"],
                       "lm": summary["lm"], "planner": summary["planner"],
                       "cluster": summary["cluster"],
+                      "elastic": summary["elastic"],
                       "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])

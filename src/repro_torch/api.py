@@ -26,6 +26,16 @@ is no card; pass device="cpu" to run on the CPU.  The request validation is
 the reference's.  What the port does not have yet raises
 NotImplementedError naming its ROADMAP item.
 
+Fault tolerance and observability, as the reference's: a direct-form
+gra/lbfgs request with `checkpoint_dir` (periodic resumable snapshots,
+`resume=True` to continue from the newest) or `deadline_s` runs the
+host-driven elastic executor (core/optim/elastic.solve_elastic; info
+"plan" "elastic", with its recovery counters), which returns its best
+iterate with degraded="deadline" when the budget runs out; the other
+solves, SVDs and similarity requests report a blown deadline after the
+fact.  `telemetry=True` (or a telemetry.Recorder) runs the request under a
+scoped recorder and attaches its summary as `Result.info["trace"]`.
+
 The thin wrappers `minimize` (a Figure-1 `Problem` through
 `solve(SolveRequest(problem=...))`, core.optim.minimize underneath),
 `compute_svd` (an SvdRequest on any §2 matrix type, returning
@@ -35,6 +45,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -54,7 +65,6 @@ from repro_torch.core.tfocs.solver import TfocsOptions
 from repro_torch.kernels.fusedgrad import LOSSES
 
 REGS = ("none", "l1", "l2")
-FAULT_TOLERANCE_ITEM = "ROADMAP queue 1 item 14 (fault tolerance and telemetry)"
 _ids = itertools.count()
 
 
@@ -80,10 +90,6 @@ def _check_scalar(name: str, value, *, minimum=None,
             raise ValueError(f"{name} must be >= {minimum}, got {value!r}")
 
 
-def _not_yet(what: str, item: str):
-    raise NotImplementedError(f"{what} waits for {item}")
-
-
 @dataclass
 class SolveRequest:
     """minimize f(Ax) + h(x): a design matrix `A` (RowMatrix,
@@ -106,13 +112,17 @@ class SolveRequest:
     # pick within the tolerance's error guard; "f32"/"bf16"/"psum8" force
     # the choice.  Result.info["precision"] reports what ran.
     precision: str = "auto"
-    deadline_s: float | None = None   # wall budget, honoured by the server
-    checkpoint_dir: str | None = None
-    checkpoint_every: int = 10
-    resume: bool = False
+    # fault tolerance / resumability (core/optim/elastic):
+    deadline_s: float | None = None     # wall budget; past it, best iterate
+    checkpoint_dir: str | None = None   # periodic resumable snapshots
+    checkpoint_every: int = 10          # iterations between snapshots
+    resume: bool = False                # restore from checkpoint_dir first
     problem: Problem | None = None
     smooth: Any = None
     prox: Any = None
+    # observability (launch/telemetry): True for a fresh recorder, or a
+    # telemetry.Recorder to accumulate across requests; the summary lands
+    # in Result.info["trace"].
     telemetry: Any = None
     device: Any = "cuda"
     request_id: str = field(default_factory=lambda: _next_id("solve"))
@@ -141,13 +151,16 @@ class SolveRequest:
         if self.precision not in ("auto", "f32", "bf16", "psum8"):
             raise ValueError("precision must be auto | f32 | bf16 | psum8, "
                              f"got {self.precision!r}")
+        if self.checkpoint_dir is not None:
+            if self.problem is not None or self.smooth is not None \
+                    or self.prox is not None:
+                raise ValueError("checkpoint_dir needs the (A, b) request "
+                                 "form (escape hatches aren't resumable)")
+            if self.method not in ("gra", "lbfgs"):
+                raise ValueError("checkpoint_dir needs method 'gra' or "
+                                 f"'lbfgs', got {self.method!r}")
         if self.resume and self.checkpoint_dir is None:
             raise ValueError("resume=True needs checkpoint_dir")
-        for name in ("checkpoint_dir", "telemetry"):
-            if getattr(self, name) is not None:
-                _not_yet(name, FAULT_TOLERANCE_ITEM)
-        if self.resume:
-            _not_yet("resume", FAULT_TOLERANCE_ITEM)
 
 
 @dataclass
@@ -169,9 +182,6 @@ class SvdRequest:
         _check_scalar("k", self.k, minimum=0, exclusive=True)
         _check_scalar("deadline_s", self.deadline_s, minimum=0.0,
                       exclusive=True, optional=True)
-        for name in ("deadline_s", "telemetry"):
-            if getattr(self, name) is not None:
-                _not_yet(name, FAULT_TOLERANCE_ITEM)
 
 
 @dataclass
@@ -191,9 +201,6 @@ class SimilarityRequest:
         _check_scalar("threshold", self.threshold, minimum=0.0)
         _check_scalar("deadline_s", self.deadline_s, minimum=0.0,
                       exclusive=True, optional=True)
-        for name in ("deadline_s", "telemetry"):
-            if getattr(self, name) is not None:
-                _not_yet(name, FAULT_TOLERANCE_ITEM)
 
 
 @dataclass
@@ -266,11 +273,55 @@ def solve_prox(req: SolveRequest):
 
 # -- direct call path ---------------------------------------------------------
 
+def _traced(req, kind: str, run) -> Result:
+    """The ``telemetry=`` escape hatch: when the request asks for it, run
+    the job under a scoped recorder (every instrumented component resolves
+    it through telemetry.current()) and attach the compact summary as
+    ``Result.info["trace"]``.  Off (the default) adds no work."""
+    if not req.telemetry:
+        return run()
+    from repro_torch.launch import telemetry as _telemetry
+    rec = req.telemetry if isinstance(req.telemetry, _telemetry.Recorder) \
+        else _telemetry.Recorder()
+    with _telemetry.recording(rec):
+        with rec.span("api." + kind, request_id=req.request_id):
+            res = run()
+    res.info["trace"] = rec.summary()
+    return res
+
+
+def _past(t0: float, deadline_s: float | None) -> bool:
+    return deadline_s is not None and time.perf_counter() - t0 > deadline_s
+
+
+def _solve_elastic(req: SolveRequest) -> Result:
+    """The host-driven resumable, deadline-aware path
+    (core/optim/elastic): a direct-form gra/lbfgs request that asks for a
+    checkpoint or a wall deadline.  The one-shot solvers cannot be
+    snapshotted or stopped mid-flight; the per-iteration driver can."""
+    from repro_torch.core.optim import elastic as _elastic
+    ckpt = None
+    if req.checkpoint_dir is not None:
+        ckpt = _elastic.SolveCheckpoint(req.checkpoint_dir,
+                                        every=req.checkpoint_every)
+    cfg = _elastic.ElasticConfig(checkpoint=ckpt)
+    linop = solve_linop(req)
+    x, info = _elastic.solve_elastic(
+        linop, req.loss, req.b, param=req.param, reg=req.reg, lam=req.lam,
+        method=req.method, tol=req.tol, max_iters=req.max_iters, L0=req.L0,
+        x0=req.x0, deadline_s=req.deadline_s, resume=req.resume,
+        elastic=cfg)
+    info["precision"] = "bf16" if linop.operand_dtype() == torch.bfloat16 \
+        else "f32"
+    return Result(x=x, info=info, request_id=req.request_id)
+
+
 def solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
-    """Run one SolveRequest now.  A wall deadline is honoured by the
-    server's groups; on this path it waits for the elastic executor."""
-    if req.deadline_s is not None:
-        _not_yet("deadline_s on the direct path", FAULT_TOLERANCE_ITEM)
+    """Run one SolveRequest now (no queue, no batching)."""
+    return _traced(req, "solve", lambda: _solve(req, fused=fused))
+
+
+def _solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
     if req.problem is not None:
         x, info = _minimize(req.problem, req.method,
                             max_iters=req.max_iters, tol=req.tol,
@@ -279,6 +330,11 @@ def solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
         info.setdefault("degraded", None)
         info.setdefault("precision", "f32")
         return Result(x=x, info=info, request_id=req.request_id)
+    if (req.checkpoint_dir is not None
+            or (req.deadline_s is not None
+                and req.method in ("gra", "lbfgs")
+                and req.smooth is None and req.prox is None)):
+        return _solve_elastic(req)
     linop = solve_linop(req)
     smooth = solve_smooth(req, linop)
     prox = solve_prox(req)
@@ -290,23 +346,36 @@ def solve(req: SolveRequest, *, fused: bool | str = "auto") -> Result:
     if req.method == "lbfgs" and not isinstance(prox, ProxZero):
         raise ValueError("method='lbfgs' needs reg='none' (fold the "
                          "regularizer into a smooth loss)")
+    t0 = time.perf_counter()
     x, info = minimize_first_order(req.method, smooth, linop, prox,
                                    x0=x0, opts=opts)
     info.setdefault("degraded", None)
+    if _past(t0, req.deadline_s):
+        # The one-shot accelerated solvers cannot stop mid-flight; the
+        # overrun is reported after the fact so callers still learn the
+        # budget was blown.
+        info["degraded"] = "deadline"
     return Result(x=x, info=info, request_id=req.request_id)
 
 
 def svd(req: SvdRequest) -> Result:
     """Run one SvdRequest now; factors are (U RowMatrix | None, s, V)."""
+    return _traced(req, "svd", lambda: _svd(req))
+
+
+def _svd(req: SvdRequest) -> Result:
     A = _on_device(req.A, req.device)
     if isinstance(A, torch.Tensor):
         A = RowMatrix.create(A, device=A.device)
+    t0 = time.perf_counter()
     res = _compute_svd(A, req.k, compute_u=req.compute_u, mode=req.mode,
                        **req.options)
     info = dict(res.info or {})
     info.setdefault("converged", True)
     info.setdefault("degraded", None)
     info.setdefault("precision", "f32")
+    if _past(t0, req.deadline_s):
+        info["degraded"] = "deadline"
     return Result(factors=(res.U, res.s, res.V), info=info,
                   request_id=req.request_id)
 
@@ -314,9 +383,14 @@ def svd(req: SvdRequest) -> Result:
 def similarities(req: SimilarityRequest) -> Result:
     """Run one SimilarityRequest now; factors are (sim,).  DIMSUM is one
     Gram-style reduction: one pass over A, no iteration."""
+    return _traced(req, "similarities", lambda: _similarities(req))
+
+
+def _similarities(req: SimilarityRequest) -> Result:
     A = _on_device(req.A, req.device)
     if isinstance(A, torch.Tensor):
         A = RowMatrix.create(A, device=A.device)
+    t0 = time.perf_counter()
     sim, info = A.column_similarities(req.threshold, gamma=req.gamma,
                                       seed=req.seed, return_info=True)
     info = dict(info)
@@ -325,6 +399,8 @@ def similarities(req: SimilarityRequest) -> Result:
     info.setdefault("converged", True)
     info.setdefault("plan", "dimsum" if req.threshold > 0 else "gram")
     info.setdefault("degraded", None)
+    if _past(t0, req.deadline_s):
+        info["degraded"] = "deadline"
     return Result(factors=(sim,), info=info, request_id=req.request_id)
 
 

@@ -467,9 +467,11 @@ class RowMatrix(_Sharded, T.DistMatrix):
                row_axes: Sequence[str] | None = None) -> "RowMatrix":
         """The same logical matrix on another mesh: gathered, stripped of
         the old padding, re-padded for the new shard count and cut to this
-        rank's strip (every rank of both meshes calls it)."""
+        rank's strip (every rank of both meshes calls it).  A rank outside
+        the new mesh (one an elastic re-mesh dropped) keeps the whole
+        matrix on its own device and no mesh."""
         glob = self.to_local()
-        if mesh is None:
+        if mesh is None or not mesh.member:
             return RowMatrix.create(glob, device=self.device)
         return RowMatrix.create(glob, mesh=mesh, row_axes=row_axes)
 

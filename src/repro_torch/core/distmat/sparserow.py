@@ -584,9 +584,11 @@ class SparseRowMatrix(_Sharded, T.DistMatrix):
         calls it): the block-rows gathered, re-padded for the new shard
         count (padding block-rows hold zero blocks at column 0, int8 scale
         1, which add nothing) and cut to this rank's strip.  Block size,
-        ELL width and the stored blocks are unchanged."""
+        ELL width and the stored blocks are unchanged.  A rank outside the
+        new mesh (one an elastic re-mesh dropped) keeps the whole matrix
+        on its own device and no mesh."""
         data, cols, scales = self._whole()
-        if mesh is not None and mesh.size == 1:
+        if mesh is not None and (mesh.size == 1 or not mesh.member):
             mesh = None
         row_axes = tuple(row_axes) if row_axes else T.row_axes_for(mesh)
         nsh = T.axes_size(mesh, row_axes)

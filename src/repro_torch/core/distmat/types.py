@@ -39,17 +39,29 @@ class Mesh:
     A mesh of more than one rank wraps
     ``torch.distributed.device_mesh.init_device_mesh`` (one process group
     an axis) and adds one group for its row axes when they are several
-    ("pod" x "data"); build it with ``make_mesh`` on every rank alike."""
+    ("pod" x "data"); build it with ``make_mesh`` on every rank alike.  A
+    mesh over some of the ranks (``mesh_from_grid``, the survivors of an
+    elastic re-mesh) holds its `grid` of global ranks and a group an axis;
+    on a rank outside it `coordinate` is None and `member` False."""
 
     def __init__(self, shape: Sequence[int], names: Sequence[str],
-                 device: torch.device, device_mesh=None):
+                 device: torch.device, device_mesh=None, *,
+                 grid: torch.Tensor | None = None,
+                 groups: dict | None = None):
         self.axis_names = tuple(names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.device = device
         self.device_mesh = device_mesh
-        self.coordinate = tuple(device_mesh.get_coordinate()) \
-            if device_mesh is not None else (0,) * len(self.axis_names)
-        self._groups: dict = {}
+        self.grid = device_mesh.mesh if device_mesh is not None else grid
+        if device_mesh is not None:
+            self.coordinate = tuple(device_mesh.get_coordinate())
+        elif grid is not None:
+            hit = (grid == dist.get_rank()).nonzero()
+            self.coordinate = tuple(int(c) for c in hit[0]) \
+                if len(hit) else None
+        else:
+            self.coordinate = (0,) * len(self.axis_names)
+        self._groups: dict = dict(groups or {})
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
@@ -57,6 +69,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank is one of the mesh's."""
+        return self.coordinate is not None
 
     def axes_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in _axes(axes))
@@ -77,20 +94,23 @@ class Mesh:
     def members(self, axes) -> list[int]:
         """Global ranks of this rank's group along `axes`, in flat-index
         order (the order ``index`` counts in)."""
-        if self.device_mesh is None:
+        if self.grid is None:
             return [0]
-        grid = self.device_mesh.mesh
         sel = tuple(slice(None) if a in _axes(axes) else c
                     for a, c in zip(self.axis_names, self.coordinate))
-        return [int(r) for r in grid[sel].reshape(-1)]
+        return [int(r) for r in self.grid[sel].reshape(-1)]
 
     def group(self, axes):
-        """The process group of this rank's ranks along `axes`."""
+        """The process group of this rank's ranks along `axes` (all of
+        them: every rank of the mesh)."""
         key = self._ordered(axes)
         if key in self._groups:
             return self._groups[key]
-        if len(key) == 1:
-            return self.device_mesh.get_group(key[0])
+        if self.device_mesh is not None:
+            if len(key) == 1:
+                return self.device_mesh.get_group(key[0])
+            if key == self.axis_names:     # make_mesh spans the world
+                return dist.group.WORLD
         raise ValueError(f"no process group for axes {key}: make_mesh "
                          "creates the row axes' group only")
 
@@ -104,6 +124,33 @@ def _make_group(mesh: Mesh, axes: tuple[str, ...]) -> None:
     groups = grid.permute(*rest, *pos).reshape(-1, mesh.axes_size(axes))
     mine, _ = dist.new_subgroups_by_enumeration(groups.tolist())
     mesh._groups[axes] = mine
+
+
+def mesh_from_grid(grid: torch.Tensor, names: Sequence[str], device
+                   ) -> Mesh:
+    """A mesh over the global ranks in `grid` (shaped as the mesh), made
+    on EVERY rank of the default process group, those outside `grid`
+    included: each process group is created by a call that all ranks
+    make in the same order.  A group is made for each axis of more than
+    one rank and one for the whole mesh; on a rank outside `grid` the mesh
+    has no coordinate and takes part in no later collective."""
+    grid = torch.as_tensor(grid)
+    names = tuple(names)
+    groups: dict = {}
+    if grid.numel() > 1:
+        for pos, a in enumerate(names):
+            if grid.shape[pos] == 1:
+                continue
+            rest = [i for i in range(grid.dim()) if i != pos]
+            lists = grid.permute(*rest, pos).reshape(-1, grid.shape[pos])
+            groups[(a,)], _ = dist.new_subgroups_by_enumeration(
+                lists.tolist())
+        whole = tuple(a for a, s in zip(names, grid.shape) if s > 1)
+        if len(whole) == 1:
+            groups[names] = groups[whole]
+        else:
+            groups[names] = dist.new_group(grid.reshape(-1).tolist())
+    return Mesh(tuple(grid.shape), names, device, grid=grid, groups=groups)
 
 
 @functools.cache

@@ -33,9 +33,24 @@ executors; an SVD wide enough for the randomized mode runs it
 (core/linalg/randsvd, the randsketch kernel), and a similarity request runs DIMSUM on the matrix's
 Gram (tsgram dense, bsr_rmatmul sparse).  A group's matrix may be a
 RowMatrix, a SparseRowMatrix or a plain tensor: its group pass is
-fused_grad_multi, or fused_grad_bsr_multi on the stored blocks.  A grouped request's ``deadline_s`` retires it with its best
-iterate once the deadline passes; ``max_pending`` sheds load at submit with
-a typed ``api.Overloaded`` result.
+fused_grad_multi, or fused_grad_bsr_multi on the stored blocks.
+
+The frontend is hardened as the reference's is:
+
+  * every GroupRunner drives core/optim/elastic.ElasticGroup, so a server
+    built with an ``elastic_factory`` gets straggler detection, mid-solve
+    re-meshing and bounded retry with backoff per group, and the group is
+    priced again on its new shard shape after a re-mesh (``remeshes`` in
+    ``stats``); when recovery is exhausted the residents are retired with
+    their best iterates and ``degraded="fault"``;
+  * a grouped request's ``deadline_s`` retires it with its best iterate
+    once the deadline passes; a one-shot's is honoured by ``api`` (the
+    elastic path for gra/lbfgs, post hoc otherwise), and a request whose
+    deadline passed while it waited in the queue is answered at once
+    without running; checkpointed solves run one-shot, through the
+    resumable path;
+  * ``max_pending`` sheds load at submit with a typed ``api.Overloaded``
+    result.
 
 Every answer is an ``api.Result``; for served solves ``info["a_passes"]``
 is the number of GROUP passes taken while the request was resident.  The
@@ -102,17 +117,25 @@ class GroupRunner:
 
     def __init__(self, linop, kind: str, param: float = 1.0, *,
                  reg: str = "none", method: str = "gra", slots: int = 8,
-                 mem: int = 10, telemetry: _tel.Recorder | None = None):
+                 mem: int = 10,
+                 elastic: _elastic.ElasticConfig | None = None,
+                 telemetry: _tel.Recorder | None = None):
+        # All solver state lives in the elastic executor; the runner adds
+        # the serving concerns on top (request metadata, deadlines,
+        # retirement into api.Results, the planner price).
         self.tel = telemetry if telemetry is not None else _tel.NULL
         self._eg = _elastic.ElasticGroup(linop, kind, param, reg=reg,
                                          method=method, slots=slots,
-                                         mem=mem, telemetry=telemetry)
+                                         mem=mem, elastic=elastic,
+                                         telemetry=telemetry)
         self.kind, self.param = kind, param
         self.reg, self.method, self.slots = reg, method, slots
         self.meta: list[dict | None] = [None] * slots
         # Modeled device seconds of one group pass (the server's budget
-        # pricing sets it when it opens the group).
+        # pricing sets it when it opens the group, and again after a
+        # re-mesh changes the shard shape).
         self.price_s = 0.0
+        self.priced_remeshes = 0
 
     # -- delegated solver state (the executor owns it) ------------------------
 
@@ -131,6 +154,10 @@ class GroupRunner:
     @property
     def a_passes(self) -> int:
         return self._eg.a_passes
+
+    @property
+    def remeshes(self) -> int:
+        return self._eg.remeshes
 
     def free_slots(self) -> int:
         return self._eg.free_slots()
@@ -159,7 +186,18 @@ class GroupRunner:
         out = self._expire_deadlines()
         if not self.busy():
             return out
-        self._eg.step_iteration()
+        try:
+            self._eg.step_iteration()
+        except (_elastic.TransientShardError,
+                _elastic.DeviceLostError) as e:
+            # Recovery exhausted (or no re-mesh policy): the residents get
+            # their best iterates back, and the serving loop goes on.
+            with self.tel.span("serve.recover", error=str(e)):
+                for i in range(self.slots):
+                    if self.active[i]:
+                        out.append(self._retire(i, False, degraded="fault",
+                                                error=str(e)))
+            return out
         done = self.state.done.cpu().numpy()
         k = self.state.k.cpu().numpy()
         for i in range(self.slots):
@@ -186,7 +224,8 @@ class GroupRunner:
         return out
 
     def _retire(self, i: int, converged: bool, *,
-                degraded: str | None = None) -> api.Result:
+                degraded: str | None = None,
+                error: str | None = None) -> api.Result:
         meta = self.meta[i]
         req = meta["req"]
         if degraded is None and not converged:
@@ -200,6 +239,8 @@ class GroupRunner:
                     "converged": converged, "plan": "fused-group",
                     "objective": float(self.state.obj[i]),
                     "slot": i, "degraded": degraded}
+            if error is not None:
+                info["error"] = error
             # A copy: the slot's state rows are rewritten in place on the
             # next admit.
             x = self.state.X[i].clone()
@@ -224,9 +265,9 @@ class SolverServer:
                  telemetry: _tel.Recorder | None = None):
         self.budget_s = budget_s
         self.backend = backend
-        if elastic_factory is not None:
-            raise NotImplementedError(
-                f"elastic_factory waits for {_elastic.FAULT_TOLERANCE_ITEM}")
+        # () -> core.optim.elastic.ElasticConfig, called once a group so
+        # each runner gets its own monitor and checkpoint.
+        self.elastic_factory = elastic_factory
         self.slots = slots
         # Load-shedding bound: submits past this queue depth are refused
         # with a typed api.Overloaded result.
@@ -274,10 +315,6 @@ class SolverServer:
             if req.problem is None and req.smooth is None \
                     and req.method == "lbfgs" and req.reg != "none":
                 raise ValueError("method='lbfgs' needs reg='none'")
-            if req.deadline_s is not None and not batchable(req):
-                raise NotImplementedError(
-                    "deadline_s on a one-shot solve waits for "
-                    f"{_elastic.FAULT_TOLERANCE_ITEM}")
         if self.max_pending is not None \
                 and len(self._queue) >= self.max_pending:
             with self.tel.span("serve.shed", request_id=req.request_id,
@@ -306,23 +343,29 @@ class SolverServer:
         """Modeled device seconds: a step's for a group (one fused pass,
         however many requests share it), the whole job's for a one-shot."""
         if isinstance(req, api.SolveRequest):
-            if req.problem is not None:
-                m, n = (req.problem.linop.out_shape[0],
-                        req.problem.linop.in_shape[0])
-            elif isinstance(req.A, SparseRowMatrix):
-                return _planner.plan(
-                    "fused_grad_bsr", {"m": req.A.m_pad, "n": req.A.n_pad,
-                                       "bs": req.A.bs, "ell": req.A.ell},
-                    req.A.data.dtype, backend=self.backend).cost_s
-            else:
-                m, n = req.A.shape
-            return _planner.plan("fused_grad", {"m": int(m), "n": int(n)},
-                                 backend=self.backend).cost_s
+            if req.problem is None:
+                return self._price_pass(req.A)
+            lin = req.problem.linop
+            return _planner.plan(
+                "fused_grad", {"m": int(lin.out_shape[0]),
+                               "n": int(lin.in_shape[0])},
+                backend=self.backend).cost_s
         m, n = req.A.shape
         # A similarity request's Gram pass is the whole job: priced as the
         # Gram-mode SVD of the same matrix.
         k = int(req.k) if isinstance(req, api.SvdRequest) else 1
         return _planner.plan("svd", {"m": int(m), "n": int(n), "k": k},
+                             backend=self.backend).cost_s
+
+    def _price_pass(self, A) -> float:
+        """Modeled device seconds of one fused pass over the matrix `A`."""
+        if isinstance(A, SparseRowMatrix):
+            return _planner.plan(
+                "fused_grad_bsr", {"m": A.m_pad, "n": A.n_pad, "bs": A.bs,
+                                   "ell": A.ell},
+                A.data.dtype, backend=self.backend).cost_s
+        m, n = A.shape
+        return _planner.plan("fused_grad", {"m": int(m), "n": int(n)},
                              backend=self.backend).cost_s
 
     def _active_cost(self) -> float:
@@ -372,7 +415,10 @@ class SolverServer:
                             runner = GroupRunner(
                                 api.solve_linop(req), req.loss, req.param,
                                 reg=req.reg, method=req.method,
-                                slots=self.slots, telemetry=self.tel)
+                                slots=self.slots,
+                                elastic=(self.elastic_factory()
+                                         if self.elastic_factory else None),
+                                telemetry=self.tel)
                             self._runners[key] = runner
                         runner.price_s = cost
                         runner.admit(req)
@@ -452,6 +498,14 @@ class SolverServer:
                 before = runner.a_passes
                 retired = runner.step()
                 self._c["a_passes"].inc(runner.a_passes - before)
+                if runner.remeshes != runner.priced_remeshes:
+                    # A mid-solve re-mesh changed the shard shape: re-price
+                    # the group so the budget sees its new cost.
+                    self._c["remeshes"].inc(runner.remeshes
+                                            - runner.priced_remeshes)
+                    runner.priced_remeshes = runner.remeshes
+                    runner.price_s = self._price_pass(
+                        _elastic._operand(runner.linop))
                 for res in retired:
                     self._finish(res)
                 out.extend(retired)

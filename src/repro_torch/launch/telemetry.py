@@ -4,8 +4,9 @@ Counterpart of src/repro/launch/telemetry.py (pure Python there too), kept
 as the port's own copy.  Two layers:
 
   * **Spans**: nestable, thread-safe wall-clock intervals around every
-    group iteration phase (seed pass, fused pass) and every server
-    scheduler action (admit, oneshot, retire, shed, recover).
+    elastic iteration phase (seed pass, fused pass, validate, checkpoint,
+    re-mesh and the engines' rebuild), every checkpoint write and every
+    server scheduler action (admit, oneshot, retire, shed, recover).
     ``sync_on()`` synchronizes the payload's CUDA device before the span
     closes, so the duration covers the device work and not only the
     enqueue; CPU tensors need no sync.
@@ -14,8 +15,10 @@ as the port's own copy.  Two layers:
     giving the server its p50/p99 queue wait and latency and its
     per-reason ``degraded`` counters.
 
-Exporters: ``snapshot()``, ``summary()``, ``events()`` and
-``export_chrome_trace(path)`` (Chrome/Perfetto ``traceEvents``).
+Exporters: ``snapshot()``, ``summary()`` (with the plan-vs-actual drift
+per op), ``events()``, ``export_jsonl(path)`` (one event a line) and
+``export_chrome_trace(path)`` (Chrome/Perfetto ``traceEvents``); ``clear()``
+forgets everything.
 **Plan-vs-actual**: ``record_plan_actual(plan, measured_s)`` keeps an
 ExecutionPlan's modeled cost beside a measured time (with the plan's raw
 terms), and ``calibration_records()`` feeds them to
@@ -394,26 +397,43 @@ class Recorder:
                 "spans_dropped": self.spans_dropped}
 
     def summary(self) -> dict:
-        """Compact digest: total time per span phase, and the counters."""
+        """Compact digest for ``Result.info["trace"]``: total time per span
+        phase, the plan-vs-actual drift per op (measured over modeled
+        seconds, summed over its records), and the counters."""
         phases: dict[str, dict] = {}
         with self._lock:
             spans = list(self.spans)
+            pa = list(self._plan_actual)
         for s in spans:
             p = phases.setdefault(s.name, {"count": 0, "total_s": 0.0,
                                            "max_s": 0.0})
             p["count"] += 1
             p["total_s"] += s.dur_s
             p["max_s"] = max(p["max_s"], s.dur_s)
+        drift: dict[str, dict] = {}
+        for r in pa:
+            d = drift.setdefault(r["op"], {"records": 0, "modeled_s": 0.0,
+                                           "measured_s": 0.0})
+            d["records"] += 1
+            d["modeled_s"] += r["modeled_s"]
+            d["measured_s"] += r["measured_s"]
+        for d in drift.values():
+            d["ratio"] = (d["measured_s"] / d["modeled_s"]
+                          if d["modeled_s"] > 0 else None)
         return {"spans": len(spans), "phases": phases,
+                "plan_vs_actual": drift,
                 "counters": dict(self.snapshot()["counters"])}
 
     def events(self) -> list[dict]:
-        """Every recorded event as a JSON-safe dict."""
+        """Every recorded event as a JSON-safe dict (the JSONL payload):
+        spans, plan-vs-actual records, counters, gauges, histograms."""
         with self._lock:
             spans = list(self.spans)
+            pa = list(self._plan_actual)
         out = [{"type": "span", "id": s.id, "parent": s.parent,
                 "name": s.name, "tid": s.tid, "t_start_s": s.t_start_s,
                 "dur_s": s.dur_s, "attrs": s.attrs} for s in spans]
+        out += [dict(r, type="plan_actual") for r in pa]
         snap = self.snapshot()
         for kind in ("counters", "gauges"):
             for key, v in snap[kind].items():
@@ -421,6 +441,14 @@ class Recorder:
         for key, h in snap["histograms"].items():
             out.append(dict(h, type="histogram", key=key))
         return out
+
+    def export_jsonl(self, path) -> int:
+        """Write one JSON event per line; returns the event count."""
+        evs = self.events()
+        with open(path, "w") as f:
+            for e in evs:
+                f.write(json.dumps(e, default=_json_default) + "\n")
+        return len(evs)
 
     def chrome_trace(self) -> dict:
         """Chrome/Perfetto ``traceEvents`` document of the span timeline
@@ -451,11 +479,28 @@ class Recorder:
             json.dump(doc, f)
         return len(doc["traceEvents"])
 
+    def clear(self) -> None:
+        """Forget every span, metric and plan-vs-actual record."""
+        with self._lock:
+            self.spans.clear()
+            self.spans_dropped = 0
+            self._metrics.clear()
+            self._plan_actual.clear()
+
 
 def _json_safe(v):
     if isinstance(v, (str, int, float, bool)) or v is None:
         return v
     return str(v)
+
+
+def _json_default(v):
+    """JSON for what json.dumps cannot write: a number (a 0-d tensor, a
+    numpy scalar) as a float, anything else as its str."""
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return str(v)
 
 
 class NullRecorder(Recorder):

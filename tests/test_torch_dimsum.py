@@ -245,9 +245,11 @@ def test_similarity_request_validation():
         api.SimilarityRequest(A=None, threshold=-1.0)
     with pytest.raises(ValueError, match="threshold"):
         api.SimilarityRequest(A=None, threshold=float("nan"))
+    with pytest.raises(ValueError, match="deadline_s must be"):
+        api.SimilarityRequest(A=None, deadline_s=0.0)
     for extra in (dict(deadline_s=1.0), dict(telemetry=True)):
-        with pytest.raises(NotImplementedError, match="fault tolerance"):
-            api.SimilarityRequest(A=None, **extra)
+        req = api.SimilarityRequest(A=None, **extra)
+        assert all(getattr(req, k) == v for k, v in extra.items())
     with pytest.raises(ValueError, match="lies on"):
         api.similarities(api.SimilarityRequest(
             A=RowMatrix.create(np.eye(4, dtype=np.float32), device="meta"),

@@ -220,12 +220,18 @@ class TestScheduler:
         assert admitted == [ids[2], late]
         assert all(srv.result(r) is not None for r in ids + [late])
 
-    def test_budget_and_elastic_wait_for_their_items(self):
-        # budget_s is ported (the budget cases above and
-        # tests/test_torch_planner.py); elastic_factory waits for item 14.
+    def test_budget_and_elastic_factory(self):
+        # budget_s: the budget cases above and tests/test_torch_planner.py;
+        # an elastic_factory is called once a group
+        # (tests/test_torch_fault_tolerance.py drives its recovery).
         assert SolverServer(budget_s=1e-3, backend="cpu").budget_s == 1e-3
-        with pytest.raises(NotImplementedError, match="item 14"):
-            SolverServer(elastic_factory=lambda: None)
+        made = []
+        srv = SolverServer(elastic_factory=lambda: made.append(1))
+        A, bs = _trace(32, 4, 2)
+        for b in bs:
+            srv.submit(_request(A, b))
+        srv.run()
+        assert made == [1] and srv.stats["remeshes"] == 0
 
     def test_lbfgs_with_reg_rejected_at_submit(self):
         A, bs = _trace(32, 4, 1)
@@ -321,11 +327,16 @@ class TestScheduler:
         assert q.info["plan"] == "expired" and q.info["a_passes"] == 0
         assert srv.stats["expired"] == 1
         assert srv.stats["degraded"]["deadline"] == 2
-        with pytest.raises(NotImplementedError, match="item 14"):
-            api.solve(_request(A, bs[2], deadline_s=1.0))
-        with pytest.raises(NotImplementedError, match="item 14"):
-            srv.submit(api.SolveRequest(A=A, b=bs[2], method="acc_b",
-                                        deadline_s=1.0, device="cpu"))
+        # On the direct path gra runs the elastic executor; a one-shot
+        # acc_b runs whole and reports an overrun after the fact.
+        direct = api.solve(_request(A, bs[2], deadline_s=60.0))
+        assert direct.info["plan"] == "elastic"
+        assert direct.info["degraded"] is None
+        rid = srv.submit(api.SolveRequest(A=A, b=bs[2], method="acc_b",
+                                          deadline_s=60.0, device="cpu"))
+        srv.run()
+        assert srv.result(rid).info["degraded"] != "deadline"
+        assert srv.stats["oneshot"] == 1
 
 
 def test_one_trace_served_by_both_servers():
