@@ -183,7 +183,7 @@ A, held to the float64 cosines of phase 3's Gram.
               100 x tol of f32's.  Prints the backend, world size and
               each rank's device, and each all_reduce's median ms with
               its payload beside the card's name and power limit.
-  12. elastic (last, after phase 11; about 60 s): phase 3's A drawn
+  12. elastic (after phase 11; about 60 s): phase 3's A drawn
               again from its seed, through the elastic executor
               (core/optim/elastic, quad/gra at tol 0, ELASTIC_ITERS
               iterations): a clean solve_elastic; the same solve
@@ -208,16 +208,48 @@ A, held to the float64 cosines of phase 3's Gram.
               fused_grad_multi (fused_grad_bsr_multi) launches equal its
               A-passes; prints each case's wall ms, the re-mesh's and the
               checkpoints' ms beside the card's name and power limit.
+  13. e4m3 (last, after phase 12; about 30 s): phase 3's A drawn again
+              from its seed and cast to float8_e4m3fn on the card
+              (kernels/dtypes.to_e4m3, 2.15 GB), bit for bit the same
+              helper's cast on the CPU, chunk by chunk, and on the edge
+              values (±448, the midpoint 464, past it, infinities, NaN,
+              -0, subnormals); rows 1-4 on it against their plain
+              versions (fused_grad every loss; fused_grad_multi k = 8
+              every loss and k = 40, slot 0 the one-slot launch's bits;
+              tsgram; gemm at N = 16 with f32 and e4m3 out, e4m3 within
+              one e4m3 step), timed beside plain, the bound at the card's
+              rate for the operand types (e4m3 tensor cores for the Gram,
+              two TF32 products for e4m3 A against f32) with the bound of
+              each kernel's own route beside it (f32 FMA, 16-bit
+              mma.sync, TF32), and the row's bf16 library call on bf16
+              copies (torch._scaled_mm takes neither layout); tsgram and
+              gemm on A's ragged e4m3 view bit for bit its aligned copy;
+              the model at efficiency 1 against each route's bound.  Then
+              the main path (counts zeroed just before, read just after):
+              the Gram SVD (k = 16, mode "auto": sigma within 1e-4 of the
+              float64 Gram of the dequantized A, 2 A-passes, U in e4m3
+              within one step of the plain path's), quad/gra (200),
+              quad/acc_rb (100) and logistic/gra (300) (E4M3_SOLVES; quad
+              gaps within 1e-5 of the dequantized optimum before their
+              caps, the logistic gap within 1e-5 of the float64 Newton
+              optimum, fused_grad launches equal A-passes) and a
+              SolverServer(slots=8) of 8 quad/gra, 4 quad/acc_rb and 4
+              logistic/lbfgs requests (every answer within 1e-5 of its
+              float64 optimum, fused_grad_multi launches equal its
+              A-passes, two requests again at slots=1 the same bits).
+              Last, matvec, the Lanczos and randomized SVDs, TSQR, DIMSUM
+              and logistic/acc each raise TypeError with no launch.  Rows
+              1-4 of the kernels line gain "e4m3".
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, phase 9
-seven (fd_* in PATHS), phase 11 one on every rank, phase 12 one a case
-and phase 8 one a model: every launch count is set to 0 just before each and read just
-after it (in phases 5 and 7, once the grouped server drains, before the
-checks' own launches), and each kernel of the path must have launched
-there.  The last lines are a
+seven (fd_* in PATHS), phase 11 one on every rank, phase 12 one a case,
+phase 13 one (PATHS["e4m3"]) and phase 8 one a model: every launch count
+is set to 0 just before each and read just after it (in phases 5 and 7,
+once the grouped server drains, before the checks' own launches), and
+each kernel of the path must have launched there.  The last lines are a
 JSON object with the SVDs', the solves', the servers' and phases 6, 7, 9,
-8, 10, 11 and 12's numbers, the card's name and power limit, a JSON object with each
-kernel's numbers, and {"ok": true, "device": {...}}.  Any failed check exits non-zero before
-those lines.
+8, 10, 11, 12 and 13's numbers, the card's name and power limit, a JSON
+object with each kernel's numbers, and {"ok": true, "device": {...}}.
+Any failed check exits non-zero before those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
 sources are not beside this script.
 """
@@ -332,6 +364,7 @@ HBM_BYTES_PER_S = _machine.HBM_BYTES_PER_S
 PEAK_FLOPS = {torch.float32: _machine.F32_FMA_FLOPS,   # CUDA-core f32 FMA
               torch.bfloat16: _machine.BF16_FLOPS,     # tensor cores, dense
               torch.int8: _machine.INT8_FLOPS,         # tensor cores, dense
+              torch.float8_e4m3fn: _machine.FP8_FLOPS,  # tensor cores, dense
               # TF32 tensor cores, dense: tsgram's route for f32, three
               # TF32 products (3xTF32) for each product, so its bound is
               # 3x its flops at this rate (the f32 CUDA-core figure is
@@ -399,7 +432,9 @@ PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          # Phase 12: the elastic executor's one-slot groups and server on
          # A, and the two-rank re-meshes on A and S (run_phase12 sums the
          # parent's cases and rank 0's).
-         "elastic": ("fused_grad_multi", "fused_grad_bsr_multi")}
+         "elastic": ("fused_grad_multi", "fused_grad_bsr_multi"),
+         # Phase 13: e4m3 A's Gram SVD, solves and server.
+         "e4m3": ("fused_grad", "tsgram", "gemm", "fused_grad_multi")}
 
 
 class CheckFailed(RuntimeError):
@@ -692,14 +727,19 @@ def check_gemm_wide(A_w: torch.Tensor, gen) -> dict:
 
 def tsgram_bound(m: int, n: int, dtype) -> dict:
     """tsgram's bound: one read of A and one write of G, or m n (n + 1)
-    flops on its route (three TF32 products each for f32, one bf16
-    product for bf16); for f32 also the bound of f32 FMA on the CUDA
-    cores."""
-    isz = 2 if dtype == torch.bfloat16 else 4
+    flops at the card's rate for A's type (three TF32 products each for
+    f32, one bf16 product for bf16, one e4m3 product for e4m3); beside it
+    the bound of the route the kernel runs where that is slower (f32 FMA
+    on the CUDA cores for f32, the 16-bit mma.sync for e4m3)."""
+    isz = torch.empty(0, dtype=dtype).element_size()
     nbytes, flops = m * n * isz + n * n * 4, float(m) * n * (n + 1)
-    if dtype == torch.bfloat16:
-        b_ms, b_by = bound(nbytes, flops, dtype)
+    if isz == 2:
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
         return {"bound_ms": b_ms, "bound_by": b_by}
+    if isz == 1:
+        b_ms, b_by = bound(nbytes, flops, torch.float8_e4m3fn)
+        return {"bound_ms": b_ms, "bound_by": b_by,
+                "bound_route_ms": bound(nbytes, flops, torch.bfloat16)[0]}
     b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
     return {"bound_ms": b_ms, "bound_by": b_by,
             "bound_cuda_core_ms": bound(nbytes, flops, torch.float32)[0]}
@@ -733,10 +773,23 @@ def check_tsgram(a: torch.Tensor, what: str, reps: int = REPS) -> dict:
 
 
 def multi_bound(k: int, isz: int) -> tuple[float, str]:
-    """fused_grad_multi's bound for k slots: A once, X, T, W and Z, G, f."""
-    return bound(M * N * isz + 4 * k * (2 * N + 3 * M + 1),
-                 4.0 * M * N * k, torch.bfloat16 if isz == 2 else
-                 torch.float32)
+    """fused_grad_multi's bound for k slots: A once, X, T, W and Z, G, f;
+    or its 4 m n k flops at the card's rate for the operands: bf16 tensor
+    cores for bf16 A, f32 FMA for f32 A, and for e4m3 A against f32 X two
+    TF32 products (A exact in TF32, X split hi/lo: gemm_bound's
+    pricing)."""
+    nbytes, flops = M * N * isz + 4 * k * (2 * N + 3 * M + 1), 4.0 * M * N * k
+    if isz == 1:
+        return bound(nbytes, 2 * flops, "tf32")
+    return bound(nbytes, flops,
+                 torch.bfloat16 if isz == 2 else torch.float32)
+
+
+def multi_route_ms(k: int) -> float:
+    """fused_grad_multi's bound on e4m3 A on the route it runs: f32 FMA on
+    the CUDA cores."""
+    return bound(M * N + 4 * k * (2 * N + 3 * M + 1), 4.0 * M * N * k,
+                 torch.float32)[0]
 
 
 def check_fused_grad_multi(A: torch.Tensor, gen) -> dict:
@@ -943,7 +996,7 @@ def check_fused_grad_wide(A_w: torch.Tensor, gen) -> dict:
 def chunks(A: torch.Tensor, rows: int | None = None):
     rows = rows or ROWS64
     for i in range(0, A.shape[0], rows):
-        yield i, A[i:i + rows].double()
+        yield i, A[i:i + rows].float().double()
 
 
 def gram64(A: torch.Tensor) -> torch.Tensor:
@@ -2923,6 +2976,14 @@ def planner_shapes() -> list:
             ("bsr_rmatmul", dict(SIM, nx=512), f32),
             ("flash_attention", LLAMA_ATTN, bf16),
             ("selective_scan", MAMBA_SCAN, f32)]
+    # Phase 13's e4m3 launches: rows 1-4 on A, its ragged view, U.
+    e4m3 = "float8_e4m3fn"
+    out += [("gemm", {"m": M, "k": N, "n": K_GEMM}, e4m3),
+            ("gemm", {"m": M, "k": N - 1, "n": K_GEMM}, e4m3),
+            ("tsgram", {"m": M, "n": N}, e4m3),
+            ("tsgram", {"m": M, "n": N - 1}, e4m3),
+            ("fused_grad", {"m": M, "n": N}, e4m3),
+            ("fused_grad_multi", {"m": M, "n": N}, e4m3)]
     for dt in (f32, bf16, "int8"):
         out.append(("bsr_matvec", dict(S, nx=1), dt))
         for nx in (1, 8, 16):
@@ -3006,6 +3067,14 @@ def planner_decisions(S) -> dict:
         "grad tol 1e-4": planner.plan("grad", A, backend="cuda",
                                       context={"tol": 1e-4}),
         "gram": planner.plan("gram", A, backend="cuda"),
+        # e4m3 storage, each priced on the route its kernel runs: the
+        # fused pass's f32 FMAs, tsgram's 16-bit mma.sync, gemm's TF32.
+        "grad e4m3": planner.plan("grad", A, "float8_e4m3fn",
+                                  backend="cuda"),
+        "gram e4m3": planner.plan("gram", A, "float8_e4m3fn",
+                                  backend="cuda"),
+        "gemm e4m3": planner.plan("gemm", {"m": M, "k": N, "n": K_GEMM},
+                                  "float8_e4m3fn", backend="cuda"),
         "svd A": planner.plan("svd", {"m": M, "n": N, "k": K_SVD},
                               backend="cuda", context={"kind": "row"}),
         "svd A_w": planner.plan("svd", {"m": M_W, "n": N_W, "k": K_SVD},
@@ -4154,6 +4223,629 @@ def run_phase12(info: dict) -> dict:
     return rec
 
 
+# -- phase 13: float8_e4m3fn storage on the main path -----------------------
+
+E4M3 = torch.float8_e4m3fn
+# The cast's edge values: the largest finite value, the rounding midpoint
+# 464 (ties to 448), past it (NaN in the reference, where torch saturates),
+# infinities, NaN, signed zero and the subnormal steps.
+E4M3_EDGES = (448.0, -448.0, 460.0, 463.9, 464.0, -464.0, 464.1, 500.0,
+              -1000.0, math.inf, -math.inf, math.nan, -0.0, 2.0 ** -10,
+              2.0 ** -9, 1.5 * 2.0 ** -9, 0.3)
+E4M3_SLOTS = (8, 40)           # fused_grad_multi's e4m3 slot counts
+# Phase 13's solves: (loss, method, cap, tol).  acc_rb stops at a relative
+# step of 1e-7: at phase 4's 1e-9 (an exactly zero f32 step) its momentum
+# kept moving x by an ulp on e4m3 A until the cap of 100, within 1e-5 of
+# the optimum all the same (chip run on an H100).
+E4M3_SOLVES = (("quad", "gra", 200, 1e-9), ("quad", "acc_rb", 100, 1e-7),
+               ("logistic", "gra", 300, 1e-9))
+E4M3_CAST_ROWS = 1 << 18       # rows of A cast on the CPU at a time
+# The float64 logistic optima (logistic_optima64): Newton stops once each
+# decrement's half, the gap to second order, is below this share of f.
+LOGISTIC_DECREMENT = 1e-10
+LOGISTIC_NEWTON_STEPS = 25
+# Phase 13's server: (method, loss, cap, requests) on the e4m3 A.
+E4M3_SERVE = (("gra", "quad", 200, 8), ("acc_rb", "quad", 100, 4),
+              ("lbfgs", "logistic", 100, 4))
+E4M3_REFUSED = ("matvec", "lanczos", "randomized", "tsqr", "dimsum",
+                "logistic_acc")
+# The library call of each e4m3 row: torch._scaled_mm takes both operands
+# in fp8 with the second column-major, which neither A's Gram (A^T A of a
+# row-major A) nor gemm's f32 B gives it, so each row's bf16 library call
+# runs on bf16 copies (e4m3 is exact in bf16; the copies are not timed).
+E4M3_LIBRARY = {"tsgram": "torch.mm(a.T, a) on a bf16 copy of A (copy not "
+                          "timed)",
+                "gemm": "torch.mm(a, b) on bf16 copies of A and B (copies "
+                        "not timed)"}
+
+
+def e4m3_steps_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Each entry within one e4m3 step of `want`'s (2^(e - 3) at 2^e <=
+    |want| < 2^(e+1), 2^-9 among the subnormals); NaN where `want` is."""
+    g, w = got.double(), want.double()
+    nan = torch.isnan(w)
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -6)))
+    ok = (g - w).abs() <= torch.exp2(e - 3)
+    return bool((torch.where(nan, torch.isnan(g), ok)).all())
+
+
+def e4m3_cast(A: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """A cast to e4m3 on the card (kernels/dtypes.to_e4m3), checked
+    against the same helper on the CPU, chunk by chunk of A and on the
+    edge values."""
+    from repro_torch.kernels.dtypes import to_e4m3
+
+    t0 = time.perf_counter()
+    A8 = to_e4m3(A)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    edges = torch.tensor(E4M3_EDGES)
+    card = to_e4m3(edges.to(A.device)).view(torch.uint8).cpu()
+    require(torch.equal(card, to_e4m3(edges).view(torch.uint8)),
+            f"e4m3 cast: the card's edge codes {card.tolist()} differ from "
+            "the CPU's")
+    require(int(card[7]) == 0x7F and int(card[8]) == 0xFF
+            and int(card[4]) == 0x7E,
+            f"e4m3 cast: 500 -> {int(card[7]):#x}, -1000 -> "
+            f"{int(card[8]):#x}, 464 -> {int(card[4]):#x}")
+    t0 = time.perf_counter()
+    for i in range(0, M, E4M3_CAST_ROWS):
+        cpu = to_e4m3(A[i:i + E4M3_CAST_ROWS].cpu()).view(torch.uint8)
+        require(torch.equal(A8[i:i + E4M3_CAST_ROWS].view(torch.uint8).cpu(),
+                            cpu), f"e4m3 cast: rows {i}.. differ between "
+                "the card and the CPU")
+    rec = {"card_cast_ms": card_s * 1e3,
+           "cpu_check_s": time.perf_counter() - t0,
+           "edge_codes": card.tolist(),
+           "nan_codes": int(((A8.view(torch.uint8) & 0x7F) == 0x7F).sum())}
+    print(f"[e4m3] cast of A on the card {rec['card_cast_ms']:.1f} ms, "
+          f"bit for bit the CPU's (checked in {rec['cpu_check_s']:.1f} s), "
+          f"edges {rec['edge_codes']}")
+    return A8, rec
+
+
+def e4m3_record(rec: dict, ms, plain_ms, bound_ms_by, route_ms,
+                library_ms=None, library_call=None) -> dict:
+    """A row's e4m3 readings: its bound at the card's rate for the operand
+    types, and beside it `route_ms`, the bound of the route the kernel
+    runs (f32 FMA, 16-bit mma.sync, TF32), which the model prices."""
+    rec.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+                "bound_by": bound_ms_by[1], "bound_route_ms": route_ms,
+                "library_ms": library_ms, "library_call": library_call})
+    return rec
+
+
+def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
+    """Rows 1-4 on e4m3 A against their plain versions (TOL), each timed
+    beside plain, its bound on its route and a library call where one
+    computes the same function; tsgram and gemm also on A's ragged e4m3
+    view against its aligned copy, bit for bit."""
+    from repro_torch.kernels.dtypes import to_e4m3
+    from repro_torch.kernels import fusedgrad, gemm, tsgram
+
+    dev = A8.device
+    out = {}
+    x = torch.randn(N, generator=gen, device=dev)
+    w = torch.rand(M, generator=gen, device=dev)
+    w[-(M // 64):] = 0.0
+    z0 = fusedgrad.fused_grad_plain(A8, x, torch.zeros(M, device=dev), w,
+                                    loss="quad")[2]
+    fg = {}
+    for loss in fusedgrad.LOSSES:
+        t = targets(loss, z0, gen)
+        got = fusedgrad.fused_grad(A8, x, t, w, loss=loss, param=0.5)
+        want = fusedgrad.fused_grad_plain(A8, x, t, w, loss=loss, param=0.5)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(g, p) for k, g, p in zip("fgz", got, want)}
+        for k, e in errs.items():
+            require(e <= TOL[k], f"fused_grad e4m3 {loss}: {k} relative "
+                    f"error {e:.3e} > {TOL[k]}")
+        again = fusedgrad.fused_grad(A8, x, t, w, loss=loss, param=0.5)
+        require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                f"fused_grad e4m3 {loss}: two runs differ")
+        rec = {"rel_err": errs,
+               "max_abs_err": max(max_abs(g, p) for g, p in zip(got, want))}
+        if loss == "quad":
+            e4m3_record(
+                rec, time_ms(lambda: fusedgrad.fused_grad(A8, x, t, w,
+                                                          loss="quad")),
+                time_ms(lambda: fusedgrad.fused_grad_plain(A8, x, t, w,
+                                                           loss="quad")),
+                multi_bound(1, 1), multi_route_ms(1))
+        fg[loss] = rec
+        del got, want, again
+    out["fused_grad"] = fg
+
+    multi = {}
+    Af = A8.float()
+    for k in E4M3_SLOTS:
+        X = torch.randn(k, N, generator=gen, device=dev)
+        W = torch.rand(k, M, generator=gen, device=dev)
+        W[:, -(M // 64):] = 0.0
+        Z0 = X @ Af.T
+        rec = {}
+        for loss in (fusedgrad.LOSSES if k == 8 else ("quad",)):
+            Tg = targets(loss, Z0, gen)
+            got = one_launch(fusedgrad.fused_grad_multi,
+                             lambda: fusedgrad.fused_grad_multi(
+                                 A8, X, Tg, W, loss=loss, param=0.5),
+                             f"fused_grad_multi e4m3 k={k} {loss}")
+            want = fusedgrad.fused_grad_multi_plain(A8, X, Tg, W, loss=loss,
+                                                    param=0.5)
+            torch.cuda.synchronize()
+            errs = {q: rel_err(g, p) for q, g, p in zip("fgz", got, want)}
+            for q, e in errs.items():
+                require(e <= TOL[q], f"fused_grad_multi e4m3 k={k} {loss}: "
+                        f"{q} relative error {e:.3e} > {TOL[q]}")
+            # Slot 0 is the one-slot launch's bits (fused_grad).
+            one = fusedgrad.fused_grad(A8, X[0], Tg[0], W[0], loss=loss,
+                                       param=0.5)
+            torch.cuda.synchronize()
+            require(all(torch.equal(u, v[0]) for u, v in zip(one, got)),
+                    f"fused_grad_multi e4m3 k={k} {loss}: slot 0 differs "
+                    "from fused_grad")
+            rec[loss] = {"rel_err": errs, "max_abs_err": max(
+                max_abs(g, p) for g, p in zip(got, want))}
+            if loss == "quad":
+                e4m3_record(
+                    rec, time_ms(lambda: fusedgrad.fused_grad_multi(
+                        A8, X, Tg, W, loss="quad")),
+                    time_ms(lambda: fusedgrad.fused_grad_multi_plain(
+                        A8, X, Tg, W, loss="quad"), reps=3),
+                    multi_bound(k, 1), multi_route_ms(k))
+            del got, want, one, Tg
+        multi[k] = rec
+        del X, W, Z0
+    del Af
+    torch.cuda.empty_cache()
+    out["fused_grad_multi"] = multi
+
+    # tsgram: on its bf16 tensor-core route, and on the ragged view.
+    got = tsgram.tsgram(A8, out_dtype=torch.float32)
+    want = tsgram.tsgram_plain(A8, torch.float32)
+    torch.cuda.synchronize()
+    e = rel_err(got, want)
+    require(e <= TOL["tsgram"], f"tsgram e4m3: relative error {e:.3e}")
+    require(torch.equal(got, got.T), "tsgram e4m3: not symmetric")
+    require(torch.equal(got, tsgram.tsgram(A8, out_dtype=torch.float32)),
+            "tsgram e4m3: two runs differ")
+    a16 = A8.to(torch.bfloat16)
+    rec = e4m3_record(
+        {"rel_err": e, "max_abs_err": max_abs(got, want)},
+        time_ms(lambda: tsgram.tsgram(A8, out_dtype=torch.float32)),
+        time_ms(lambda: tsgram.tsgram_plain(A8, torch.float32), reps=3),
+        (tsgram_bound(M, N, E4M3)["bound_ms"],
+         tsgram_bound(M, N, E4M3)["bound_by"]),
+        tsgram_bound(M, N, E4M3)["bound_route_ms"],
+        time_ms(lambda: torch.mm(a16.T, a16)), E4M3_LIBRARY["tsgram"])
+    del got, want
+    ragged = A8.view(-1)[1:1 + M * (N - 1)].view(M, N - 1)
+    require(ragged.data_ptr() % 16 != 0, "the ragged e4m3 view is aligned")
+    got = tsgram.tsgram(ragged, out_dtype=torch.float32)
+    require(torch.equal(got, tsgram.tsgram(ragged.clone(),
+                                           out_dtype=torch.float32)),
+            "tsgram e4m3: the ragged view and its aligned copy differ")
+    e_r = rel_err(got, tsgram.tsgram_plain(ragged, torch.float32))
+    require(e_r <= TOL["tsgram"], f"tsgram e4m3 ragged: {e_r:.3e}")
+    rec["ragged"] = {"rel_err": e_r, "bits_equal_aligned_copy": True,
+                     "ms": time_ms(lambda: tsgram.tsgram(
+                         ragged, out_dtype=torch.float32), reps=3)}
+    out["tsgram"] = rec
+    del got
+
+    # gemm: U recovery's A x 16 columns, f32 and e4m3 out.
+    B = torch.randn(N, K_GEMM, generator=gen, device=dev) / math.sqrt(N)
+    got = gemm.gemm(A8, B, out_dtype=torch.float32)
+    want = gemm.gemm_plain(A8, B, torch.float32)
+    torch.cuda.synchronize()
+    e = rel_err(got, want)
+    require(e <= TOL["gemm"], f"gemm e4m3: relative error {e:.3e}")
+    require(torch.equal(got, gemm.gemm(A8, B, out_dtype=torch.float32)),
+            "gemm e4m3: two runs differ")
+    c8 = gemm.gemm(A8, B)
+    require(c8.dtype == E4M3 and torch.equal(
+        c8.view(torch.uint8), to_e4m3(got).view(torch.uint8)),
+        "gemm e4m3: the e4m3 C is not the f32 C's cast")
+    require(e4m3_steps_ok(c8.float(), gemm.gemm_plain(A8, B).float()),
+            "gemm e4m3: C off plain's by more than one e4m3 step")
+    B16 = B.to(torch.bfloat16)
+    rec = e4m3_record(
+        {"rel_err": e, "max_abs_err": max_abs(got, want),
+         "e4m3_out_within_one_step": True},
+        time_ms(lambda: gemm.gemm(A8, B, out_dtype=torch.float32)),
+        time_ms(lambda: gemm.gemm_plain(A8, B, torch.float32), reps=3),
+        (gemm_bound(A8, B)["bound_ms"], gemm_bound(A8, B)["bound_by"]),
+        gemm_bound(A8, B)["bound_ms"],
+        time_ms(lambda: torch.mm(a16, B16)), E4M3_LIBRARY["gemm"])
+    rec["ms_e4m3_out"] = time_ms(lambda: gemm.gemm(A8, B))
+    ragged = A8.view(-1)[1:1 + M * (N - 1)].view(M, N - 1)
+    got = gemm.gemm(ragged, B[:N - 1], out_dtype=torch.float32)
+    require(rel_err(got, gemm.gemm_plain(ragged, B[:N - 1], torch.float32))
+            <= TOL["gemm"], "gemm e4m3: the ragged view is off plain")
+    require(torch.equal(got, gemm.gemm(ragged.clone(), B[:N - 1],
+                                       out_dtype=torch.float32)),
+            "gemm e4m3: the ragged view and its aligned copy differ")
+    rec["ragged_bits_equal"] = True
+    out["gemm"] = rec
+    del got, want, c8, a16, ragged
+    torch.cuda.empty_cache()
+
+    for name in ("fused_grad", "fused_grad_multi", "tsgram", "gemm"):
+        recs = {"fused_grad": {"": fg["quad"]},
+                "fused_grad_multi": {f" k={k}": multi[k]
+                                     for k in E4M3_SLOTS}}.get(
+            name, {"": out[name]})
+        for key, r in recs.items():
+            print(f"[e4m3] {name}{key} kernel {r['ms']:9.3f} ms | plain "
+                  f"{r['plain_ms']:9.3f} ms | library "
+                  + ("     n/a" if r["library_ms"] is None
+                     else f"{r['library_ms']:9.3f} ms")
+                  + f" | bound {r['bound_ms']:8.3f} ms ({r['bound_by']}), "
+                  f"share {r['bound_ms'] / r['ms']:.3f}; route bound "
+                  f"{r['bound_route_ms']:.3f} ms")
+    return out
+
+
+def e4m3_model_bounds(kernels: dict) -> dict:
+    """The built-in model at efficiency 1 prices each e4m3 row at its
+    route's bound within 1%: the route each kernel runs (fma, bf16,
+    tf32), not the card's fastest rate for the operand types, which the
+    bound in the kernels line takes (e4m3 tensor cores for the Gram, two
+    TF32 products for e4m3 A against f32)."""
+    from repro_torch.kernels import autotune as at
+
+    dims = {"fused_grad": {"m": M, "n": N},
+            "fused_grad_multi": {"m": M, "n": N, "k": SLOTS},
+            "tsgram": {"m": M, "n": N},
+            "gemm": {"m": M, "k": N, "n": K_GEMM}}
+    recs = {"fused_grad": kernels["fused_grad"]["quad"],
+            "fused_grad_multi": kernels["fused_grad_multi"][SLOTS],
+            "tsgram": kernels["tsgram"], "gemm": kernels["gemm"]}
+    out = {}
+    for name, d in dims.items():
+        model = at.model_time(name, at.legacy(name, d, "float8_e4m3fn"), d,
+                              "float8_e4m3fn", machine=_machine.H100) * 1e3
+        b = recs[name]["bound_route_ms"]
+        out[name] = {"model_ms": model, "bound_route_ms": b,
+                     "route": at.cost_terms(name, at.legacy(
+                         name, d, "float8_e4m3fn"), d,
+                         "float8_e4m3fn").route}
+        require(abs(model - b) <= 0.01 * b, f"{name} e4m3: modeled "
+                f"{model:.4f} ms at efficiency 1, route bound {b:.4f} ms")
+    print("[e4m3] model at efficiency 1 against the route's bound: "
+          + ", ".join(
+              f"{k} {v['model_ms']:.3f}/{v['bound_route_ms']:.3f} ms "
+              f"({v['route']})" for k, v in out.items()))
+    return out
+
+
+def e4m3_refusals(api, ops, rm8, b) -> dict:
+    """Each path the reference refuses on e4m3 raises TypeError on the
+    card with no launch."""
+    from repro_torch.core.linalg.tsqr import tsqr
+
+    dev = rm8.device
+    calls = {
+        "matvec": lambda: rm8.matvec(torch.ones(N, device=dev)),
+        "lanczos": lambda: api.svd(api.SvdRequest(A=rm8, k=K_SVD,
+                                                  mode="lanczos",
+                                                  device=dev)),
+        "randomized": lambda: api.svd(api.SvdRequest(
+            A=rm8, k=K_SVD, mode="randomized", device=dev)),
+        "tsqr": lambda: tsqr(rm8),
+        "dimsum": lambda: api.similarities(api.SimilarityRequest(
+            A=rm8, device=dev)),
+        "logistic_acc": lambda: api.solve(api.SolveRequest(
+            A=rm8, b=b, loss="logistic", method="acc", max_iters=3,
+            device=dev))}
+    out = {}
+    for name in E4M3_REFUSED:
+        ops.reset_launch_counts()
+        try:
+            calls[name]()
+        except TypeError as err:
+            out[name] = str(err)[:120]
+        else:
+            raise CheckFailed(f"e4m3 {name}: no TypeError")
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        require(not launched, f"e4m3 {name}: launched {launched} before "
+                "raising")
+    print(f"[e4m3] refused with TypeError and no launch: "
+          f"{', '.join(E4M3_REFUSED)}")
+    return out
+
+
+def logistic_objectives64(A, Bs, X) -> torch.Tensor:
+    """f_j(x_j) = sum_i log(1 + exp(-b_ji (A x_j)_i)) in float64 on the
+    dequantized A, for each row b_j of Bs (labels ±1) and x_j of X."""
+    X = X.double()
+    f = torch.zeros(X.shape[0], dtype=torch.float64, device=X.device)
+    for i, c in chunks(A):
+        yz = Bs[:, i:i + ROWS64].double() * (X @ c.T)
+        f += torch.logaddexp(torch.zeros_like(yz), -yz).sum(1)
+    return f
+
+
+def logistic_optima64(A, Bs) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The float64 minimizers of logistic_objectives64 for the rows of Bs:
+    Newton from x = 0 with a halving step (Armijo, 1/4), the Hessian
+    A^T diag(s (1 - s)) A summed a chunk at a time in float64, until
+    every Newton decrement's half is below LOGISTIC_DECREMENT f_j (the
+    gap to the optimum, to second order).  Returns (X*, f*, steps)."""
+    k = Bs.shape[0]
+    X = torch.zeros(k, N, dtype=torch.float64, device=A.device)
+    f = logistic_objectives64(A, Bs, X)
+    for step in range(LOGISTIC_NEWTON_STEPS):
+        g = torch.zeros_like(X)
+        H = torch.zeros(k, N, N, dtype=torch.float64, device=A.device)
+        for i, c in chunks(A):
+            b = Bs[:, i:i + ROWS64].double()
+            sig = torch.sigmoid(-b * (X @ c.T))
+            g -= (b * sig) @ c
+            w = sig * (1.0 - sig)
+            for j in range(k):
+                H[j] += c.T @ (w[j, :, None] * c)
+        D = torch.linalg.solve(H, g)
+        dec = (g * D).sum(1)
+        if bool((0.5 * dec <= LOGISTIC_DECREMENT * f).all()):
+            return X, f, step
+        t = torch.ones(k, dtype=torch.float64, device=A.device)
+        for _ in range(30):
+            Xn = X - t[:, None] * D
+            fn = logistic_objectives64(A, Bs, Xn)
+            ok = fn <= f - 0.25 * t * dec
+            if bool(ok.all()):
+                break
+            t = torch.where(ok, t, 0.5 * t)
+        X, f = Xn, fn
+    raise CheckFailed(f"logistic float64 optimum: Newton did not converge "
+                      f"in {LOGISTIC_NEWTON_STEPS} steps")
+
+
+def e4m3_serve(api, rm8, B_quad, B_log, L0, which) -> list:
+    """Phase 13's solve requests in submit order (E4M3_SERVE); `which`
+    picks rows of each block."""
+    reqs, row = [], 0
+    for method, loss, iters, count in E4M3_SERVE:
+        for i in range(count):
+            j = row + i if loss == "quad" else i
+            if which(i):
+                reqs.append(api.SolveRequest(
+                    A=rm8, b=B_quad[j] if loss == "quad" else B_log[j],
+                    loss=loss, method=method,
+                    L0=L0 if loss == "quad" else 0.25 * L0, tol=1e-9,
+                    max_iters=iters, device=rm8.device))
+        if loss == "quad":
+            row += count
+    return reqs
+
+
+def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
+    """Phase 13: phase 3's A redrawn from its seed and cast to e4m3 on the
+    card; the cast, rows 1-4 on it, then the main path (counts zeroed just
+    before, read just after): the Gram SVD, three solves and a server;
+    then the refusals.  Adds each kernel row's "e4m3" readings."""
+    from repro_torch import api
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.kernels import gemm as _gemm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import SolverServer
+
+    t13 = time.perf_counter()
+    A, _ = elastic_inputs(dev, sparse=False)
+    A8, cast = e4m3_cast(A)
+    del A
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    kernels = check_e4m3_kernels(A8, gen)
+    model = e4m3_model_bounds(kernels)
+
+    # float64 references on the dequantized A, before the counts are zeroed.
+    G64 = gram64(A8)
+    x_true = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
+    z = torch.cat([c @ x_true for _, c in chunks(A8)])
+    b_quad = (z + 0.5 * torch.randn(M, generator=gen, device=dev,
+                                    dtype=torch.float64)).float()
+    b_log = torch.where(z + torch.randn(M, generator=gen, device=dev,
+                                        dtype=torch.float64) > 0,
+                        1.0, -1.0).float()
+    f_star = quad_optimum64(A8, b_quad, G64)
+    X_true = torch.randn(12, N, generator=gen, device=dev,
+                         dtype=torch.float64)
+    Z = torch.cat([c @ X_true.T for _, c in chunks(A8)]).T
+    B_quad = (Z + 0.05 * torch.randn(12, M, generator=gen, device=dev,
+                                     dtype=torch.float64)).float()
+    B_log = torch.where(Z[:4] + torch.randn(4, M, generator=gen, device=dev,
+                                            dtype=torch.float64) > 0,
+                        1.0, -1.0).float()
+    del Z, z
+    AtB = sum(c.T @ B_quad[:, i:i + ROWS64].double().T
+              for i, c in chunks(A8))
+    X_star = torch.linalg.solve(G64, AtB)
+    fs_star = 0.5 * ((B_quad.double() ** 2).sum(1) - (X_star * AtB).sum(0))
+    w64 = torch.linalg.eigvalsh(G64).flip(0)[:K_SVD]
+    s64 = torch.sqrt(w64.clamp_min(0))
+    t0 = time.perf_counter()
+    Bs_log = torch.cat([b_log[None], B_log])
+    X_log, f_log, newton_steps = logistic_optima64(A8, Bs_log)
+    newton_s = time.perf_counter() - t0
+    del X_log
+    rm8 = RowMatrix(rows=A8, n_rows=M)               # no copy
+
+    # -- the e4m3 main path: counts zeroed just before, read just after ----
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.svd(api.SvdRequest(A=rm8, k=K_SVD, mode="auto", device=dev))
+    torch.cuda.synchronize()
+    svd_ms = (time.perf_counter() - t0) * 1e3
+    U, s, V = res.factors
+    L0 = float(s[0]) ** 2
+    solves = []
+    for loss, method, iters, tol in E4M3_SOLVES:
+        rec, sres = run_solve(api, ops, rm8,
+                              b_quad if loss == "quad" else b_log, loss=loss,
+                              method=method,
+                              L0=L0 if loss == "quad" else 0.25 * L0,
+                              tol=tol, max_iters=iters)
+        rec.update(cap=iters, tol=tol)
+        if loss == "quad":
+            rec["objective_gap"] = (quad_objective64(A8, b_quad, sres.x)
+                                    - f_star) / f_star
+        else:
+            rec["objective_gap"] = float(
+                (logistic_objectives64(A8, b_log[None], sres.x[None])[0]
+                 - f_log[0]) / f_log[0])
+            hist = sres.info["history"][:rec["iterations"]].tolist()
+            rec["first_last_objective"] = [hist[0], hist[-1]]
+            rec["descends"] = all(b <= a * (1 + 1e-6)
+                                  for a, b in zip(hist, hist[1:])) \
+                and hist[-1] < hist[0]
+        solves.append(rec)
+    grouped = SolverServer(slots=SLOTS)
+    ids = [grouped.submit(r) for r in e4m3_serve(api, rm8, B_quad, B_log,
+                                                 L0, lambda i: True)]
+    run = drive(grouped)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # ------------------------------------------------------------------------
+
+    # Checks of the path, after its counts are read.
+    print(f"[e4m3] solves: " + "; ".join(
+        f"{r['loss']}/{r['method']} {r['iterations']} iterations, gap "
+        f"{r['objective_gap']:.3e}" for r in solves))
+    err_s = float(((s.double() - s64).abs() / s64).max())
+    require(res.info["plan"] == "gram" and res.info["a_passes"] == 2,
+            f"e4m3 svd: plan {res.info['plan']}, {res.info['a_passes']} "
+            "A-passes")
+    require(err_s <= 1e-4, f"e4m3 svd: sigma relative error {err_s:.3e}")
+    require(U.rows.dtype == E4M3, f"e4m3 svd: U in {U.rows.dtype}")
+    u_plain = _gemm.gemm_plain(A8, V * (1.0 / s)[None, :])
+    require(e4m3_steps_ok(U.rows.float(), u_plain.float()),
+            "e4m3 svd: U off the plain path's U by more than one e4m3 step")
+    u_zero = float(((U.rows.view(torch.uint8) & 0x7F) == 0).float().mean())
+    for rec in solves:
+        if rec["loss"] == "quad":
+            require(rec["objective_gap"] <= 1e-5, f"e4m3 quad "
+                    f"{rec['method']}: objective gap "
+                    f"{rec['objective_gap']:.3e}")
+            require(rec["iterations"] < rec["cap"], f"e4m3 quad "
+                    f"{rec['method']}: ran to its cap of {rec['cap']}")
+        else:
+            require(rec["descends"], "e4m3 logistic gra: the objective does "
+                    "not fall monotonically")
+            require(rec["objective_gap"] <= 1e-5, f"e4m3 logistic gra: "
+                    f"objective gap {rec['objective_gap']:.3e}")
+    results = run["results"]
+    require(len(results) == len(ids), "e4m3 serve: not every request was "
+            "answered")
+    gaps = []
+    for j, rid in enumerate(ids[:12]):
+        r = results[rid]
+        require(r.info["plan"] == "fused-group"
+                and r.info["a_passes"] == run["observed"][rid],
+                f"e4m3 serve {rid}: {r.info['plan']}, a_passes "
+                f"{r.info['a_passes']} != {run['observed'][rid]}")
+        d = r.x.double() - X_star[:, j]
+        gaps.append(float(0.5 * d @ G64 @ d / fs_star[j]))
+    require(max(gaps) <= 1e-5, f"e4m3 serve: quad objective gap "
+            f"{max(gaps):.3e}")
+    log_obj = [results[rid].info["objective"] for rid in ids[12:]]
+    log_gaps = ((logistic_objectives64(A8, B_log, torch.stack(
+        [results[rid].x for rid in ids[12:]])) - f_log[1:])
+        / f_log[1:]).tolist()
+    require(max(log_gaps) <= 1e-5, f"e4m3 serve: logistic objective gaps "
+            f"{log_gaps} against the float64 optima")
+    require(launches["fused_grad_multi"] == grouped.stats["a_passes"],
+            f"e4m3 serve: {launches['fused_grad_multi']} fused_grad_multi "
+            f"launches != {grouped.stats['a_passes']} server A-passes")
+    require(launches["fused_grad"] == sum(r["a_passes"] for r in solves),
+            f"e4m3: {launches['fused_grad']} fused_grad launches != the "
+            "solves' A-passes")
+    for name in PATHS["e4m3"]:
+        require(launches[name] > 0, f"{name} never launched on the e4m3 "
+                "path")
+    require(launches["randsketch"] == 0 and launches["bsr_matvec"] == 0,
+            f"e4m3 path launched {launches}")
+    # Two requests of the gra group again at slots=1: the same bits (a
+    # slot's kernel sums follow from A alone, and the group engine's
+    # per-slot sums run in the same order at k = 1 on the card).
+    serial = SolverServer(slots=1)
+    sids = [serial.submit(r) for r in e4m3_serve(
+        api, rm8, B_quad, B_log, L0, lambda i: i < 2)[:2]]
+    srun = drive(serial)
+    agree = [rel_err(results[rid].x, srun["results"][sid].x)
+             for rid, sid in zip(ids[:2], sids)]
+    same_bits = [bool(torch.equal(results[rid].x, srun["results"][sid].x))
+                 for rid, sid in zip(ids[:2], sids)]
+    require(all(same_bits), f"e4m3 serve: group and serial x differ by "
+            f"{max(agree):.3e}")
+    refused = e4m3_refusals(api, ops, rm8, b_log)
+
+    path = {"svd": {"ms": svd_ms, "sigma_rel_err": err_s,
+                    "a_passes": res.info["a_passes"],
+                    "u_zero_share": u_zero, "sigma_1": float(s[0])},
+            "solves": solves,
+            "logistic_reference": {"newton_steps": newton_steps,
+                                   "s": newton_s,
+                                   "f_star": f_log.tolist()},
+            "serve": {"requests": len(ids), "wall_s": run["wall_s"],
+                      "a_passes": grouped.stats["a_passes"],
+                      "max_quad_gap": max(gaps),
+                      "logistic_objectives": log_obj,
+                      "logistic_gaps": log_gaps,
+                      "group_serial_rel": agree,
+                      "group_serial_same_bits": same_bits},
+            "launches": launches}
+    print(f"[e4m3] Gram SVD k={K_SVD}: {svd_ms:.1f} ms, sigma error "
+          f"{err_s:.3e} against the float64 Gram of the dequantized A, "
+          f"{res.info['a_passes']} A-passes, U in e4m3 ({u_zero:.3f} of it "
+          f"zero)")
+    for r in solves:
+        print(f"[e4m3] {r['loss']}/{r['method']}: {r['iterations']} "
+              f"iterations (cap {r['cap']}, tol {r['tol']:g}), "
+              f"{r['a_passes']} A-passes, "
+              f"{r['ms']:.1f} ms, {r['ms_per_iteration']:.3f} ms/iteration, "
+              f"objective gap {r['objective_gap']:.3e}"
+              + ("" if r["loss"] == "quad" else
+                 f", objective {r['first_last_objective'][0]:.6e} -> "
+                 f"{r['first_last_objective'][1]:.6e}"))
+    print(f"[e4m3] server: {len(ids)} requests in {run['wall_s']:.2f} s, "
+          f"{grouped.stats['a_passes']} group A-passes, quad gap max "
+          f"{max(gaps):.3e}, logistic gap max {max(log_gaps):.3e}, group "
+          f"vs serial {max(agree):.3e} (same bits {same_bits})")
+    print(f"[e4m3] float64 logistic optima: {newton_steps} Newton steps "
+          f"for {Bs_log.shape[0]} label vectors in {newton_s:.1f} s")
+    print(f"[main path] e4m3: launches {launches}; {info['nvidia_smi']}")
+
+    by_name = {r["name"]: r for r in rows}
+    multi = kernels["fused_grad_multi"][SLOTS]
+    picks = {"fused_grad": kernels["fused_grad"]["quad"],
+             "fused_grad_multi": dict(
+                 multi, max_abs_err=multi["quad"]["max_abs_err"]),
+             "tsgram": kernels["tsgram"], "gemm": kernels["gemm"]}
+    for name, r in picks.items():
+        by_name[name]["e4m3"] = {
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_route_ms": r["bound_route_ms"],
+            "library_ms": r["library_ms"],
+            "library_call": r["library_call"], "dtype": "e4m3",
+            "checks": kernels[name]}
+        by_name[name]["launches_by_path"]["e4m3"] = launches[name]
+    for row in rows:
+        row["launches_by_path"].setdefault("e4m3", launches.get(row["name"],
+                                                                0))
+    del A8, rm8, U, res, grouped, serial, run, srun
+    torch.cuda.empty_cache()
+    rec = {"cast": cast, "model": model, "path": path, "refused": refused,
+           "phase_s": time.perf_counter() - t13}
+    print(f"[e4m3] phase 13 in {rec['phase_s']:.1f} s")
+    return rec
+
+
 def smoke(dev: torch.device) -> dict:
     """Phases 2 to 8 on `dev`; returns the numbers to report."""
     from repro_torch import api
@@ -4494,9 +5186,9 @@ def run() -> int:
         r["spill_store_bytes"] == r["spill_load_bytes"] == 0
         and not r["wgmma_serialized"] for r in tc),
         f"flash_attention's tensor-core variant spills or serializes: {tc}")
-    for source, count in (("randsketch.cu", 3), ("tsgram.cu", 4),
+    for source, count in (("randsketch.cu", 3), ("tsgram.cu", 5),
                           ("bsr_spmm.cu", 15), ("bsr_rmatmul.cu", 28),
-                          ("gemm.cu", 12), ("selective_scan.cu", 2)):
+                          ("gemm.cu", 18), ("selective_scan.cu", 2)):
         rows = [r for r in ptxas if r["source"] == source]
         require(len(rows) >= count and all(
             r["spill_store_bytes"] == r["spill_load_bytes"] == 0
@@ -4519,6 +5211,11 @@ def run() -> int:
             summary["cluster"]["launches"][0].get(row["name"], 0)
         row["launches_by_path"]["elastic"] = \
             summary["elastic"]["launches"].get(row["name"], 0)
+    # -- phase 13: e4m3 storage on the main path (A redrawn, cast on the
+    # card); its path zeroes and reads the counts, and rows 1-4 gain their
+    # e4m3 readings -----------------------------------------------------------
+    torch.cuda.empty_cache()
+    summary["e4m3"] = run_phase13(summary["kernels"], info, dev)
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
@@ -4527,6 +5224,7 @@ def run() -> int:
                       "lm": summary["lm"], "planner": summary["planner"],
                       "cluster": summary["cluster"],
                       "elastic": summary["elastic"],
+                      "e4m3": summary["e4m3"],
                       "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])

@@ -1,9 +1,11 @@
 """Carry the reference's state across: numpy arrays in, port objects out.
 
 The JAX package's arrays leave it as numpy (`np.asarray(jax_array)`); these
-helpers put them on a device as torch tensors.  bfloat16 arrays (numpy's
-ml_dtypes extension type) cross by bit pattern, since torch does not read
-that type: bfloat16 → view as int16 → torch.int16 → view as bfloat16.
+helpers put them on a device as torch tensors.  bfloat16 and float8_e4m3fn
+arrays (numpy's ml_dtypes extension types) cross by bit pattern, since
+torch does not read those types: bfloat16 → view as int16 → torch.int16 →
+view as bfloat16, float8_e4m3fn likewise through uint8
+(types.tensor_from_array).
 """
 from __future__ import annotations
 
@@ -13,27 +15,24 @@ import torch
 from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.core.distmat.sparserow import SparseRowMatrix
+from repro_torch.kernels.dtypes import cast
 
 
 def tensor_from_numpy(arr, *, device, dtype=None) -> torch.Tensor:
-    """`arr` on `device` with the same values; bfloat16 keeps its bits."""
+    """`arr` on `device` with the same values; bfloat16 and float8_e4m3fn
+    keep their bits.  A cast to `dtype` goes through kernels/dtypes.cast
+    (float8_e4m3fn with the reference's rounding)."""
     arr = np.asarray(arr)
     dev = T.resolve_device(device)
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
-        t = t.view(torch.bfloat16).to(dev)
-    else:
-        t = torch.from_numpy(np.array(arr)).to(dev)
-    return t if dtype is None else t.to(dtype)
+    t = T.tensor_from_array(np.array(arr)).to(dev)
+    return t if dtype is None else cast(t, dtype)
 
 
 def rowmatrix_from_numpy(rows, n_rows: int, *, device,
                          store_dtype=None) -> RowMatrix:
     """A RowMatrix from the reference's stored rows (`np.asarray(rm.rows)`,
     padding included) and its true row count `rm.n_rows`."""
-    t = tensor_from_numpy(rows, device=device)
-    if store_dtype is not None:
-        t = t.to(store_dtype)
+    t = tensor_from_numpy(rows, device=device, dtype=store_dtype)
     return RowMatrix(rows=t.contiguous(), n_rows=int(n_rows))
 
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.kernels import ops as _ops
+from repro_torch.kernels.dtypes import cast
 from . import types as T
 
 # Rows of DIMSUM's column norms and keep mask handled at a time.
@@ -41,16 +42,16 @@ _DIMSUM_ROWS = 1 << 16
 _SHARD_SEED_STEP = 0x9E3779B1
 
 
-_LOW_PRECISION_ITEM = "ROADMAP queue 1 item 12 (low precision: fp8 storage)"
+STORE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 
 
 def _check_store(dtype) -> None:
-    if dtype == torch.float8_e4m3fn:
-        raise NotImplementedError(
-            f"float8_e4m3fn storage waits for {_LOW_PRECISION_ITEM}: the "
-            "kernels take float32 and bfloat16")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"storage must be float32 or bfloat16, got {dtype}")
+    if dtype == torch.float8_e5m2:
+        raise TypeError(f"float8_e5m2 storage waits for {T.E5M2_ITEM}: the "
+                        "kernels take float32, bfloat16 and float8_e4m3fn")
+    if dtype not in STORE_DTYPES:
+        raise TypeError("storage must be float32 or bfloat16, or "
+                        f"float8_e4m3fn, got {dtype}")
 
 
 def chunk_bounds(n: int, chunks: int) -> tuple[tuple[int, int], ...]:
@@ -159,9 +160,12 @@ class RowMatrix(_Sharded, T.DistMatrix):
         the caller asks for the CPU.  With `mesh`, each rank keeps its
         padded strip on the mesh's device (rows shard over `row_axes`,
         every axis but "model" by default) and only the strip moves.
-        `store_dtype` (float32 or bfloat16) sets the storage type; every
-        op upcasts what it reads and accumulates in f32, so results come
-        back at `out_dtype`."""
+        `store_dtype` (float32, bfloat16 or float8_e4m3fn) sets the
+        storage type; every op upcasts what it reads and accumulates in
+        f32, so results come back at `out_dtype`.  On e4m3 storage the
+        ops the reference computes there run (the Gram, the fused
+        gradients, multiply_local); the rest raise TypeError, as the
+        reference raises (types.refuse_e4m3)."""
         row_axes = tuple(row_axes) if row_axes else T.row_axes_for(mesh)
         if mesh is not None and mesh.size == 1:
             device, mesh = mesh.device, None
@@ -175,7 +179,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
                                  mesh.index(row_axes), mesh.device)
         if store_dtype is not None:
             _check_store(store_dtype)
-            local = local.to(store_dtype)
+            local = cast(local, store_dtype)
         _check_store(local.dtype)
         return RowMatrix(rows=local, n_rows=m, mesh=mesh, row_axes=row_axes)
 
@@ -206,11 +210,12 @@ class RowMatrix(_Sharded, T.DistMatrix):
     def astype_store(self, dtype) -> "RowMatrix":
         """Recast the storage (the planner's bf16 pick lands here); identity
         when the dtype already matches.  The recast is a second copy of A
-        beside this one (bf16: half its f32 size), which stays as it is."""
+        beside this one (bf16: half its f32 size, e4m3 a quarter), which
+        stays as it is."""
         _check_store(dtype)
         if dtype == self.rows.dtype:
             return self
-        return replace(self, rows=self.rows.to(dtype))
+        return replace(self, rows=cast(self.rows, dtype))
 
     def _with_rows(self, rows: torch.Tensor) -> "RowMatrix":
         return replace(self, rows=rows)
@@ -245,23 +250,25 @@ class RowMatrix(_Sharded, T.DistMatrix):
         _record_collective(plan, sp, collective="psum", chunks=c)
         return g.to(self.out_dtype)
 
-    def _promoted(self, v: torch.Tensor) -> torch.Tensor:
+    def _promoted(self, v: torch.Tensor, what: str) -> torch.Tensor:
+        T.refuse_e4m3(self.rows.dtype, what)
         return self.rows.to(torch.promote_types(self.rows.dtype, v.dtype))
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """A v for a replicated v → this shard's (m_local,) rows."""
-        return self._promoted(v) @ v
+        return self._promoted(v, "RowMatrix.matvec") @ v
 
     def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
         """Aᵀ u for a data-space u (the shard's piece, or a global vector
         cut to it) → (n,) on every rank."""
         u = self._local_data(u)
+        a = self._promoted(u, "RowMatrix.rmatvec")
         if self.nshards == 1:
-            return self._promoted(u).T @ u
+            return a.T @ u
         from repro_torch.launch import telemetry as _tel
         with _tel.current().span("collective.rmatvec", op="matvec",
                                  n=self.rows.shape[1]) as sp:
-            out = self._psum(self._promoted(u).T @ u)
+            out = self._psum(a.T @ u)
             sp.sync_on(out)
         plan = self._plan("matvec", {"m": self._m_local,
                                      "n": self.rows.shape[1]},
@@ -318,6 +325,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
             if c > 1:
                 # A segment's product is launched just before its
                 # all_reduce is issued (the parts are drawn lazily).
+                T.refuse_e4m3(a.dtype, "the chunked fused_grad")
                 _, r = _fg.row_loss_grad(z, t, w, kind, prm)
                 rc = r.to(a.dtype)
                 parts = ((rc @ a[:, s0:s1]).to(x.dtype) for s0, s1 in bounds)
@@ -367,6 +375,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
         rank's device seeded with `seed`: every rank draws the same Ω, so
         it is never sent.  The product is one plain matmul, as the
         reference leaves it to XLA outside any kernel."""
+        T.refuse_e4m3(self.rows.dtype, "RowMatrix.sketch")
         n = self.rows.shape[1]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         omega = torch.randn((n, r), generator=gen, device=self.device,
@@ -377,7 +386,8 @@ class RowMatrix(_Sharded, T.DistMatrix):
                 out_dtype=torch.float32) -> torch.Tensor:
         """B = AᵀQ for a row-conforming Q (randsketch kernel on the shard,
         then one all_reduce), the randomized SVD's projection.  Padding
-        rows are zero in both operands and add nothing."""
+        rows are zero in both operands and add nothing.  The kernel
+        refuses float8_e4m3fn storage."""
         out = self._psum(_ops.randsketch(self.rows, Q.rows,
                                          out_dtype=torch.float32))
         return out.to(out_dtype)
@@ -392,11 +402,13 @@ class RowMatrix(_Sharded, T.DistMatrix):
     def scale_columns(self, d: torch.Tensor) -> "RowMatrix":
         """A · diag(d) (DIMSUM's column scaling); bf16 storage times f32
         scales promotes to f32, as in the reference."""
+        T.refuse_e4m3(self.rows.dtype, "RowMatrix.scale_columns")
         return self._with_rows(self.rows * d[None, :])
 
     def column_stats(self) -> dict[str, torch.Tensor]:
         """Per-column statistics (MLlib colStats), the same on every
         rank."""
+        T.refuse_e4m3(self.rows.dtype, "RowMatrix.column_stats")
         m = self.n_rows
         mask = self._row_mask()
         a = self.rows
@@ -439,6 +451,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
         (types.column_similarities); the keep mask is drawn a chunk of rows
         at a time into the one sampled copy, each shard from its own
         seed."""
+        T.refuse_e4m3(self.rows.dtype, "RowMatrix.column_similarities")
         return T.column_similarities(self, threshold, gamma=gamma, seed=seed,
                                      return_info=return_info)
 

@@ -226,7 +226,7 @@ def shard_rows(x, nshards: int, index: int, device: torch.device
                ) -> torch.Tensor:
     """Shard `index`'s zero-padded strip of `x`'s rows (axis 0), on
     `device`; `x` is global (numpy or tensor) and only the strip moves."""
-    x = torch.as_tensor(x)
+    x = tensor_from_array(x)
     r0, m_local = shard_range(x.shape[0], nshards, index)
     piece = as_float_tensor(x[r0:r0 + m_local], device).contiguous()
     short = m_local - piece.shape[0]
@@ -262,10 +262,44 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# numpy's ml_dtypes types torch does not read: (integer view, torch type).
+_NUMPY_BITS = {"bfloat16": ("int16", torch.bfloat16),
+               "float8_e4m3fn": ("uint8", torch.float8_e4m3fn)}
+
+
+def tensor_from_array(v) -> torch.Tensor:
+    """`v` as a tensor (no device move).  A numpy array of an ml_dtypes
+    type (the reference's bfloat16 and float8_e4m3fn arrays leave it so),
+    which torch does not read, crosses by bit pattern: its bytes viewed
+    as int16 or uint8, then as the torch type."""
+    name = getattr(getattr(v, "dtype", None), "name", None)
+    if name in _NUMPY_BITS and not isinstance(v, torch.Tensor):
+        import numpy as np
+        ints, dt = _NUMPY_BITS[name]
+        bits = np.ascontiguousarray(v).view(ints).copy()
+        return torch.from_numpy(bits).view(dt)
+    return torch.as_tensor(v)
+
+
 def as_float_tensor(v, device: torch.device) -> torch.Tensor:
     """`v` on `device`; float64 becomes float32, as jax keeps it."""
-    t = torch.as_tensor(v, device=device)
+    t = tensor_from_array(v).to(device)
     return t.float() if t.dtype == torch.float64 else t
+
+
+# -- float8_e4m3fn storage (the cast itself: kernels/dtypes.to_e4m3) ---------
+# What names the reference-side refusals and the one type left to port.
+FP8_REFUSED = ("ROADMAP queue 3, reference-side faults: the reference "
+               "raises on float8_e4m3fn storage here too")
+E5M2_ITEM = "ROADMAP queue 1 item 12 (float8_e5m2 storage)"
+
+
+def refuse_e4m3(dtype, what: str) -> None:
+    """Raise TypeError for float8_e4m3fn storage where the reference
+    raises on it too (its jnp products have no fp8 promotion, and its
+    QR no fp8 type), before anything runs."""
+    if dtype == torch.float8_e4m3fn:
+        raise TypeError(f"{what} on float8_e4m3fn storage: {FP8_REFUSED}")
 
 
 def pad_rows(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:

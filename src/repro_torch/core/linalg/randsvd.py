@@ -50,7 +50,10 @@ def randomized_svd(A: RowMatrix, k: int, *, oversampling: int = OVERSAMPLING,
                               dict]:
     """Rank-k truncated SVD of A.  Returns (U (m × k) RowMatrix or None,
     s (k,), V (n × k), info).  U comes from rotating the range basis,
-    U = Q·Ub: a product with Q, no extra pass over A."""
+    U = Q·Ub: a product with Q, no extra pass over A.  float8_e4m3fn
+    storage raises TypeError at the sketch (RowMatrix.sketch), before
+    any launch, where the reference's raises at TSQR of its e4m3
+    sketch."""
     m, n = A.shape
     r = min(k + oversampling, min(m, n))
     if not k <= r:

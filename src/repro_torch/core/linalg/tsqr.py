@@ -14,6 +14,7 @@ from dataclasses import replace
 import torch
 
 from repro_torch import compat
+from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from repro_torch.kernels import ops as _ops
 
@@ -27,7 +28,9 @@ def _nonneg_diag(R: torch.Tensor) -> torch.Tensor:
 
 def tsqr(A: RowMatrix) -> tuple[RowMatrix, torch.Tensor]:
     """Returns (Q as RowMatrix, sharded like A; R (n, n) on every rank)
-    with A = Q R."""
+    with A = Q R.  float8_e4m3fn storage raises TypeError, as the
+    reference's QR has no fp8 type."""
+    T.refuse_e4m3(A.rows.dtype, "TSQR")
     a = A.rows
     n = a.shape[1]
     # Map: local QR, keep R (padding rows are zero and change nothing).

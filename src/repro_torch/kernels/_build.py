@@ -33,6 +33,9 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Block-sparse storage also takes int8, with a per-block f32 scale.
 STORAGE_CODES = {**DTYPE_CODES, torch.int8: 2}
+# The dense operand of fused_grad(_multi), tsgram and gemm (A) also takes
+# float8_e4m3fn (common.cuh: DT_F8), where the reference computes on it.
+DENSE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 3}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -182,6 +185,14 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{what} must be float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[t.dtype]
+
+
+def dense_code(t: torch.Tensor, what: str) -> int:
+    """The dtype code of a dense operand that may be stored in e4m3."""
+    if t.dtype not in DENSE_CODES:
+        raise TypeError(f"{what} must be float32, bfloat16 or "
+                        f"float8_e4m3fn, got {t.dtype}")
+    return DENSE_CODES[t.dtype]
 
 
 def storage_code(t: torch.Tensor, what: str) -> int:

@@ -73,17 +73,20 @@ def _fixed(dims: tuple[str, ...], terms: Callable) -> KernelSpec:
 
 
 # gemm (csrc/gemm.cu: Staging<TA, NT>)
-GEMM_ROW_STRIDE, GEMM_TILE_M = 272, 256
+GEMM_TILE_M = 256
 GEMM_WIDTHS = (8, 16, 32)
 
 
 def gemm_smem(bn: int, a_itemsize: int) -> tuple[int, int]:
     """(stages, shared memory) of csrc/gemm.cu's ring for tiles of `bn`
-    columns and A of `a_itemsize` bytes: 256 staged rows of A at 272 bytes
-    and B's TF32 split of the stage's k-steps, as many stages as fit, up
-    to 4."""
-    steps = (256 // a_itemsize) // 8
-    stage = GEMM_TILE_M * GEMM_ROW_STRIDE + steps * 4 * (bn // 8) * 128
+    columns and A of `a_itemsize` bytes: 256 staged rows of A, each its
+    stage's bytes (256, or 128 for e4m3 A, whose B split for 256 values
+    would leave no room for two stages at 32 columns) and one more
+    16-byte piece, and B's TF32 split of the stage's k-steps, as many
+    stages as fit, up to 4."""
+    row = 128 if a_itemsize == 1 else 256
+    steps = (row // a_itemsize) // 8
+    stage = GEMM_TILE_M * (row + 16) + steps * 4 * (bn // 8) * 128
     stages = min(SMEM_BLOCK_MAX // stage, 4)
     return stages, stages * stage
 
@@ -107,8 +110,9 @@ def _gemm_terms(b, d, dtype):
     m, k, n = int(d["m"]), int(d["k"]), int(d["n"])
     b_isz = int(d.get("b_itemsize", 4))
     ctiles = -(-n // b["bn"])
-    products = 3 if isz == 4 and b_isz == 4 else 1 if isz == b_isz == 2 \
-        else 2
+    # TF32 products a product: an f32 operand adds its low part (3xTF32
+    # for f32 x f32); bf16 and e4m3 are exact in TF32.
+    products = 1 + (isz == 4) + (b_isz == 4)
     return CostTerms(flops=products * 2.0 * m * k * ctiles * b["bn"],
                      hbm_bytes=(m * k * isz * ctiles + k * n * b_isz
                                 + 4 * m * n),

@@ -1,8 +1,10 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Storage types are f32 or bf16 (and int8 for the block-sparse kernels,
-// with a per-block f32 scale); the kernels upcast what they load to f32 in
-// registers and sum in f32, as the TPU kernels upcast their VMEM tiles.
+// with a per-block f32 scale; fp8 e4m3 for the dense operand of
+// fused_grad_multi, tsgram and gemm); the kernels upcast what they load to
+// f32 in registers and sum in f32, as the TPU kernels upcast their VMEM
+// tiles.  Every e4m3 value is exact in f16, bf16, TF32 and f32.
 // Products run on the CUDA cores or on the tensor cores: in TF32 parts
 // that keep f32's precision (split_tf32 and mma_tf32 below: gemm,
 // randsketch, tsgram, bsr_rmatmul), or in bf16 (flash_attention,
@@ -11,12 +13,16 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-enum ReproDtype { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+enum ReproDtype { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_F8 = 3 };
+
+using fp8 = __nv_fp8_e4m3;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -24,6 +30,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
+}
+// e4m3 -> f16 (exact, NaN kept; one cvt for two values on sm_89+) -> f32.
+__device__ __forceinline__ float2 e4m3x2_to_f32(unsigned short two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+__device__ __forceinline__ float to_f32(fp8 v) {
+  return e4m3x2_to_f32(v.__x).x;
 }
 
 // V consecutive elements at p, upcast to f32, in one load of V*sizeof(T)
@@ -38,9 +52,20 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
       kBytes == 16, uint4,
       typename std::conditional<kBytes == 8, uint2, unsigned>::type>::type;
   const Word u = *reinterpret_cast<const Word*>(p);
-  const T* e = reinterpret_cast<const T*>(&u);
+  if constexpr (std::is_same<T, fp8>::value) {
+    // Two values a conversion: byte 2k the low half, 2k + 1 the high.
+    const unsigned short* e = reinterpret_cast<const unsigned short*>(&u);
 #pragma unroll
-  for (int k = 0; k < V; ++k) out[k] = to_f32(e[k]);
+    for (int k = 0; k < V / 2; ++k) {
+      const float2 f = e4m3x2_to_f32(e[k]);
+      out[2 * k] = f.x;
+      out[2 * k + 1] = f.y;
+    }
+  } else {
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[k] = to_f32(e[k]);
+  }
 }
 
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }

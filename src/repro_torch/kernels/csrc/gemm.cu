@@ -1,5 +1,5 @@
-// Dense product C = A @ B, A (m x K) f32 or bf16, B (K x N) f32 or bf16,
-// C f32 or bf16, all row-major, sums in f32.
+// Dense product C = A @ B, A (m x K) f32, bf16 or e4m3, B (K x N) f32 or
+// bf16, C f32 or bf16, all row-major, sums in f32.
 //
 // Replaces the TPU kernel src/repro/kernels/gemm.py:gemm (_gemm_kernel).
 // On the paths it runs skinny: U = A (V S^-1) in the SVD (K = 1024 or
@@ -13,8 +13,9 @@
 // m64n{8,16,32}k8, f32 += tf32 x tf32) in exact splits (common.cuh:
 // split_tf32): f32 x f32 is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (3xTF32),
 // bf16 x f32 is a*b_lo + a*b_hi, f32 x bf16 is a_lo*b + a_hi*b, bf16 x
-// bf16 is a*b: bf16 is exact in TF32.  A development version on
-// mma.sync.m16n8k8 spent about as long on the products of A_w by 32
+// bf16 is a*b: bf16 is exact in TF32, and so is e4m3, which takes bf16's
+// products (upcast to f32 as its fragments load).  A development version
+// on mma.sync.m16n8k8 spent about as long on the products of A_w by 32
 // columns alone as the bytes bound allows for the whole.
 // wgmma takes .tf32 operands K-major only: A (rows of K values) is K-major
 // and comes from registers in the mma.sync fragment layout, loaded element
@@ -37,19 +38,22 @@
 // tiles blockIdx.x, blockIdx.x + gridDim.x, ... with one ring of stages
 // across them, so a tile's first copies overlap the last tile's products.
 // Four warpgroups each own 64 rows (one m64 wgmma tile).  A stage holds 256
-// bytes of each of the tile's 256 rows (64 f32 or 128 bf16 values of K) and
-// B's split k-slice; the ring has two stages (three at NT = 1), filled by
-// every thread with 16-byte cp.async copies, so the next stage lands while
-// this one is multiplied.  128-row tiles and 128-byte rows, each with a
-// ring of 4 stages, were slower (tools/diagnose_kernels.py --kernel gemm,
-// PERF.md): long row segments and tall tiles (B's k-slice is read
-// once a tile) weigh more than the ring's depth.
+// bytes of each of the tile's 256 rows (64 f32 or 128 bf16 values of K;
+// 128 bytes, 128 values, in e4m3, whose B split for 256 values would not
+// leave room for two stages at NT = 4) and B's split k-slice; the ring has
+// two stages (three at NT = 1), filled by every thread with 16-byte
+// cp.async copies, so the next stage lands while this one is multiplied.
+// 128-row tiles and 128-byte rows, each with a ring of 4 stages, were
+// slower for f32 (tools/diagnose_kernels.py --kernel gemm, PERF.md): long
+// row segments and tall tiles (B's k-slice is read once a tile) weigh more
+// than the ring's depth.
 //
-// Any K, any start.  Row r's 256 bytes of a stage start at element
-// p + r*K + k0 counted from the 16-byte boundary at or below A's start (p is
-// A's start in elements past that boundary, k0 the stage's first column).
-// The stage copies the 17 pieces from that element rounded down to a piece
-// (one more than an aligned row needs) and a fragment reads element
+// Any K, any start.  Row r's 256 (e4m3: 128) bytes of a stage start at
+// element p + r*K + k0 counted from the 16-byte boundary at or below A's
+// start (p is A's start in elements past that boundary, k0 the stage's
+// first column).  The stage copies the 17 (9) pieces from that element
+// rounded down to a piece (one more than an aligned row needs) and a
+// fragment reads element
 // (r, k) at row r's slot, at s_r + k: s_r = (p + r*K) mod (16 / sizeof(T)),
 // the same for every stage of the row, computed, never stored.  An aligned
 // A with K a multiple of the piece (every s_r = 0) takes the same code.
@@ -59,8 +63,9 @@
 // as zeros.  Each piece read holds a byte of A, and device allocations start
 // on 256-byte boundaries and are whole multiples of 16 bytes, so every
 // piece lies inside A's allocation.  Staged rows are 272 bytes apart (68
-// words), so the rows of a fragment load (g = 0..7) fall on distinct banks
-// when their shifts agree and at most two to a bank when they do not.
+// words; e4m3 144, 36 words), so the rows of a fragment load (g = 0..7)
+// fall on distinct banks when their shifts agree and at most two to a bank
+// when they do not.
 //
 // Sums.  Each stage's products start from zero in the wgmma accumulators
 // and are then added to a running f32 total on the CUDA cores (Hopper's
@@ -73,11 +78,6 @@ namespace {
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileM = 16 * kWarps;    // rows of a tile: 64 a warpgroup
-constexpr int kRowBytes = 256;         // bytes of a row of A a stage
-constexpr int kRowStride = kRowBytes + 16;       // a staged row: its window
-constexpr int kRowPieces = kRowStride / 16;      // pieces a row's window
-constexpr int kRowThreads = kRowBytes / 16;      // threads copying a row
-constexpr int kCopyRows = kThreads / kRowThreads;
 constexpr int kCoreBytes = 128;        // a core matrix: 8 columns x 16 bytes
 constexpr int kSmemMax = 232448;       // shared memory a block may use
 
@@ -93,16 +93,23 @@ struct SplitStep {
 };
 
 // Staging by A's storage type and the tile's n8 tiles: kVec elements a
-// piece, kChunk columns of A (kSteps k-steps) a stage, B's split of those
+// piece, kRowBytes of each row (kChunk columns of A, kSteps k-steps) a
+// stage, each row's window kRowStride bytes (kRowPieces pieces, copied by
+// kRowThreads threads, kCopyRows rows at a time), B's split of those
 // k-steps after A's rows, as many stages as fit, up to 4.
 template <typename TA, int NT>
 struct Staging {
   static constexpr int kVec = 16 / (int)sizeof(TA);
+  static constexpr int kRowBytes = sizeof(TA) == 1 ? 128 : 256;
+  static constexpr int kRowStride = kRowBytes + 16;
+  static constexpr int kRowPieces = kRowStride / 16;
+  static constexpr int kRowThreads = kRowBytes / 16;
+  static constexpr int kCopyRows = kThreads / kRowThreads;
   static constexpr int kChunk = kRowBytes / (int)sizeof(TA);
   static constexpr int kSteps = kChunk / 8;
   // The stage's products in kParts commit groups of kPartSteps k-steps
-  // (8 registers of A a k-step in f32, 4 in bf16).
-  static constexpr int kPartSteps = 4 / (int)sizeof(TA);
+  // (8 registers of A a k-step in f32, 4 in bf16 and e4m3).
+  static constexpr int kPartSteps = sizeof(TA) == 4 ? 1 : 2;
   static constexpr int kParts = kSteps / kPartSteps;
   static constexpr int kBBytes = kSteps * SplitStep<NT>::kBytes;
   // B's split a stage: groups of 4 K values of one column (a core-matrix
@@ -155,13 +162,13 @@ gemm_tc(const TA* __restrict__ a, const TB* __restrict__ b,
   // Copy stage `cur` (A's rows of its tile, kRowBytes from column k0, each
   // row's window by the kRowThreads threads of its group) into buffer
   // `buf`.
-  const int crow = threadIdx.x / kRowThreads;
-  const int csub = threadIdx.x % kRowThreads;
+  const int crow = threadIdx.x / S::kRowThreads;
+  const int csub = threadIdx.x % S::kRowThreads;
   auto issue = [&](const Cursor& cur, int buf) {
     unsigned char* sa = smem + buf * S::kStageBytes;
     const int k0 = cur.chunk * S::kChunk;
     const int len = min(S::kChunk, K - k0);
-    for (int r = crow; r < kTileM; r += kCopyRows) {
+    for (int r = crow; r < kTileM; r += S::kCopyRows) {
       const long long row = cur.row0 + r;
       const long long first = p + row * K + k0;
       const int shift = (int)(first & (S::kVec - 1));
@@ -171,9 +178,9 @@ gemm_tc(const TA* __restrict__ a, const TB* __restrict__ b,
       const TA* src = a16 + (first - shift);
       // A piece that reads nothing names its row's window (A's first piece
       // past m), so that the zero fills do not all name one address.
-      for (int pc = csub; pc < kRowPieces; pc += kRowThreads) {
+      for (int pc = csub; pc < S::kRowPieces; pc += S::kRowThreads) {
         const int bytes = min(max(end - 16 * pc, 0), 16);
-        cp_async16_zfill(sa + r * kRowStride + 16 * pc,
+        cp_async16_zfill(sa + r * S::kRowStride + 16 * pc,
                          bytes ? src + pc * S::kVec : (row < m ? src : a16),
                          bytes);
       }
@@ -249,7 +256,7 @@ gemm_tc(const TA* __restrict__ a, const TB* __restrict__ b,
       const int sh = (int)(((unsigned)p + (unsigned)(cur.row0 + r) *
                                               (unsigned)K) &
                            (S::kVec - 1));
-      row[h] = reinterpret_cast<const TA*>(sa + r * kRowStride) + sh + t;
+      row[h] = reinterpret_cast<const TA*>(sa + r * S::kRowStride) + sh + t;
     }
 #pragma unroll
     for (int part = 0; part < S::kParts; ++part) {
@@ -411,8 +418,9 @@ cudaError_t launch_nt(const void* a, const void* b, void* c, int c_bf16,
 
 }  // namespace
 
-// a (m, K) f32 or bf16, contiguous, any start; b (K, N) f32 or bf16,
-// contiguous; c (m, N) in c_dtype; `nt` the n8 tiles of an output tile (1,
+// a (m, K) f32, bf16 or e4m3, contiguous, any start; b (K, N) f32 or bf16,
+// contiguous; c (m, N) in c_dtype (f32 or bf16: an e4m3 C is cast by the
+// wrapper, gemm.py); `nt` the n8 tiles of an output tile (1,
 // 2 or 4; gemm.py:tile_width / 8 unless the autotuner chose another) and
 // `blocks` the persistent grid's size (the card's SMs).
 extern "C" int repro_gemm(int device, const void* a, int a_dtype,
@@ -424,12 +432,18 @@ extern "C" int repro_gemm(int device, const void* a, int a_dtype,
   if (m <= 0 || N <= 0 || K < 0 || blocks <= 0 ||
       (nt != 1 && nt != 2 && nt != 4) ||
       (m + kTileM - 1) / kTileM * ((N + 8 * nt - 1) / (8 * nt)) >= (1LL << 31) ||
-      (a_dtype != DT_F32 && a_dtype != DT_BF16) ||
+      (a_dtype != DT_F32 && a_dtype != DT_BF16 && a_dtype != DT_F8) ||
       (b_dtype != DT_F32 && b_dtype != DT_BF16) ||
       (c_dtype != DT_F32 && c_dtype != DT_BF16))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c_bf16 = c_dtype == DT_BF16;
+  if (a_dtype == DT_F8)
+    return b_dtype == DT_BF16
+               ? launch_nt<fp8, __nv_bfloat16>(a, b, c, c_bf16, m, K, N, nt,
+                                               blocks, s)
+               : launch_nt<fp8, float>(a, b, c, c_bf16, m, K, N, nt, blocks,
+                                       s);
   if (a_dtype == DT_BF16)
     return b_dtype == DT_BF16
                ? launch_nt<__nv_bfloat16, __nv_bfloat16>(a, b, c, c_bf16, m,

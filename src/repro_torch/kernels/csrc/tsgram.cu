@@ -3,7 +3,8 @@
 // Replaces the TPU kernel src/repro/kernels/tsgram.py:tsgram
 // (_tsgram_kernel).  Bound by operations on the H100: m*n*(n+1) flops for
 // the distinct entries against one read of A.  Products run on the tensor
-// cores, f32 as 3xTF32 on wgmma, bf16 as bf16 on mma.sync.
+// cores, f32 as 3xTF32 on wgmma, bf16 as bf16 on mma.sync, e4m3 as f16 on
+// mma.sync.
 //
 // Products.  f32: each operand x splits into hi, x with its low 13 bits
 // cleared, and lo = x - hi (exact in f32), and a*b is a_lo*b_hi +
@@ -27,6 +28,17 @@
 // wgmmas are in flight.  bf16 keeps mma.sync: its operands would need the
 // same pass, and it is not the main path's type.
 //
+// e4m3 storage takes the bf16 route's staging, K order and mma.sync
+// products, with 16 values a 16-byte piece: each pair of staged bytes a
+// fragment packs is converted to f16x2 as it is packed (cvt.rn.f16x2.
+// e4m3x2, exact: every e4m3 value is an f16 value) and multiplied by
+// mma.sync.m16n8k16 in f16 with f32 accumulators, the same rate and
+// fragment layout as bf16's.  f16 rather than bf16: the conversion is one
+// instruction, where bf16 would take a round trip through f32.  Not the
+// fp8 tensor-core products: their accumulators keep about 14 bits on this
+// card, short of the f32 sums the Gram needs over 2^21 rows, and their
+// wgmma wants both operands K-major, which A^T A's rows are not.
+//
 // Tiles.  G is symmetric: only the upper triangle of 128 x 128 output
 // tiles is computed (blockIdx.x enumerates the pairs ti <= tj), and the
 // last pass mirrors it.  A block is 8 warps, one block an SM.  f32: two
@@ -44,7 +56,9 @@
 // j multiplies, at K index 2t + b + 8h, row 8t + b + 2h + 4j (rows 8
 // apart: 8n = 0 mod 8).  slot() places those rows in adjacent slots, 8
 // banks apart, so a fragment's loads never share a bank, whatever the
-// shifts.  A and B take the same K order, so the sum is unchanged.
+// shifts.  A and B take the same K order, so the sum is unchanged.  e4m3
+// takes bf16's order and slots (its rows 8 apart share a shift when n is
+// even; each row's shift is computed apart, so any n gives the same sums).
 //
 // Any width, any start (as randsketch.cu).  Row k's segment of a column
 // tile starts at element p + k*n + c0 counted from the 16-byte boundary at
@@ -145,11 +159,53 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 16, f16) * b (16 x 8, f16), f32 accumulators.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two bf16 bit patterns in one register, `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(unsigned short lo,
                                               unsigned short hi) {
   return __byte_perm((uint32_t)lo, (uint32_t)hi, 0x5410);
 }
+
+// The 16-bit routes' operand: what a staged element is read as (U), how
+// two of them become one 32-bit fragment register (`lo` in the low half)
+// and the mma that multiplies them.  bf16 as it is; e4m3 converted to f16
+// as it is packed.
+template <typename T>
+struct Route16;
+template <>
+struct Route16<__nv_bfloat16> {
+  using U = unsigned short;
+  static __device__ __forceinline__ uint32_t pack(U lo, U hi) {
+    return pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_bf16(d, a, b0, b1);
+  }
+};
+template <>
+struct Route16<fp8> {
+  using U = unsigned char;
+  static __device__ __forceinline__ uint32_t pack(U lo, U hi) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(lo | (hi << 8)), __NV_E4M3);
+    return (uint32_t)h.x | ((uint32_t)h.y << 16);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_f16(d, a, b0, b1);
+  }
+};
 
 // A block's tile pair, its slice of rows and its ring of stages, and the
 // copies that fill the ring (both product routes share them).
@@ -364,15 +420,17 @@ tsgram_f32(const float* __restrict__ a, long long m, int n, int tiles,
   }
 }
 
-// bf16, one stage's products: stage rows row0 .. row0 + 31 of the I
-// columns (`si`) against the J columns (`sj`), for the 64 x 32 outputs of
-// a warp whose lane reads I columns ci + 16 mt + 8 h and J columns
+// bf16 or e4m3, one stage's products: stage rows row0 .. row0 + 31 of the
+// I columns (`si`) against the J columns (`sj`), for the 64 x 32 outputs
+// of a warp whose lane reads I columns ci + 16 mt + 8 h and J columns
 // cj + 8 nt of the tile.
-__device__ __forceinline__ void stage_products_bf16(
-    const __nv_bfloat16* si, const __nv_bfloat16* sj, unsigned row0, int p,
-    int n, int ci, int cj, int t, float (&acc)[4][4][4]) {
-  using S = Staging<__nv_bfloat16>;
-  using U = unsigned short;
+template <typename T>
+__device__ __forceinline__ void stage_products_16(
+    const T* si, const T* sj, unsigned row0, int p, int n, int ci, int cj,
+    int t, float (&acc)[4][4][4]) {
+  using S = Staging<T>;
+  using R = Route16<T>;
+  using U = typename R::U;
 #pragma unroll
   for (int j = 0; j < kRows / 16; ++j) {
     // K indices 2t, 2t + 1, 2t + 8, 2t + 9 are rows k0 + 0 .. k0 + 3,
@@ -382,8 +440,8 @@ __device__ __forceinline__ void stage_products_bf16(
     const U* ca[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int off = slot<__nv_bfloat16>(k0 + c) * S::kStride +
-                      row_shift<__nv_bfloat16>(p, row0 + k0 + c, n);
+      const int off = slot<T>(k0 + c) * S::kStride +
+                      row_shift<T>(p, row0 + k0 + c, n);
       ra[c] = reinterpret_cast<const U*>(si + off + ci);
       ca[c] = reinterpret_cast<const U*>(sj + off + cj);
     }
@@ -391,8 +449,8 @@ __device__ __forceinline__ void stage_products_bf16(
     uint32_t b[4][2];
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      b[nt][0] = pack_bf16(ca[0][8 * nt], ca[1][8 * nt]);
-      b[nt][1] = pack_bf16(ca[2][8 * nt], ca[3][8 * nt]);
+      b[nt][0] = R::pack(ca[0][8 * nt], ca[1][8 * nt]);
+      b[nt][1] = R::pack(ca[2][8 * nt], ca[3][8 * nt]);
     }
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
@@ -403,22 +461,23 @@ __device__ __forceinline__ void stage_products_bf16(
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int c = 0; c < 4; ++c) v[h][c] = ra[c][16 * mt + 8 * h];
-      const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]),
-                             pack_bf16(v[1][0], v[1][1]),
-                             pack_bf16(v[0][2], v[0][3]),
-                             pack_bf16(v[1][2], v[1][3])};
+      const uint32_t a[4] = {R::pack(v[0][0], v[0][1]),
+                             R::pack(v[1][0], v[1][1]),
+                             R::pack(v[0][2], v[0][3]),
+                             R::pack(v[1][2], v[1][3])};
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      for (int nt = 0; nt < 4; ++nt) R::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-tsgram_bf16(const __nv_bfloat16* __restrict__ a, long long m, int n,
-            int tiles, long long rows_per_slice, float* __restrict__ part) {
-  using S = Staging<__nv_bfloat16>;
+tsgram_16(const T* __restrict__ a, long long m, int n, int tiles,
+          long long rows_per_slice, float* __restrict__ part) {
+  using S = Staging<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Rows<__nv_bfloat16> rw(a, m, n, tiles, rows_per_slice, smem);
+  const Rows<T> rw(a, m, n, tiles, rows_per_slice, smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int ci = (warp >> 2) * 64 + g;   // the lane's first I column
@@ -442,9 +501,9 @@ tsgram_bf16(const __nv_bfloat16* __restrict__ a, long long m, int n,
     if (c + S::kStages - 1 < rw.nchunks)
       rw.issue(c + S::kStages - 1, (c + S::kStages - 1) % S::kStages);
     cp_async_commit();
-    stage_products_bf16(rw.stage(c % S::kStages, 0),
-                        rw.stage(c % S::kStages, 1), rw.row0(c), rw.p, n, ci,
-                        cj, t, acc);
+    stage_products_16<T>(rw.stage(c % S::kStages, 0),
+                         rw.stage(c % S::kStages, 1), rw.row0(c), rw.p, n,
+                         ci, cj, t, acc);
     if (c % kSumChunks == kSumChunks - 1 || c == rw.nchunks - 1) {
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
@@ -501,8 +560,9 @@ cudaError_t launch(K kernel, const void* a, long long m, int n, int slices,
 
 }  // namespace
 
-// a (m, n) f32 or bf16, any start, contiguous; part (slices, n, n) f32
-// scratch, slices of whole stages; out (n, n) in out_dtype.
+// a (m, n) f32, bf16 or e4m3, any start, contiguous; part (slices, n, n)
+// f32 scratch, slices of whole stages; out (n, n) in out_dtype (f32 or
+// bf16).
 extern "C" int repro_tsgram(int device, const void* a, int dtype, long long m,
                             int n, int slices, long long rows_per_slice,
                             void* part, void* out, int out_dtype,
@@ -510,13 +570,17 @@ extern "C" int repro_tsgram(int device, const void* a, int dtype, long long m,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (rows_per_slice % kRows || slices < 1 || slices > 65535 || n < 1 ||
-      (dtype != DT_F32 && dtype != DT_BF16))
+      (dtype != DT_F32 && dtype != DT_BF16 && dtype != DT_F8) ||
+      (out_dtype != DT_F32 && out_dtype != DT_BF16))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
   err = dtype == DT_BF16
-            ? launch<__nv_bfloat16>(tsgram_bf16, a, m, n, slices,
-                                    rows_per_slice, pf, s)
+            ? launch<__nv_bfloat16>(tsgram_16<__nv_bfloat16>, a, m, n,
+                                    slices, rows_per_slice, pf, s)
+        : dtype == DT_F8
+            ? launch<fp8>(tsgram_16<fp8>, a, m, n, slices, rows_per_slice,
+                          pf, s)
             : launch<float>(tsgram_f32, a, m, n, slices, rows_per_slice, pf,
                             s);
   if (err != cudaSuccess) return err;

@@ -4,10 +4,11 @@ randomized SVD's Y = AZ, and TSQR's Q).
 Replaces the TPU kernel ``src/repro/kernels/gemm.py:gemm``
 (``_gemm_kernel``).  On the paths it runs skinny, (m × K) @ (K × N) with
 N ≤ 32, where it is bound by the bytes of A.  ``csrc/gemm.cu`` is one
-kernel for every operand the wrapper takes (A and B f32 or bf16, any K, A
-starting anywhere): products on the tensor cores (TF32 ``wgmma`` in exact
-splits: 3xTF32 for f32 × f32, two products where one operand is bf16, one
-for bf16 × bf16; A from registers, B's k-slice split by each block once a
+kernel for every operand the wrapper takes (A f32, bf16 or
+float8_e4m3fn, B f32 or bf16, any K, A starting anywhere): products on
+the tensor cores (TF32 ``wgmma`` in exact splits: 3xTF32 for f32 × f32,
+two products where one operand is bf16 or e4m3, one for bf16 × bf16; A
+from registers, B's k-slice split by each block once a
 stage into the K-major layout the wgmmas read), output tiles of 256 rows by
 ``tile_width(N)`` columns owned by one block across all of K (a persistent
 grid, one block an SM), A's rows streamed through a ring of 16-byte
@@ -15,17 +16,20 @@ grid, one block an SM), A's rows streamed through a ring of 16-byte
 row's shift.  Two runs give the same bits, and a row's bits do not depend
 on m or on where A starts.
 
-``gemm_plain`` is the same function in plain torch.
+``gemm_plain`` is the same function in plain torch.  An e4m3 C (the
+reference's multiply_local keeps A's type) is the f32 C cast by
+dtypes.to_e4m3, on both routes.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, dtypes
+
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or a.dtype
-    return (a.float() @ b.float()).to(out_dtype)
+    return dtypes.cast(a.float() @ b.float(), out_dtype)
 
 
 def tile_width(n: int) -> int:
@@ -37,18 +41,23 @@ def tile_width(n: int) -> int:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
          bn: int | None = None) -> torch.Tensor:
-    """Launch csrc/gemm.cu on CUDA operands a (m × K), contiguous and
-    starting anywhere, and b (K × N), f32 or bf16; returns (m × N) in
-    `out_dtype` (default a.dtype), f32 or bf16.  `bn` is the output tile's
-    width (8, 16 or 32; default ``tile_width(N)``), the autotuner's choice
-    (kernels/autotune.py)."""
+    """Launch csrc/gemm.cu on CUDA operands a (m × K), f32, bf16 or
+    float8_e4m3fn, contiguous and starting anywhere, and b (K × N), f32 or
+    bf16; returns (m × N) in `out_dtype` (default a.dtype): the kernel
+    writes f32 or bf16, and an e4m3 C is its f32 C through dtypes.cast.  `bn`
+    is the output tile's width (8, 16 or 32; default ``tile_width(N)``),
+    the autotuner's choice (kernels/autotune.py)."""
     dev = _build.check_device(a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}")
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
     b = b.contiguous()
+    code = _build.dense_code(a, "a")
     out_dtype = out_dtype or a.dtype
+    if out_dtype == torch.float8_e4m3fn:
+        return dtypes.cast(gemm(a, b, out_dtype=torch.float32, bn=bn),
+                        out_dtype)
     (m, k), n = a.shape, b.shape[1]
     bn = tile_width(n) if bn is None else bn
     if bn not in (8, 16, 32):
@@ -58,7 +67,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     if out.numel() == 0:
         return out
     _build.check(_build.lib().repro_gemm(
-        dev.index, a.data_ptr(), _build.dtype_code(a, "a"), b.data_ptr(),
+        dev.index, a.data_ptr(), code, b.data_ptr(),
         _build.dtype_code(b, "b"), out.data_ptr(),
         _build.dtype_code(out, "out"), m, k, n, bn // 8,
         torch.cuda.get_device_properties(dev).multi_processor_count,

@@ -4,10 +4,12 @@ Gram-mode SVD and PCA, exact DIMSUM).
 Replaces the TPU kernel ``src/repro/kernels/tsgram.py:tsgram``
 (``_tsgram_kernel``).  On the H100 it is bound by operations: m·n·(n+1)
 flops for the distinct entries against one read of A.  ``csrc/tsgram.cu``
-takes every A the wrapper takes (f32 or bf16, any width, any start):
-products on the tensor cores (f32 as 3xTF32 on ``wgmma``, B's TF32 split
-written K-major into shared memory by a register pass; bf16 in one bf16
-``mma.sync`` product), only the upper triangle of 128 × 128 output tiles,
+takes every A the wrapper takes (f32, bf16 or float8_e4m3fn, any width,
+any start): products on the tensor cores (f32 as 3xTF32 on ``wgmma``, B's
+TF32 split written K-major into shared memory by a register pass; bf16 in
+one bf16 ``mma.sync`` product; e4m3 on the bf16 route's staging, each
+fragment pair converted to f16 as it is packed, one f16 ``mma.sync``
+product), only the upper triangle of 128 × 128 output tiles,
 A's rows streamed through a ring of 16-byte ``cp.async`` copies of each
 row's 16-byte-aligned window and read back at the row's shift
 (``window``), in the K order ``kstep_rows`` gives, from the staging slots
@@ -16,7 +18,9 @@ tiles a last pass sums in slice order, mirroring the lower triangle (the
 same bits on every run, and for an offset view the same bits as for its
 aligned copy).
 
-``tsgram_plain`` is the same function in plain torch.
+``tsgram_plain`` is the same function in plain torch.  An e4m3 G (the
+reference's default out_dtype for e4m3 A) is the f32 G cast by
+dtypes.to_e4m3, on both routes.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, dtypes
 
 TILE = 128                     # output tile: columns of A by columns
 STAGE_ROWS = 32                # rows of A a staged chunk
@@ -39,9 +43,17 @@ MIN_SLICE_ROWS = 512
 
 
 def tsgram_plain(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """AᵀA in f32, one library product a slice of SLICE_ROWS rows and the
+    slices' Grams added in order, as the kernel sums its slices: one f32
+    product over all of A's rows drops the small terms once the running
+    diagonal is large (1e-3 of the diagonal at 2²¹ e4m3 rows, where the
+    kernel is within 1e-7 of float64)."""
     out_dtype = out_dtype or a.dtype
-    af = a.float()
-    return (af.T @ af).to(out_dtype)
+    g = None
+    for i in range(0, max(a.shape[0], 1), SLICE_ROWS):
+        af = a[i:i + SLICE_ROWS].float()
+        g = af.T @ af if g is None else g.add_(af.T @ af)
+    return dtypes.cast(g, out_dtype)
 
 
 def window(p: int, n: int, vec: int, row: int, c0: int
@@ -113,13 +125,17 @@ def slicing(m: int, n: int, blocks: int) -> tuple[int, int]:
 
 
 def tsgram(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """Launch csrc/tsgram.cu on a contiguous CUDA (m × n) f32 or bf16
-    operand starting anywhere; returns (n × n) in `out_dtype` (default
-    a.dtype)."""
+    """Launch csrc/tsgram.cu on a contiguous CUDA (m × n) f32, bf16 or
+    float8_e4m3fn operand starting anywhere; returns (n × n) in
+    `out_dtype` (default a.dtype; the kernel writes f32 or bf16, and an
+    e4m3 G is its f32 G through dtypes.cast)."""
     dev = _build.check_device(a)
     if a.dim() != 2 or not a.is_contiguous():
         raise ValueError("a must be a contiguous (m, n) matrix")
+    code = _build.dense_code(a, "a")
     out_dtype = out_dtype or a.dtype
+    if out_dtype == torch.float8_e4m3fn:
+        return dtypes.cast(tsgram(a, out_dtype=torch.float32), out_dtype)
     m, n = a.shape
     out = torch.empty((n, n), dtype=out_dtype, device=dev)
     if n == 0:
@@ -131,7 +147,7 @@ def tsgram(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     part = torch.empty((slices, n, n), dtype=torch.float32, device=dev)
     lib = _build.lib()
     _build.check(lib.repro_tsgram(
-        dev.index, a.data_ptr(), _build.dtype_code(a, "a"), m, n, slices,
+        dev.index, a.data_ptr(), code, m, n, slices,
         rows, part.data_ptr(), out.data_ptr(), _build.dtype_code(out, "out"),
         _build.stream(dev)), "tsgram launch")
     tsgram.launches += 1

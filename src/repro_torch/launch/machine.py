@@ -355,6 +355,7 @@ F32_FMA_FLOPS = 67e12                    # f32 FMA on the CUDA cores
 TF32_FLOPS = 495e12                      # TF32 tensor cores, dense
 BF16_FLOPS = 989e12                      # bf16 tensor cores, dense
 INT8_FLOPS = 1979e12                     # int8 tensor cores, dense
+FP8_FLOPS = 1979e12                      # fp8 (e4m3) tensor cores, dense
 # Exponentials: the special-function units issue 16 a clock an SM against
 # 128 f32 FMA lanes (256 flops), so a sixteenth of the f32 rate.
 EXP_PER_S = F32_FMA_FLOPS / 16

@@ -70,6 +70,9 @@ DECISION_OPS = ("sparse_matmul", "grad", "bsr_bs", "svd", "gram", "matvec")
 # never win.
 CHUNK_CANDIDATES = (1, 2, 4, 8)
 MIN_SEGMENT = 128
+# The storage type whose grad and gram run one route alone (the fused
+# kernel, the eager tsgram): its other routes raise.
+E4M3 = "float8_e4m3fn"
 
 # BSR block-size candidates: the one definition (SparseRowMatrix's
 # bs="auto" constructors and plan("bsr_bs") both sweep it; the block-sparse
@@ -426,8 +429,14 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     priced them.
 
     With context {"axes": ...} the (f, g) psum is priced too, and a
-    column-chunked overlapped schedule competes with the eager body."""
+    column-chunked overlapped schedule competes with the eager body.
+
+    On float8_e4m3fn storage the fused kernel is the one route: apply,
+    adjoint and the chunked gradient's plain products raise there, as in
+    the reference (types.refuse_e4m3), so they are priced but never
+    chosen."""
     m, n = int(d["m"]), int(d["n"])
+    e4m3 = dtype_name == E4M3
     gdims = {"m": m, "n": n}
     fused_s, fused_blocks = at.rank("fused_grad", gdims, dtype_name,
                                     machine=machine)[0]
@@ -440,7 +449,7 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
                                 dtype_name)
     axes = _axes(ctx)
     if not axes:
-        use_fused = fused_s <= unfused_s
+        use_fused = e4m3 or fused_s <= unfused_s
         chosen_terms = fused_terms if use_fused else two_passes
         return ExecutionPlan(
             op="grad", choice="fused" if use_fused else "unfused",
@@ -476,7 +485,8 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
         cands.append((f"fused-overlap{c}", c, total, agg))
     cands.append(("unfused", 1, unfused_s + coll["comm_s"],
                   _with_comm(two_passes, coll)))
-    label, chunks, best_s, chosen_terms = min(cands, key=lambda t: t[2])
+    label, chunks, best_s, chosen_terms = min(
+        cands[:1] if e4m3 else cands, key=lambda t: t[2])
     use_fused = label != "unfused"
     notes = [f"psum({n}·4B) over axes={axes}: {coll['algorithm']} "
              f"all-reduce, {_us(coll['comm_s'])}"]
@@ -497,7 +507,9 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
 def _decide_gram(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     """AᵀA for an (m × n) shard: tsgram and one n×n psum, against C
     column-segment cross-grams Aᵀ·A[:, seg] (randsketch at r = n/C) whose
-    partial psums pipeline behind the next segment's compute."""
+    partial psums pipeline behind the next segment's compute.  On
+    float8_e4m3fn storage the eager tsgram is the one route (randsketch
+    takes no e4m3)."""
     m, n = int(d["m"]), int(d["n"])
     gram_s, gram_blocks = at.rank("tsgram", {"m": m, "n": n},
                                   dtype_name, machine=machine)[0]
@@ -509,7 +521,7 @@ def _decide_gram(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     cands = [("eager", 1, gram_s + coll["comm_s"],
               _with_comm(gram_terms, coll))]
     for c in _chunk_counts(n):
-        if c == 1 or not axes:
+        if c == 1 or not axes or dtype_name == E4M3:
             continue
         seg = -(-n // c)
         sk_dims = {"m": m, "n": n, "r": seg}

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.kernels import (bsr, flash_attention, fusedgrad, gemm, ops,
                                  randsketch, selective_scan, tsgram)
+from repro_torch.kernels.dtypes import cast, to_e4m3
 
 pytestmark = pytest.mark.cuda
 
@@ -72,12 +73,26 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# The dense kernels' storage types: e4m3 reaches fused_grad(_multi),
+# tsgram and gemm's A.
+STORE = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
+
+
+def _nan_buffer(numel, dtype, dev):
+    """`numel` NaNs of `dtype` (e4m3's NaN code is 0x7F)."""
+    if dtype == torch.float8_e4m3fn:
+        return torch.full((numel,), 0x7F, dtype=torch.uint8,
+                          device=dev).view(dtype)
+    return torch.full((numel,), float("nan"), device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("loss", fusedgrad.LOSSES)
 @pytest.mark.parametrize("m,n", [(1000, 70), (4099, 1024), (300, 6000)])
 def test_fused_grad_matches_plain(dev, dtype, loss, m, n):
     g = _gen(dev, m + n)
-    a = (torch.randn(m, n, generator=g, device=dev) / n ** 0.5).to(dtype)
+    a = cast(torch.randn(m, n, generator=g, device=dev) / n ** 0.5,
+               dtype)
     x = torch.randn(n, generator=g, device=dev)
     t = torch.randn(m, generator=g, device=dev)
     if loss == "logistic":
@@ -98,7 +113,8 @@ def test_fused_grad_matches_plain(dev, dtype, loss, m, n):
 
 def _multi_inputs(dev, loss, m, n, k, dtype, seed):
     g = _gen(dev, seed)
-    a = (torch.randn(m, n, generator=g, device=dev) / n ** 0.5).to(dtype)
+    a = cast(torch.randn(m, n, generator=g, device=dev) / n ** 0.5,
+               dtype)
     x = torch.randn(k, n, generator=g, device=dev)
     t = torch.randn(k, m, generator=g, device=dev)
     if loss == "logistic":
@@ -113,7 +129,7 @@ def _multi_inputs(dev, loss, m, n, k, dtype, seed):
 SLOT_COUNTS = [1, 3, 8, 16, 31, 32, 33, 40, 64, 100]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("loss", fusedgrad.LOSSES)
 @pytest.mark.parametrize("k", SLOT_COUNTS)
 @pytest.mark.parametrize("m,n", [(1000, 70), (4099, 1024), (300, 6000)])
@@ -152,7 +168,7 @@ def test_fused_grad_multi_takes_32_slots(dev):
         fusedgrad.fused_grad_multi(a, x[:0], t[:0], w[:0], loss="quad")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("m,n,k", [(4099, 1024, 8), (300, 6000, 4),
                                    (1000, 70, 16), (4099, 1024, 40),
                                    (300, 6000, 33)])
@@ -182,7 +198,7 @@ def _off_boundary(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("m,n", [(4099, 1024), (300, 6000), (257, 6001)])
 def test_fused_grad_multi_bits_do_not_depend_on_alignment(dev, dtype, m, n):
     """A and X that start off a 16-byte boundary (or rows that are not a
@@ -201,7 +217,7 @@ def test_fused_grad_multi_bits_do_not_depend_on_alignment(dev, dtype, m, n):
     assert _rel(got[2], plain[2]) <= TOL
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("m,n", [(4099, 1024), (300, 6000), (1000, 70),
                                  (257, 16384)])
 def test_fused_grad_multi_slot_bits_do_not_depend_on_the_slot_count(
@@ -257,9 +273,10 @@ def test_randsketch_matches_plain(dev, dtype, m, n, r):
                                    (70000, 300, 26), (300, 6001, 40)])
 def test_randsketch_offset_views_match_their_aligned_copies(dev, dtype, m,
                                                             n, r):
-    """A view that starts 1..3 (f32) or 1..7 (bf16) elements past a
-    16-byte boundary, with NaNs in the bytes around it, gives the same bits
-    as its aligned copy: the kernel stages each row's aligned window and
+    """A view that starts 1..3 (f32), 1..7 (bf16) or 1..15 (e4m3) elements
+    past a 16-byte boundary, with NaNs in the bytes around it, gives the
+    same bits as its aligned copy: the kernel stages each row's aligned
+    window and
     selects the ragged edge to 0, never multiplying the NaNs."""
     g = _gen(dev, 7 * m + n)
     a = torch.randn(m, n, generator=g, device=dev).to(dtype)
@@ -267,8 +284,7 @@ def test_randsketch_offset_views_match_their_aligned_copies(dev, dtype, m,
     want = randsketch.randsketch(a, q, out_dtype=torch.float32)
     assert _rel(want, randsketch.randsketch_plain(a, q, torch.float32)) <= TOL
     for off in range(1, 16 // a.element_size()):
-        buf = torch.full((m * n + off + 16,), float("nan"), device=dev,
-                         dtype=dtype)
+        buf = _nan_buffer(m * n + off + 16, dtype, dev)
         view = buf[off:off + m * n].view(m, n)
         view.copy_(a)
         assert view.data_ptr() % 16 != 0
@@ -289,7 +305,7 @@ def test_randsketch_row_slice_of_a_matrix(dev):
                        randsketch.randsketch(view.clone(), q))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,n", [(1000, 70), (5003, 130), (64, 200),
                                  (3001, 1), (777, 257), (70000, 129),
@@ -298,7 +314,8 @@ def test_tsgram_matches_plain(dev, dtype, out_dtype, m, n):
     """n of 1, odd, off the 128-column tile and across several tile pairs,
     m within one slice and across several: within TOL_SUM of plain,
     symmetric, and the same bits twice."""
-    a = torch.randn(m, n, generator=_gen(dev, m), device=dev).to(dtype)
+    a = cast(torch.randn(m, n, generator=_gen(dev, m), device=dev),
+               dtype)
     got = tsgram.tsgram(a, out_dtype=out_dtype)
     want = tsgram.tsgram_plain(a, out_dtype)
     torch.cuda.synchronize()
@@ -311,21 +328,21 @@ def test_tsgram_matches_plain(dev, dtype, out_dtype, m, n):
         assert tsgram.slicing(m, n, sms)[0] > 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("m,n", [(1000, 7), (4099, 257), (70000, 131),
                                  (300, 1)])
 def test_tsgram_offset_views_match_their_aligned_copies(dev, dtype, m, n):
-    """A view that starts 1..3 (f32) or 1..7 (bf16) elements past a
-    16-byte boundary, with NaNs in the bytes around it, gives the same bits
-    as its aligned copy: the kernel stages each row's aligned window and
+    """A view that starts 1..3 (f32), 1..7 (bf16) or 1..15 (e4m3) elements
+    past a 16-byte boundary, with NaNs in the bytes around it, gives the
+    same bits as its aligned copy: the kernel stages each row's aligned
+    window and
     selects the columns past A's last to 0, never multiplying the NaNs."""
-    a = torch.randn(m, n, generator=_gen(dev, 3 * m + n), device=dev).to(
-        dtype)
+    a = cast(torch.randn(m, n, generator=_gen(dev, 3 * m + n), device=dev),
+               dtype)
     want = tsgram.tsgram(a, out_dtype=torch.float32)
     assert _rel(want, tsgram.tsgram_plain(a, torch.float32)) <= TOL_SUM
     for off in range(1, 16 // a.element_size()):
-        buf = torch.full((m * n + off + 16,), float("nan"), device=dev,
-                         dtype=dtype)
+        buf = _nan_buffer(m * n + off + 16, dtype, dev)
         view = buf[off:off + m * n].view(m, n)
         view.copy_(a)
         assert view.data_ptr() % 16 != 0
@@ -334,11 +351,12 @@ def test_tsgram_offset_views_match_their_aligned_copies(dev, dtype, m, n):
         assert torch.equal(got, want), off
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 def test_tsgram_row_slice_of_a_matrix(dev, dtype):
     """a[3:] of a matrix of odd width (a user's view, no copy): the same
     bits as a fresh copy of it, and close to plain."""
-    a = torch.randn(5000, 1001, generator=_gen(dev, 9), device=dev).to(dtype)
+    a = cast(torch.randn(5000, 1001, generator=_gen(dev, 9), device=dev),
+               dtype)
     view = a[3:]
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
     got = tsgram.tsgram(view, out_dtype=torch.float32)
@@ -347,13 +365,13 @@ def test_tsgram_row_slice_of_a_matrix(dev, dtype):
     assert _rel(got, tsgram.tsgram_plain(view, torch.float32)) <= TOL_SUM
 
 
-@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_dtype", STORE)
 @pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1000, 70, 5), (777, 64, 20),
                                    (513, 100, 64), (300, 33, 130)])
 def test_gemm_matches_plain(dev, a_dtype, b_dtype, m, k, n):
     g = _gen(dev, m + k + n)
-    a = torch.randn(m, k, generator=g, device=dev).to(a_dtype)
+    a = cast(torch.randn(m, k, generator=g, device=dev), a_dtype)
     b = torch.randn(k, n, generator=g, device=dev).to(b_dtype)
     got = gemm.gemm(a, b, out_dtype=torch.float32)
     want = gemm.gemm_plain(a, b, torch.float32)
@@ -373,7 +391,7 @@ def _gemm_tol(out_dtype):
 
 @pytest.mark.parametrize("out_dtype", DTYPES)
 @pytest.mark.parametrize("b_dtype", DTYPES)
-@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("a_dtype", STORE)
 @pytest.mark.parametrize("n", [1, 16, 26, 64, 130])
 @pytest.mark.parametrize("k", [1, 3, 26, 1023])
 def test_gemm_every_k_and_n_matches_plain(dev, k, n, a_dtype, b_dtype,
@@ -383,7 +401,7 @@ def test_gemm_every_k_and_n_matches_plain(dev, k, n, a_dtype, b_dtype,
     several column tiles (1, 16, 26, 64, 130), m off the 256-row tile:
     within TOL of plain, and the same bits twice."""
     g = _gen(dev, 31 * k + n)
-    a = torch.randn(777, k, generator=g, device=dev).to(a_dtype)
+    a = cast(torch.randn(777, k, generator=g, device=dev), a_dtype)
     b = torch.randn(k, n, generator=g, device=dev).to(b_dtype)
     got = gemm.gemm(a, b, out_dtype=out_dtype)
     want = gemm.gemm_plain(a, b, out_dtype)
@@ -393,35 +411,35 @@ def test_gemm_every_k_and_n_matches_plain(dev, k, n, a_dtype, b_dtype,
     assert torch.equal(got, gemm.gemm(a, b, out_dtype=out_dtype))
 
 
-@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("a_dtype", STORE)
 def test_gemm_long_k(dev, a_dtype):
     """K = 16384, N = 26: A_w's row length and the sketch's width, with
     512 (f32) or 256 (bf16) stages a tile summed into one total."""
     g = _gen(dev, 16384)
-    a = torch.randn(3000, 16384, generator=g, device=dev).to(a_dtype)
+    a = cast(torch.randn(3000, 16384, generator=g, device=dev), a_dtype)
     b = torch.randn(16384, 26, generator=g, device=dev)
     got = gemm.gemm(a, b, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert _rel(got, gemm.gemm_plain(a, b, torch.float32)) <= TOL
 
 
-@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("a_dtype", STORE)
 @pytest.mark.parametrize("m,k,n", [(1000, 1023, 16), (777, 26, 26),
                                    (300, 3, 5), (4099, 64, 130)])
 def test_gemm_offset_views_match_their_aligned_copies(dev, a_dtype, m, k, n):
-    """A view that starts 1..3 (f32) or 1..7 (bf16) elements past a 16-byte
-    boundary, with NaNs in the bytes around it, gives the same bits as its
-    aligned copy: each row is staged from its aligned window and read at
+    """A view that starts 1..3 (f32), 1..7 (bf16) or 1..15 (e4m3) elements
+    past a 16-byte boundary, with NaNs in the bytes around it, gives the
+    same bits as its aligned copy: each row is staged from its aligned
+    window and read at
     its shift, and the bytes past K arrive as zeros, so the NaNs are never
     multiplied."""
     g = _gen(dev, 5 * m + k + n)
-    a = torch.randn(m, k, generator=g, device=dev).to(a_dtype)
+    a = cast(torch.randn(m, k, generator=g, device=dev), a_dtype)
     b = torch.randn(k, n, generator=g, device=dev)
     want = gemm.gemm(a, b, out_dtype=torch.float32)
     assert _rel(want, gemm.gemm_plain(a, b, torch.float32)) <= TOL
     for off in range(1, 16 // a.element_size()):
-        buf = torch.full((m * k + off + 16,), float("nan"), device=dev,
-                         dtype=a_dtype)
+        buf = _nan_buffer(m * k + off + 16, a_dtype, dev)
         view = buf[off:off + m * k].view(m, k)
         view.copy_(a)
         assert view.data_ptr() % 16 != 0
@@ -442,19 +460,95 @@ def test_gemm_tsqr_shape(dev):
     assert torch.equal(got, gemm.gemm(y, r_inv, out_dtype=y.dtype))
 
 
-@pytest.mark.parametrize("a_dtype", DTYPES)
+@pytest.mark.parametrize("a_dtype", STORE)
 @pytest.mark.parametrize("k,n", [(1024, 16), (26, 26), (1023, 130)])
 def test_gemm_rows_do_not_depend_on_m(dev, a_dtype, k, n):
     """Rows of gemm(a[:j]) are bit for bit the same rows of gemm(a), for j
     inside and at the edge of the 256-row tile."""
     g = _gen(dev, 3 * k + n)
-    a = torch.randn(5000, k, generator=g, device=dev).to(a_dtype)
+    a = cast(torch.randn(5000, k, generator=g, device=dev), a_dtype)
     b = torch.randn(k, n, generator=g, device=dev)
     whole = gemm.gemm(a, b, out_dtype=torch.float32)
     for j in (1, 255, 256, 257, 4097):
         part = gemm.gemm(a[:j], b, out_dtype=torch.float32)
         torch.cuda.synchronize()
         assert torch.equal(part, whole[:j]), j
+
+
+def _within_one_e4m3_step(got, want):
+    """Each entry of an e4m3 result within one e4m3 step of the plain
+    version's (the f32 sums behind them differ in their last bits, which
+    may round either way): the step at |want| is 2^(floor(log2|want|) - 3),
+    2^-9 among the subnormals."""
+    g, w = got.double(), want.double()
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -6)))
+    return bool(((g - w).abs() <= torch.exp2(e - 3)).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 70, 5), (777, 1024, 16),
+                                   (4099, 1023, 26)])
+def test_gemm_e4m3_out(dev, m, k, n):
+    """e4m3 A, f32 B, e4m3 C (the reference's multiply_local keeps A's
+    type): the kernel's f32 C cast by to_e4m3, within one e4m3 step of the
+    plain version's, NaN where it rounds past 448, one launch."""
+    g = _gen(dev, m + k)
+    a = to_e4m3(torch.randn(m, k, generator=g, device=dev))
+    b = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+    b[0, 0] = 1e4                       # column 0 rounds past 448
+    launches = gemm.gemm.launches
+    got = gemm.gemm(a, b)
+    assert gemm.gemm.launches == launches + 1
+    want = gemm.gemm_plain(a, b)
+    f32 = gemm.gemm(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float8_e4m3fn
+    assert torch.equal(got.view(torch.uint8), to_e4m3(f32).view(torch.uint8))
+    ok = ~(f32.abs() > 464)
+    assert bool(got.float()[~ok].isnan().all())
+    assert _within_one_e4m3_step(got.float()[ok], want.float()[ok])
+
+
+def test_tsgram_e4m3_out(dev):
+    """An e4m3 Gram (tsgram's default out_dtype for e4m3 A): the f32 Gram
+    cast by to_e4m3, within one e4m3 step of plain."""
+    a = to_e4m3(torch.randn(3000, 70, generator=_gen(dev, 7), device=dev)
+                / 40.0)
+    got = tsgram.tsgram(a)
+    want = tsgram.tsgram_plain(a)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float8_e4m3fn
+    assert torch.equal(got.view(torch.uint8), to_e4m3(
+        tsgram.tsgram(a, out_dtype=torch.float32)).view(torch.uint8))
+    assert _within_one_e4m3_step(got.float(), want.float())
+
+
+def test_e4m3_reaches_four_kernels_alone(dev):
+    """ops routes e4m3 CUDA operands to fused_grad, fused_grad_multi,
+    tsgram and gemm; randsketch and the block-sparse kernels raise
+    TypeError before any launch."""
+    ops.reset_launch_counts()
+    a = to_e4m3(torch.randn(200, 32, device=dev))
+    x = torch.randn(32, device=dev)
+    t, w = torch.randn(200, device=dev), torch.ones(200, device=dev)
+    ops.fused_grad(a, x, t, w, loss="quad")
+    ops.fused_grad_multi(a, x[None], t[None], w[None], loss="quad")
+    ops.tsgram(a, out_dtype=torch.float32)
+    ops.gemm(a, x[:, None])
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        ops.randsketch(a, a[:, :3].float())
+    bell = _random_bell(dev, 5, 4, 2, 8, "f32", 1)
+    e4m3 = bsr.BlockELL(to_e4m3(bell.data), bell.cols, bell.shape)
+    xb, ub = torch.randn(32, device=dev), torch.randn(40, device=dev)
+    for call in (lambda: ops.bsr_matvec(e4m3, xb),
+                 lambda: ops.bsr_matmul(e4m3, xb[:, None]),
+                 lambda: ops.bsr_rmatmul(e4m3, ub[:, None]),
+                 lambda: ops.fused_grad_bsr(e4m3, xb, ub, torch.ones_like(ub),
+                                            loss="quad")):
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
+            call()
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "fused_grad": 1, "fused_grad_multi": 1, "tsgram": 1, "gemm": 1}
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(dev):

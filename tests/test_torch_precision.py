@@ -89,13 +89,19 @@ class TestF32BitCompat:
             lo.rows.float().numpy(), np.asarray(ref.rows.astype(jnp.float32)))
 
     def test_fp8_storage_waits_for_its_item(self):
+        """e4m3 storage runs (tests/test_torch_fp8.py); e5m2, the other
+        fp8 type the reference casts to, still waits for item 12 and
+        raises TypeError naming it."""
         A, _ = _problem()
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="item 12"):
             RowMatrix.create(A, device="cpu",
-                             store_dtype=torch.float8_e4m3fn)
-        with pytest.raises(NotImplementedError, match="item 12"):
+                             store_dtype=torch.float8_e5m2)
+        with pytest.raises(TypeError, match="item 12"):
             RowMatrix.create(A, device="cpu").astype_store(
-                torch.float8_e4m3fn)
+                torch.float8_e5m2)
+        e4m3 = RowMatrix.create(A, device="cpu",
+                                store_dtype=torch.float8_e4m3fn)
+        assert e4m3.rows.dtype == torch.float8_e4m3fn
 
     def test_unquantized_sparse_unchanged(self):
         dense = _block_sparse()

@@ -352,3 +352,16 @@ def cluster_rank_keys() -> list[str]:
             keys += [f"sp_{dispatch}_{loss}_{p}" for p in "fgz"]
             keys += [f"spc_{dispatch}_{loss}_{p}" for p in "fg"]
     return keys
+
+
+def fp8_rank(rank: int, A, b, x) -> dict:
+    """tests/test_torch_fp8.py's mesh case: A's rows in e4m3 over a (2, 1)
+    mesh, each rank casting its own strip; the strip's codes, the fused
+    pass at x against the quad smooth of b, and the Gram."""
+    mesh = T.make_mesh((2, 1), ("data", "model"), device="cpu")
+    rm = RowMatrix.create(A, mesh=mesh, store_dtype=torch.float8_e4m3fn)
+    f, g, z = rm.fused_grad(torch.as_tensor(x),
+                            SmoothQuad(torch.as_tensor(b)))
+    return {"strip": rm.rows.view(torch.uint8).clone(),
+            "dtype": str(rm.rows.dtype), "f": f, "g": g, "z": z,
+            "gram": rm.gram()}
