@@ -240,14 +240,38 @@ A, held to the float64 cosines of phase 3's Gram.
               Last, matvec, the Lanczos and randomized SVDs, TSQR, DIMSUM
               and logistic/acc each raise TypeError with no launch.  Rows
               1-4 of the kernels line gain "e4m3".
+  14. mesh (last, after phase 13; about 60 s): four ranks on a
+              ("data", "model") = (2, 2) mesh (gloo ranks sharing the
+              card; NCCL one rank a card where there are four).  Phase 9
+              (f)'s two 8192 x 8192 f32 matrices drawn whole on every rank
+              from their seed, each rank keeping its 4096 x 4096 tile:
+              BlockMatrix.multiply by SUMMA (two all_gathers, one gemm
+              launch a rank) within MESH_TOL of the one-device product,
+              matvec, rmatvec and their model-sharded forms and the norm
+              against the one-device BlockMatrix's, the transpose's tiles
+              bit for bit; phase 9 (e)'s CoordinateMatrix of 2^27 entries
+              sharded by position over "data": its products against the
+              one-device matrix's and its Lanczos SVD (k = 16) against
+              phase 9's sigma; gemm at the SUMMA shape against its plain
+              version, timed beside torch.mm and its bound; each step's
+              and each all_gather's host-clock ms beside the card's name
+              and power limit.
+Phase 11 also serves, on every rank of each group, CLUSTER_SLOTS quad
+requests a group on A's strips (gra, acc, acc_rb: fused_grad_multi) and a
+gra group on S's strips (fused_grad_bsr_multi) at tol 0, and runs an acc
+ElasticGroup on A through a seeded device loss (CLUSTER_LOSS: a re-mesh
+onto the survivors, the lost shard's rank dropped); each held to the
+one-rank group's answers (CLUSTER_SERVE_TOL, A-passes equal, x the same
+bits on every rank, launches equal to A-passes).
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, phase 9
 seven (fd_* in PATHS), phase 11 one on every rank, phase 12 one a case,
-phase 13 one (PATHS["e4m3"]) and phase 8 one a model: every launch count
+phase 13 one (PATHS["e4m3"]), phase 14 one on every rank and phase 8 one a
+model: every launch count
 is set to 0 just before each and read just after it (in phases 5 and 7,
 once the grouped server drains, before the checks' own launches), and
 each kernel of the path must have launched there.  The last lines are a
 JSON object with the SVDs', the solves', the servers' and phases 6, 7, 9,
-8, 10, 11, 12 and 13's numbers, the card's name and power limit, a JSON
+8, 10, 11, 12, 13 and 14's numbers, the card's name and power limit, a JSON
 object with each kernel's numbers, and {"ok": true, "device": {...}}.
 Any failed check exits non-zero before those lines.
 Exits non-zero at once when there is no CUDA device or when the port's
@@ -424,17 +448,21 @@ PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          "fd_coordinate": ("bsr_matvec", "bsr_rmatmul", "bsr_matmul"),
          "fd_block": ("gemm",), "fd_svd": ("tsgram", "gemm"),
          "fd_serve": ("fused_grad_multi",),
-         # Phase 11: A's and S's rows over the ranks of a process group
+         # Phase 11: A's and S's rows over the ranks of a process group,
+         # the served groups on both and the elastic acc group on A
          # (every rank's counts; run_phase11 checks them).
          "cluster": ("fused_grad", "tsgram", "gemm", "randsketch",
                      "fused_grad_bsr", "fused_grad_multi", "bsr_matvec",
-                     "bsr_rmatmul"),
+                     "bsr_rmatmul", "fused_grad_bsr_multi"),
          # Phase 12: the elastic executor's one-slot groups and server on
          # A, and the two-rank re-meshes on A and S (run_phase12 sums the
          # parent's cases and rank 0's).
          "elastic": ("fused_grad_multi", "fused_grad_bsr_multi"),
          # Phase 13: e4m3 A's Gram SVD, solves and server.
-         "e4m3": ("fused_grad", "tsgram", "gemm", "fused_grad_multi")}
+         "e4m3": ("fused_grad", "tsgram", "gemm", "fused_grad_multi"),
+         # Phase 14: SUMMA's one gemm a rank on the (2, 2) mesh (every
+         # rank's counts; the CoordinateMatrix's products launch none).
+         "mesh": ("gemm",)}
 
 
 class CheckFailed(RuntimeError):
@@ -2393,11 +2421,19 @@ def run_lp(dev) -> dict:
 
 
 def coordinate_matrix(dev):
-    """C (M_C x N_C): every entry of BS_S x BS_S blocks, ELL_S a block-row,
-    block columns from the Zipf(1) law of S's pattern (sparse_columns),
-    Gaussian values; seed SEED + 11."""
+    """C (M_C x N_C) on `dev` (coordinate_entries) and its block count."""
     from repro_torch.core.distmat import CoordinateMatrix
 
+    ri, ci, va, blocks = coordinate_entries(dev)
+    return CoordinateMatrix.create(ri, ci, va, (M_C, N_C), device=dev), \
+        blocks
+
+
+def coordinate_entries(dev):
+    """C's entries (rows, cols, values) on `dev` and its block count:
+    every entry of BS_S x BS_S blocks, ELL_S a block-row, block columns
+    from the Zipf(1) law of S's pattern (sparse_columns), Gaussian values;
+    seed SEED + 11."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     nbr = M_C // BS_S
     cols = sparse_columns(nbr, gen, dev, nbc=N_C // BS_S).long()
@@ -2410,8 +2446,7 @@ def coordinate_matrix(dev):
     ci = cs.reshape(-1).to(torch.int32)
     del rows, cs
     va = torch.randn(ri.shape[0], generator=gen, device=dev)
-    return CoordinateMatrix.create(ri, ci, va, (M_C, N_C), device=dev), \
-        nbr * ELL_S
+    return ri, ci, va, nbr * ELL_S
 
 
 def run_coordinate(api, ops, dev) -> dict:
@@ -2459,7 +2494,7 @@ def run_coordinate(api, ops, dev) -> dict:
                     "op_calls": info["op_calls"],
                     "a_passes": info["a_passes"],
                     "converged": info["converged"], "sigma_1": float(s[0]),
-                    "sigma_16": float(s[-1]),
+                    "sigma_16": float(s[-1]), "sigma": s.tolist(),
                     "max_residual_over_sigma1sq": resid,
                     "has_u": U is not None}
         print(f"[coordinate] Lanczos SVD k={K_SVD} of {key}: {ms:.1f} ms, "
@@ -3447,6 +3482,78 @@ ALLREDUCE_PAYLOADS = (("fused_grad (g, f) f32", N + 1, torch.float32),
                       ("gram f32", N * N, torch.float32),
                       ("psum8 g int8", N, torch.int8))
 ALLREDUCE_REPS = 20
+# The served groups on A's and S's strips (CLUSTER_SLOTS quad requests a
+# group, b scaled 1 + 0.1 j, every rank submitting the same), at tol 0 so
+# every request runs its cap and the A-passes compare exactly; the caps
+# keep the backtracking tests (gra, acc_rb) off the f32 rounding floor as
+# CLUSTER_ITERS does (on the CPU at 4096 x 64 the acc_rb group took 20
+# passes on one rank and 21 on two at 15 iterations, 12 and 12 at 8).
+# Then an accelerated (acc) ElasticGroup on A through a seeded device
+# loss: shard 1 lost at iteration 3, the survivors re-meshed (on one rank
+# the same rank), AX and AZ zeroed and re-seeded.
+CLUSTER_SERVE_ITERS = {"gra": 10, "acc": 30, "acc_rb": 8, "sparse": 15}
+CLUSTER_LOSS = dict(lose_shard_at=3, lost_shard=1)
+CLUSTER_ELASTIC_ITERS = 20
+# The served and elastic answers against the one-rank group's: phase 11's
+# objective limit, x normwise within 1e-4 (phase 12's serving limit is
+# 1e-5 for the same path on one rank).
+CLUSTER_SERVE_TOL = {"objective": 1e-5, "x": 1e-4}
+
+
+def _cluster_serve(api, ops, A, bs, method, iters, L0, kernel, dev) -> dict:
+    """One SolverServer group of len(bs) quad requests on A at tol 0 (each
+    runs `iters` iterations): each answer's objective and x, the server's
+    group A-passes, the launches of `kernel` it made and its wall ms."""
+    from repro_torch.launch.serve import SolverServer
+
+    torch.cuda.synchronize(dev)
+    before = ops.launch_counts()[kernel]
+    t0 = time.perf_counter()
+    srv = SolverServer(slots=len(bs))
+    ids = [srv.submit(api.SolveRequest(A=A, b=b, method=method, tol=0.0,
+                                       max_iters=iters, L0=L0, device=dev))
+           for b in bs]
+    srv.run()
+    torch.cuda.synchronize(dev)
+    res = [srv.result(i) for i in ids]
+    return {"ms": (time.perf_counter() - t0) * 1e3,
+            "objective": [float(r.info["objective"]) for r in res],
+            "iterations": [int(r.info["iterations"]) for r in res],
+            "a_passes": srv.stats["a_passes"],
+            "launches": ops.launch_counts()[kernel] - before,
+            "x": torch.stack([r.x for r in res]).cpu()}
+
+
+def _cluster_elastic(ops, rm, b, L0, dev) -> dict:
+    """solve_elastic's acc group on `rm` at tol 0 through CLUSTER_LOSS's
+    device loss (FaultyMesh over rm's mesh): x, objective, A-passes, the
+    fused_grad_multi launches, the re-mesh's ms and the casualties."""
+    from repro_torch.core.optim.elastic import ElasticConfig, solve_elastic
+    from repro_torch.core.tfocs.linop import LinopMatrix
+    from repro_torch.launch import telemetry as tel
+    from repro_torch.train.faults import FaultPlan, FaultyLinop, FaultyMesh
+
+    fm = FaultyMesh(rm.mesh)
+    lin = FaultyLinop(LinopMatrix(rm), FaultPlan(**CLUSTER_LOSS),
+                      sleep=_nosleep)
+    torch.cuda.synchronize(dev)
+    before = ops.launch_counts()["fused_grad_multi"]
+    t0 = time.perf_counter()
+    with tel.recording() as spans:
+        x, info = solve_elastic(lin, "quad", b, method="acc", tol=0.0,
+                                max_iters=CLUSTER_ELASTIC_ITERS, L0=L0,
+                                elastic=ElasticConfig(remesh_to=fm.drop))
+        torch.cuda.synchronize(dev)
+    return {"ms": (time.perf_counter() - t0) * 1e3, "x": x.cpu(),
+            "objective": float(info["objective"]),
+            "iterations": int(info["iterations"]),
+            "a_passes": int(info["a_passes"]),
+            "remeshes": int(info["remeshes"]),
+            "dropped": bool(info.get("dropped", False)),
+            "casualties": list(fm.casualties),
+            "launches": ops.launch_counts()["fused_grad_multi"] - before,
+            "remesh_ms": [sp.dur_s * 1e3 for sp in spans.spans
+                          if sp.name == "solver.remesh"]}
 
 
 def _allreduce_ms(group, n: int, dtype, dev) -> float:
@@ -3598,6 +3705,21 @@ def cluster_rank(rank: int, L0: float | None, L0_S: float | None) -> dict:
     rec["solves"]["sparse"] = _cluster_solve(
         api, ops, S, b_s, "gra", CLUSTER_ITERS["sparse"], L0_S,
         "fused_grad_bsr", dev, precision="f32")
+    # The server over the sharded matrices: fused_grad_multi groups on A,
+    # a fused_grad_bsr_multi group on S.
+    scale = [1.0 + 0.1 * j for j in range(CLUSTER_SLOTS)]
+    rec["served"] = {
+        method: _cluster_serve(api, ops, rm, [c * b for c in scale], method,
+                               CLUSTER_SERVE_ITERS[method], L0,
+                               "fused_grad_multi", dev)
+        for method in ("gra", "acc", "acc_rb")}
+    rec["served"]["sparse"] = _cluster_serve(
+        api, ops, S, [c * b_s for c in scale], "gra",
+        CLUSTER_SERVE_ITERS["sparse"], L0_S, "fused_grad_bsr_multi", dev)
+    del S, b_s, v_s
+    torch.cuda.empty_cache()
+    rec["elastic"] = _cluster_elastic(ops, rm, b, L0, dev)
+    torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
     rec["path_s"] = time.perf_counter() - t0
     rec["launches"] = ops.launch_counts()
@@ -3683,6 +3805,7 @@ def check_cluster(one: dict, ranks: list) -> dict:
         xs = [r["solves"][key]["x"] for r in ranks]
         require(all(torch.equal(x, xs[0]) for x in xs),
                 f"cluster {key}: x differs between ranks")
+    check_cluster_served(one, ranks)
     head = ranks[0]
     return {
         "world": world, "backend": head["backend"],
@@ -3700,6 +3823,59 @@ def check_cluster(one: dict, ranks: list) -> dict:
                             for k, s in one["solves"].items()},
         "sigma_rel": rel_err(head["svd"]["sigma"], one["svd"]["sigma"]),
         "gram_chunked_rel": rel_err(head["gram_chunked"], head["gram"])}
+
+
+def check_cluster_served(one: dict, ranks: list) -> None:
+    """The served groups and the accelerated elastic group of every rank
+    against the one-rank group's: objectives (CLUSTER_SERVE_TOL), x
+    normwise, A-passes equal, every rank's launches equal to its
+    A-passes, x the same bits on every rank (on every survivor for the
+    elastic group); the lost shard's ranks dropped, every rank re-meshed
+    once."""
+    for r in ranks:
+        for key, got in r["served"].items():
+            want = one["served"][key]
+            eo = max(abs(g - w) / abs(w) for g, w in zip(
+                got["objective"], want["objective"]))
+            ex = max(rel_err(g, w) for g, w in zip(got["x"], want["x"]))
+            require(eo <= CLUSTER_SERVE_TOL["objective"]
+                    and ex <= CLUSTER_SERVE_TOL["x"]
+                    and got["a_passes"] == want["a_passes"]
+                    and got["launches"] == got["a_passes"] > 0,
+                    f"cluster served {key} (rank {r['rank']}): objectives "
+                    f"{eo:.3e}, x {ex:.3e} from one rank's, A-passes "
+                    f"{got['a_passes']} against {want['a_passes']}, "
+                    f"{got['launches']} launches")
+        e, w = r["elastic"], one["elastic"]
+        require(e["remeshes"] == 1 == w["remeshes"]
+                and e["casualties"] == [CLUSTER_LOSS["lost_shard"]]
+                and e["launches"] == e["a_passes"] > 0,
+                f"cluster elastic (rank {r['rank']}): {e['remeshes']} "
+                f"re-meshes, casualties {e['casualties']}, "
+                f"{e['launches']} launches for {e['a_passes']} A-passes")
+    for key in ranks[0]["served"]:
+        xs = [r["served"][key]["x"] for r in ranks]
+        require(all(torch.equal(x, xs[0]) for x in xs),
+                f"cluster served {key}: x differs between ranks")
+    lost = CLUSTER_LOSS["lost_shard"] if len(ranks) > 1 else None
+    surv = [r["elastic"] for r in ranks if r["rank"] != lost]
+    w = one["elastic"]
+    for r in ranks:
+        require(r["elastic"]["dropped"] == (r["rank"] == lost),
+                f"cluster elastic: rank {r['rank']} dropped "
+                f"{r['elastic']['dropped']}")
+    for e in surv:
+        eo = abs(e["objective"] - w["objective"]) / abs(w["objective"])
+        ex = rel_err(e["x"], w["x"])
+        require(torch.equal(e["x"], surv[0]["x"])
+                and eo <= CLUSTER_SERVE_TOL["objective"]
+                and ex <= CLUSTER_SERVE_TOL["x"]
+                and e["a_passes"] == w["a_passes"]
+                and e["iterations"] == w["iterations"]
+                == CLUSTER_ELASTIC_ITERS,
+                f"cluster elastic survivor: objective {eo:.3e}, x {ex:.3e} "
+                f"from one rank's, A-passes {e['a_passes']} against "
+                f"{w['a_passes']}, iterations {e['iterations']}")
 
 
 def run_phase11(info: dict) -> dict:
@@ -3740,8 +3916,37 @@ def run_phase11(info: dict) -> dict:
     print(f"[cluster] Gram SVD sigma {rec['sigma_rel']:.3e} from one "
           f"rank's; chunked Gram {rec['gram_chunked_rel']:.3e} from eager; "
           f"launches (rank 0) {rec['launches'][0]}")
+    rec["served"], rec["elastic"] = {}, {}
+    for who, r in (("one rank", one), (f"{world} ranks", ranks[0])):
+        for key, sv in r["served"].items():
+            o = one["served"][key]
+            e = max(rel_err(g, w) for g, w in zip(sv["x"], o["x"]))
+            rec["served"].setdefault(key, {})[who] = {
+                "ms": sv["ms"], "a_passes": sv["a_passes"],
+                "launches": sv["launches"], "x_rel": e}
+            print(f"[cluster] served {key}, {who} ({r['backend']}): "
+                  f"{CLUSTER_SLOTS} requests x {sv['iterations'][0]} "
+                  f"iterations, {sv['a_passes']} group A-passes "
+                  f"({sv['launches']} launches), {sv['ms']:.1f} ms"
+                  + (f", x {e:.3e} from one rank's" if r is not one else "")
+                  + f"; {info['nvidia_smi']}")
+        el = r["elastic"]
+        rec["elastic"][who] = {k: v for k, v in el.items() if k != "x"}
+        print(f"[cluster] elastic acc, {who} ({r['backend']}): device loss "
+              f"at iteration {CLUSTER_LOSS['lose_shard_at']}, re-mesh "
+              f"{[round(t, 1) for t in el['remesh_ms']]} ms, "
+              f"{el['iterations']} iterations, {el['a_passes']} A-passes, "
+              f"{el['ms']:.1f} ms, objective {el['objective']:.9e} "
+              f"(one rank {one['elastic']['objective']:.9e}); "
+              f"{info['nvidia_smi']}")
+    rec["served_elastic_s"] = [
+        (sum(sv["ms"] for sv in r["served"].values()) + r["elastic"]["ms"])
+        / 1e3 for r in [one] + ranks]
     rec["phase_s"] = time.perf_counter() - t11
-    print(f"[cluster] phase 11 in {rec['phase_s']:.1f} s")
+    print(f"[cluster] phase 11 in {rec['phase_s']:.1f} s, of which the "
+          f"served groups and the elastic solve "
+          f"{rec['served_elastic_s'][0]:.1f} s on one rank and "
+          f"{max(rec['served_elastic_s'][1:]):.1f} s on {world}")
     return rec
 
 
@@ -4846,6 +5051,215 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
     return rec
 
 
+# -- phase 14: BlockMatrix and CoordinateMatrix on a 2 x 2 mesh ------------
+# Four ranks on a ("data", "model") = (2, 2) mesh (launch/mesh.spawn): gloo
+# ranks sharing the card, NCCL one rank a card where there are four.
+# Phase 9 (f)'s two N_BLOCK x N_BLOCK f32 matrices from their seed, each
+# rank keeping its 4096 x 4096 tile, multiplied by SUMMA (A's row panel
+# gathered along "model", B's column panel along "data", one gemm launch a
+# rank) and held to the one-device product (phase 9's path: one gemm of the
+# whole) within MESH_TOL, with the matvec family (normwise against the
+# one-device BlockMatrix's), the norm and the transpose (bit for bit); then
+# phase 9 (e)'s CoordinateMatrix of 2^27 entries sharded by position over
+# "data" (the two "model" ranks of a shard hold the same entries): its
+# products against the one-device matrix's on rank 0, and its Lanczos SVD
+# (k = K_SVD) against phase 9's sigma.
+MESH_SHAPE = (2, 2)
+MESH_TOL = {"product": 1e-5, "vector": 1e-5, "sigma": 1e-4}
+MESH_REPS = 5
+
+
+def mesh_rank(rank: int, sigma_c: list) -> dict:
+    """Phase 14 on one rank of the four launch/mesh.spawn started: the
+    path with the counts zeroed just before and read just after, then
+    the checks' one-device references and the steps' and all_gathers'
+    host-clock ms.  Returns this rank's numbers."""
+    import torch.distributed as dist
+    from repro_torch import api, compat
+    from repro_torch.core.distmat import BlockMatrix, CoordinateMatrix
+    from repro_torch.core.distmat import types as T
+    from repro_torch.kernels import gemm as _gemm
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = T.make_mesh(MESH_SHAPE, ("data", "model"), device=dev)
+    r, c = mesh.index("data"), mesh.index("model")
+    rec = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(dev),
+           "grid": [r, c]}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    a = torch.randn(N_BLOCK, N_BLOCK, generator=gen, device=dev)
+    b = torch.randn(N_BLOCK, N_BLOCK, generator=gen, device=dev)
+    gv = torch.Generator(device=dev).manual_seed(SEED + 14)
+    v = torch.randn(N_BLOCK, generator=gv, device=dev)
+    u = torch.randn(N_BLOCK, generator=gv, device=dev)
+    X = BlockMatrix.create(a, mesh=mesh)
+    Y = BlockMatrix.create(b, mesh=mesh)
+    ri, ci, va, _ = coordinate_entries(dev)
+    C = CoordinateMatrix.create(ri, ci, va, (M_C, N_C), mesh=mesh)
+    x_c = torch.randn(N_C, generator=gv, device=dev)
+    y_c = torch.randn(M_C, generator=gv, device=dev)
+    X.validate()
+    opts = {"max_restarts": COO_RESTARTS}
+
+    # -- the mesh path: counts zeroed just before, read just after --------
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    P = X.multiply(Y)
+    prods = {"matvec": X.matvec(v), "rmatvec": X.rmatvec(u),
+             "matvec_model_sharded": X.matvec_model_sharded(
+                 X._model_strip(v)),
+             "rmatvec_model_sharded": X.rmatvec_model_sharded(u),
+             "frobenius": X.frobenius_norm()}
+    Xt = X.transpose()
+    coo = {"matvec": C.matvec(x_c), "rmatvec": C.rmatvec(y_c)}
+    t_svd = time.perf_counter()
+    svd = api.svd(api.SvdRequest(A=C, k=K_SVD, mode="lanczos", options=opts,
+                                 device=dev))
+    torch.cuda.synchronize(dev)
+    rec["svd_ms"] = (time.perf_counter() - t_svd) * 1e3
+    rec["path_s"] = time.perf_counter() - t0
+    rec["launches"] = ops.launch_counts()
+    # -----------------------------------------------------------------------
+    s = svd.factors[1].double().cpu()
+    want_s = torch.tensor(sigma_c, dtype=torch.float64)
+    rec["svd"] = {"sigma_rel": float(((s - want_s).abs() / want_s).max()),
+                  "op_calls": svd.info["op_calls"],
+                  "restarts": svd.info["restarts"],
+                  "converged": svd.info["converged"]}
+    mr, nc = X.block_shape
+    rows, cols = slice(r * mr, (r + 1) * mr), slice(c * nc, (c + 1) * nc)
+    # The one-device BlockMatrix (phase 9's product: one gemm of the whole).
+    X1 = BlockMatrix.create(a, device=dev)
+    P1 = X1.multiply(BlockMatrix.create(b, device=dev)).data
+    sq = torch.stack([((P.data - P1[rows, cols]).double() ** 2).sum(),
+                      (P1[rows, cols].double() ** 2).sum()])
+    # Each tile once: the two "model" ranks of a row panel hold
+    # different tiles, so the sum over the whole mesh is the product's.
+    sq = compat.psum(sq, mesh, mesh.axis_names)
+    rec["product_rel"] = float(torch.sqrt(sq[0] / sq[1]))
+    del P1
+    want = {"matvec": X1.matvec(v)[rows], "rmatvec": X1.rmatvec(u),
+            "matvec_model_sharded": X1.matvec(v)[rows],
+            "rmatvec_model_sharded": X1.rmatvec(u)[cols],
+            "frobenius": X1.frobenius_norm()}
+    rec["vector_rel"] = {k: rel_err(prods[k], want[k]) for k in prods}
+    rec["transpose_exact"] = bool(torch.equal(Xt.data, a.T[rows, cols]))
+    rec["tile"] = [mr, nc]
+    if rank == 0:
+        C1 = CoordinateMatrix.create(ri, ci, va, (M_C, N_C), device=dev)
+        rec["coo_rel"] = {"matvec": rel_err(coo["matvec"], C1.matvec(x_c)),
+                          "rmatvec": rel_err(coo["rmatvec"],
+                                             C1.rmatvec(y_c))}
+        rec["coo_local_nnz"] = int(C.values.shape[0])
+        del C1
+        # gemm at the SUMMA shape against its plain version, timed.
+        a_row, b_col = a[rows].contiguous(), b[:, cols].contiguous()
+        got = ops.gemm(a_row, b_col, out_dtype=torch.float32)
+        plain = _gemm.gemm_plain(a_row, b_col)
+        m_, k_, n_ = a_row.shape[0], a_row.shape[1], b_col.shape[1]
+        bound_ms, by = bound(4.0 * (m_ * k_ + k_ * n_ + m_ * n_),
+                             3 * 2.0 * m_ * k_ * n_, "tf32")
+        rec["gemm"] = {
+            "max_abs_err": max_abs(got, plain), "rel_err": rel_err(got, plain),
+            "ms": time_ms(lambda: ops.gemm(a_row, b_col,
+                                           out_dtype=torch.float32)),
+            "plain_ms": time_ms(lambda: _gemm.gemm_plain(a_row, b_col)),
+            "library_ms": time_ms(lambda: torch.mm(a_row, b_col)),
+            "bound_ms": bound_ms, "bound_by": by, "shape": [m_, k_, n_]}
+        del a_row, b_col, got, plain
+    del a, b, X1
+    torch.cuda.empty_cache()
+    # Each step again, warm, and the two gathers of SUMMA alone (host
+    # clock, synchronized: gloo stages them through the host).
+    tile = X.data
+    rec["gather_bytes"] = tile.numel() * tile.element_size()
+    rec["steps_ms"] = {
+        "all_gather model (A's row panel)": _wall_ms(
+            lambda: compat.all_gather(tile, mesh, "model"), dev, MESH_REPS),
+        "all_gather data (B's column panel)": _wall_ms(
+            lambda: compat.all_gather(Y.data, mesh, ("data",)), dev,
+            MESH_REPS),
+        "multiply": _wall_ms(lambda: X.multiply(Y), dev, MESH_REPS),
+        "matvec": _wall_ms(lambda: X.matvec(v), dev, MESH_REPS),
+        "rmatvec": _wall_ms(lambda: X.rmatvec(u), dev, MESH_REPS),
+        "frobenius": _wall_ms(lambda: X.frobenius_norm(), dev, MESH_REPS),
+        "transpose": _wall_ms(lambda: X.transpose(), dev, MESH_REPS),
+        "coo matvec": _wall_ms(lambda: C.matvec(x_c), dev, MESH_REPS),
+        "coo rmatvec": _wall_ms(lambda: C.rmatvec(y_c), dev, MESH_REPS)}
+    return rec
+
+
+def run_phase14(info: dict, sigma_c: list) -> dict:
+    """Phase 14 (see the comment above MESH_SHAPE): the checks on every
+    rank's numbers, the prints, and the record."""
+    from repro_torch.launch import mesh as lmesh
+
+    t14 = time.perf_counter()
+    world = math.prod(MESH_SHAPE)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    ranks = lmesh.spawn(mesh_rank, world, args=(sigma_c,), backend=backend,
+                        device="cuda", timeout_s=CLUSTER_TIMEOUT_S,
+                        deadline_s=900)
+    for r in ranks:
+        who = f"mesh rank {r['rank']} {r['grid']}"
+        require(r["launches"]["gemm"] == 1
+                and sum(r["launches"].values()) == 1,
+                f"{who}: launches {r['launches']} (one gemm a rank)")
+        require(r["product_rel"] <= MESH_TOL["product"],
+                f"{who}: SUMMA product {r['product_rel']:.3e} from the "
+                "one-device product")
+        bad = {k: e for k, e in r["vector_rel"].items()
+               if not e <= MESH_TOL["vector"]}
+        require(not bad, f"{who}: vector products off {bad}")
+        require(r["transpose_exact"], f"{who}: transpose's tile differs")
+        require(r["svd"]["sigma_rel"] <= MESH_TOL["sigma"]
+                and r["svd"]["converged"],
+                f"{who}: CoordinateMatrix sigma {r['svd']['sigma_rel']:.3e} "
+                f"from phase 9's, {r['svd']}")
+    head = ranks[0]
+    bad = {k: e for k, e in head["coo_rel"].items()
+           if not e <= MESH_TOL["vector"]}
+    require(not bad, f"mesh: CoordinateMatrix products off {bad}")
+    require(head["coo_local_nnz"] * MESH_SHAPE[0] == M_C // BS_S * ELL_S
+            * BS_S * BS_S, f"mesh: {head['coo_local_nnz']} entries a rank")
+    g = head["gemm"]
+    require(g["rel_err"] <= TOL["gemm"],
+            f"mesh: gemm at {g['shape']} {g['rel_err']:.3e} from plain")
+    rec = {"world": world, "backend": backend, "shape": list(MESH_SHAPE),
+           "devices": [r["device"] for r in ranks],
+           "path_s": [r["path_s"] for r in ranks],
+           "launches": [r["launches"] for r in ranks],
+           "product_rel": [r["product_rel"] for r in ranks],
+           "vector_rel": head["vector_rel"], "coo_rel": head["coo_rel"],
+           "svd": head["svd"], "svd_ms": head["svd_ms"],
+           "gather_bytes": head["gather_bytes"],
+           "steps_ms": head["steps_ms"], "gemm": g}
+    print(f"[mesh] {world} ranks ({backend}) on a {MESH_SHAPE} mesh, devices "
+          f"{rec['devices']}; path {[round(t, 1) for t in rec['path_s']]} s; "
+          f"launches (rank 0) {head['launches']}")
+    print(f"[mesh] SUMMA {N_BLOCK}^2 @ {N_BLOCK}^2, tiles {head['tile']}: "
+          f"{max(rec['product_rel']):.3e} from the one-device product; "
+          f"vector products {rec['vector_rel']}; CoordinateMatrix products "
+          f"{rec['coo_rel']}, Lanczos k={K_SVD} {head['svd_ms']:.1f} ms, "
+          f"{head['svd']['op_calls']} operator calls, sigma "
+          f"{head['svd']['sigma_rel']:.3e} from phase 9's")
+    for name, ms in head["steps_ms"].items():
+        extra = f", {head['gather_bytes']} B a rank" \
+            if name.startswith("all_gather") else ""
+        print(f"[mesh] {name}: median {ms:.3f} ms (host clock, rank 0)"
+              f"{extra}; {info['nvidia_smi']}")
+    print(f"[mesh] gemm at the SUMMA shape {g['shape']}: {g['ms']:.3f} ms, "
+          f"plain {g['plain_ms']:.3f}, torch.mm {g['library_ms']:.3f}, "
+          f"bound {g['bound_ms']:.3f} ({g['bound_by']}, 3xTF32), "
+          f"{g['rel_err']:.3e} from plain; {info['nvidia_smi']}")
+    rec["phase_s"] = time.perf_counter() - t14
+    print(f"[mesh] phase 14 in {rec['phase_s']:.1f} s")
+    return rec
+
+
 def smoke(dev: torch.device) -> dict:
     """Phases 2 to 8 on `dev`; returns the numbers to report."""
     from repro_torch import api
@@ -5216,6 +5630,20 @@ def run() -> int:
     # e4m3 readings -----------------------------------------------------------
     torch.cuda.empty_cache()
     summary["e4m3"] = run_phase13(summary["kernels"], info, dev)
+    # -- phase 14: BlockMatrix and CoordinateMatrix on a (2, 2) mesh, in a
+    # process group of its own; each rank zeroes and reads its counts
+    # around the path ---------------------------------------------------------
+    torch.cuda.empty_cache()
+    summary["mesh"] = run_phase14(
+        info, summary["front_door"]["coordinate"]["coordinate"]["sigma"])
+    for row in summary["kernels"]:
+        row["launches_by_path"]["mesh"] = \
+            summary["mesh"]["launches"][0].get(row["name"], 0)
+        if row["name"] == "gemm":
+            row["checks"]["summa"] = summary["mesh"]["gemm"]
+    for name in PATHS["mesh"]:
+        require(all(c[name] > 0 for c in summary["mesh"]["launches"]),
+                f"{name} never launched on the mesh path")
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
@@ -5224,7 +5652,7 @@ def run() -> int:
                       "lm": summary["lm"], "planner": summary["planner"],
                       "cluster": summary["cluster"],
                       "elastic": summary["elastic"],
-                      "e4m3": summary["e4m3"],
+                      "e4m3": summary["e4m3"], "mesh": summary["mesh"],
                       "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])

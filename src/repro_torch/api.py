@@ -16,10 +16,12 @@ per group iteration.  Every
                ...)
   degraded   — None for a full-quality answer, else why it was cut short
                ("deadline", "max_iterations", "fault", "overloaded")
-  precision  — what ran: "f32" or "bf16" ("auto" asks the planner's
-               precision sweep at the request's tol; "psum8" runs f32 on a
-               local operand and raises on a RowMatrix or SparseRowMatrix
-               until multi-GPU lands)
+  precision  — what ran: "f32", "bf16" or "psum8" ("auto" asks the
+               planner's precision sweep at the request's tol; "psum8"
+               sends the gradient's all_reduce as int8 with error feedback
+               on a RowMatrix or SparseRowMatrix, on one shard or a mesh,
+               and reports "psum8"; on a local operand, or in an engine
+               that takes no compressed wire, it runs and reports f32)
 
 Requests run on the card: `device` defaults to "cuda" and raises when there
 is no card; pass device="cpu" to run on the CPU.  The request validation is

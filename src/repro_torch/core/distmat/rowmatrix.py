@@ -316,6 +316,9 @@ class RowMatrix(_Sharded, T.DistMatrix):
         from repro_torch.train import compression as _comp
         c, plan = self._resolve_chunks(
             "grad", chunks, {"m": self._m_local, "n": n}, a.dtype)
+        if c > 1:
+            # Before the fused pass and the span: nothing runs.
+            T.e4m3_waits(a.dtype, "the chunked fused_grad")
         mesh, axes, nsh = self.mesh, self.row_axes, self.nshards
         wire = "int8" if residual is not None else "f32"
         with _tel.current().span("collective.fused_grad", op="grad", n=n,
@@ -325,7 +328,6 @@ class RowMatrix(_Sharded, T.DistMatrix):
             if c > 1:
                 # A segment's product is launched just before its
                 # all_reduce is issued (the parts are drawn lazily).
-                T.refuse_e4m3(a.dtype, "the chunked fused_grad")
                 _, r = _fg.row_loss_grad(z, t, w, kind, prm)
                 rc = r.to(a.dtype)
                 parts = ((rc @ a[:, s0:s1]).to(x.dtype) for s0, s1 in bounds)
@@ -375,7 +377,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
         rank's device seeded with `seed`: every rank draws the same Ω, so
         it is never sent.  The product is one plain matmul, as the
         reference leaves it to XLA outside any kernel."""
-        T.refuse_e4m3(self.rows.dtype, "RowMatrix.sketch")
+        T.e4m3_waits(self.rows.dtype, "RowMatrix.sketch")
         n = self.rows.shape[1]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         omega = torch.randn((n, r), generator=gen, device=self.device,

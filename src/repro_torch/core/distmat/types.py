@@ -191,15 +191,15 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *,
 MULTI_GPU_ITEM = "ROADMAP queue 1 item 13 (multi-GPU)"
 
 
-def one_device(mesh: Mesh | None, device, what: str):
-    """The device of a type that lives on one device: `device`, or a
-    one-rank mesh's; a mesh of more ranks raises, naming the item."""
-    if mesh is None:
-        return device
-    if mesh.size > 1:
-        raise NotImplementedError(f"{what} on a mesh of {mesh.size} ranks "
-                                  f"waits for {MULTI_GPU_ITEM}")
-    return mesh.device
+def refuse_grid_mesh(mesh: Mesh | None, what: str) -> None:
+    """Raise for a mesh of several ranks that ``mesh_from_grid`` made (an
+    elastic re-mesh's survivors): it has a group an axis of more than one
+    rank and none for "model" otherwise, which the types sharded over
+    both axes or by entry need; they take ``make_mesh``'s meshes."""
+    if mesh is not None and mesh.size > 1 and mesh.device_mesh is None:
+        raise NotImplementedError(f"{what} on a survivor mesh "
+                                  f"(types.mesh_from_grid) waits for "
+                                  f"{MULTI_GPU_ITEM}")
 
 
 def row_axes_for(mesh: Mesh | None) -> tuple[str, ...]:
@@ -292,6 +292,8 @@ def as_float_tensor(v, device: torch.device) -> torch.Tensor:
 FP8_REFUSED = ("ROADMAP queue 3, reference-side faults: the reference "
                "raises on float8_e4m3fn storage here too")
 E5M2_ITEM = "ROADMAP queue 1 item 12 (float8_e5m2 storage)"
+E4M3_REST_ITEM = ("ROADMAP queue 1 item 12 (float8_e4m3fn on the paths the "
+                  "reference runs it and the port does not yet)")
 
 
 def refuse_e4m3(dtype, what: str) -> None:
@@ -300,6 +302,16 @@ def refuse_e4m3(dtype, what: str) -> None:
     QR no fp8 type), before anything runs."""
     if dtype == torch.float8_e4m3fn:
         raise TypeError(f"{what} on float8_e4m3fn storage: {FP8_REFUSED}")
+
+
+def e4m3_waits(dtype, what: str) -> None:
+    """Raise TypeError for float8_e4m3fn storage where the reference runs
+    on it and the port does not yet (its randsketch kernel and the chunked
+    products take no e4m3 operand), naming the item, before anything
+    runs."""
+    if dtype == torch.float8_e4m3fn:
+        raise TypeError(f"{what} takes no float8_e4m3fn storage yet: the "
+                        f"reference runs it; it waits for {E4M3_REST_ITEM}")
 
 
 def pad_rows(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distmat import types as T
 from repro_torch.core.distmat.rowmatrix import RowMatrix
 from . import tsqr as _tsqr
 
@@ -51,9 +52,9 @@ def randomized_svd(A: RowMatrix, k: int, *, oversampling: int = OVERSAMPLING,
     """Rank-k truncated SVD of A.  Returns (U (m × k) RowMatrix or None,
     s (k,), V (n × k), info).  U comes from rotating the range basis,
     U = Q·Ub: a product with Q, no extra pass over A.  float8_e4m3fn
-    storage raises TypeError at the sketch (RowMatrix.sketch), before
-    any launch, where the reference's raises at TSQR of its e4m3
-    sketch."""
+    storage raises TypeError before any launch, where the reference's
+    raises at TSQR of its e4m3 sketch."""
+    T.refuse_e4m3(A.rows.dtype, "the randomized SVD")
     m, n = A.shape
     r = min(k + oversampling, min(m, n))
     if not k <= r:

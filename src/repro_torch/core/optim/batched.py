@@ -78,6 +78,13 @@ def _group_vag(linop, kind: str, param: float, X, T, W):
     return f, g
 
 
+def _rowsum64(X: torch.Tensor) -> torch.Tensor:
+    """Per-slot sums of a (S × d) tensor in float64 (``_rowsum`` before
+    its rounding): a row shard's partial, summed over the shards before
+    it is rounded."""
+    return X.double().sum(dim=1)
+
+
 def _rowsum(X: torch.Tensor) -> torch.Tensor:
     """Per-slot sums of a (S × d) tensor, accumulated in float64 and
     rounded to float32.  A reduction's order may follow the tensor's shape
@@ -86,7 +93,7 @@ def _rowsum(X: torch.Tensor) -> torch.Tensor:
     at a float32 rounding tie.  So a slot's trajectory is the same alone or
     in a group, bit for bit, except at such ties (fused_grad_multi's
     per-slot sums do not depend on the slot count at all)."""
-    return X.double().sum(dim=1).float()
+    return _rowsum64(X).float()
 
 
 def _norm_rows(X: torch.Tensor) -> torch.Tensor:
@@ -249,21 +256,38 @@ def make_acc_group(linop, kind: str, param: float = 1.0, *,
     seed_fn(state, T, W, lam) → (state, 3) refreshes u_b, (AX, u_x) and
     (AZ, u_z) in three group passes (at 0, X̄ and Z); step_fn(state, T, W,
     lam, tol, active) → (state, passes) runs one iteration for all active
-    slots.  Inactive slots freeze bit for bit."""
+    slots.  Inactive slots freeze bit for bit.
+
+    On a row-sharded matrix the cached images (AX, AZ), T and W are this
+    rank's strips, and the attempt's per-slot sums over them (f at the
+    momentum point and at x⁺, the backtracking test's GY·(AXn − AY) and
+    the restart test's GY·(AXn − AX)) are summed in float64 on each strip
+    and all_reduced together, one ``linop.data_sum`` an attempt, before
+    they are rounded."""
     if reg not in REGS:
         raise ValueError(f"reg must be one of {REGS}, got {reg!r}")
     if kind != "quad":
         raise ValueError("accelerated groups need the affine u-vector "
                          f"trick — quadratic smooths only, got {kind!r}")
+    sharded = linop.row_shards() > 1
 
     def _pass(X, T, W):
         return linop.fused_grad_multi(X, RowSeparable(kind, T, W, param))
 
     def _quad_fg(AY, T, W):
-        """Per-slot (value, data-space gradient) at cached images — local,
-        no A-pass; matches SmoothQuad row by row."""
+        """Per-slot (value's float64 partial, data-space gradient) at
+        cached images — local, no A-pass; matches SmoothQuad row by
+        row."""
         R = AY - T
-        return 0.5 * _rowsum(W * R * R), W * R
+        return 0.5 * _rowsum64(W * R * R), W * R
+
+    def _data_sums(*parts):
+        """The per-slot float64 partials summed over the row shards in one
+        all_reduce (as they are on one shard), rounded to float32."""
+        sums = torch.stack(parts)
+        if sharded:
+            sums = linop.data_sum(sums)
+        return sums.float()
 
     def seed(state: AccGroupState, T, W, lam):
         _, G0, _ = _pass(torch.zeros_like(state.X), T, W)   # g(0) = −u_b
@@ -295,12 +319,17 @@ def make_acc_group(linop, kind: str, param: float = 1.0, *,
             Xn = (1 - thc) * state.X + thc * Zn
             AXn = (1 - thc) * state.AX + thc * AZn
             UXn = (1 - thc) * state.UX + thc * UZn
-            Fn = 0.5 * _rowsum(W * (AXn - T) ** 2)
+            parts = [FY, 0.5 * _rowsum64(W * (AXn - T) ** 2),
+                     _rowsum64(GY * (AXn - AY))]
+            if restart:
+                parts.append(_rowsum64(GY * (AXn - state.AX)))
+            sums = _data_sums(*parts)
+            FY, Fn, cross = sums[0], sums[1], sums[2]
+            rise = sums[3] if restart else None
             dX = thc * (Zn - state.Z)                    # = x⁺ − y
-            rhs = (FY + _rowsum(GY * (AXn - AY))
-                   + 0.5 * L * _rowsum(dX * dX))
+            rhs = FY + cross + 0.5 * L * _rowsum(dX * dX)
             ok = Fn <= rhs + tol_eps * torch.abs(FY)
-            return th, Xn, AXn, UXn, Zn, AZn, UZn, GY, Fn, ok
+            return th, Xn, AXn, UXn, Zn, AZn, UZn, rise, Fn, ok
 
         out = attempt(L)
         tries, bt = 1, torch.zeros_like(state.bt)
@@ -314,12 +343,13 @@ def make_acc_group(linop, kind: str, param: float = 1.0, *,
             bt = bt + fail.to(torch.int32)
             out = attempt(L)
             tries += 1
-        th, Xn, AXn, UXn, Zn, AZn, UZn, GY, Fn, _ = out
+        th, Xn, AXn, UXn, Zn, AZn, UZn, rise, Fn, _ = out
 
         if restart:
-            # Per-slot O'Donoghue–Candès gradient test; resetting momentum
+            # Per-slot O'Donoghue–Candès gradient test (GY·(AXn − AX),
+            # summed with the attempt's other sums); resetting momentum
             # also resets (z, Az, u_z) to the averaged iterate's.
-            uphill = act & (_rowsum(GY * (AXn - state.AX)) > 0)
+            uphill = act & (rise > 0)
             th = torch.where(uphill, 1.0, th)
             up = uphill[:, None]
             Zn = torch.where(up, Xn, Zn)

@@ -238,8 +238,9 @@ class ElasticGroup:
     with a live recorder each engine step adds a plan-vs-actual record of
     the fused pass (its planner plan beside the pass's synced time, a try
     each).  `telemetry=None` resolves the module-level recorder at call
-    time, a no-op unless enabled.  Accelerated groups run on one row
-    shard: their cached-image sums are local (a mesh of several raises)."""
+    time, a no-op unless enabled.  On a row-sharded matrix an accelerated
+    group keeps its cached images as this rank's strips and all_reduces
+    their per-slot sums once an attempt (batched.make_acc_group)."""
 
     def __init__(self, linop, kind: str, param: float = 1.0, *,
                  reg: str = "none", method: str = "gra", slots: int = 8,
@@ -253,11 +254,6 @@ class ElasticGroup:
             raise ValueError("accelerated groups batch via the affine "
                              "u-vector trick — loss='quad' only, got "
                              f"{kind!r}")
-        if method in ACC_METHODS and linop.row_shards() > 1:
-            raise NotImplementedError(
-                "an accelerated group on a row-sharded matrix waits for "
-                "ROADMAP queue 1 item 13 (multi-GPU): its cached images' "
-                "sums are not all_reduced")
         self.linop, self.kind, self.param = linop, kind, param
         self.reg, self.method, self.slots = reg, method, slots
         self.elastic = elastic

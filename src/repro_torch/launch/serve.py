@@ -52,6 +52,15 @@ The frontend is hardened as the reference's is:
   * ``max_pending`` sheds load at submit with a typed ``api.Overloaded``
     result.
 
+On a mesh (a RowMatrix or SparseRowMatrix sharded over row ranks) every
+rank builds the server and submits the same requests in the same order,
+as the cluster solves are called; each group runs its pass on the rank's
+strips and all_reduces (f, g), so every answer has the same bits on every
+rank.  Every decision that reads a clock or a price (a queued or resident
+request's deadline, the budget's admission) is taken by the mesh's first
+rank and sent to the others once a step; that rank alone writes the
+telemetry (``export_telemetry``).
+
 Every answer is an ``api.Result``; for served solves ``info["a_passes"]``
 is the number of GROUP passes taken while the request was resident.  The
 server's counters are always live (``stats``), with ``serve.queue_wait_s``
@@ -178,12 +187,15 @@ class GroupRunner:
 
     # -- the iteration --------------------------------------------------------
 
-    def step(self) -> list[api.Result]:
+    def step(self, expired=None) -> list[api.Result]:
         """One solver iteration for every active slot; returns retired
-        lanes."""
+        lanes.  `expired` lists the slots whose deadline passed, as the
+        server decided them this step (on a mesh, the first rank's
+        clock); None reads this process's clock."""
         if not self.busy():
             return []
-        out = self._expire_deadlines()
+        out = self._expire_deadlines(
+            self.deadlines_passed() if expired is None else expired)
         if not self.busy():
             return out
         try:
@@ -206,22 +218,23 @@ class GroupRunner:
                 out.append(self._retire(i, bool(done[i])))
         return out
 
-    def _expire_deadlines(self) -> list[api.Result]:
-        """Retire residents whose wall deadline passed (best iterate,
-        converged=False, degraded="deadline"), so one slow request cannot
-        hold its slot past its budget."""
+    def deadlines_passed(self) -> list[int]:
+        """The active slots whose wall deadline has passed, by this
+        process's clock."""
         if not any(m is not None and m["deadline_at"] is not None
                    for m in self.meta):
             return []
         now = time.monotonic()
-        out = []
-        for i in range(self.slots):
-            m = self.meta[i]
-            if self.active[i] and m is not None \
-                    and m["deadline_at"] is not None \
-                    and now > m["deadline_at"]:
-                out.append(self._retire(i, False, degraded="deadline"))
-        return out
+        return [i for i, m in enumerate(self.meta)
+                if self.active[i] and m is not None
+                and m["deadline_at"] is not None and now > m["deadline_at"]]
+
+    def _expire_deadlines(self, slots) -> list[api.Result]:
+        """Retire the residents in `slots` (their wall deadline passed)
+        with their best iterates (converged=False, degraded="deadline"),
+        so one slow request cannot hold its slot past its budget."""
+        return [self._retire(i, False, degraded="deadline") for i in slots
+                if self.active[i]]
 
     def _retire(self, i: int, converged: bool, *,
                 degraded: str | None = None,
@@ -288,6 +301,10 @@ class SolverServer:
         self._results: dict[str, api.Result] = {}
         self._submit_t: dict[str, float] = {}
         self._events: list[tuple[str, float, float]] = []
+        # The mesh of the sharded matrices served (None: one process).
+        # Its first rank takes every decision that reads a clock or a
+        # price and sends it to the others once a step.
+        self._mesh = None
 
     @property
     def stats(self) -> dict:
@@ -303,14 +320,17 @@ class SolverServer:
     # -- queue ----------------------------------------------------------------
 
     def submit(self, req) -> str:
+        """Enqueue `req`.  On a mesh every rank submits the same requests
+        in the same order (each b global, or the rank's strip of it)."""
         problem = getattr(req, "problem", None)
         A = getattr(req, "A", None) if problem is None \
             else getattr(getattr(problem, "linop", None), "A", None)
-        if getattr(A, "nshards", 1) > 1:
-            raise NotImplementedError(
-                "serving a row-sharded matrix waits for ROADMAP queue 1 "
-                "item 13 (multi-GPU): every rank would have to admit the "
-                "same requests in the same order")
+        mesh = getattr(A, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            if self._mesh is not None and mesh is not self._mesh:
+                raise ValueError("one server serves the matrices of one "
+                                 "mesh")
+            self._mesh = mesh
         if isinstance(req, api.SolveRequest):
             if req.problem is None and req.smooth is None \
                     and req.method == "lbfgs" and req.reg != "none":
@@ -377,38 +397,104 @@ class SolverServer:
 
     # -- scheduling -----------------------------------------------------------
 
-    def _admit(self) -> list[api.Result]:
-        """FIFO admission under the device-time budget.  A request joins
-        its group's runner while it has a free slot (free of budget), or
-        opens the group (its price); a full group or a spent budget blocks
-        the head of the queue and everything behind it (strict
-        arrival-order degradation).  When nothing spends budget the head is
-        always admitted, so a budget under one group's pass cannot
-        deadlock the queue.  Returns the results of the one-shot jobs it
-        ran."""
-        done = []
+    def _decide(self) -> tuple[list[bool], dict]:
+        """This step's decisions that read a clock or a price, taken
+        before any is acted on: (for the head of the queue, one flag an
+        item, True to admit it and False to answer it expired, up to the
+        first that must wait; for each busy group, the slots whose
+        deadline passed).  FIFO admission under the device-time budget: a
+        request joins its group's runner while it has a free slot (free of
+        budget), or opens the group (its price); a full group or a spent
+        budget blocks the head of the queue and everything behind it
+        (strict arrival-order degradation).  When nothing spends budget
+        the head is always admitted, so a budget under one group's pass
+        cannot deadlock the queue."""
+        expire = {key: r.deadlines_passed()
+                  for key, r in self._runners.items() if r.busy()}
+        actions: list[bool] = []
         spent = self._active_cost()
-        while self._queue:
-            req = self._queue[0]
-            expired = self._expire_queued(req)
-            if expired is not None:
-                self._queue.pop(0)
-                self._finish(expired)
-                done.append(expired)
+        free: dict = {}                    # group key → slots left
+        for req in self._queue:
+            if self._deadline_burnt(req):
+                actions.append(False)
                 continue
             if batchable(req):
                 key = group_key(req)
                 runner = self._runners.get(key)
-                if runner is not None and runner.busy():
-                    if runner.free_slots() == 0:
+                if key not in free and runner is not None and runner.busy():
+                    free[key] = runner.free_slots()
+                if key in free:
+                    if free[key] == 0:
                         break                      # group full → wait
-                    with self.tel.span("serve.admit", mode="join",
-                                       request_id=req.request_id):
-                        runner.admit(req)          # marginal cost: zero
+                    free[key] -= 1                 # marginal cost: zero
                 else:
                     cost = self._price(req)
                     if self._over_budget(spent, cost):
                         break                      # no budget → wait
+                    spent += cost
+                    free[key] = self.slots - 1
+            else:
+                cost = self._price(req)
+                if self._over_budget(spent, cost):
+                    break
+                spent += cost
+            actions.append(True)
+        return actions, expire
+
+    def _decisions(self) -> tuple[list[bool], dict]:
+        """``_decide``'s decisions.  On a mesh the first rank alone takes
+        them and every rank receives them in one all_reduce of a small
+        int32 message (the count of queue actions, the actions, then a
+        flag for each slot of each busy group), zero on every other rank:
+        a rank that retired a slot another kept would deadlock the next
+        group pass's all_reduce."""
+        mesh = self._mesh
+        if mesh is None:
+            return self._decide()
+        from repro_torch import compat
+        axes = mesh.axis_names
+        busy = [key for key, r in self._runners.items() if r.busy()]
+        q = len(self._queue)
+        msg = [0] * (1 + q + self.slots * len(busy))
+        if compat.axis_index(mesh, axes) == 0:
+            actions, expire = self._decide()
+            msg[0] = len(actions)
+            msg[1:1 + len(actions)] = [int(a) for a in actions]
+            for g, key in enumerate(busy):
+                for i in expire[key]:
+                    msg[1 + q + g * self.slots + i] = 1
+        msg = compat.psum(torch.tensor(msg, dtype=torch.int32,
+                                       device=mesh.device), mesh,
+                          axes).tolist()
+        flags = msg[1 + q:]
+        return ([bool(a) for a in msg[1:1 + msg[0]]],
+                {key: [i for i in range(self.slots)
+                       if flags[g * self.slots + i]]
+                 for g, key in enumerate(busy)})
+
+    def _admit(self, actions: list[bool]) -> list[api.Result]:
+        """Act on `actions` (``_decisions``, the same on every rank) for
+        the head of the queue: expired answers at once, admissions into
+        their group (joined, or opened at its price) and one-shot jobs
+        run whole.  Returns the results of the expired and one-shot
+        requests."""
+        done = []
+        for admit in actions:
+            req = self._queue.pop(0)
+            if not admit:
+                res = self._expired(req)
+                self._finish(res)
+                done.append(res)
+                continue
+            self._observe_wait(req)
+            if batchable(req):
+                key = group_key(req)
+                runner = self._runners.get(key)
+                if runner is not None and runner.busy():
+                    with self.tel.span("serve.admit", mode="join",
+                                       request_id=req.request_id):
+                        runner.admit(req)
+                else:
                     with self.tel.span("serve.admit", mode="open",
                                        request_id=req.request_id):
                         if runner is None:
@@ -420,19 +506,10 @@ class SolverServer:
                                          if self.elastic_factory else None),
                                 telemetry=self.tel)
                             self._runners[key] = runner
-                        runner.price_s = cost
+                        runner.price_s = self._price(req)
                         runner.admit(req)
-                    spent += cost
                 self._c["admitted"].inc()
-                self._observe_wait(req)
-                self._queue.pop(0)
             else:
-                cost = self._price(req)
-                if self._over_budget(spent, cost):
-                    break
-                spent += cost
-                self._queue.pop(0)
-                self._observe_wait(req)
                 with self.tel.span("serve.oneshot",
                                    request_id=req.request_id):
                     res = self._run_oneshot(req)
@@ -447,16 +524,19 @@ class SolverServer:
         if t0 is not None:
             self._h_wait.observe(time.perf_counter() - t0)
 
-    def _expire_queued(self, req) -> api.Result | None:
-        """Dequeue-time deadline check: a request whose wall budget was
-        burnt WAITING in the queue is answered degraded at once instead of
-        spending device time on an answer its client has abandoned."""
+    def _deadline_burnt(self, req) -> bool:
+        """Dequeue-time deadline check: whether `req`'s wall budget was
+        burnt WAITING in the queue (this process's clock)."""
         deadline = getattr(req, "deadline_s", None)
         if deadline is None:
-            return None
+            return False
         t0 = self._submit_t.get(req.request_id)
-        if t0 is None or time.perf_counter() - t0 <= deadline:
-            return None
+        return t0 is not None and time.perf_counter() - t0 > deadline
+
+    def _expired(self, req) -> api.Result:
+        """The answer to a request whose deadline burnt in the queue:
+        degraded at once instead of spending device time on an answer its
+        client has abandoned."""
         self._c["expired"].inc()
         return api.Result(
             x=None, info={"iterations": 0, "a_passes": 0,
@@ -490,13 +570,14 @@ class SolverServer:
         """One scheduler tick: admit, then one solver iteration per active
         group; returns the requests that completed this tick."""
         self._c["steps"].inc()
-        out = self._admit()                # one-shots, already finished
+        actions, expire = self._decisions()
+        out = self._admit(actions)         # one-shots, already finished
         if self._queue:
             self._c["deferred_steps"].inc()
-        for runner in self._runners.values():
+        for key, runner in self._runners.items():
             if runner.busy():
                 before = runner.a_passes
-                retired = runner.step()
+                retired = runner.step(expired=expire.get(key, ()))
                 self._c["a_passes"].inc(runner.a_passes - before)
                 if runner.remeshes != runner.priced_remeshes:
                     # A mid-solve re-mesh changed the shard shape: re-price
@@ -514,6 +595,15 @@ class SolverServer:
     def busy(self) -> bool:
         return bool(self._queue) or any(r.busy()
                                         for r in self._runners.values())
+
+    def export_telemetry(self, path) -> int:
+        """Write the server's recorder, one JSON event a line, from the
+        mesh's first rank alone; returns the events written (0 on the
+        other ranks)."""
+        mesh = self._mesh
+        if mesh is not None and mesh.index(mesh.axis_names) != 0:
+            return 0
+        return self.tel.export_jsonl(path)
 
     def run(self, max_steps: int = 100_000) -> list[api.Result]:
         out = []

@@ -1,11 +1,15 @@
-"""The port's row-sharded cluster path on four gloo ranks, against the JAX
-reference on one device.
+"""The port's cluster path on four gloo ranks, against the JAX reference on
+one device.
 
 One spawned group a mesh, (4, 1) and (2, 2), runs every case of
 tests/torch_cluster_cases.py on the same numpy inputs (rows over "data";
 on (2, 2) the two "model" ranks of a shard hold the same rows) and
 returns each rank's results; the parametrised tests below assert them one
-case at a time.  Tolerances are the reference tests' own: rtol/atol 1e-5
+case at a time.  Beside the row-sharded RowMatrix and SparseRowMatrix:
+BlockMatrix on the R × C grid (SUMMA), CoordinateMatrix sharded by entry,
+SolverServer over the sharded matrices (the first rank's clock and budget
+decisions followed by every rank) and accelerated ElasticGroups, clean
+and through a device loss.  Tolerances are the reference tests' own: rtol/atol 1e-5
 for f and 1e-4 for g and z (tests/test_fusedgrad.py), 1e-3 for the Gram,
 the SVD and TSQR (tests/test_multidevice.py), solves compared at
 convergence (ROADMAP queue 3), chunked bodies against eager within
@@ -21,14 +25,21 @@ import torch
 import torch_cluster_cases as C
 from repro import api as japi
 from repro.core import tfocs as jt
+from repro.core.distmat import BlockMatrix as JBlockMatrix
+from repro.core.distmat import CoordinateMatrix as JCoordinateMatrix
 from repro.core.distmat import RowMatrix as JRowMatrix
 from repro.core.distmat import SparseRowMatrix as JSparseRowMatrix
 from repro.core.linalg import compute_svd as jcompute_svd
 from repro.core.linalg import tsqr as jtsqr
+from repro.core.optim import elastic as jelastic
 from repro.core.optim import make_problem as jmake_problem
+from repro.core.tfocs.linop import LinopMatrix as JLinopMatrix
 from repro.core.tfocs.smooth import (SmoothHuber, SmoothLogLoss,
                                      SmoothPoisson, SmoothQuad)
+from repro.launch import serve as jserve
+from repro_torch.core.distmat import BlockMatrix, RowMatrix, SparseRowMatrix
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch.serve import SolverServer
 
 DATA = C.make_data()
 MESHES = tuple(C.MESHES)
@@ -113,6 +124,91 @@ def ref():
         jnp.asarray(d["c"]), Op, jnp.asarray(d["bc"]),
         opts=jt.TfocsOptions(max_iters=500, backtracking=True,
                              restart=True), **C.LP)[0]
+    out.update(_ref_block(d))
+    out.update(_ref_coordinate(d))
+    out.update(_ref_served(d))
+    for method in C.ELASTIC_METHODS:
+        out[f"el_{method}"] = jelastic.solve_elastic(
+            JLinopMatrix(jnp.asarray(d["As"])), "quad", d["bsol"],
+            method=method, L0=d["L"], **C.ELASTIC_SOLVE)
+    return out
+
+
+def _ref_block(d) -> dict:
+    """The reference's BlockMatrix on one device: every method the rank
+    bodies call, the vectors cut to their true lengths."""
+    A = JBlockMatrix.create(jnp.asarray(d["Ab"]))
+    B = JBlockMatrix.create(jnp.asarray(d["Bb"]))
+    v, u = jnp.asarray(d["vb"]), jnp.asarray(d["ub"])
+    w = jnp.pad(v, (0, A.data.shape[1] - v.shape[0]))
+    return {"blk_add": A.add(A).to_local(),
+            "blk_multiply": A.multiply(B).to_local(),
+            "blk_transpose": A.transpose().to_local(),
+            "blk_local": A.to_local(),
+            "blk_matvec": np.asarray(A.matvec(v))[:20],
+            "blk_rmatvec": np.asarray(A.rmatvec(u))[:11],
+            "blk_matvec_model_sharded": np.asarray(
+                A.matvec_model_sharded(w))[:20],
+            "blk_rmatvec_model_sharded": np.asarray(
+                A.rmatvec_model_sharded(u))[:11],
+            "blk_frobenius": A.frobenius_norm(),
+            "blk_svd_s": jcompute_svd(A, C.SVD_K).s}
+
+
+def _ref_coordinate(d) -> dict:
+    """The reference's CoordinateMatrix on one device."""
+    cm = JCoordinateMatrix.create(jnp.asarray(d["ri"]), jnp.asarray(d["ci"]),
+                                  jnp.asarray(d["va"]), (20, 13))
+    srm = cm.to_sparse_row_matrix(bs=8)
+    return {"coo_matvec": cm.matvec(jnp.asarray(d["xc"])),
+            "coo_rmatvec": cm.rmatvec(jnp.asarray(d["yc"])),
+            "coo_frobenius": cm.frobenius_norm(),
+            "coo_local": cm.to_local(),
+            "coo_transpose": cm.transpose().to_local(),
+            "coo_irm_local": np.asarray(
+                cm.to_indexed_row_matrix().to_local()),
+            "coo_srm_local": srm.to_local(), "coo_srm_ell": srm.ell,
+            "coo_block_local": cm.to_block_matrix(4, 4).to_local(),
+            "coo_svd_s": jcompute_svd(cm, C.SVD_K).s,
+            "coo_wide_svd_s": jcompute_svd(cm.transpose(), C.SVD_K).s}
+
+
+def _ref_served(d) -> dict:
+    """The reference's server on one device, one group a method: the
+    served x of each request (gra, acc and acc_rb on As, gra on D)."""
+    out = {}
+    for name, A, method, sparse in (
+            *((m, JRowMatrix.create(jnp.asarray(d["As"])), m, False)
+              for m in C.SERVE_METHODS),
+            ("sparse", JSparseRowMatrix.from_dense(d["D"], bs=8), "gra",
+             True)):
+        B, L = (d["Bsparse"], d["Ls"]) if sparse else (d["Bserve"], d["L"])
+        srv = jserve.SolverServer(slots=len(B))
+        ids = [srv.submit(japi.SolveRequest(
+            A=A, b=b, method=method, tol=C.SERVE_TOL,
+            max_iters=C.SERVE_ITERS, L0=L)) for b in B]
+        srv.run()
+        out[f"serve_{name}"] = np.stack([np.asarray(srv.result(i).x)
+                                         for i in ids])
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """The port on one device (no mesh): the BlockMatrix product and the
+    served answers the meshes are held to."""
+    d, out = DATA, {}
+    out["blk_multiply"] = BlockMatrix.create(d["Ab"], device="cpu").multiply(
+        BlockMatrix.create(d["Bb"], device="cpu")).to_local()
+    rm = RowMatrix.create(d["As"], device="cpu")
+    S = SparseRowMatrix.from_dense(d["D"], bs=8, device="cpu")
+    for name, A, method, sparse in (
+            *((m, rm, m, False) for m in C.SERVE_METHODS),
+            ("sparse", S, "gra", True)):
+        srv = SolverServer(slots=C.SERVE_K)
+        ids = [srv.submit(r) for r in C.serve_requests(A, d, method, sparse)]
+        srv.run()
+        out[f"serve_{name}"] = torch.stack([srv.result(i).x for i in ids])
     return out
 
 
@@ -130,6 +226,11 @@ def _rel(got, want) -> float:
 
 def _rank0(ranks, name):
     return ranks[name][0]
+
+
+def _maxabs(got, want) -> float:
+    return float(np.max(np.abs(np.asarray(got, np.float64)
+                               - np.asarray(want, np.float64))))
 
 
 # -- the shards --------------------------------------------------------------
@@ -362,17 +463,212 @@ def test_auto_chunks_asks_the_planner_with_the_row_axes(ranks, name):
     assert r["auto_chunks"] == 1
 
 
+# -- BlockMatrix by SUMMA, CoordinateMatrix over the ranks -----------------------
+
 @pytest.mark.parametrize("name", MESHES)
-@pytest.mark.parametrize("what", ["block", "coordinate", "server"])
-def test_what_waits_for_the_rest_of_item_13_raises(ranks, name, what):
-    """BlockMatrix and CoordinateMatrix on a mesh, and a server over a
-    sharded matrix, raise and name ROADMAP queue 1 item 13."""
-    assert "item 13" in _rank0(ranks, name)[f"later_{what}"]
+def test_block_matrix_tiles_the_grid(ranks, name):
+    """20 × 11 and 11 × 6 on an R × C grid: each rank holds its
+    (⌈m/R⌉, ⌈n/C⌉) tile, both axes padded where they do not divide
+    (validate passed on every rank)."""
+    R, Cm = C.MESHES[name]
+    want = [-(-20 // R), -(-11 // Cm), -(-11 // R), -(-6 // Cm)]
+    for r in ranks[name]:
+        assert r["blk_tile"] == want
+
+
+BLOCK = [("blk_add", 1e-6), ("blk_multiply", 1e-3), ("blk_transpose", 0),
+         ("blk_local", 0), ("blk_matvec", 1e-4), ("blk_rmatvec", 1e-4),
+         ("blk_matvec_model_sharded", 1e-4),
+         ("blk_rmatvec_model_sharded", 1e-4), ("blk_frobenius", 1e-5),
+         ("blk_svd_s", 1e-3)]
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("key,tol", BLOCK)
+def test_block_matrix_matches_reference(ranks, ref, name, key, tol):
+    """Each BlockMatrix method on the mesh (its vectors gathered whole)
+    against the reference's on one device: the product within
+    tests/test_multidevice.py's 1e-3, the vector products within
+    tests/test_torch_distmat_types.py's 1e-4, σ of the Lanczos SVD within
+    1e-3."""
+    _close(_rank0(ranks, name)[key], ref[key], tol)
+    if key == "blk_svd_s":
+        assert _rank0(ranks, name)["blk_svd_plan"] == "lanczos"
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_block_multiply_matches_one_rank(ranks, one_rank, name):
+    """SUMMA's product on the mesh within 1e-5 of the port's one-rank
+    gemm (the same sums, the panels gathered first)."""
+    _close(_rank0(ranks, name)["blk_multiply"], one_rank["blk_multiply"],
+           1e-5)
+
+
+COORDINATE = [("coo_matvec", 1e-3), ("coo_rmatvec", 1e-3),
+              ("coo_frobenius", 1e-5), ("coo_local", 1e-6),
+              ("coo_transpose", 1e-6), ("coo_irm_local", 1e-6),
+              ("coo_srm_local", 1e-6), ("coo_block_local", 1e-6),
+              ("coo_svd_s", 1e-3), ("coo_wide_svd_s", 1e-3)]
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("key,tol", COORDINATE)
+def test_coordinate_matrix_matches_reference(ranks, ref, name, key, tol):
+    """The CoordinateMatrix's entries sharded by position: products (rtol
+    1e-3, atol 1e-4, tests/test_multidevice.py), the norm, the dense,
+    transposed and converted forms, and σ of its Lanczos SVD and of its
+    wide transpose's, against the reference on one device."""
+    got, want = _rank0(ranks, name)[key], ref[key]
+    if key in ("coo_matvec", "coo_rmatvec"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-3, atol=1e-4)
+    elif key == "coo_irm_local":
+        _close(got, np.asarray(want)[: got.shape[0]], tol)
+    else:
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_coordinate_matrix_shards_its_entries(ranks, ref, name):
+    """60 entries over the row axes: 60/R a rank (padding none here);
+    the conversions land on the same mesh: the block-sparse type's strips
+    over the row shards (its ELL width the reference's), the BlockMatrix
+    on the (R, C) grid; the wide SVD runs through the transpose."""
+    R, Cm = C.MESHES[name]
+    for r in ranks[name]:
+        assert int(r["coo_local_nnz"]) == 60 // R
+    r = _rank0(ranks, name)
+    assert int(r["coo_srm_shards"]) == R
+    assert int(r["coo_srm_ell"]) == ref["coo_srm_ell"]
+    assert r["coo_block_grid"] == [R, Cm]
+    assert r["coo_svd_plan"] == "lanczos" and r["coo_wide_transposed"]
+    D = r["coo_local"].numpy().T
+    u, s, vt = np.linalg.svd(D)
+    k = C.SVD_K
+    got = (r["coo_wide_svd_U"] * r["coo_wide_svd_s"]) @ r["coo_wide_svd_V"].T
+    _close(got, (u[:, :k] * s[:k]) @ vt[:k], 1e-3)
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("what", ["block", "coordinate"])
+def test_types_on_a_survivor_mesh_wait_for_item_13(ranks, name, what):
+    """A mesh from types.mesh_from_grid (an elastic re-mesh's survivors)
+    is refused by the types sharded over both axes or by entry, naming
+    ROADMAP queue 1 item 13."""
+    assert "item 13" in _rank0(ranks, name)[f"grid_{what}"]
+
+
+# -- the server over row-sharded matrices ---------------------------------------
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("served", [*C.SERVE_METHODS, "sparse"])
+def test_served_groups_match_reference_and_one_rank(ranks, ref, one_rank,
+                                                    name, served):
+    """gra, acc and acc_rb groups on the sharded As and a gra group on
+    the sharded D: every request converged, x within 1e-4 of the
+    reference's server on one device and of the port's one-rank server
+    (phase 11's limit), the same bits on every rank."""
+    r = _rank0(ranks, name)
+    info = r[f"serve_{served}_info"]
+    assert all(info["converged"]) and max(info["iterations"]) \
+        < C.SERVE_ITERS
+    for got, want, mine in zip(r[f"serve_{served}_x"], ref[f"serve_{served}"],
+                               one_rank[f"serve_{served}"]):
+        assert _rel(got, want) < 1e-4
+        assert _rel(got, mine) < 1e-4
+    for other in ranks[name][1:]:
+        assert torch.equal(other[f"serve_{served}_x"],
+                           r[f"serve_{served}_x"])
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_deadline_taken_by_the_first_rank_retires_everywhere(ranks, name):
+    """Only the first rank's request carries a deadline: every rank
+    retires it at the same step with degraded="deadline", the same
+    iterate and the same group passes, and its co-resident converges."""
+    infos = [r["serve_deadline_info"] for r in ranks[name]]
+    for info in infos:
+        assert info == infos[0]
+        assert info["degraded"] == ["deadline", None]
+        assert info["converged"] == [False, True]
+        assert 0 < info["iterations"][0] < 10 ** 6
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_budget_taken_by_the_first_rank_applies_everywhere(ranks, one_rank,
+                                                          name):
+    """Only the first rank has a budget (one group's pass and a half):
+    the second group waits for the first on every rank alike, and every
+    answer converges to the one-rank server's."""
+    infos = [r["serve_budget_info"] for r in ranks[name]]
+    assert all(info == infos[0] for info in infos)
+    assert infos[0]["stats"]["deferred_steps"] > 0
+    assert all(infos[0]["converged"])
+    r = _rank0(ranks, name)
+    want = torch.cat([one_rank["serve_gra"][:2], one_rank["serve_acc_rb"][:2]])
+    for got, mine in zip(r["serve_budget_x"], want):
+        assert _rel(got, mine) < 1e-4
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_first_rank_alone_exports_telemetry(ranks, name):
+    """export_telemetry writes the server's events on the mesh's first
+    rank and nothing on the others."""
+    counts = [r["serve_exported"] for r in ranks[name]]
+    assert counts[0] > 0 and not any(counts[1:])
+
+
+# -- accelerated elastic groups on row-sharded A ---------------------------------
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("method", C.ELASTIC_METHODS)
+def test_accelerated_elastic_group_matches_reference(ranks, ref, name,
+                                                     method):
+    """acc and acc_rb ElasticGroups on the sharded As: x within
+    tests/test_fault_tolerance.py's 5e-4 of the reference's clean solve,
+    converged, the seed's three passes and one a try; acc takes the
+    reference's passes an iteration (one)."""
+    r = _rank0(ranks, name)
+    jx, jinfo = ref[f"el_{method}"]
+    info = r[f"el_{method}_info"]
+    assert info["converged"] and info["remeshes"] == 0
+    assert _maxabs(r[f"el_{method}_x"], jx) < 5e-4
+    if method == "acc":
+        assert info["a_passes"] - info["iterations"] \
+            == jinfo["a_passes"] - jinfo["iterations"] == 3
+    else:
+        assert info["a_passes"] >= info["iterations"] + 3
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("method", C.ELASTIC_METHODS)
+def test_accelerated_elastic_group_survives_device_loss(ranks, ref, name,
+                                                        method):
+    """Shard 1's device lost at iteration 3: every rank re-meshes once,
+    the lost shard's ranks stop (dropped), the survivors finish with the
+    same bits, within 5e-4 of the reference's clean solve."""
+    R, Cm = C.MESHES[name]
+    lost = {i for i in range(R * Cm) if i // Cm == 1}
+    jx, _ = ref[f"el_{method}"]
+    rs = ranks[name]
+    surv = [r for i, r in enumerate(rs) if i not in lost]
+    for i, r in enumerate(rs):
+        info = r[f"el_{method}_loss_info"]
+        assert r[f"el_{method}_loss_casualties"] == [1]
+        assert info["remeshes"] == 1
+        assert bool(info["dropped"]) == (i in lost)
+    for r in surv:
+        assert torch.equal(r[f"el_{method}_loss_x"],
+                           surv[0][f"el_{method}_loss_x"])
+        assert r[f"el_{method}_loss_info"]["converged"]
+    assert _maxabs(surv[0][f"el_{method}_loss_x"], jx) < 5e-4
 
 
 # -- across ranks -----------------------------------------------------------------
 
-SHARDED = {"shard", "shard_rows", "pod_shard"}
+SHARDED = {"shard", "shard_rows", "pod_shard", "serve_exported",
+           *(f"el_{m}_loss_{p}" for m in C.ELASTIC_METHODS
+             for p in ("x", "info"))}
 REPLICATED = sorted(k for k in C.cluster_rank_keys() if k not in SHARDED)
 
 

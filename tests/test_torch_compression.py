@@ -213,3 +213,16 @@ def test_psum8_solve_matches_reference_at_four_shards(ranks, reference):
     bound = 100 * C.PSUM8_TOL * np.linalg.norm(x32)
     assert np.linalg.norm(x8 - x32) < bound
     assert np.linalg.norm(x8 - reference["solve_x"]) < bound
+
+
+def test_api_docstring_names_psum8_as_running():
+    """repro_torch.api's `precision` key says what runs: psum8 runs on a
+    RowMatrix or SparseRowMatrix (one shard or a mesh) and reports
+    "psum8"; nothing there says it raises on either type."""
+    from repro_torch import api
+    doc = " ".join(api.__doc__.split())
+    start = doc.index("precision —")
+    entry = doc[start:doc.index("Requests run on the card")]
+    assert '"psum8"' in entry and "reports \"psum8\"" in entry
+    assert "RowMatrix or SparseRowMatrix" in entry
+    assert "raise" not in entry and "until multi-GPU" not in entry

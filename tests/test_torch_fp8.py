@@ -491,6 +491,34 @@ def test_e4m3_reaches_four_kernels_alone_on_the_cpu():
             call()
 
 
+# Paths the reference runs on e4m3 and the port does not yet: each names
+# ROADMAP queue 1 item 12, never the reference-side refusal.
+WAITING = {"sketch": lambda rm, x, sep: rm.sketch(3),
+           "chunked_fused_grad": lambda rm, x, sep: rm.fused_grad(
+               x, sep, chunks=4)}
+
+
+@pytest.mark.parametrize("what", sorted(WAITING))
+def test_paths_the_reference_runs_name_item_12(what):
+    """RowMatrix.sketch and the chunked fused gradient raise TypeError
+    naming ROADMAP queue 1 item 12 (the reference runs both on e4m3), not
+    the reference-side refusal, with no launch and no span: the chunked
+    gradient refuses before its fused pass and its collective span."""
+    from repro_torch.launch import telemetry as tel
+    A, b = _problem(64, seed=4)
+    rm = RowMatrix.create(A, device="cpu", store_dtype=E4M3)
+    sep = SmoothQuad(torch.as_tensor(b))
+    x = torch.zeros(64)
+    ops.reset_launch_counts()
+    with tel.recording() as rec:
+        with pytest.raises(TypeError, match="item 12") as err:
+            WAITING[what](rm, x, sep)
+    assert T.FP8_REFUSED not in str(err.value)
+    assert "reference runs it" in str(err.value)
+    assert not any(ops.launch_counts().values())
+    assert not [e for e in rec.events() if e["type"] == "span"]
+
+
 def test_e5m2_waits_for_its_line():
     A, _ = _problem(64)
     with pytest.raises(TypeError, match="item 12"):

@@ -1,5 +1,5 @@
-"""Rank bodies of the port's multi-rank CPU tests (tests/test_torch_cluster.py
-and tests/test_torch_compression.py).
+"""Rank bodies of the port's multi-rank CPU tests (tests/test_torch_cluster.py,
+tests/test_torch_compression.py and tests/test_torch_fp8.py).
 
 Each function runs on every rank of a gloo group started by
 ``repro_torch.launch.mesh.spawn`` and returns a dict of tensors that the
@@ -8,6 +8,9 @@ module imports torch and the port only (the spawned ranks never import
 jax), and is not a test module itself.
 """
 from __future__ import annotations
+
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,6 +35,22 @@ PSUM8_ITERS = 600              # tests/test_precision.py's cap
 PROBLEM = dict(m=200, n=16)
 PROBLEM_ITERS = 300
 LP = dict(mu=1e-2, continuations=6)
+# The served groups on As (quad, SERVE_K requests a method) and on D (gra,
+# two requests), each to a relative step below SERVE_TOL.
+SERVE_METHODS = ("gra", "acc", "acc_rb")
+SERVE_K = 4
+SERVE_TOL = 1e-8
+SERVE_ITERS = 2000
+# A deadline rank 0 alone sets (the other ranks' request has none): every
+# rank retires it at the step rank 0's clock says.
+DEADLINE_S = 0.05
+# The accelerated elastic groups on As: clean, and shard 1's device lost
+# at iteration 3 (a re-mesh onto the survivors).
+ELASTIC_METHODS = ("acc", "acc_rb")
+ELASTIC_SOLVE = dict(tol=1e-7, max_iters=400)
+ELASTIC_LOSS = dict(lose_shard_at=3, lost_shard=1)
+# Lanczos SVDs of the BlockMatrix and CoordinateMatrix cases.
+SVD_K = 3
 
 
 def make_data(seed: int = 0) -> dict:
@@ -70,6 +89,20 @@ def make_data(seed: int = 0) -> dict:
     sl = np.zeros(nc, np.float32)
     sl[3:] = lp.random(nc - 3).astype(np.float32) + 0.1
     d.update(Ac=Ac, bc=Ac @ xstar, c=Ac.T @ yl + sl, xstar=xstar)
+    d["Bserve"] = np.stack([
+        (As @ rng.normal(size=8) + 0.1 * rng.normal(size=90))
+        .astype(np.float32) for _ in range(SERVE_K)])
+    d["Bsparse"] = np.stack([
+        (D @ rng.normal(size=44) + 0.01 * rng.normal(size=150))
+        .astype(np.float32) for _ in range(2)])
+    # tests/test_multidevice.py's BlockMatrix shapes (both axes padded on
+    # either mesh) and its CoordinateMatrix (60 entries on 20 × 13).
+    d.update(Ab=f32(20, 11), Bb=f32(11, 6), vb=f32(11), ub=f32(20))
+    blk = np.random.default_rng(3)
+    d.update(ri=blk.integers(0, 20, 60), ci=blk.integers(0, 13, 60),
+             va=blk.normal(size=60).astype(np.float32),
+             xc=blk.normal(size=13).astype(np.float32),
+             yc=blk.normal(size=20).astype(np.float32))
     return d
 
 
@@ -229,26 +262,180 @@ def _telemetry_cases(rm: RowMatrix, data: dict) -> dict:
     return {"tel_spans": spans, "tel_plan_actual": acts}
 
 
-def _later_cases(mesh, rm: RowMatrix) -> dict:
-    """What waits for the rest of ROADMAP queue 1 item 13 raises on a
-    mesh, naming the item: BlockMatrix, CoordinateMatrix and a server
-    over a sharded matrix."""
+def _rows_whole(v: torch.Tensor, mesh, row_axes, m: int) -> torch.Tensor:
+    """A row strip (the same on the ranks of one row panel) gathered over
+    the row axes to the global (m,) vector."""
+    return compat.all_gather(v, mesh, row_axes).reshape(-1)[:m]
+
+
+def _block_cases(mesh, data: dict) -> dict:
+    """BlockMatrix on the mesh: create/validate (both axes padded), add,
+    SUMMA multiply, transpose, the four vector products, the norm,
+    to_local and its Lanczos SVD, every result gathered whole."""
+    from repro_torch.core.distmat import BlockMatrix
+    out = {}
+    A = BlockMatrix.create(data["Ab"], mesh=mesh)
+    B = BlockMatrix.create(data["Bb"], mesh=mesh)
+    A.validate()
+    B.validate()
+    out["blk_tile"] = list(A.block_shape) + list(B.block_shape)
+    out["blk_add"] = A.add(A).to_local()
+    out["blk_multiply"] = A.multiply(B).to_local()
+    out["blk_transpose"] = A.transpose().to_local()
+    out["blk_local"] = A.to_local()
+    v, u = torch.as_tensor(data["vb"]), torch.as_tensor(data["ub"])
+    rows, m, n = A.row_axes, A.shape[0], A.shape[1]
+    out["blk_matvec"] = _rows_whole(A.matvec(v), mesh, rows, m)
+    out["blk_rmatvec"] = A.rmatvec(u)
+    w = A._model_strip(v)                          # the rank's "model" strip
+    out["blk_matvec_model_sharded"] = _rows_whole(
+        A.matvec_model_sharded(w), mesh, rows, m)
+    g = A.rmatvec_model_sharded(A._row_strip(u))
+    out["blk_rmatvec_model_sharded"] = compat.all_gather(
+        g, mesh, A.col_axis).reshape(-1)[:n]
+    out["blk_frobenius"] = A.frobenius_norm()
+    _, s, _, info = api.compute_svd(A, SVD_K, device="cpu")
+    out["blk_svd_s"], out["blk_svd_plan"] = s, info["plan"]
+    return out
+
+
+def _coordinate_cases(mesh, data: dict) -> dict:
+    """CoordinateMatrix on the mesh: the entries sharded by position,
+    matvec, rmatvec, norm, transpose, the conversions and the Lanczos SVD
+    of it and of its (wide) transpose."""
+    from repro_torch.core.distmat import CoordinateMatrix
+    out = {}
+    C = CoordinateMatrix.create(data["ri"], data["ci"], data["va"], (20, 13),
+                                mesh=mesh)
+    out["coo_local_nnz"] = torch.tensor(C.values.shape[0])
+    out["coo_matvec"] = C.matvec(torch.as_tensor(data["xc"]))
+    out["coo_rmatvec"] = C.rmatvec(torch.as_tensor(data["yc"]))
+    out["coo_frobenius"] = C.frobenius_norm()
+    out["coo_local"] = C.to_local()
+    out["coo_transpose"] = C.transpose().to_local()
+    irm = C.to_indexed_row_matrix()
+    out["coo_irm_local"] = irm.to_local()
+    srm = C.to_sparse_row_matrix(bs=8)
+    out["coo_srm_local"] = srm.to_local()
+    out["coo_srm_ell"] = torch.tensor(srm.ell)
+    out["coo_srm_shards"] = torch.tensor(srm.nshards)
+    blk = C.to_block_matrix(4, 4)
+    out["coo_block_local"] = blk.to_local()
+    out["coo_block_grid"] = list(blk.grid)
+    _, s, _, info = api.compute_svd(C, SVD_K, device="cpu")
+    out["coo_svd_s"], out["coo_svd_plan"] = s, info["plan"]
+    U, s, V, info = api.compute_svd(C.transpose(), SVD_K, device="cpu")
+    out["coo_wide_svd_s"], out["coo_wide_svd_V"] = s, V
+    out["coo_wide_svd_U"] = U.to_local()
+    out["coo_wide_transposed"] = bool(info.get("transposed"))
+    return out
+
+
+def _survivor_mesh_cases() -> dict:
+    """BlockMatrix and CoordinateMatrix on a mesh that mesh_from_grid
+    made (an elastic re-mesh's survivors, no "model" group) raise naming
+    ROADMAP queue 1 item 13; every rank makes the mesh's groups."""
     from repro_torch.core.distmat import BlockMatrix, CoordinateMatrix
-    from repro_torch.launch.serve import SolverServer
-    calls = {
-        "block": lambda: BlockMatrix.create(np.eye(4, dtype=np.float32),
-                                            mesh=mesh),
-        "coordinate": lambda: CoordinateMatrix.create(
-            [0], [0], [1.0], (2, 2), mesh=mesh),
-        "server": lambda: SolverServer(slots=2).submit(api.SolveRequest(
-            A=rm, b=np.zeros(rm.shape[0], np.float32), device="cpu"))}
+    pair = T.mesh_from_grid(torch.tensor([[0], [1]]), ("data", "model"),
+                            torch.device("cpu"))
+    calls = {"block": lambda: BlockMatrix.create(
+                 np.eye(4, dtype=np.float32), mesh=pair),
+             "coordinate": lambda: CoordinateMatrix.create(
+                 [0], [0], [1.0], (2, 2), mesh=pair)}
     out = {}
     for name, call in calls.items():
         try:
             call()
-            out[f"later_{name}"] = "ran"
+            out[f"grid_{name}"] = "ran"
         except NotImplementedError as e:
-            out[f"later_{name}"] = str(e)
+            out[f"grid_{name}"] = str(e)
+    return out
+
+
+def _served(name: str, server, requests) -> dict:
+    """Submit `requests` in order, run the server dry and read each
+    answer: {name_x: the stacked x, name_info: iterations, converged,
+    degraded and the server's stats}."""
+    ids = [server.submit(r) for r in requests]
+    server.run()
+    res = [server.result(i) for i in ids]
+    return {f"{name}_x": torch.stack([r.x for r in res]),
+            f"{name}_info": {
+                "iterations": [int(r.info["iterations"]) for r in res],
+                "converged": [bool(r.info["converged"]) for r in res],
+                "degraded": [r.info["degraded"] for r in res],
+                "stats": {k: v for k, v in server.stats.items()
+                          if k != "degraded"}}}
+
+
+def serve_requests(A, data: dict, method: str, sparse: bool = False
+                   ) -> list:
+    """The served requests of one group: quad on As (each b of Bserve) or
+    gra on D (each b of Bsparse), to SERVE_TOL."""
+    B, L = (data["Bsparse"], data["Ls"]) if sparse \
+        else (data["Bserve"], data["L"])
+    return [api.SolveRequest(A=A, b=b, method=method, tol=SERVE_TOL,
+                             max_iters=SERVE_ITERS, L0=L, device="cpu")
+            for b in B]
+
+
+def _serve_cases(mesh, data: dict) -> dict:
+    """SolverServer over the row-sharded As (gra, acc and acc_rb groups)
+    and D (gra); a deadline and a budget that the first rank alone sets,
+    which every rank follows."""
+    from repro_torch.launch.serve import SolverServer
+    out = {}
+    rm = RowMatrix.create(data["As"], mesh=mesh)
+    S = SparseRowMatrix.from_dense(data["D"], bs=8, mesh=mesh)
+    for method in SERVE_METHODS:
+        out.update(_served(f"serve_{method}", SolverServer(slots=SERVE_K),
+                           serve_requests(rm, data, method)))
+    out.update(_served("serve_sparse", SolverServer(slots=2),
+                       serve_requests(S, data, "gra", True)))
+    first = compat.axis_index(mesh, mesh.axis_names) == 0
+    slow = api.SolveRequest(A=rm, b=data["Bserve"][0], tol=0.0,
+                            max_iters=10 ** 6, L0=data["L"], device="cpu",
+                            deadline_s=DEADLINE_S if first else None)
+    out.update(_served("serve_deadline", SolverServer(slots=2),
+                       [slow] + serve_requests(rm, data, "gra")[1:2]))
+    # Two groups, and on the first rank a budget of one group's pass: the
+    # second waits for the first on every rank.
+    srv = SolverServer(slots=SERVE_K, backend="cpu")
+    if first:
+        srv.budget_s = 1.5 * srv._price_pass(rm)
+    out.update(_served("serve_budget", srv,
+                       serve_requests(rm, data, "gra")[:2]
+                       + serve_requests(rm, data, "acc_rb")[:2]))
+    with tempfile.TemporaryDirectory() as d:
+        out["serve_exported"] = srv.export_telemetry(Path(d) / "t.jsonl")
+    return out
+
+
+def _elastic_cases(mesh, data: dict) -> dict:
+    """solve_elastic's accelerated groups on the row-sharded As, clean
+    and with shard 1's device lost at iteration 3 (every rank re-meshes
+    onto the survivors; the ranks of the lost shard stop)."""
+    from repro_torch.core.optim.elastic import ElasticConfig, solve_elastic
+    from repro_torch.train.faults import FaultPlan, FaultyLinop, FaultyMesh
+    out = {}
+    b = data["bsol"]
+    for method in ELASTIC_METHODS:
+        rm = RowMatrix.create(data["As"], mesh=mesh)
+        x, info = solve_elastic(LinopMatrix(rm), "quad", b, method=method,
+                                L0=data["L"], **ELASTIC_SOLVE)
+        out[f"el_{method}_x"] = x
+        out[f"el_{method}_info"] = {k: info[k] for k in (
+            "iterations", "a_passes", "converged", "remeshes")}
+        fm = FaultyMesh(mesh)
+        lin = FaultyLinop(LinopMatrix(rm), FaultPlan(**ELASTIC_LOSS),
+                          sleep=lambda _dt: None)
+        x, info = solve_elastic(lin, "quad", b, method=method, L0=data["L"],
+                                elastic=ElasticConfig(remesh_to=fm.drop),
+                                **ELASTIC_SOLVE)
+        out[f"el_{method}_loss_x"] = x
+        out[f"el_{method}_loss_info"] = {k: info.get(k) for k in (
+            "iterations", "converged", "remeshes", "dropped")}
+        out[f"el_{method}_loss_casualties"] = fm.casualties
     return out
 
 
@@ -265,7 +452,11 @@ def cluster_rank(rank: int, name: str, data: dict) -> dict:
     out.update(_sparse_cases(mesh, data["D"], data, data["Ls"]))
     out.update(_front_door_cases(mesh, data))
     out.update(_telemetry_cases(rm, data))
-    out.update(_later_cases(mesh, rm))
+    out.update(_block_cases(mesh, data))
+    out.update(_coordinate_cases(mesh, data))
+    out.update(_survivor_mesh_cases())
+    out.update(_serve_cases(mesh, data))
+    out.update(_elastic_cases(mesh, data))
     from repro_torch.core.distmat import IndexedRowMatrix
     irm = IndexedRowMatrix.create(np.arange(37) * 2, data["A"], mesh=mesh)
     out["irm_local"] = irm.to_local()
@@ -332,10 +523,24 @@ def cluster_rank_keys() -> list[str]:
             "sp_remesh_f", "sp_remesh_g", "sp_solve_x", "sp_solve_plan",
             "problem_L", "problem_x", "problem_iters", "lp_x", "lp_lam",
             "lp_feasibility", "remesh_rows", "remesh_gram", "remesh_local",
-            "tel_spans", "tel_plan_actual", "later_block",
-            "later_coordinate", "later_server", "auto_chunks", "auto_notes",
+            "tel_spans", "tel_plan_actual", "auto_chunks", "auto_notes",
             "pod_axes", "pod_gram", "pod_local", "irm_local",
             "irm_rmatvec"]
+    keys += [f"blk_{k}" for k in (
+        "tile", "add", "multiply", "transpose", "local", "matvec",
+        "rmatvec", "matvec_model_sharded", "rmatvec_model_sharded",
+        "frobenius", "svd_s", "svd_plan")]
+    keys += [f"coo_{k}" for k in (
+        "local_nnz", "matvec", "rmatvec", "frobenius", "local", "transpose",
+        "irm_local", "srm_local", "srm_ell", "srm_shards", "block_local",
+        "block_grid", "svd_s", "svd_plan", "wide_svd_s", "wide_svd_V",
+        "wide_svd_U", "wide_transposed")]
+    for name in (*SERVE_METHODS, "sparse", "deadline", "budget"):
+        keys += [f"serve_{name}_x", f"serve_{name}_info"]
+    keys += ["serve_exported", "grid_block", "grid_coordinate"]
+    for method in ELASTIC_METHODS:
+        keys += [f"el_{method}_{p}" for p in (
+            "x", "info", "loss_x", "loss_info", "loss_casualties")]
     keys += [f"stats_{k}" for k in ("mean", "variance", "num_nonzeros",
                                     "min", "max", "norm_l2")]
     for loss in LOSSES:
