@@ -172,7 +172,11 @@ A, held to the float64 cosines of phase 3's Gram.
               then (one card) two gloo ranks sharing the card or (more
               cards) NCCL, one rank a card.  On each: fused_grad at a
               fixed x, the Gram eager and at chunks=4 (randsketch a
-              segment), api.svd in Gram and randomized mode (k = 16),
+              segment), the strip cast to bf16, e4m3 and e5m2 by each
+              rank and on each copy the chunked Gram and the chunked
+              fused gradient (randsketch on the strip's column segments,
+              the row residual in f32) against eager on the same strip
+              (CLUSTER_TOL), api.svd in Gram and randomized mode (k = 16),
               TSQR, quad/gra and quad/acc_rb at tol 0 (every iteration
               run), quad/gra in f32 and precision="psum8" (the int8 wire),
               and quad/gra fused on S's strips.  The multi-rank group
@@ -208,38 +212,47 @@ A, held to the float64 cosines of phase 3's Gram.
               fused_grad_multi (fused_grad_bsr_multi) launches equal its
               A-passes; prints each case's wall ms, the re-mesh's and the
               checkpoints' ms beside the card's name and power limit.
-  13. e4m3 (last, after phase 12; about 30 s): phase 3's A drawn again
-              from its seed and cast to float8_e4m3fn on the card
-              (kernels/dtypes.to_e4m3, 2.15 GB), bit for bit the same
-              helper's cast on the CPU, chunk by chunk, and on the edge
-              values (±448, the midpoint 464, past it, infinities, NaN,
-              -0, subnormals); rows 1-4 on it against their plain
-              versions (fused_grad every loss; fused_grad_multi k = 8
-              every loss and k = 40, slot 0 the one-slot launch's bits;
-              tsgram; gemm at N = 16 with f32 and e4m3 out, e4m3 within
-              one e4m3 step), timed beside plain, the bound at the card's
-              rate for the operand types (e4m3 tensor cores for the Gram,
-              two TF32 products for e4m3 A against f32) with the bound of
-              each kernel's own route beside it (f32 FMA, 16-bit
-              mma.sync, TF32), and the row's bf16 library call on bf16
-              copies (torch._scaled_mm takes neither layout); tsgram and
-              gemm on A's ragged e4m3 view bit for bit its aligned copy;
-              the model at efficiency 1 against each route's bound.  Then
-              the main path (counts zeroed just before, read just after):
-              the Gram SVD (k = 16, mode "auto": sigma within 1e-4 of the
-              float64 Gram of the dequantized A, 2 A-passes, U in e4m3
-              within one step of the plain path's), quad/gra (200),
-              quad/acc_rb (100) and logistic/gra (300) (E4M3_SOLVES; quad
-              gaps within 1e-5 of the dequantized optimum before their
-              caps, the logistic gap within 1e-5 of the float64 Newton
-              optimum, fused_grad launches equal A-passes) and a
-              SolverServer(slots=8) of 8 quad/gra, 4 quad/acc_rb and 4
-              logistic/lbfgs requests (every answer within 1e-5 of its
-              float64 optimum, fused_grad_multi launches equal its
-              A-passes, two requests again at slots=1 the same bits).
-              Last, matvec, the Lanczos and randomized SVDs, TSQR, DIMSUM
-              and logistic/acc each raise TypeError with no launch.  Rows
-              1-4 of the kernels line gain "e4m3".
+  13. fp8 (after phase 12; about 70 s): first randsketch on A_w
+              (phase 5's seed) cast to each fp8 type, r = 26, against
+              randsketch_plain (TOL["sketch"]), timed beside plain and
+              mm(a.T, q) on bf16 copies, its bound one read of A or two
+              TF32 products; then phase 3's A drawn again from its seed
+              and, for float8_e4m3fn and then float8_e5m2 (FP8_TYPES),
+              cast on the card (kernels/dtypes.cast, 2.15 GB), bit for
+              bit the same helper's cast on the CPU, chunk by chunk, and
+              on the type's edge values (FP8_EDGES: e4m3's ±448, the
+              midpoint 464 and past it, e5m2's 57344, the overflow
+              midpoint 61440 and past it, infinities, NaN, -0,
+              subnormals); rows 1-4 on it against their plain versions
+              (fused_grad every loss; fused_grad_multi k = 8 every loss
+              and k = 40, slot 0 the one-slot launch's bits; tsgram; gemm
+              at N = 16 with f32 and fp8 out, fp8 within one step), timed
+              beside plain, the bound at the card's rate for the operand
+              types (fp8 tensor cores for the Gram, two TF32 products for
+              fp8 A against f32) with the bound of each kernel's own
+              route beside it (f32 FMA, 16-bit mma.sync, TF32), and the
+              row's bf16 library call on bf16 copies (torch._scaled_mm
+              takes neither layout); tsgram and gemm on A's ragged fp8
+              view bit for bit its aligned copy; the model at efficiency
+              1 against each route's bound.  Then the type's main path
+              (counts zeroed just before, read just after): the Gram SVD
+              (k = 16, mode "auto": sigma within 1e-4 of the float64 Gram
+              of the dequantized A, 2 A-passes, U in A's type within one
+              step of the plain path's), quad/gra (200), quad/acc_rb
+              (100) and logistic/gra (300) (FP8_SOLVES; quad gaps within
+              1e-5 of the dequantized optimum before their caps, the
+              logistic gap within 1e-5 of the float64 Newton optimum,
+              fused_grad launches equal A-passes), a SolverServer(slots=8)
+              of 8 quad/gra, 4 quad/acc_rb and 4 logistic/lbfgs requests
+              (every answer within 1e-5 of its float64 optimum,
+              fused_grad_multi launches equal its A-passes, two requests
+              again at slots=1 the same bits), RowMatrix.sketch (r = 26,
+              one gemm launch; Y in A's type within one step of plain)
+              and project of A onto Y (one randsketch launch, Q in A's
+              type; within TOL["sketch"] of plain).  Last, matvec, the
+              Lanczos and randomized SVDs, TSQR, DIMSUM and logistic/acc
+              each raise TypeError with no launch.  Rows 1-5 of the
+              kernels line gain "e4m3" and "e5m2".
   14. mesh (last, after phase 13; about 60 s): four ranks on a
               ("data", "model") = (2, 2) mesh (gloo ranks sharing the
               card; NCCL one rank a card where there are four).  Phase 9
@@ -255,7 +268,13 @@ A, held to the float64 cosines of phase 3's Gram.
               phase 9's sigma; gemm at the SUMMA shape against its plain
               version, timed beside torch.mm and its bound; each step's
               and each all_gather's host-clock ms beside the card's name
-              and power limit.
+              and power limit.  Then the survivor path: row shard 1
+              dropped (train/elastic.survivor_mesh, a (1, 2) mesh of
+              ranks 0 and 1), BlockMatrix made again there, SUMMA (one
+              gemm launch a rank) and the vector products against the
+              one-device matrix, the CoordinateMatrix made again there,
+              its products against one device's and its Lanczos sigma
+              against phase 9's.
 Phase 11 also serves, on every rank of each group, CLUSTER_SLOTS quad
 requests a group on A's strips (gra, acc, acc_rb: fused_grad_multi) and a
 gra group on S's strips (fused_grad_bsr_multi) at tol 0, and runs an acc
@@ -265,8 +284,9 @@ one-rank group's answers (CLUSTER_SERVE_TOL, A-passes equal, x the same
 bits on every rank, launches equal to A-passes).
 Phases 3 and 4 are one main path, phases 5, 6 and 7 one each, phase 9
 seven (fd_* in PATHS), phase 11 one on every rank, phase 12 one a case,
-phase 13 one (PATHS["e4m3"]), phase 14 one on every rank and phase 8 one a
-model: every launch count
+phase 13 one a type (PATHS["e4m3"], PATHS["e5m2"]), phase 14 two on
+every rank (the mesh and its survivors) and phase 8 one a model: every
+launch count
 is set to 0 just before each and read just after it (in phases 5 and 7,
 once the grouped server drains, before the checks' own launches), and
 each kernel of the path must have launched there.  The last lines are a
@@ -458,11 +478,16 @@ PATHS = {"solve_svd": ("fused_grad", "tsgram", "gemm"),
          # A, and the two-rank re-meshes on A and S (run_phase12 sums the
          # parent's cases and rank 0's).
          "elastic": ("fused_grad_multi", "fused_grad_bsr_multi"),
-         # Phase 13: e4m3 A's Gram SVD, solves and server.
-         "e4m3": ("fused_grad", "tsgram", "gemm", "fused_grad_multi"),
+         # Phase 13: fp8 A's Gram SVD, solves, server, sketch (gemm) and
+         # project (randsketch), one path a type.
+         "e4m3": ("fused_grad", "tsgram", "gemm", "fused_grad_multi",
+                  "randsketch"),
+         "e5m2": ("fused_grad", "tsgram", "gemm", "fused_grad_multi",
+                  "randsketch"),
          # Phase 14: SUMMA's one gemm a rank on the (2, 2) mesh (every
-         # rank's counts; the CoordinateMatrix's products launch none).
-         "mesh": ("gemm",)}
+         # rank's counts; the CoordinateMatrix's products launch none),
+         # then on the survivors of a dropped row shard.
+         "mesh": ("gemm",), "mesh_survivor": ("gemm",)}
 
 
 class CheckFailed(RuntimeError):
@@ -3459,6 +3484,11 @@ def run_phase10(api, ops, dev, rows, kernels, lm_kernels, L0) -> dict:
 # rank a card.  Every rank draws the whole matrix from its seed and keeps
 # its strip; the multi-rank group is held to the one-rank group.
 CLUSTER_CHUNKS = 4             # the chunked Gram's column segments
+# The strips' low-precision copies whose chunked Gram and chunked fused
+# gradient (randsketch launches on the strip's segments) run against
+# their eager bodies on the same strips.
+CLUSTER_LOW = (("bf16", torch.bfloat16), ("e4m3", torch.float8_e4m3fn),
+               ("e5m2", torch.float8_e5m2))
 # Iteration caps of the cluster solves, run at tol 0 so every run takes
 # them all and the A-pass counts compare exactly: quad/gra and quad/acc_rb
 # on A, the psum8 pair (gra at PSUM8_TOL against its f32 twin) and
@@ -3666,6 +3696,17 @@ def cluster_rank(rank: int, L0: float | None, L0_S: float | None) -> dict:
     del f, g, z
     rec["gram"] = rm.gram(chunks=1).cpu()
     rec["gram_chunked"] = rm.gram(chunks=CLUSTER_CHUNKS).cpu()
+    # Each rank casts its own strip; chunked against eager on it.
+    rec["chunked_low"] = {}
+    for tag, dt in CLUSTER_LOW:
+        lo = rm.astype_store(dt)
+        f1, g1, _ = lo.fused_grad(x_fix, SmoothQuad(b), chunks=1)
+        fc, gc, _ = lo.fused_grad(x_fix, SmoothQuad(b), chunks=CLUSTER_CHUNKS)
+        rec["chunked_low"][tag] = {
+            "gram_rel": rel_err(lo.gram(chunks=CLUSTER_CHUNKS),
+                                lo.gram(chunks=1)),
+            "f_rel": rel_err(fc, f1), "g_rel": rel_err(gc, g1)}
+        del lo, f1, g1, fc, gc
     U, s, _, svd_info = api.compute_svd(rm, K_SVD, mode="gram", device=dev)
     rec["svd"] = {"sigma": s.cpu(), "a_passes": svd_info["a_passes"],
                   "u_orthogonality": float(
@@ -3742,6 +3783,16 @@ def cluster_rank(rank: int, L0: float | None, L0_S: float | None) -> dict:
             lambda: rm.fused_grad(x_fix, quad, chunks=CLUSTER_CHUNKS), dev),
         "fused_grad psum8": _wall_ms(
             lambda: rm.fused_grad(x_fix, quad, residual=res0), dev)}
+    # The same bodies on each low-precision copy of the strip.
+    for tag, dt in CLUSTER_LOW:
+        lo = rm.astype_store(dt)
+        for c in (1, CLUSTER_CHUNKS):
+            how = "eager" if c == 1 else f"chunks={c}"
+            rec["bodies_ms"][f"{tag} gram {how}"] = _wall_ms(
+                lambda: lo.gram(chunks=c), dev)
+            rec["bodies_ms"][f"{tag} fused_grad {how}"] = _wall_ms(
+                lambda: lo.fused_grad(x_fix, quad, chunks=c), dev)
+        del lo
     return rec
 
 
@@ -3798,6 +3849,13 @@ def check_cluster(one: dict, ranks: list) -> dict:
         require(p8["precision"] == "psum8" and e <= 100 * PSUM8_TOL,
                 f"cluster psum8: {p8['precision']}, objective {e:.3e} from "
                 "the f32 solve's")
+        for tag, errs in r["chunked_low"].items():
+            for part, tol in (("gram", CLUSTER_TOL["gram"]),
+                              ("f", CLUSTER_TOL["f"]),
+                              ("g", CLUSTER_TOL["g"])):
+                require(errs[f"{part}_rel"] <= tol,
+                        f"cluster rank {r['rank']} {tag}: chunked {part} "
+                        f"{errs[f'{part}_rel']:.3e} from eager")
         for name in PATHS["cluster"]:
             require(r["launches"][name] > 0, f"{name} never launched on "
                     f"the cluster path (rank {r['rank']})")
@@ -3822,7 +3880,9 @@ def check_cluster(one: dict, ranks: list) -> dict:
         "one_rank_solves": {k: {kk: v for kk, v in s.items() if kk != "x"}
                             for k, s in one["solves"].items()},
         "sigma_rel": rel_err(head["svd"]["sigma"], one["svd"]["sigma"]),
-        "gram_chunked_rel": rel_err(head["gram_chunked"], head["gram"])}
+        "gram_chunked_rel": rel_err(head["gram_chunked"], head["gram"]),
+        "chunked_low": {"one_rank": one["chunked_low"],
+                        "ranks": [r["chunked_low"] for r in ranks]}}
 
 
 def check_cluster_served(one: dict, ranks: list) -> None:
@@ -3916,6 +3976,17 @@ def run_phase11(info: dict) -> dict:
     print(f"[cluster] Gram SVD sigma {rec['sigma_rel']:.3e} from one "
           f"rank's; chunked Gram {rec['gram_chunked_rel']:.3e} from eager; "
           f"launches (rank 0) {rec['launches'][0]}")
+    for who, low in (("one rank", one["chunked_low"]),
+                     (f"{world} ranks", ranks[0]["chunked_low"])):
+        for tag, errs in low.items():
+            for part in ("gram", "f", "g"):
+                require(errs[f"{part}_rel"] <= CLUSTER_TOL[part],
+                        f"cluster {who} {tag}: chunked {part} "
+                        f"{errs[f'{part}_rel']:.3e} from eager")
+        print(f"[cluster] {who}, chunks={CLUSTER_CHUNKS} against eager on "
+              "the same strips: " + "; ".join(
+                  f"{tag} Gram {e['gram_rel']:.3e}, f {e['f_rel']:.3e}, g "
+                  f"{e['g_rel']:.3e}" for tag, e in low.items()))
     rec["served"], rec["elastic"] = {}, {}
     for who, r in (("one rank", one), (f"{world} ranks", ranks[0])):
         for key, sv in r["served"].items():
@@ -4428,90 +4499,107 @@ def run_phase12(info: dict) -> dict:
     return rec
 
 
-# -- phase 13: float8_e4m3fn storage on the main path -----------------------
+# -- phase 13: fp8 storage (float8_e4m3fn, float8_e5m2) on the main path ---
 
-E4M3 = torch.float8_e4m3fn
-# The cast's edge values: the largest finite value, the rounding midpoint
-# 464 (ties to 448), past it (NaN in the reference, where torch saturates),
-# infinities, NaN, signed zero and the subnormal steps.
-E4M3_EDGES = (448.0, -448.0, 460.0, 463.9, 464.0, -464.0, 464.1, 500.0,
-              -1000.0, math.inf, -math.inf, math.nan, -0.0, 2.0 ** -10,
-              2.0 ** -9, 1.5 * 2.0 ** -9, 0.3)
-E4M3_SLOTS = (8, 40)           # fused_grad_multi's e4m3 slot counts
+E4M3, E5M2 = torch.float8_e4m3fn, torch.float8_e5m2
+# Each fp8 type's tag, type, mantissa bits and smallest normal exponent
+# (an fp8 step is 2^(e - mantissa) at 2^e <= |x| < 2^(e+1)); its path runs
+# in this order.
+FP8_TYPES = (("e4m3", E4M3, 3, -6), ("e5m2", E5M2, 2, -14))
+# The casts' edge values.  e4m3: the largest finite value, the rounding
+# midpoint 464 (ties to 448), past it (NaN in the reference, where torch
+# saturates), infinities, NaN, signed zero and the subnormal steps.
+# e5m2: the largest finite value 57344, below and at the overflow midpoint
+# 61440 (ties to inf in both), past it, infinities, NaN (the reference's
+# 0x7E from f32, where torch writes 0x7F), signed zero, the subnormals.
+FP8_EDGES = {
+    "e4m3": (448.0, -448.0, 460.0, 463.9, 464.0, -464.0, 464.1, 500.0,
+             -1000.0, math.inf, -math.inf, math.nan, -0.0, 2.0 ** -10,
+             2.0 ** -9, 1.5 * 2.0 ** -9, 0.3),
+    "e5m2": (57344.0, -57344.0, 61439.0, 61440.0, -61440.0, 1e5, math.inf,
+             -math.inf, math.nan, -0.0, 2.0 ** -16, 2.0 ** -17,
+             1.5 * 2.0 ** -16, 0.3)}
+# Edge index -> the reference's code where torch's own cast gives another.
+FP8_EDGE_CODES = {"e4m3": {7: 0x7F, 8: 0xFF, 4: 0x7E},
+                  "e5m2": {3: 0x7C, 4: 0xFC, 8: 0x7E}}
+FP8_SLOTS = (8, 40)            # fused_grad_multi's fp8 slot counts
 # Phase 13's solves: (loss, method, cap, tol).  acc_rb stops at a relative
 # step of 1e-7: at phase 4's 1e-9 (an exactly zero f32 step) its momentum
 # kept moving x by an ulp on e4m3 A until the cap of 100, within 1e-5 of
 # the optimum all the same (chip run on an H100).
-E4M3_SOLVES = (("quad", "gra", 200, 1e-9), ("quad", "acc_rb", 100, 1e-7),
+FP8_SOLVES = (("quad", "gra", 200, 1e-9), ("quad", "acc_rb", 100, 1e-7),
                ("logistic", "gra", 300, 1e-9))
-E4M3_CAST_ROWS = 1 << 18       # rows of A cast on the CPU at a time
+FP8_CAST_ROWS = 1 << 18        # rows of A cast on the CPU at a time
 # The float64 logistic optima (logistic_optima64): Newton stops once each
 # decrement's half, the gap to second order, is below this share of f.
 LOGISTIC_DECREMENT = 1e-10
 LOGISTIC_NEWTON_STEPS = 25
-# Phase 13's server: (method, loss, cap, requests) on the e4m3 A.
-E4M3_SERVE = (("gra", "quad", 200, 8), ("acc_rb", "quad", 100, 4),
-              ("lbfgs", "logistic", 100, 4))
-E4M3_REFUSED = ("matvec", "lanczos", "randomized", "tsqr", "dimsum",
-                "logistic_acc")
-# The library call of each e4m3 row: torch._scaled_mm takes both operands
+# Phase 13's server: (method, loss, cap, requests) on the fp8 A.
+FP8_SERVE = (("gra", "quad", 200, 8), ("acc_rb", "quad", 100, 4),
+             ("lbfgs", "logistic", 100, 4))
+FP8_REFUSED = ("matvec", "lanczos", "randomized", "tsqr", "dimsum",
+               "logistic_acc")
+# The library call of each fp8 row: torch._scaled_mm takes both operands
 # in fp8 with the second column-major, which neither A's Gram (A^T A of a
-# row-major A) nor gemm's f32 B gives it, so each row's bf16 library call
-# runs on bf16 copies (e4m3 is exact in bf16; the copies are not timed).
-E4M3_LIBRARY = {"tsgram": "torch.mm(a.T, a) on a bf16 copy of A (copy not "
-                          "timed)",
-                "gemm": "torch.mm(a, b) on bf16 copies of A and B (copies "
-                        "not timed)"}
+# row-major A), gemm's f32 B nor randsketch's AᵀQ gives it, so each row's
+# bf16 library call runs on bf16 copies (fp8 is exact in bf16; the copies
+# are not timed).
+FP8_LIBRARY = {"tsgram": "torch.mm(a.T, a) on a bf16 copy of A (copy not "
+                         "timed)",
+               "gemm": "torch.mm(a, b) on bf16 copies of A and B (copies "
+                       "not timed)",
+               "randsketch": "torch.mm(a.T, q) on bf16 copies of A and Q "
+                             "(copies not timed)"}
 
 
-def e4m3_steps_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
-    """Each entry within one e4m3 step of `want`'s (2^(e - 3) at 2^e <=
-    |want| < 2^(e+1), 2^-9 among the subnormals); NaN where `want` is."""
+def fp8_steps_ok(got: torch.Tensor, want: torch.Tensor, mant: int,
+                 emin: int) -> bool:
+    """Each entry within one fp8 step of `want`'s (2^(e - mant) at 2^e <=
+    |want| < 2^(e+1), floored at the smallest normal 2^emin); NaN where
+    `want` is."""
     g, w = got.double(), want.double()
     nan = torch.isnan(w)
-    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -6)))
-    ok = (g - w).abs() <= torch.exp2(e - 3)
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** emin)))
+    ok = (g - w).abs() <= torch.exp2(e - mant)
     return bool((torch.where(nan, torch.isnan(g), ok)).all())
 
 
-def e4m3_cast(A: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """A cast to e4m3 on the card (kernels/dtypes.to_e4m3), checked
-    against the same helper on the CPU, chunk by chunk of A and on the
-    edge values."""
-    from repro_torch.kernels.dtypes import to_e4m3
+def fp8_cast(A: torch.Tensor, tag: str, dtype) -> tuple[torch.Tensor, dict]:
+    """A cast to `dtype` on the card (kernels/dtypes.cast: to_e4m3 or
+    to_e5m2), checked against the same helper on the CPU, chunk by chunk
+    of A and on the edge values."""
+    from repro_torch.kernels.dtypes import cast
 
     t0 = time.perf_counter()
-    A8 = to_e4m3(A)
+    A8 = cast(A, dtype)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    edges = torch.tensor(E4M3_EDGES)
-    card = to_e4m3(edges.to(A.device)).view(torch.uint8).cpu()
-    require(torch.equal(card, to_e4m3(edges).view(torch.uint8)),
-            f"e4m3 cast: the card's edge codes {card.tolist()} differ from "
+    edges = torch.tensor(FP8_EDGES[tag])
+    card = cast(edges.to(A.device), dtype).view(torch.uint8).cpu()
+    require(torch.equal(card, cast(edges, dtype).view(torch.uint8)),
+            f"{tag} cast: the card's edge codes {card.tolist()} differ from "
             "the CPU's")
-    require(int(card[7]) == 0x7F and int(card[8]) == 0xFF
-            and int(card[4]) == 0x7E,
-            f"e4m3 cast: 500 -> {int(card[7]):#x}, -1000 -> "
-            f"{int(card[8]):#x}, 464 -> {int(card[4]):#x}")
+    for i, code in FP8_EDGE_CODES[tag].items():
+        require(int(card[i]) == code, f"{tag} cast: {FP8_EDGES[tag][i]} -> "
+                f"{int(card[i]):#x}, the reference's {code:#x}")
     t0 = time.perf_counter()
-    for i in range(0, M, E4M3_CAST_ROWS):
-        cpu = to_e4m3(A[i:i + E4M3_CAST_ROWS].cpu()).view(torch.uint8)
-        require(torch.equal(A8[i:i + E4M3_CAST_ROWS].view(torch.uint8).cpu(),
-                            cpu), f"e4m3 cast: rows {i}.. differ between "
+    for i in range(0, M, FP8_CAST_ROWS):
+        cpu = cast(A[i:i + FP8_CAST_ROWS].cpu(), dtype).view(torch.uint8)
+        require(torch.equal(A8[i:i + FP8_CAST_ROWS].view(torch.uint8).cpu(),
+                            cpu), f"{tag} cast: rows {i}.. differ between "
                 "the card and the CPU")
     rec = {"card_cast_ms": card_s * 1e3,
            "cpu_check_s": time.perf_counter() - t0,
-           "edge_codes": card.tolist(),
-           "nan_codes": int(((A8.view(torch.uint8) & 0x7F) == 0x7F).sum())}
-    print(f"[e4m3] cast of A on the card {rec['card_cast_ms']:.1f} ms, "
+           "edge_codes": card.tolist()}
+    print(f"[{tag}] cast of A on the card {rec['card_cast_ms']:.1f} ms, "
           f"bit for bit the CPU's (checked in {rec['cpu_check_s']:.1f} s), "
           f"edges {rec['edge_codes']}")
     return A8, rec
 
 
-def e4m3_record(rec: dict, ms, plain_ms, bound_ms_by, route_ms,
-                library_ms=None, library_call=None) -> dict:
-    """A row's e4m3 readings: its bound at the card's rate for the operand
+def fp8_record(rec: dict, ms, plain_ms, bound_ms_by, route_ms,
+               library_ms=None, library_call=None) -> dict:
+    """A row's fp8 readings: its bound at the card's rate for the operand
     types, and beside it `route_ms`, the bound of the route the kernel
     runs (f32 FMA, 16-bit mma.sync, TF32), which the model prices."""
     rec.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
@@ -4520,12 +4608,13 @@ def e4m3_record(rec: dict, ms, plain_ms, bound_ms_by, route_ms,
     return rec
 
 
-def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
-    """Rows 1-4 on e4m3 A against their plain versions (TOL), each timed
+def check_fp8_kernels(A8: torch.Tensor, gen, tag: str, mant: int,
+                      emin: int) -> dict:
+    """Rows 1-4 on fp8 A against their plain versions (TOL), each timed
     beside plain, its bound on its route and a library call where one
-    computes the same function; tsgram and gemm also on A's ragged e4m3
+    computes the same function; tsgram and gemm also on A's ragged fp8
     view against its aligned copy, bit for bit."""
-    from repro_torch.kernels.dtypes import to_e4m3
+    from repro_torch.kernels.dtypes import cast
     from repro_torch.kernels import fusedgrad, gemm, tsgram
 
     dev = A8.device
@@ -4543,15 +4632,15 @@ def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
         torch.cuda.synchronize()
         errs = {k: rel_err(g, p) for k, g, p in zip("fgz", got, want)}
         for k, e in errs.items():
-            require(e <= TOL[k], f"fused_grad e4m3 {loss}: {k} relative "
+            require(e <= TOL[k], f"fused_grad {tag} {loss}: {k} relative "
                     f"error {e:.3e} > {TOL[k]}")
         again = fusedgrad.fused_grad(A8, x, t, w, loss=loss, param=0.5)
         require(all(torch.equal(u, v) for u, v in zip(got, again)),
-                f"fused_grad e4m3 {loss}: two runs differ")
+                f"fused_grad {tag} {loss}: two runs differ")
         rec = {"rel_err": errs,
                "max_abs_err": max(max_abs(g, p) for g, p in zip(got, want))}
         if loss == "quad":
-            e4m3_record(
+            fp8_record(
                 rec, time_ms(lambda: fusedgrad.fused_grad(A8, x, t, w,
                                                           loss="quad")),
                 time_ms(lambda: fusedgrad.fused_grad_plain(A8, x, t, w,
@@ -4563,7 +4652,7 @@ def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
 
     multi = {}
     Af = A8.float()
-    for k in E4M3_SLOTS:
+    for k in FP8_SLOTS:
         X = torch.randn(k, N, generator=gen, device=dev)
         W = torch.rand(k, M, generator=gen, device=dev)
         W[:, -(M // 64):] = 0.0
@@ -4574,25 +4663,25 @@ def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
             got = one_launch(fusedgrad.fused_grad_multi,
                              lambda: fusedgrad.fused_grad_multi(
                                  A8, X, Tg, W, loss=loss, param=0.5),
-                             f"fused_grad_multi e4m3 k={k} {loss}")
+                             f"fused_grad_multi {tag} k={k} {loss}")
             want = fusedgrad.fused_grad_multi_plain(A8, X, Tg, W, loss=loss,
                                                     param=0.5)
             torch.cuda.synchronize()
             errs = {q: rel_err(g, p) for q, g, p in zip("fgz", got, want)}
             for q, e in errs.items():
-                require(e <= TOL[q], f"fused_grad_multi e4m3 k={k} {loss}: "
+                require(e <= TOL[q], f"fused_grad_multi {tag} k={k} {loss}: "
                         f"{q} relative error {e:.3e} > {TOL[q]}")
             # Slot 0 is the one-slot launch's bits (fused_grad).
             one = fusedgrad.fused_grad(A8, X[0], Tg[0], W[0], loss=loss,
                                        param=0.5)
             torch.cuda.synchronize()
             require(all(torch.equal(u, v[0]) for u, v in zip(one, got)),
-                    f"fused_grad_multi e4m3 k={k} {loss}: slot 0 differs "
+                    f"fused_grad_multi {tag} k={k} {loss}: slot 0 differs "
                     "from fused_grad")
             rec[loss] = {"rel_err": errs, "max_abs_err": max(
                 max_abs(g, p) for g, p in zip(got, want))}
             if loss == "quad":
-                e4m3_record(
+                fp8_record(
                     rec, time_ms(lambda: fusedgrad.fused_grad_multi(
                         A8, X, Tg, W, loss="quad")),
                     time_ms(lambda: fusedgrad.fused_grad_multi_plain(
@@ -4610,66 +4699,66 @@ def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
     want = tsgram.tsgram_plain(A8, torch.float32)
     torch.cuda.synchronize()
     e = rel_err(got, want)
-    require(e <= TOL["tsgram"], f"tsgram e4m3: relative error {e:.3e}")
-    require(torch.equal(got, got.T), "tsgram e4m3: not symmetric")
+    require(e <= TOL["tsgram"], f"tsgram {tag}: relative error {e:.3e}")
+    require(torch.equal(got, got.T), f"tsgram {tag}: not symmetric")
     require(torch.equal(got, tsgram.tsgram(A8, out_dtype=torch.float32)),
-            "tsgram e4m3: two runs differ")
+            f"tsgram {tag}: two runs differ")
     a16 = A8.to(torch.bfloat16)
-    rec = e4m3_record(
+    tb = tsgram_bound(M, N, A8.dtype)
+    rec = fp8_record(
         {"rel_err": e, "max_abs_err": max_abs(got, want)},
         time_ms(lambda: tsgram.tsgram(A8, out_dtype=torch.float32)),
         time_ms(lambda: tsgram.tsgram_plain(A8, torch.float32), reps=3),
-        (tsgram_bound(M, N, E4M3)["bound_ms"],
-         tsgram_bound(M, N, E4M3)["bound_by"]),
-        tsgram_bound(M, N, E4M3)["bound_route_ms"],
-        time_ms(lambda: torch.mm(a16.T, a16)), E4M3_LIBRARY["tsgram"])
+        (tb["bound_ms"], tb["bound_by"]), tb["bound_route_ms"],
+        time_ms(lambda: torch.mm(a16.T, a16)), FP8_LIBRARY["tsgram"])
     del got, want
     ragged = A8.view(-1)[1:1 + M * (N - 1)].view(M, N - 1)
-    require(ragged.data_ptr() % 16 != 0, "the ragged e4m3 view is aligned")
+    require(ragged.data_ptr() % 16 != 0, f"the ragged {tag} view is aligned")
     got = tsgram.tsgram(ragged, out_dtype=torch.float32)
     require(torch.equal(got, tsgram.tsgram(ragged.clone(),
                                            out_dtype=torch.float32)),
-            "tsgram e4m3: the ragged view and its aligned copy differ")
+            f"tsgram {tag}: the ragged view and its aligned copy differ")
     e_r = rel_err(got, tsgram.tsgram_plain(ragged, torch.float32))
-    require(e_r <= TOL["tsgram"], f"tsgram e4m3 ragged: {e_r:.3e}")
+    require(e_r <= TOL["tsgram"], f"tsgram {tag} ragged: {e_r:.3e}")
     rec["ragged"] = {"rel_err": e_r, "bits_equal_aligned_copy": True,
                      "ms": time_ms(lambda: tsgram.tsgram(
                          ragged, out_dtype=torch.float32), reps=3)}
     out["tsgram"] = rec
     del got
 
-    # gemm: U recovery's A x 16 columns, f32 and e4m3 out.
+    # gemm: U recovery's A x 16 columns, f32 and fp8 out.
     B = torch.randn(N, K_GEMM, generator=gen, device=dev) / math.sqrt(N)
     got = gemm.gemm(A8, B, out_dtype=torch.float32)
     want = gemm.gemm_plain(A8, B, torch.float32)
     torch.cuda.synchronize()
     e = rel_err(got, want)
-    require(e <= TOL["gemm"], f"gemm e4m3: relative error {e:.3e}")
+    require(e <= TOL["gemm"], f"gemm {tag}: relative error {e:.3e}")
     require(torch.equal(got, gemm.gemm(A8, B, out_dtype=torch.float32)),
-            "gemm e4m3: two runs differ")
+            f"gemm {tag}: two runs differ")
     c8 = gemm.gemm(A8, B)
-    require(c8.dtype == E4M3 and torch.equal(
-        c8.view(torch.uint8), to_e4m3(got).view(torch.uint8)),
-        "gemm e4m3: the e4m3 C is not the f32 C's cast")
-    require(e4m3_steps_ok(c8.float(), gemm.gemm_plain(A8, B).float()),
-            "gemm e4m3: C off plain's by more than one e4m3 step")
+    require(c8.dtype == A8.dtype and torch.equal(
+        c8.view(torch.uint8), cast(got, A8.dtype).view(torch.uint8)),
+        f"gemm {tag}: the {tag} C is not the f32 C's cast")
+    require(fp8_steps_ok(c8.float(), gemm.gemm_plain(A8, B).float(), mant,
+                         emin),
+            f"gemm {tag}: C off plain's by more than one {tag} step")
     B16 = B.to(torch.bfloat16)
-    rec = e4m3_record(
+    rec = fp8_record(
         {"rel_err": e, "max_abs_err": max_abs(got, want),
-         "e4m3_out_within_one_step": True},
+         "fp8_out_within_one_step": True},
         time_ms(lambda: gemm.gemm(A8, B, out_dtype=torch.float32)),
         time_ms(lambda: gemm.gemm_plain(A8, B, torch.float32), reps=3),
         (gemm_bound(A8, B)["bound_ms"], gemm_bound(A8, B)["bound_by"]),
         gemm_bound(A8, B)["bound_ms"],
-        time_ms(lambda: torch.mm(a16, B16)), E4M3_LIBRARY["gemm"])
-    rec["ms_e4m3_out"] = time_ms(lambda: gemm.gemm(A8, B))
+        time_ms(lambda: torch.mm(a16, B16)), FP8_LIBRARY["gemm"])
+    rec["ms_fp8_out"] = time_ms(lambda: gemm.gemm(A8, B))
     ragged = A8.view(-1)[1:1 + M * (N - 1)].view(M, N - 1)
     got = gemm.gemm(ragged, B[:N - 1], out_dtype=torch.float32)
     require(rel_err(got, gemm.gemm_plain(ragged, B[:N - 1], torch.float32))
-            <= TOL["gemm"], "gemm e4m3: the ragged view is off plain")
+            <= TOL["gemm"], f"gemm {tag}: the ragged view is off plain")
     require(torch.equal(got, gemm.gemm(ragged.clone(), B[:N - 1],
                                        out_dtype=torch.float32)),
-            "gemm e4m3: the ragged view and its aligned copy differ")
+            f"gemm {tag}: the ragged view and its aligned copy differ")
     rec["ragged_bits_equal"] = True
     out["gemm"] = rec
     del got, want, c8, a16, ragged
@@ -4678,10 +4767,10 @@ def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
     for name in ("fused_grad", "fused_grad_multi", "tsgram", "gemm"):
         recs = {"fused_grad": {"": fg["quad"]},
                 "fused_grad_multi": {f" k={k}": multi[k]
-                                     for k in E4M3_SLOTS}}.get(
+                                     for k in FP8_SLOTS}}.get(
             name, {"": out[name]})
         for key, r in recs.items():
-            print(f"[e4m3] {name}{key} kernel {r['ms']:9.3f} ms | plain "
+            print(f"[{tag}] {name}{key} kernel {r['ms']:9.3f} ms | plain "
                   f"{r['plain_ms']:9.3f} ms | library "
                   + ("     n/a" if r["library_ms"] is None
                      else f"{r['library_ms']:9.3f} ms")
@@ -4691,14 +4780,15 @@ def check_e4m3_kernels(A8: torch.Tensor, gen) -> dict:
     return out
 
 
-def e4m3_model_bounds(kernels: dict) -> dict:
-    """The built-in model at efficiency 1 prices each e4m3 row at its
+def fp8_model_bounds(kernels: dict, tag: str, dtype) -> dict:
+    """The built-in model at efficiency 1 prices each fp8 row at its
     route's bound within 1%: the route each kernel runs (fma, bf16,
     tf32), not the card's fastest rate for the operand types, which the
-    bound in the kernels line takes (e4m3 tensor cores for the Gram, two
-    TF32 products for e4m3 A against f32)."""
+    bound in the kernels line takes (fp8 tensor cores for the Gram, two
+    TF32 products for fp8 A against f32)."""
     from repro_torch.kernels import autotune as at
 
+    name8 = _machine.dtype_name(dtype)
     dims = {"fused_grad": {"m": M, "n": N},
             "fused_grad_multi": {"m": M, "n": N, "k": SLOTS},
             "tsgram": {"m": M, "n": N},
@@ -4708,24 +4798,23 @@ def e4m3_model_bounds(kernels: dict) -> dict:
             "tsgram": kernels["tsgram"], "gemm": kernels["gemm"]}
     out = {}
     for name, d in dims.items():
-        model = at.model_time(name, at.legacy(name, d, "float8_e4m3fn"), d,
-                              "float8_e4m3fn", machine=_machine.H100) * 1e3
+        model = at.model_time(name, at.legacy(name, d, name8), d, name8,
+                              machine=_machine.H100) * 1e3
         b = recs[name]["bound_route_ms"]
         out[name] = {"model_ms": model, "bound_route_ms": b,
-                     "route": at.cost_terms(name, at.legacy(
-                         name, d, "float8_e4m3fn"), d,
-                         "float8_e4m3fn").route}
-        require(abs(model - b) <= 0.01 * b, f"{name} e4m3: modeled "
+                     "route": at.cost_terms(name, at.legacy(name, d, name8),
+                                            d, name8).route}
+        require(abs(model - b) <= 0.01 * b, f"{name} {tag}: modeled "
                 f"{model:.4f} ms at efficiency 1, route bound {b:.4f} ms")
-    print("[e4m3] model at efficiency 1 against the route's bound: "
+    print(f"[{tag}] model at efficiency 1 against the route's bound: "
           + ", ".join(
               f"{k} {v['model_ms']:.3f}/{v['bound_route_ms']:.3f} ms "
               f"({v['route']})" for k, v in out.items()))
     return out
 
 
-def e4m3_refusals(api, ops, rm8, b) -> dict:
-    """Each path the reference refuses on e4m3 raises TypeError on the
+def fp8_refusals(api, ops, rm8, b, tag: str) -> dict:
+    """Each path the reference refuses on fp8 raises TypeError on the
     card with no launch."""
     from repro_torch.core.linalg.tsqr import tsqr
 
@@ -4744,20 +4833,73 @@ def e4m3_refusals(api, ops, rm8, b) -> dict:
             A=rm8, b=b, loss="logistic", method="acc", max_iters=3,
             device=dev))}
     out = {}
-    for name in E4M3_REFUSED:
+    for name in FP8_REFUSED:
         ops.reset_launch_counts()
         try:
             calls[name]()
         except TypeError as err:
             out[name] = str(err)[:120]
         else:
-            raise CheckFailed(f"e4m3 {name}: no TypeError")
+            raise CheckFailed(f"{tag} {name}: no TypeError")
         torch.cuda.synchronize()
         launched = {k: v for k, v in ops.launch_counts().items() if v}
-        require(not launched, f"e4m3 {name}: launched {launched} before "
+        require(not launched, f"{tag} {name}: launched {launched} before "
                 "raising")
-    print(f"[e4m3] refused with TypeError and no launch: "
-          f"{', '.join(E4M3_REFUSED)}")
+    print(f"[{tag}] refused with TypeError and no launch: "
+          f"{', '.join(FP8_REFUSED)}")
+    return out
+
+
+def check_fp8_randsketch(dev, gen) -> dict:
+    """Row 5 on fp8 A at A_w (2^18 x 16384, r = R_SKETCH, Q f32): for each
+    fp8 type, the kernel against randsketch_plain (which widens A
+    exactly) within TOL["sketch"], two runs the same bits, timed beside
+    plain and mm(a.T, q) on bf16 copies; the bound: one read of A and Q,
+    one write of B, or 2 m n r flops twice (A exact in TF32, Q split in
+    two) on TF32.  A_w is made from phase 5's seed, cast, and freed."""
+    from repro_torch.kernels import randsketch
+    from repro_torch.kernels.dtypes import cast
+
+    A_w = wide_matrix(dev, torch.Generator(device=dev).manual_seed(SEED + 5))
+    m, n = A_w.shape
+    q = torch.randn(m, R_SKETCH, generator=gen, device=dev)
+    q16 = q.to(torch.bfloat16)
+    out = {}
+    for tag, dtype, _, _ in FP8_TYPES:
+        a8 = cast(A_w, dtype)
+        got = one_launch(randsketch.randsketch,
+                         lambda: randsketch.randsketch(
+                             a8, q, out_dtype=torch.float32),
+                         f"randsketch {tag}")
+        want = randsketch.randsketch_plain(a8, q, torch.float32)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        require(e <= TOL["sketch"], f"randsketch {tag}: relative error "
+                f"{e:.3e} > {TOL['sketch']}")
+        require(torch.equal(got, randsketch.randsketch(
+            a8, q, out_dtype=torch.float32)), f"randsketch {tag}: two runs "
+            "differ")
+        a16 = a8.to(torch.bfloat16)
+        b_ms, b_by = bound(m * n + 4 * R_SKETCH * (m + n),
+                           2 * 2.0 * m * n * R_SKETCH, "tf32")
+        out[tag] = fp8_record(
+            {"shape": [m, n, R_SKETCH], "rel_err": e,
+             "max_abs_err": max_abs(got, want)},
+            time_ms(lambda: randsketch.randsketch(
+                a8, q, out_dtype=torch.float32)),
+            time_ms(lambda: randsketch.randsketch_plain(
+                a8, q, torch.float32), reps=3),
+            (b_ms, b_by), b_ms, time_ms(lambda: torch.mm(a16.T, q16)),
+            FP8_LIBRARY["randsketch"])
+        r = out[tag]
+        print(f"[{tag}] randsketch r={R_SKETCH} A_w kernel {r['ms']:9.3f} ms"
+              f" | plain {r['plain_ms']:9.3f} ms | library "
+              f"{r['library_ms']:9.3f} ms | bound {r['bound_ms']:8.3f} ms "
+              f"({r['bound_by']}), share {r['bound_ms'] / r['ms']:.3f}")
+        del a8, a16, got, want
+        torch.cuda.empty_cache()
+    del A_w, q, q16
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4808,11 +4950,11 @@ def logistic_optima64(A, Bs) -> tuple[torch.Tensor, torch.Tensor, int]:
                       f"in {LOGISTIC_NEWTON_STEPS} steps")
 
 
-def e4m3_serve(api, rm8, B_quad, B_log, L0, which) -> list:
-    """Phase 13's solve requests in submit order (E4M3_SERVE); `which`
+def fp8_serve(api, rm8, B_quad, B_log, L0, which) -> list:
+    """Phase 13's solve requests in submit order (FP8_SERVE); `which`
     picks rows of each block."""
     reqs, row = [], 0
-    for method, loss, iters, count in E4M3_SERVE:
+    for method, loss, iters, count in FP8_SERVE:
         for i in range(count):
             j = row + i if loss == "quad" else i
             if which(i):
@@ -4826,25 +4968,28 @@ def e4m3_serve(api, rm8, B_quad, B_log, L0, which) -> list:
     return reqs
 
 
-def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
-    """Phase 13: phase 3's A redrawn from its seed and cast to e4m3 on the
-    card; the cast, rows 1-4 on it, then the main path (counts zeroed just
-    before, read just after): the Gram SVD, three solves and a server;
-    then the refusals.  Adds each kernel row's "e4m3" readings."""
+def fp8_path(A: torch.Tensor, tag: str, dtype, mant: int, emin: int,
+             sketch: dict, rows: list, info: dict) -> dict:
+    """Phase 13 for one fp8 type: A cast to it on the card; the cast,
+    rows 1-4 on it, then the main path (counts zeroed just before, read
+    just after): the Gram SVD, three solves, a server, sketch (one gemm
+    launch) and project of A onto the sketch (one randsketch launch, Q in
+    A's type); then the refusals.  Adds each kernel row's `tag` readings
+    (randsketch's from `sketch`, its A_w readings)."""
     from repro_torch import api
     from repro_torch.core.distmat import RowMatrix
     from repro_torch.kernels import gemm as _gemm
     from repro_torch.kernels import ops
+    from repro_torch.kernels import randsketch as _rs
+    from repro_torch.kernels.dtypes import cast as _cast
     from repro_torch.launch.serve import SolverServer
 
     t13 = time.perf_counter()
-    A, _ = elastic_inputs(dev, sparse=False)
-    A8, cast = e4m3_cast(A)
-    del A
-    torch.cuda.empty_cache()
+    dev = A.device
+    A8, cast = fp8_cast(A, tag, dtype)
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    kernels = check_e4m3_kernels(A8, gen)
-    model = e4m3_model_bounds(kernels)
+    kernels = check_fp8_kernels(A8, gen, tag, mant, emin)
+    model = fp8_model_bounds(kernels, tag, dtype)
 
     # float64 references on the dequantized A, before the counts are zeroed.
     G64 = gram64(A8)
@@ -4878,7 +5023,7 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
     del X_log
     rm8 = RowMatrix(rows=A8, n_rows=M)               # no copy
 
-    # -- the e4m3 main path: counts zeroed just before, read just after ----
+    # -- the fp8 main path: counts zeroed just before, read just after -----
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4888,7 +5033,7 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
     U, s, V = res.factors
     L0 = float(s[0]) ** 2
     solves = []
-    for loss, method, iters, tol in E4M3_SOLVES:
+    for loss, method, iters, tol in FP8_SOLVES:
         rec, sres = run_solve(api, ops, rm8,
                               b_quad if loss == "quad" else b_log, loss=loss,
                               method=method,
@@ -4909,84 +5054,103 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
                 and hist[-1] < hist[0]
         solves.append(rec)
     grouped = SolverServer(slots=SLOTS)
-    ids = [grouped.submit(r) for r in e4m3_serve(api, rm8, B_quad, B_log,
-                                                 L0, lambda i: True)]
+    ids = [grouped.submit(r) for r in fp8_serve(api, rm8, B_quad, B_log,
+                                                L0, lambda i: True)]
     run = drive(grouped)
+    t0 = time.perf_counter()
+    Y = rm8.sketch(R_SKETCH, seed=SEED)
+    proj = rm8.project(Y)
     torch.cuda.synchronize()
+    sketch_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
     # ------------------------------------------------------------------------
 
     # Checks of the path, after its counts are read.
-    print(f"[e4m3] solves: " + "; ".join(
+    print(f"[{tag}] solves: " + "; ".join(
         f"{r['loss']}/{r['method']} {r['iterations']} iterations, gap "
         f"{r['objective_gap']:.3e}" for r in solves))
     err_s = float(((s.double() - s64).abs() / s64).max())
     require(res.info["plan"] == "gram" and res.info["a_passes"] == 2,
-            f"e4m3 svd: plan {res.info['plan']}, {res.info['a_passes']} "
+            f"{tag} svd: plan {res.info['plan']}, {res.info['a_passes']} "
             "A-passes")
-    require(err_s <= 1e-4, f"e4m3 svd: sigma relative error {err_s:.3e}")
-    require(U.rows.dtype == E4M3, f"e4m3 svd: U in {U.rows.dtype}")
+    require(err_s <= 1e-4, f"{tag} svd: sigma relative error {err_s:.3e}")
+    require(U.rows.dtype == dtype, f"{tag} svd: U in {U.rows.dtype}")
     u_plain = _gemm.gemm_plain(A8, V * (1.0 / s)[None, :])
-    require(e4m3_steps_ok(U.rows.float(), u_plain.float()),
-            "e4m3 svd: U off the plain path's U by more than one e4m3 step")
+    require(fp8_steps_ok(U.rows.float(), u_plain.float(), mant, emin),
+            f"{tag} svd: U off the plain path's U by more than one step")
     u_zero = float(((U.rows.view(torch.uint8) & 0x7F) == 0).float().mean())
     for rec in solves:
         if rec["loss"] == "quad":
-            require(rec["objective_gap"] <= 1e-5, f"e4m3 quad "
+            require(rec["objective_gap"] <= 1e-5, f"{tag} quad "
                     f"{rec['method']}: objective gap "
                     f"{rec['objective_gap']:.3e}")
-            require(rec["iterations"] < rec["cap"], f"e4m3 quad "
+            require(rec["iterations"] < rec["cap"], f"{tag} quad "
                     f"{rec['method']}: ran to its cap of {rec['cap']}")
         else:
-            require(rec["descends"], "e4m3 logistic gra: the objective does "
-                    "not fall monotonically")
-            require(rec["objective_gap"] <= 1e-5, f"e4m3 logistic gra: "
+            require(rec["descends"], f"{tag} logistic gra: the objective "
+                    "does not fall monotonically")
+            require(rec["objective_gap"] <= 1e-5, f"{tag} logistic gra: "
                     f"objective gap {rec['objective_gap']:.3e}")
     results = run["results"]
-    require(len(results) == len(ids), "e4m3 serve: not every request was "
+    require(len(results) == len(ids), f"{tag} serve: not every request was "
             "answered")
     gaps = []
     for j, rid in enumerate(ids[:12]):
         r = results[rid]
         require(r.info["plan"] == "fused-group"
                 and r.info["a_passes"] == run["observed"][rid],
-                f"e4m3 serve {rid}: {r.info['plan']}, a_passes "
+                f"{tag} serve {rid}: {r.info['plan']}, a_passes "
                 f"{r.info['a_passes']} != {run['observed'][rid]}")
         d = r.x.double() - X_star[:, j]
         gaps.append(float(0.5 * d @ G64 @ d / fs_star[j]))
-    require(max(gaps) <= 1e-5, f"e4m3 serve: quad objective gap "
+    require(max(gaps) <= 1e-5, f"{tag} serve: quad objective gap "
             f"{max(gaps):.3e}")
     log_obj = [results[rid].info["objective"] for rid in ids[12:]]
     log_gaps = ((logistic_objectives64(A8, B_log, torch.stack(
         [results[rid].x for rid in ids[12:]])) - f_log[1:])
         / f_log[1:]).tolist()
-    require(max(log_gaps) <= 1e-5, f"e4m3 serve: logistic objective gaps "
+    require(max(log_gaps) <= 1e-5, f"{tag} serve: logistic objective gaps "
             f"{log_gaps} against the float64 optima")
     require(launches["fused_grad_multi"] == grouped.stats["a_passes"],
-            f"e4m3 serve: {launches['fused_grad_multi']} fused_grad_multi "
+            f"{tag} serve: {launches['fused_grad_multi']} fused_grad_multi "
             f"launches != {grouped.stats['a_passes']} server A-passes")
     require(launches["fused_grad"] == sum(r["a_passes"] for r in solves),
-            f"e4m3: {launches['fused_grad']} fused_grad launches != the "
+            f"{tag}: {launches['fused_grad']} fused_grad launches != the "
             "solves' A-passes")
-    for name in PATHS["e4m3"]:
-        require(launches[name] > 0, f"{name} never launched on the e4m3 "
+    for name in PATHS[tag]:
+        require(launches[name] > 0, f"{name} never launched on the {tag} "
                 "path")
-    require(launches["randsketch"] == 0 and launches["bsr_matvec"] == 0,
-            f"e4m3 path launched {launches}")
+    require(launches["randsketch"] == 1 and launches["gemm"] == 2
+            and launches["bsr_matvec"] == 0,
+            f"{tag} path launched {launches} (gemm: U and the sketch; "
+            "randsketch: the projection)")
+    # The sketch and the projection against their plain versions: Ω drawn
+    # as sketch draws it, Y within one step of the f32 product of the fp8
+    # values, B = AᵀY within TOL["sketch"] of plain.
+    omega = _cast(torch.randn((N, R_SKETCH), device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(SEED)), dtype)
+    y_plain = _gemm.gemm_plain(A8, omega.to(torch.bfloat16))
+    require(Y.rows.dtype == dtype and fp8_steps_ok(
+        Y.rows.float(), y_plain.float(), mant, emin),
+        f"{tag} sketch: Y off plain by more than one step")
+    e_proj = rel_err(proj, _rs.randsketch_plain(A8, Y.rows, torch.float32))
+    require(e_proj <= TOL["sketch"], f"{tag} project: {e_proj:.3e} from "
+            "plain")
     # Two requests of the gra group again at slots=1: the same bits (a
     # slot's kernel sums follow from A alone, and the group engine's
     # per-slot sums run in the same order at k = 1 on the card).
     serial = SolverServer(slots=1)
-    sids = [serial.submit(r) for r in e4m3_serve(
+    sids = [serial.submit(r) for r in fp8_serve(
         api, rm8, B_quad, B_log, L0, lambda i: i < 2)[:2]]
     srun = drive(serial)
     agree = [rel_err(results[rid].x, srun["results"][sid].x)
              for rid, sid in zip(ids[:2], sids)]
     same_bits = [bool(torch.equal(results[rid].x, srun["results"][sid].x))
                  for rid, sid in zip(ids[:2], sids)]
-    require(all(same_bits), f"e4m3 serve: group and serial x differ by "
+    require(all(same_bits), f"{tag} serve: group and serial x differ by "
             f"{max(agree):.3e}")
-    refused = e4m3_refusals(api, ops, rm8, b_log)
+    refused = fp8_refusals(api, ops, rm8, b_log, tag)
 
     path = {"svd": {"ms": svd_ms, "sigma_rel_err": err_s,
                     "a_passes": res.info["a_passes"],
@@ -5002,13 +5166,17 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
                       "logistic_gaps": log_gaps,
                       "group_serial_rel": agree,
                       "group_serial_same_bits": same_bits},
+            "sketch": {"ms": sketch_ms, "project_rel_err": e_proj,
+                       "zero_share": float(
+                           ((Y.rows.view(torch.uint8) & 0x7F) == 0)
+                           .float().mean())},
             "launches": launches}
-    print(f"[e4m3] Gram SVD k={K_SVD}: {svd_ms:.1f} ms, sigma error "
+    print(f"[{tag}] Gram SVD k={K_SVD}: {svd_ms:.1f} ms, sigma error "
           f"{err_s:.3e} against the float64 Gram of the dequantized A, "
-          f"{res.info['a_passes']} A-passes, U in e4m3 ({u_zero:.3f} of it "
+          f"{res.info['a_passes']} A-passes, U in {tag} ({u_zero:.3f} of it "
           f"zero)")
     for r in solves:
-        print(f"[e4m3] {r['loss']}/{r['method']}: {r['iterations']} "
+        print(f"[{tag}] {r['loss']}/{r['method']}: {r['iterations']} "
               f"iterations (cap {r['cap']}, tol {r['tol']:g}), "
               f"{r['a_passes']} A-passes, "
               f"{r['ms']:.1f} ms, {r['ms_per_iteration']:.3f} ms/iteration, "
@@ -5016,38 +5184,58 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
               + ("" if r["loss"] == "quad" else
                  f", objective {r['first_last_objective'][0]:.6e} -> "
                  f"{r['first_last_objective'][1]:.6e}"))
-    print(f"[e4m3] server: {len(ids)} requests in {run['wall_s']:.2f} s, "
+    print(f"[{tag}] server: {len(ids)} requests in {run['wall_s']:.2f} s, "
           f"{grouped.stats['a_passes']} group A-passes, quad gap max "
           f"{max(gaps):.3e}, logistic gap max {max(log_gaps):.3e}, group "
           f"vs serial {max(agree):.3e} (same bits {same_bits})")
-    print(f"[e4m3] float64 logistic optima: {newton_steps} Newton steps "
+    print(f"[{tag}] float64 logistic optima: {newton_steps} Newton steps "
           f"for {Bs_log.shape[0]} label vectors in {newton_s:.1f} s")
-    print(f"[main path] e4m3: launches {launches}; {info['nvidia_smi']}")
+    print(f"[{tag}] sketch (r={R_SKETCH}) and project: {sketch_ms:.1f} ms, "
+          f"Y within one step of plain, B {e_proj:.3e} from plain")
+    print(f"[main path] {tag}: launches {launches}; {info['nvidia_smi']}")
 
     by_name = {r["name"]: r for r in rows}
     multi = kernels["fused_grad_multi"][SLOTS]
     picks = {"fused_grad": kernels["fused_grad"]["quad"],
              "fused_grad_multi": dict(
                  multi, max_abs_err=multi["quad"]["max_abs_err"]),
-             "tsgram": kernels["tsgram"], "gemm": kernels["gemm"]}
+             "tsgram": kernels["tsgram"], "gemm": kernels["gemm"],
+             "randsketch": sketch}
+    kernels["randsketch"] = sketch
     for name, r in picks.items():
-        by_name[name]["e4m3"] = {
+        by_name[name][tag] = {
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "bound_route_ms": r["bound_route_ms"],
             "library_ms": r["library_ms"],
-            "library_call": r["library_call"], "dtype": "e4m3",
+            "library_call": r["library_call"], "dtype": tag,
             "checks": kernels[name]}
-        by_name[name]["launches_by_path"]["e4m3"] = launches[name]
     for row in rows:
-        row["launches_by_path"].setdefault("e4m3", launches.get(row["name"],
-                                                                0))
-    del A8, rm8, U, res, grouped, serial, run, srun
+        row["launches_by_path"][tag] = launches.get(row["name"], 0)
+    del A8, rm8, U, res, grouped, serial, run, srun, Y, proj, y_plain
     torch.cuda.empty_cache()
     rec = {"cast": cast, "model": model, "path": path, "refused": refused,
-           "phase_s": time.perf_counter() - t13}
-    print(f"[e4m3] phase 13 in {rec['phase_s']:.1f} s")
+           "randsketch": sketch, "phase_s": time.perf_counter() - t13}
+    print(f"[{tag}] path in {rec['phase_s']:.1f} s")
+    return rec
+
+
+def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
+    """Phase 13: row 5 on each fp8 type at A_w (check_fp8_randsketch),
+    then phase 3's A redrawn from its seed and, for each fp8 type in
+    turn, fp8_path.  Adds each kernel row's "e4m3" and "e5m2"
+    readings."""
+    t13 = time.perf_counter()
+    sketch = check_fp8_randsketch(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 15))
+    A, _ = elastic_inputs(dev, sparse=False)
+    rec = {tag: fp8_path(A, tag, dtype, mant, emin, sketch[tag], rows, info)
+           for tag, dtype, mant, emin in FP8_TYPES}
+    del A
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t13
+    print(f"[fp8] phase 13 in {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -5063,8 +5251,12 @@ def run_phase13(rows: list, info: dict, dev: torch.device) -> dict:
 # phase 9 (e)'s CoordinateMatrix of 2^27 entries sharded by position over
 # "data" (the two "model" ranks of a shard hold the same entries): its
 # products against the one-device matrix's on rank 0, and its Lanczos SVD
-# (k = K_SVD) against phase 9's sigma.
+# (k = K_SVD) against phase 9's sigma.  Then the survivor path: row shard
+# MESH_DROP dropped (train/elastic.survivor_mesh, every rank making its
+# groups), both types made again on the surviving (1, 2) mesh and run
+# there, against the same one-device references.
 MESH_SHAPE = (2, 2)
+MESH_DROP = 1
 MESH_TOL = {"product": 1e-5, "vector": 1e-5, "sigma": 1e-4}
 MESH_REPS = 5
 
@@ -5123,6 +5315,7 @@ def mesh_rank(rank: int, sigma_c: list) -> dict:
     rec["path_s"] = time.perf_counter() - t0
     rec["launches"] = ops.launch_counts()
     # -----------------------------------------------------------------------
+    surv = survivor_path(mesh, a, b, v, u, (ri, ci, va), x_c, y_c, opts, dev)
     s = svd.factors[1].double().cpu()
     want_s = torch.tensor(sigma_c, dtype=torch.float64)
     rec["svd"] = {"sigma_rel": float(((s - want_s).abs() / want_s).max()),
@@ -5140,7 +5333,6 @@ def mesh_rank(rank: int, sigma_c: list) -> dict:
     # different tiles, so the sum over the whole mesh is the product's.
     sq = compat.psum(sq, mesh, mesh.axis_names)
     rec["product_rel"] = float(torch.sqrt(sq[0] / sq[1]))
-    del P1
     want = {"matvec": X1.matvec(v)[rows], "rmatvec": X1.rmatvec(u),
             "matvec_model_sharded": X1.matvec(v)[rows],
             "rmatvec_model_sharded": X1.rmatvec(u)[cols],
@@ -5148,12 +5340,16 @@ def mesh_rank(rank: int, sigma_c: list) -> dict:
     rec["vector_rel"] = {k: rel_err(prods[k], want[k]) for k in prods}
     rec["transpose_exact"] = bool(torch.equal(Xt.data, a.T[rows, cols]))
     rec["tile"] = [mr, nc]
+    rec["survivor"] = check_survivor(surv, X1, P1, v, u, sigma_c)
     if rank == 0:
         C1 = CoordinateMatrix.create(ri, ci, va, (M_C, N_C), device=dev)
         rec["coo_rel"] = {"matvec": rel_err(coo["matvec"], C1.matvec(x_c)),
                           "rmatvec": rel_err(coo["rmatvec"],
                                              C1.rmatvec(y_c))}
         rec["coo_local_nnz"] = int(C.values.shape[0])
+        rec["survivor"]["coo_rel"] = {
+            k: rel_err(surv[f"coo_{k}"], C1.matvec(x_c) if k == "matvec"
+                       else C1.rmatvec(y_c)) for k in ("matvec", "rmatvec")}
         del C1
         # gemm at the SUMMA shape against its plain version, timed.
         a_row, b_col = a[rows].contiguous(), b[:, cols].contiguous()
@@ -5170,7 +5366,7 @@ def mesh_rank(rank: int, sigma_c: list) -> dict:
             "library_ms": time_ms(lambda: torch.mm(a_row, b_col)),
             "bound_ms": bound_ms, "bound_by": by, "shape": [m_, k_, n_]}
         del a_row, b_col, got, plain
-    del a, b, X1
+    del a, b, X1, P1, surv
     torch.cuda.empty_cache()
     # Each step again, warm, and the two gathers of SUMMA alone (host
     # clock, synchronized: gloo stages them through the host).
@@ -5189,6 +5385,71 @@ def mesh_rank(rank: int, sigma_c: list) -> dict:
         "transpose": _wall_ms(lambda: X.transpose(), dev, MESH_REPS),
         "coo matvec": _wall_ms(lambda: C.matvec(x_c), dev, MESH_REPS),
         "coo rmatvec": _wall_ms(lambda: C.rmatvec(y_c), dev, MESH_REPS)}
+    return rec
+
+
+def survivor_path(mesh, a, b, v, u, entries, x_c, y_c, opts, dev) -> dict:
+    """Phase 14's survivor path on one rank: the survivor mesh of `mesh`
+    once row shard MESH_DROP is dropped (made on every rank), then, on
+    each surviving rank, with the counts zeroed just before and read just
+    after, BlockMatrix's create, SUMMA product and vector products and
+    CoordinateMatrix's create, products and Lanczos SVD there.  A dropped
+    rank returns {"member": False}."""
+    from repro_torch import api
+    from repro_torch.core.distmat import BlockMatrix, CoordinateMatrix
+    from repro_torch.kernels import ops
+    from repro_torch.train.elastic import survivor_mesh
+
+    surv = survivor_mesh(mesh, MESH_DROP)
+    out = {"member": surv.member, "grid": surv.grid.tolist()}
+    if not surv.member:
+        return out
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    X = BlockMatrix.create(a, mesh=surv)
+    P = X.multiply(BlockMatrix.create(b, mesh=surv))
+    out.update(mesh=surv, tile=list(X.block_shape), P=P.data,
+               matvec=X.matvec(v), rmatvec=X.rmatvec(u),
+               index=[surv.index("data"), surv.index("model")])
+    C = CoordinateMatrix.create(*entries, (M_C, N_C), mesh=surv)
+    out.update(coo_matvec=C.matvec(x_c), coo_rmatvec=C.rmatvec(y_c))
+    svd = api.svd(api.SvdRequest(A=C, k=K_SVD, mode="lanczos", options=opts,
+                                 device=dev))
+    torch.cuda.synchronize(dev)
+    out["path_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out.update(sigma=svd.factors[1], svd_info={
+        k: svd.info[k] for k in ("op_calls", "restarts", "converged")})
+    return out
+
+
+def check_survivor(surv: dict, X1, P1, v, u, sigma_c: list) -> dict:
+    """The survivor path's results against the one-device BlockMatrix
+    (product normwise over the surviving ranks' tiles, vector products)
+    and phase 9's sigma."""
+    from repro_torch import compat
+
+    rec = {"member": surv["member"], "grid": surv["grid"]}
+    if not surv["member"]:
+        return rec
+    mr, nc = surv["tile"]
+    r, c = surv["index"]
+    rows, cols = slice(r * mr, (r + 1) * mr), slice(c * nc, (c + 1) * nc)
+    sq = torch.stack([((surv["P"] - P1[rows, cols]).double() ** 2).sum(),
+                      (P1[rows, cols].double() ** 2).sum()])
+    sq = compat.psum(sq, surv["mesh"], surv["mesh"].axis_names)
+    s = surv["sigma"].double().cpu()
+    want_s = torch.tensor(sigma_c, dtype=torch.float64)
+    rec.update(tile=surv["tile"], path_s=surv["path_s"],
+               launches=surv["launches"],
+               product_rel=float(torch.sqrt(sq[0] / sq[1])),
+               vector_rel={"matvec": rel_err(surv["matvec"],
+                                             X1.matvec(v)[rows]),
+                           "rmatvec": rel_err(surv["rmatvec"],
+                                              X1.rmatvec(u))},
+               svd=dict(surv["svd_info"], sigma_rel=float(
+                   ((s - want_s).abs() / want_s).max())))
     return rec
 
 
@@ -5219,7 +5480,26 @@ def run_phase14(info: dict, sigma_c: list) -> dict:
                 and r["svd"]["converged"],
                 f"{who}: CoordinateMatrix sigma {r['svd']['sigma_rel']:.3e} "
                 f"from phase 9's, {r['svd']}")
+        sv = r["survivor"]
+        require(sv["member"] == (r["grid"][0] != MESH_DROP),
+                f"{who}: survivor membership {sv['member']}")
+        if not sv["member"]:
+            continue
+        require(sv["launches"]["gemm"] == 1
+                and sum(sv["launches"].values()) == 1,
+                f"{who} survivor: launches {sv['launches']} (one gemm)")
+        require(sv["product_rel"] <= MESH_TOL["product"],
+                f"{who} survivor: SUMMA product {sv['product_rel']:.3e}")
+        bad = {k: e for k, e in sv["vector_rel"].items()
+               if not e <= MESH_TOL["vector"]}
+        require(not bad, f"{who} survivor: vector products off {bad}")
+        require(sv["svd"]["sigma_rel"] <= MESH_TOL["sigma"]
+                and sv["svd"]["converged"],
+                f"{who} survivor: CoordinateMatrix sigma {sv['svd']}")
     head = ranks[0]
+    bad = {k: e for k, e in head["survivor"]["coo_rel"].items()
+           if not e <= MESH_TOL["vector"]}
+    require(not bad, f"mesh survivor: CoordinateMatrix products off {bad}")
     bad = {k: e for k, e in head["coo_rel"].items()
            if not e <= MESH_TOL["vector"]}
     require(not bad, f"mesh: CoordinateMatrix products off {bad}")
@@ -5236,7 +5516,9 @@ def run_phase14(info: dict, sigma_c: list) -> dict:
            "vector_rel": head["vector_rel"], "coo_rel": head["coo_rel"],
            "svd": head["svd"], "svd_ms": head["svd_ms"],
            "gather_bytes": head["gather_bytes"],
-           "steps_ms": head["steps_ms"], "gemm": g}
+           "steps_ms": head["steps_ms"], "gemm": g,
+           "survivor": {"grid": head["survivor"]["grid"],
+                        "ranks": [r["survivor"] for r in ranks]}}
     print(f"[mesh] {world} ranks ({backend}) on a {MESH_SHAPE} mesh, devices "
           f"{rec['devices']}; path {[round(t, 1) for t in rec['path_s']]} s; "
           f"launches (rank 0) {head['launches']}")
@@ -5255,6 +5537,15 @@ def run_phase14(info: dict, sigma_c: list) -> dict:
           f"plain {g['plain_ms']:.3f}, torch.mm {g['library_ms']:.3f}, "
           f"bound {g['bound_ms']:.3f} ({g['bound_by']}, 3xTF32), "
           f"{g['rel_err']:.3e} from plain; {info['nvidia_smi']}")
+    sv = head["survivor"]
+    print(f"[mesh] survivor of row shard {MESH_DROP}: grid {sv['grid']}, "
+          f"tiles {sv['tile']}, path {sv['path_s']:.1f} s (rank 0), "
+          f"launches {sv['launches']}; SUMMA "
+          f"{sv['product_rel']:.3e} from the one-device product, vector "
+          f"products {sv['vector_rel']}, CoordinateMatrix products "
+          f"{sv['coo_rel']}, Lanczos sigma {sv['svd']['sigma_rel']:.3e} "
+          f"from phase 9's ({sv['svd']['op_calls']} operator calls); "
+          f"{info['nvidia_smi']}")
     rec["phase_s"] = time.perf_counter() - t14
     print(f"[mesh] phase 14 in {rec['phase_s']:.1f} s")
     return rec
@@ -5625,25 +5916,32 @@ def run() -> int:
             summary["cluster"]["launches"][0].get(row["name"], 0)
         row["launches_by_path"]["elastic"] = \
             summary["elastic"]["launches"].get(row["name"], 0)
-    # -- phase 13: e4m3 storage on the main path (A redrawn, cast on the
-    # card); its path zeroes and reads the counts, and rows 1-4 gain their
-    # e4m3 readings -----------------------------------------------------------
+    # -- phase 13: fp8 storage on the main path (A redrawn, cast on the
+    # card to each fp8 type); each type's path zeroes and reads the counts,
+    # and rows 1-5 gain their e4m3 and e5m2 readings --------------------------
     torch.cuda.empty_cache()
-    summary["e4m3"] = run_phase13(summary["kernels"], info, dev)
+    summary["fp8"] = run_phase13(summary["kernels"], info, dev)
     # -- phase 14: BlockMatrix and CoordinateMatrix on a (2, 2) mesh, in a
     # process group of its own; each rank zeroes and reads its counts
     # around the path ---------------------------------------------------------
     torch.cuda.empty_cache()
     summary["mesh"] = run_phase14(
         info, summary["front_door"]["coordinate"]["coordinate"]["sigma"])
+    survivors = [r for r in summary["mesh"]["survivor"]["ranks"]
+                 if r["member"]]
     for row in summary["kernels"]:
         row["launches_by_path"]["mesh"] = \
             summary["mesh"]["launches"][0].get(row["name"], 0)
+        row["launches_by_path"]["mesh_survivor"] = \
+            survivors[0]["launches"].get(row["name"], 0)
         if row["name"] == "gemm":
             row["checks"]["summa"] = summary["mesh"]["gemm"]
     for name in PATHS["mesh"]:
         require(all(c[name] > 0 for c in summary["mesh"]["launches"]),
                 f"{name} never launched on the mesh path")
+    for name in PATHS["mesh_survivor"]:
+        require(all(r["launches"][name] > 0 for r in survivors),
+                f"{name} never launched on the survivor mesh path")
     print(json.dumps({"svd": summary["svd"], "solves": summary["solves"],
                       "serve": summary["serve"],
                       "sparse": summary["sparse"],
@@ -5652,7 +5950,7 @@ def run() -> int:
                       "lm": summary["lm"], "planner": summary["planner"],
                       "cluster": summary["cluster"],
                       "elastic": summary["elastic"],
-                      "e4m3": summary["e4m3"], "mesh": summary["mesh"],
+                      "fp8": summary["fp8"], "mesh": summary["mesh"],
                       "ptxas": summary["ptxas"],
                       "peak_memory_gb": summary["peak_memory_gb"]}))
     print(info["nvidia_smi"])

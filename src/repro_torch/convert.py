@@ -1,10 +1,10 @@
 """Carry the reference's state across: numpy arrays in, port objects out.
 
 The JAX package's arrays leave it as numpy (`np.asarray(jax_array)`); these
-helpers put them on a device as torch tensors.  bfloat16 and float8_e4m3fn
-arrays (numpy's ml_dtypes extension types) cross by bit pattern, since
-torch does not read those types: bfloat16 → view as int16 → torch.int16 →
-view as bfloat16, float8_e4m3fn likewise through uint8
+helpers put them on a device as torch tensors.  bfloat16, float8_e4m3fn
+and float8_e5m2 arrays (numpy's ml_dtypes extension types) cross by bit
+pattern, since torch does not read those types: bfloat16 → view as int16
+→ torch.int16 → view as bfloat16, the fp8 types likewise through uint8
 (types.tensor_from_array).
 """
 from __future__ import annotations
@@ -19,9 +19,9 @@ from repro_torch.kernels.dtypes import cast
 
 
 def tensor_from_numpy(arr, *, device, dtype=None) -> torch.Tensor:
-    """`arr` on `device` with the same values; bfloat16 and float8_e4m3fn
+    """`arr` on `device` with the same values; bfloat16 and the fp8 types
     keep their bits.  A cast to `dtype` goes through kernels/dtypes.cast
-    (float8_e4m3fn with the reference's rounding)."""
+    (the fp8 types with the reference's rounding)."""
     arr = np.asarray(arr)
     dev = T.resolve_device(device)
     t = T.tensor_from_array(np.array(arr)).to(dev)

@@ -61,10 +61,12 @@ class BlockMatrix(T.DistMatrix):
         """`x` (global: numpy or a tensor) on `device`, or with `mesh` each
         rank's tile of it on the mesh's device (only the tile moves).
         `block_rows`/`block_cols` are advisory (Spark's rowsPerBlock): the
-        tile is the shard, as in the reference."""
-        T.refuse_grid_mesh(mesh, "BlockMatrix")
+        tile is the shard, as in the reference.  The mesh may be a
+        survivor mesh (``train/elastic.survivor_mesh``); a rank outside it
+        keeps the whole matrix on its device, as ``RowMatrix.remesh``
+        leaves a dropped rank."""
         row_axes = tuple(row_axes) if row_axes else T.row_axes_for(mesh)
-        if mesh is not None and mesh.size == 1:
+        if T.single_rank(mesh):
             device, mesh = mesh.device, None
         x = T.tensor_from_array(x)
         if x.dim() != 2:

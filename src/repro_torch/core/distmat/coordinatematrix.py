@@ -86,10 +86,11 @@ class CoordinateMatrix(T.DistMatrix):
                row_axes: Sequence[str] | None = None) -> "CoordinateMatrix":
         """The entries on `device`, or with `mesh` each rank's contiguous
         part of them (padded, as the reference pads, with zero entries at
-        (0, 0)) on the mesh's device; only the part moves."""
-        T.refuse_grid_mesh(mesh, "CoordinateMatrix")
+        (0, 0)) on the mesh's device; only the part moves.  The mesh may be
+        a survivor mesh (``train/elastic.survivor_mesh``); a rank outside
+        it keeps every entry on its device."""
         row_axes = tuple(row_axes) if row_axes else T.row_axes_for(mesh)
-        if mesh is not None and mesh.size == 1:
+        if T.single_rank(mesh):
             device, mesh = mesh.device, None
         ri, ci = torch.as_tensor(row_idx), torch.as_tensor(col_idx)
         va = T.tensor_from_array(values)

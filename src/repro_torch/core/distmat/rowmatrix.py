@@ -32,7 +32,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.kernels import ops as _ops
-from repro_torch.kernels.dtypes import cast
+from repro_torch.kernels.dtypes import FP8, cast
 from . import types as T
 
 # Rows of DIMSUM's column norms and keep mask handled at a time.
@@ -42,16 +42,13 @@ _DIMSUM_ROWS = 1 << 16
 _SHARD_SEED_STEP = 0x9E3779B1
 
 
-STORE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+STORE_DTYPES = (torch.float32, torch.bfloat16, *FP8)
 
 
 def _check_store(dtype) -> None:
-    if dtype == torch.float8_e5m2:
-        raise TypeError(f"float8_e5m2 storage waits for {T.E5M2_ITEM}: the "
-                        "kernels take float32, bfloat16 and float8_e4m3fn")
     if dtype not in STORE_DTYPES:
-        raise TypeError("storage must be float32 or bfloat16, or "
-                        f"float8_e4m3fn, got {dtype}")
+        raise TypeError("storage must be float32 or bfloat16, or fp8 "
+                        f"(float8_e4m3fn, float8_e5m2), got {dtype}")
 
 
 def chunk_bounds(n: int, chunks: int) -> tuple[tuple[int, int], ...]:
@@ -160,12 +157,13 @@ class RowMatrix(_Sharded, T.DistMatrix):
         the caller asks for the CPU.  With `mesh`, each rank keeps its
         padded strip on the mesh's device (rows shard over `row_axes`,
         every axis but "model" by default) and only the strip moves.
-        `store_dtype` (float32, bfloat16 or float8_e4m3fn) sets the
-        storage type; every op upcasts what it reads and accumulates in
-        f32, so results come back at `out_dtype`.  On e4m3 storage the
-        ops the reference computes there run (the Gram, the fused
-        gradients, multiply_local); the rest raise TypeError, as the
-        reference raises (types.refuse_e4m3)."""
+        `store_dtype` (float32, bfloat16, float8_e4m3fn or float8_e5m2)
+        sets the storage type; every op upcasts what it reads and
+        accumulates in f32, so results come back at `out_dtype`.  On fp8
+        storage the ops the reference computes there run (the Gram, the
+        fused gradients, chunked or not, multiply_local, sketch and
+        project); the rest raise TypeError, as the reference raises
+        (types.refuse_fp8)."""
         row_axes = tuple(row_axes) if row_axes else T.row_axes_for(mesh)
         if mesh is not None and mesh.size == 1:
             device, mesh = mesh.device, None
@@ -210,7 +208,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
     def astype_store(self, dtype) -> "RowMatrix":
         """Recast the storage (the planner's bf16 pick lands here); identity
         when the dtype already matches.  The recast is a second copy of A
-        beside this one (bf16: half its f32 size, e4m3 a quarter), which
+        beside this one (bf16: half its f32 size, fp8 a quarter), which
         stays as it is."""
         _check_store(dtype)
         if dtype == self.rows.dtype:
@@ -251,7 +249,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
         return g.to(self.out_dtype)
 
     def _promoted(self, v: torch.Tensor, what: str) -> torch.Tensor:
-        T.refuse_e4m3(self.rows.dtype, what)
+        T.refuse_fp8(self.rows.dtype, what)
         return self.rows.to(torch.promote_types(self.rows.dtype, v.dtype))
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
@@ -295,10 +293,14 @@ class RowMatrix(_Sharded, T.DistMatrix):
 
         `chunks` > 1 runs the planner's overlapped schedule (plan("grad")
         with this mesh's axis sizes): the fused pass gives f, z and the
-        row residual r, then the gradient is r·A[:, seg] a column segment
-        (a plain product, as the reference computes it outside its
-        kernel), each segment's all_reduce issued behind the next
-        segment's product.  Within tolerance of eager, not bit for bit.
+        f32 row residual r, then the gradient is r·A[:, seg] a column
+        segment with f32 sums (the reference's ``jnp.dot(r, a[:, seg],
+        preferred_element_type=f32)``, outside its kernel): on f32
+        storage a plain product, on narrower storage, which no torch
+        product takes beside an f32 r, one randsketch launch (A[:, seg]ᵀr)
+        on the segment as it is (its rows strided); each segment's
+        all_reduce issued behind the next segment's product.  Within
+        tolerance of eager, not bit for bit.
 
         `residual` (from init_psum_residual) sends the gradient over the
         compressed int8 wire (train/compression.psum_int8): a shared
@@ -316,9 +318,6 @@ class RowMatrix(_Sharded, T.DistMatrix):
         from repro_torch.train import compression as _comp
         c, plan = self._resolve_chunks(
             "grad", chunks, {"m": self._m_local, "n": n}, a.dtype)
-        if c > 1:
-            # Before the fused pass and the span: nothing runs.
-            T.e4m3_waits(a.dtype, "the chunked fused_grad")
         mesh, axes, nsh = self.mesh, self.row_axes, self.nshards
         wire = "int8" if residual is not None else "f32"
         with _tel.current().span("collective.fused_grad", op="grad", n=n,
@@ -329,8 +328,13 @@ class RowMatrix(_Sharded, T.DistMatrix):
                 # A segment's product is launched just before its
                 # all_reduce is issued (the parts are drawn lazily).
                 _, r = _fg.row_loss_grad(z, t, w, kind, prm)
-                rc = r.to(a.dtype)
-                parts = ((rc @ a[:, s0:s1]).to(x.dtype) for s0, s1 in bounds)
+                if a.dtype == torch.float32:
+                    parts = ((r @ a[:, s0:s1]).to(x.dtype)
+                             for s0, s1 in bounds)
+                else:
+                    parts = (_ops.randsketch(a[:, s0:s1], r[:, None],
+                                             out_dtype=torch.float32)[:, 0]
+                             .to(x.dtype) for s0, s1 in bounds)
             else:
                 parts = iter([g])
             if residual is not None:
@@ -373,23 +377,29 @@ class RowMatrix(_Sharded, T.DistMatrix):
 
     def sketch(self, r: int, *, seed: int = 0) -> "RowMatrix":
         """Y = A Ω for an (n × r) Gaussian test matrix Ω (randomized range
-        finder), drawn on every rank from one torch.Generator on the
-        rank's device seeded with `seed`: every rank draws the same Ω, so
-        it is never sent.  The product is one plain matmul, as the
-        reference leaves it to XLA outside any kernel."""
-        T.e4m3_waits(self.rows.dtype, "RowMatrix.sketch")
-        n = self.rows.shape[1]
+        finder), drawn in f32 on every rank from one torch.Generator on
+        the rank's device seeded with `seed` and cast to A's type, as the
+        reference draws it in A's type: every rank draws the same Ω, so it
+        is never sent.  Y keeps A's type.  On f32 and bf16 storage the
+        product is one plain matmul, as the reference leaves it to XLA
+        outside any kernel; on fp8 storage, which no torch matmul takes,
+        it is one gemm launch (f32 sums) on Ω's fp8 values widened
+        exactly to bf16, its f32 Y cast to A's type."""
+        a, n = self.rows, self.rows.shape[1]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        omega = torch.randn((n, r), generator=gen, device=self.device,
-                            dtype=torch.float32).to(self.rows.dtype)
-        return self._with_rows(self.rows @ omega)
+        omega = cast(torch.randn((n, r), generator=gen, device=self.device,
+                                 dtype=torch.float32), a.dtype)
+        if a.dtype in FP8:
+            return self._with_rows(_ops.gemm(a, omega.to(torch.bfloat16),
+                                             out_dtype=a.dtype))
+        return self._with_rows(a @ omega)
 
     def project(self, Q: "RowMatrix", *,
                 out_dtype=torch.float32) -> torch.Tensor:
         """B = AᵀQ for a row-conforming Q (randsketch kernel on the shard,
         then one all_reduce), the randomized SVD's projection.  Padding
-        rows are zero in both operands and add nothing.  The kernel
-        refuses float8_e4m3fn storage."""
+        rows are zero in both operands and add nothing.  fp8 A (and Q)
+        are read as they are stored and widened in the kernel."""
         out = self._psum(_ops.randsketch(self.rows, Q.rows,
                                          out_dtype=torch.float32))
         return out.to(out_dtype)
@@ -404,13 +414,13 @@ class RowMatrix(_Sharded, T.DistMatrix):
     def scale_columns(self, d: torch.Tensor) -> "RowMatrix":
         """A · diag(d) (DIMSUM's column scaling); bf16 storage times f32
         scales promotes to f32, as in the reference."""
-        T.refuse_e4m3(self.rows.dtype, "RowMatrix.scale_columns")
+        T.refuse_fp8(self.rows.dtype, "RowMatrix.scale_columns")
         return self._with_rows(self.rows * d[None, :])
 
     def column_stats(self) -> dict[str, torch.Tensor]:
         """Per-column statistics (MLlib colStats), the same on every
         rank."""
-        T.refuse_e4m3(self.rows.dtype, "RowMatrix.column_stats")
+        T.refuse_fp8(self.rows.dtype, "RowMatrix.column_stats")
         m = self.n_rows
         mask = self._row_mask()
         a = self.rows
@@ -453,7 +463,7 @@ class RowMatrix(_Sharded, T.DistMatrix):
         (types.column_similarities); the keep mask is drawn a chunk of rows
         at a time into the one sampled copy, each shard from its own
         seed."""
-        T.refuse_e4m3(self.rows.dtype, "RowMatrix.column_similarities")
+        T.refuse_fp8(self.rows.dtype, "RowMatrix.column_similarities")
         return T.column_similarities(self, threshold, gamma=gamma, seed=seed,
                                      return_info=return_info)
 

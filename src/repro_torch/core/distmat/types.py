@@ -22,6 +22,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels.dtypes import FP8
+
 # Default logical axis names, as in the reference: rows shard over the
 # batch-like axes ("pod" and "data"), "model" replicates them.
 ROW_AXES = ("data",)
@@ -132,8 +134,12 @@ def mesh_from_grid(grid: torch.Tensor, names: Sequence[str], device
     on EVERY rank of the default process group, those outside `grid`
     included: each process group is created by a call that all ranks
     make in the same order.  A group is made for each axis of more than
-    one rank and one for the whole mesh; on a rank outside `grid` the mesh
-    has no coordinate and takes part in no later collective."""
+    one rank and one for the whole mesh (an axis of one rank needs none:
+    compat's collectives over it issue nothing), which is what every type
+    takes: RowMatrix and SparseRowMatrix (the row axes), BlockMatrix (the
+    row axes, "model" and both) and CoordinateMatrix (the row axes).  On a
+    rank outside `grid` the mesh has no coordinate and takes part in no
+    later collective."""
     grid = torch.as_tensor(grid)
     names = tuple(names)
     groups: dict = {}
@@ -188,18 +194,15 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *,
     return mesh
 
 
+# What names the multi-GPU pieces still to port (the LM side on a mesh).
 MULTI_GPU_ITEM = "ROADMAP queue 1 item 13 (multi-GPU)"
 
 
-def refuse_grid_mesh(mesh: Mesh | None, what: str) -> None:
-    """Raise for a mesh of several ranks that ``mesh_from_grid`` made (an
-    elastic re-mesh's survivors): it has a group an axis of more than one
-    rank and none for "model" otherwise, which the types sharded over
-    both axes or by entry need; they take ``make_mesh``'s meshes."""
-    if mesh is not None and mesh.size > 1 and mesh.device_mesh is None:
-        raise NotImplementedError(f"{what} on a survivor mesh "
-                                  f"(types.mesh_from_grid) waits for "
-                                  f"{MULTI_GPU_ITEM}")
+def single_rank(mesh: Mesh | None) -> bool:
+    """Whether a matrix made on `mesh` lives on one device without it: a
+    one-rank mesh, or a rank outside the mesh (one an elastic re-mesh
+    dropped, which keeps its matrix whole and joins no collective)."""
+    return mesh is not None and (mesh.size == 1 or not mesh.member)
 
 
 def row_axes_for(mesh: Mesh | None) -> tuple[str, ...]:
@@ -264,14 +267,15 @@ def resolve_device(device) -> torch.device:
 
 # numpy's ml_dtypes types torch does not read: (integer view, torch type).
 _NUMPY_BITS = {"bfloat16": ("int16", torch.bfloat16),
-               "float8_e4m3fn": ("uint8", torch.float8_e4m3fn)}
+               "float8_e4m3fn": ("uint8", torch.float8_e4m3fn),
+               "float8_e5m2": ("uint8", torch.float8_e5m2)}
 
 
 def tensor_from_array(v) -> torch.Tensor:
     """`v` as a tensor (no device move).  A numpy array of an ml_dtypes
-    type (the reference's bfloat16 and float8_e4m3fn arrays leave it so),
-    which torch does not read, crosses by bit pattern: its bytes viewed
-    as int16 or uint8, then as the torch type."""
+    type (the reference's bfloat16, float8_e4m3fn and float8_e5m2 arrays
+    leave it so), which torch does not read, crosses by bit pattern: its
+    bytes viewed as int16 or uint8, then as the torch type."""
     name = getattr(getattr(v, "dtype", None), "name", None)
     if name in _NUMPY_BITS and not isinstance(v, torch.Tensor):
         import numpy as np
@@ -287,31 +291,19 @@ def as_float_tensor(v, device: torch.device) -> torch.Tensor:
     return t.float() if t.dtype == torch.float64 else t
 
 
-# -- float8_e4m3fn storage (the cast itself: kernels/dtypes.to_e4m3) ---------
-# What names the reference-side refusals and the one type left to port.
+# -- fp8 storage (the casts themselves and FP8: kernels/dtypes) -------------
+# What names the reference-side refusals.
 FP8_REFUSED = ("ROADMAP queue 3, reference-side faults: the reference "
-               "raises on float8_e4m3fn storage here too")
-E5M2_ITEM = "ROADMAP queue 1 item 12 (float8_e5m2 storage)"
-E4M3_REST_ITEM = ("ROADMAP queue 1 item 12 (float8_e4m3fn on the paths the "
-                  "reference runs it and the port does not yet)")
+               "raises on fp8 storage here too")
 
 
-def refuse_e4m3(dtype, what: str) -> None:
-    """Raise TypeError for float8_e4m3fn storage where the reference
-    raises on it too (its jnp products have no fp8 promotion, and its
-    QR no fp8 type), before anything runs."""
-    if dtype == torch.float8_e4m3fn:
-        raise TypeError(f"{what} on float8_e4m3fn storage: {FP8_REFUSED}")
-
-
-def e4m3_waits(dtype, what: str) -> None:
-    """Raise TypeError for float8_e4m3fn storage where the reference runs
-    on it and the port does not yet (its randsketch kernel and the chunked
-    products take no e4m3 operand), naming the item, before anything
-    runs."""
-    if dtype == torch.float8_e4m3fn:
-        raise TypeError(f"{what} takes no float8_e4m3fn storage yet: the "
-                        f"reference runs it; it waits for {E4M3_REST_ITEM}")
+def refuse_fp8(dtype, what: str) -> None:
+    """Raise TypeError for float8_e4m3fn or float8_e5m2 storage where the
+    reference raises on it too (its jnp products have no fp8 promotion,
+    and its QR no fp8 type), before anything runs."""
+    if dtype in FP8:
+        raise TypeError(f"{what} on float8_e4m3fn or float8_e5m2 storage "
+                        f"(here {dtype}): {FP8_REFUSED}")
 
 
 def pad_rows(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:

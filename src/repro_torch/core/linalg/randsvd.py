@@ -51,10 +51,10 @@ def randomized_svd(A: RowMatrix, k: int, *, oversampling: int = OVERSAMPLING,
                               dict]:
     """Rank-k truncated SVD of A.  Returns (U (m × k) RowMatrix or None,
     s (k,), V (n × k), info).  U comes from rotating the range basis,
-    U = Q·Ub: a product with Q, no extra pass over A.  float8_e4m3fn
-    storage raises TypeError before any launch, where the reference's
-    raises at TSQR of its e4m3 sketch."""
-    T.refuse_e4m3(A.rows.dtype, "the randomized SVD")
+    U = Q·Ub: a product with Q, no extra pass over A.  fp8 storage
+    (float8_e4m3fn, float8_e5m2) raises TypeError before any launch, where
+    the reference's raises at TSQR of its fp8 sketch."""
+    T.refuse_fp8(A.rows.dtype, "the randomized SVD")
     m, n = A.shape
     r = min(k + oversampling, min(m, n))
     if not k <= r:

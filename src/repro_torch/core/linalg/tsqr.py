@@ -28,9 +28,9 @@ def _nonneg_diag(R: torch.Tensor) -> torch.Tensor:
 
 def tsqr(A: RowMatrix) -> tuple[RowMatrix, torch.Tensor]:
     """Returns (Q as RowMatrix, sharded like A; R (n, n) on every rank)
-    with A = Q R.  float8_e4m3fn storage raises TypeError, as the
-    reference's QR has no fp8 type."""
-    T.refuse_e4m3(A.rows.dtype, "TSQR")
+    with A = Q R.  fp8 storage (float8_e4m3fn, float8_e5m2) raises
+    TypeError, as the reference's QR has no fp8 type."""
+    T.refuse_fp8(A.rows.dtype, "TSQR")
     a = A.rows
     n = a.shape[1]
     # Map: local QR, keep R (padding rows are zero and change nothing).

@@ -33,9 +33,10 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Block-sparse storage also takes int8, with a per-block f32 scale.
 STORAGE_CODES = {**DTYPE_CODES, torch.int8: 2}
-# The dense operand of fused_grad(_multi), tsgram and gemm (A) also takes
-# float8_e4m3fn (common.cuh: DT_F8), where the reference computes on it.
-DENSE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 3}
+# The dense operand of fused_grad(_multi), tsgram, gemm and randsketch (A)
+# also takes float8_e4m3fn and float8_e5m2 (common.cuh: DT_F8, DT_F8E5),
+# where the reference computes on them.
+DENSE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -46,10 +47,10 @@ _SIGNATURES = {
     # g_part, f_part, g, f, stream
     "repro_fused_grad_multi": [_I, _P, _I, _P, _P, _P, _LL, _I, _I, _I, _I,
                                _I, _F, _P, _P, _P, _P, _P, _P],
-    # device, a, dtype, q, m, n, r, qs, slices, rows_per_slice, part, out,
-    # out_dtype, stream
-    "repro_randsketch": [_I, _P, _I, _P, _LL, _I, _I, _P, _I, _LL, _P, _P,
-                         _I, _P],
+    # device, a, dtype, lda, q, q_exact, m, n, r, qs, slices,
+    # rows_per_slice, part, out, out_dtype, stream
+    "repro_randsketch": [_I, _P, _I, _I, _P, _I, _LL, _I, _I, _P, _I, _LL,
+                         _P, _P, _I, _P],
     # device, a, dtype, m, n, slices, rows_per_slice, part, out, out_dtype,
     # stream
     "repro_tsgram": [_I, _P, _I, _LL, _I, _I, _LL, _P, _P, _I, _P],
@@ -188,10 +189,10 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
 
 
 def dense_code(t: torch.Tensor, what: str) -> int:
-    """The dtype code of a dense operand that may be stored in e4m3."""
+    """The dtype code of a dense operand that may be stored in fp8."""
     if t.dtype not in DENSE_CODES:
-        raise TypeError(f"{what} must be float32, bfloat16 or "
-                        f"float8_e4m3fn, got {t.dtype}")
+        raise TypeError(f"{what} must be float32, bfloat16, float8_e4m3fn "
+                        f"or float8_e5m2, got {t.dtype}")
     return DENSE_CODES[t.dtype]
 
 

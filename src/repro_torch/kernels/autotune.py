@@ -80,7 +80,7 @@ GEMM_WIDTHS = (8, 16, 32)
 def gemm_smem(bn: int, a_itemsize: int) -> tuple[int, int]:
     """(stages, shared memory) of csrc/gemm.cu's ring for tiles of `bn`
     columns and A of `a_itemsize` bytes: 256 staged rows of A, each its
-    stage's bytes (256, or 128 for e4m3 A, whose B split for 256 values
+    stage's bytes (256, or 128 for fp8 A, whose B split for 256 values
     would leave no room for two stages at 32 columns) and one more
     16-byte piece, and B's TF32 split of the stage's k-steps, as many
     stages as fit, up to 4."""
@@ -111,7 +111,7 @@ def _gemm_terms(b, d, dtype):
     b_isz = int(d.get("b_itemsize", 4))
     ctiles = -(-n // b["bn"])
     # TF32 products a product: an f32 operand adds its low part (3xTF32
-    # for f32 x f32); bf16 and e4m3 are exact in TF32.
+    # for f32 x f32); bf16 and fp8 are exact in TF32.
     products = 1 + (isz == 4) + (b_isz == 4)
     return CostTerms(flops=products * 2.0 * m * k * ctiles * b["bn"],
                      hbm_bytes=(m * k * isz * ctiles + k * n * b_isz
@@ -129,9 +129,13 @@ def _tsgram_terms(b, d, dtype):
 
 
 def _randsketch_terms(b, d, dtype):
+    """TF32 products a product: an f32 A adds its low part, and a Q stored
+    in f32 (d["q_itemsize"], default 4) its own; bf16 and fp8 A and Q are
+    exact in TF32.  Q is read as f32."""
     isz = itemsize(dtype)
     m, n, r = int(d["m"]), int(d["n"]), int(d["r"])
-    return CostTerms(flops=(3 if isz == 4 else 2) * 2.0 * m * n * r,
+    products = 1 + (isz == 4) + (int(d.get("q_itemsize", 4)) == 4)
+    return CostTerms(flops=products * 2.0 * m * n * r,
                      hbm_bytes=m * n * isz + 4 * r * (m + n), steps=3,
                      route="tf32")
 

@@ -1,10 +1,11 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Storage types are f32 or bf16 (and int8 for the block-sparse kernels,
-// with a per-block f32 scale; fp8 e4m3 for the dense operand of
-// fused_grad_multi, tsgram and gemm); the kernels upcast what they load to
-// f32 in registers and sum in f32, as the TPU kernels upcast their VMEM
-// tiles.  Every e4m3 value is exact in f16, bf16, TF32 and f32.
+// with a per-block f32 scale; fp8, e4m3 or e5m2, for the dense operand of
+// fused_grad_multi, tsgram, gemm and randsketch); the kernels upcast what
+// they load to f32 in registers and sum in f32, as the TPU kernels upcast
+// their VMEM tiles.  Every e4m3 and every e5m2 value (its infinities and
+// NaN too) is exact in f16, bf16, TF32 and f32.
 // Products run on the CUDA cores or on the tensor cores: in TF32 parts
 // that keep f32's precision (split_tf32 and mma_tf32 below: gemm,
 // randsketch, tsgram, bsr_rmatmul), or in bf16 (flash_attention,
@@ -20,9 +21,27 @@
 
 #include <type_traits>
 
-enum ReproDtype { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_F8 = 3 };
+enum ReproDtype { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_F8 = 3,
+                  DT_F8E5 = 4 };
 
 using fp8 = __nv_fp8_e4m3;
+using fp8e5 = __nv_fp8_e5m2;
+
+// The two fp8 storage types and the interpretation their cvt takes.
+template <typename T>
+struct Fp8 {
+  static constexpr bool kIs = false;
+};
+template <>
+struct Fp8<fp8> {
+  static constexpr bool kIs = true;
+  static constexpr __nv_fp8_interpretation_t kKind = __NV_E4M3;
+};
+template <>
+struct Fp8<fp8e5> {
+  static constexpr bool kIs = true;
+  static constexpr __nv_fp8_interpretation_t kKind = __NV_E5M2;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -31,13 +50,18 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
 }
-// e4m3 -> f16 (exact, NaN kept; one cvt for two values on sm_89+) -> f32.
-__device__ __forceinline__ float2 e4m3x2_to_f32(unsigned short two) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3);
+// fp8 -> f16 (exact, inf and NaN kept; one cvt.rn.f16x2.e4m3x2 or
+// .e5m2x2 for two values on sm_89+) -> f32; byte 0 the low value.
+template <typename T>
+__device__ __forceinline__ float2 fp8x2_to_f32(unsigned short two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, Fp8<T>::kKind);
   return __half22float2(__half2(h));
 }
 __device__ __forceinline__ float to_f32(fp8 v) {
-  return e4m3x2_to_f32(v.__x).x;
+  return fp8x2_to_f32<fp8>(v.__x).x;
+}
+__device__ __forceinline__ float to_f32(fp8e5 v) {
+  return fp8x2_to_f32<fp8e5>(v.__x).x;
 }
 
 // V consecutive elements at p, upcast to f32, in one load of V*sizeof(T)
@@ -52,12 +76,12 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
       kBytes == 16, uint4,
       typename std::conditional<kBytes == 8, uint2, unsigned>::type>::type;
   const Word u = *reinterpret_cast<const Word*>(p);
-  if constexpr (std::is_same<T, fp8>::value) {
+  if constexpr (Fp8<T>::kIs) {
     // Two values a conversion: byte 2k the low half, 2k + 1 the high.
     const unsigned short* e = reinterpret_cast<const unsigned short*>(&u);
 #pragma unroll
     for (int k = 0; k < V / 2; ++k) {
-      const float2 f = e4m3x2_to_f32(e[k]);
+      const float2 f = fp8x2_to_f32<T>(e[k]);
       out[2 * k] = f.x;
       out[2 * k + 1] = f.y;
     }

@@ -11,9 +11,9 @@
 // bytes of A plus 12mk bytes of T, W and Z.  At n = 1024, 67 TFLOP/s and
 // 3.35 TB/s the operations pass the bytes near k = 21.2 in f32 storage and,
 // counting the f32 FMAs the kernel does, k = 10.6 in bf16 storage and 5.3
-// in e4m3 storage.  bf16 and e4m3 storage is upcast to f32 before both
-// products (e4m3 two values a cvt, common.cuh: load_vec); sums and the
-// residual are f32 (no tensor cores, no TF32).
+// in fp8 storage.  bf16 and fp8 (e4m3 or e5m2) storage is upcast to f32
+// before both products (fp8 two values a cvt, common.cuh: load_vec); sums
+// and the residual are f32 (no tensor cores, no TF32).
 //
 // Design.  The TPU kernels walk row blocks on a sequential grid and carry
 // G and f in VMEM scratch.  Here a persistent grid walks row tiles with a
@@ -23,7 +23,7 @@
 //
 // Staged path (n <= 1024, the main path): one block an SM keeps a ring of
 // row tiles of 16 rows in shared memory (64 KB in f32 at n = 1024, 32 KB in
-// bf16, 16 KB in e4m3; 3, 5 and 6 stages, as many as fit up to 6), filled
+// bf16, 16 KB in fp8; 3, 5 and 6 stages, as many as fit up to 6), filled
 // by 16-byte cp.async pieces
 // from every thread, so the next tiles land while this one is computed.
 // (One thread's bulk copy of a whole tile moved only about 16 GB/s an SM
@@ -114,7 +114,7 @@ struct StageLayout {
 
 // Stages of the ring, as many as fit beside X's chunk (KC x n f32): the
 // loads in flight hide the latency of a saturated memory (3 at n = 1024
-// in f32, 5 in bf16, 6 in e4m3).  They follow from (n, dtype) alone.
+// in f32, 5 in bf16, 6 in fp8).  They follow from (n, dtype) alone.
 int stages_for(int n, int tsize) {
   const StageLayout sl(n, tsize);
   const size_t xs = (size_t)KC * round_up(n, 4) * sizeof(float);
@@ -363,7 +363,7 @@ __device__ __forceinline__ void store_x(const float4 (&xr)[kXVec],
 // WMAX, the widest chunk class of this launch (width_class(min(k, KC))),
 // only sizes the registers: every chunk runs the same code for its width.
 // vec: A's and X's rows are 16-byte aligned (n * sizeof(T) and n * 4 are
-// multiples of 16: n % 16 == 0 in e4m3), so tiles stream in by cp.async
+// multiples of 16: n % 16 == 0 in fp8), so tiles stream in by cp.async
 // and X by float4 loads; otherwise both are copied element by element, one
 // tile at a time.
 template <typename T, int WMAX>
@@ -686,11 +686,12 @@ const void* kernel_for(int dtype, int staged, int vec, int k) {
   if (dtype == DT_BF16) return kernel_wmax<__nv_bfloat16>(staged, vec, wmax);
   if (dtype == DT_F32) return kernel_wmax<float>(staged, vec, wmax);
   if (dtype == DT_F8) return kernel_wmax<fp8>(staged, vec, wmax);
+  if (dtype == DT_F8E5) return kernel_wmax<fp8e5>(staged, vec, wmax);
   return nullptr;
 }
 
 int tsize_for(int dtype) {
-  return dtype == DT_F8 ? 1 : dtype == DT_BF16 ? 2 : 4;
+  return dtype == DT_F8 || dtype == DT_F8E5 ? 1 : dtype == DT_BF16 ? 2 : 4;
 }
 
 }  // namespace
@@ -718,8 +719,8 @@ extern "C" int repro_fused_grad_multi_plan(int device, long long m, int n,
   return cudaSuccess;
 }
 
-// a (m, n) f32, bf16 or e4m3 row-major, x (k, n), t and w (k, m) f32, any
-// k >= 1;
+// a (m, n) f32, bf16, e4m3 or e5m2 row-major, x (k, n), t and w (k, m)
+// f32, any k >= 1;
 // z (k, m), g_part (grid, 1 + staged, k, n), f_part (grid, 2, k), g (k, n)
 // and f (k) f32 outputs and scratch.
 extern "C" int repro_fused_grad_multi(int device, const void* a, int dtype,
@@ -736,7 +737,7 @@ extern "C" int repro_fused_grad_multi(int device, const void* a, int dtype,
   // Vector loads (cp.async and float4 on the staged path, four elements a
   // load on the unstaged one) need 16-byte aligned A and X and rows of a
   // multiple of 4 elements (16 bytes each on the staged path, so a
-  // multiple of 16 in e4m3); otherwise they load element by element, with
+  // multiple of 16 in fp8); otherwise they load element by element, with
   // the same arithmetic.
   const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0 && n % 4 == 0;

@@ -1,5 +1,5 @@
-// Dense product C = A @ B, A (m x K) f32, bf16 or e4m3, B (K x N) f32 or
-// bf16, C f32 or bf16, all row-major, sums in f32.
+// Dense product C = A @ B, A (m x K) f32, bf16, e4m3 or e5m2, B (K x N) f32
+// or bf16, C f32 or bf16, all row-major, sums in f32.
 //
 // Replaces the TPU kernel src/repro/kernels/gemm.py:gemm (_gemm_kernel).
 // On the paths it runs skinny: U = A (V S^-1) in the SVD (K = 1024 or
@@ -13,8 +13,8 @@
 // m64n{8,16,32}k8, f32 += tf32 x tf32) in exact splits (common.cuh:
 // split_tf32): f32 x f32 is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (3xTF32),
 // bf16 x f32 is a*b_lo + a*b_hi, f32 x bf16 is a_lo*b + a_hi*b, bf16 x
-// bf16 is a*b: bf16 is exact in TF32, and so is e4m3, which takes bf16's
-// products (upcast to f32 as its fragments load).  A development version
+// bf16 is a*b: bf16 is exact in TF32, and so are e4m3 and e5m2, which take
+// bf16's products (upcast to f32 as their fragments load).  A development version
 // on mma.sync.m16n8k8 spent about as long on the products of A_w by 32
 // columns alone as the bytes bound allows for the whole.
 // wgmma takes .tf32 operands K-major only: A (rows of K values) is K-major
@@ -39,7 +39,7 @@
 // across them, so a tile's first copies overlap the last tile's products.
 // Four warpgroups each own 64 rows (one m64 wgmma tile).  A stage holds 256
 // bytes of each of the tile's 256 rows (64 f32 or 128 bf16 values of K;
-// 128 bytes, 128 values, in e4m3, whose B split for 256 values would not
+// 128 bytes, 128 values, in fp8, whose B split for 256 values would not
 // leave room for two stages at NT = 4) and B's split k-slice; the ring has
 // two stages (three at NT = 1), filled by every thread with 16-byte
 // cp.async copies, so the next stage lands while this one is multiplied.
@@ -48,7 +48,7 @@
 // row segments and tall tiles (B's k-slice is read once a tile) weigh more
 // than the ring's depth.
 //
-// Any K, any start.  Row r's 256 (e4m3: 128) bytes of a stage start at
+// Any K, any start.  Row r's 256 (fp8: 128) bytes of a stage start at
 // element p + r*K + k0 counted from the 16-byte boundary at or below A's
 // start (p is A's start in elements past that boundary, k0 the stage's
 // first column).  The stage copies the 17 (9) pieces from that element
@@ -63,7 +63,7 @@
 // as zeros.  Each piece read holds a byte of A, and device allocations start
 // on 256-byte boundaries and are whole multiples of 16 bytes, so every
 // piece lies inside A's allocation.  Staged rows are 272 bytes apart (68
-// words; e4m3 144, 36 words), so the rows of a fragment load (g = 0..7)
+// words; fp8 144, 36 words), so the rows of a fragment load (g = 0..7)
 // fall on distinct banks when their shifts agree and at most two to a bank
 // when they do not.
 //
@@ -108,7 +108,7 @@ struct Staging {
   static constexpr int kChunk = kRowBytes / (int)sizeof(TA);
   static constexpr int kSteps = kChunk / 8;
   // The stage's products in kParts commit groups of kPartSteps k-steps
-  // (8 registers of A a k-step in f32, 4 in bf16 and e4m3).
+  // (8 registers of A a k-step in f32, 4 in bf16 and fp8).
   static constexpr int kPartSteps = sizeof(TA) == 4 ? 1 : 2;
   static constexpr int kParts = kSteps / kPartSteps;
   static constexpr int kBBytes = kSteps * SplitStep<NT>::kBytes;
@@ -418,8 +418,8 @@ cudaError_t launch_nt(const void* a, const void* b, void* c, int c_bf16,
 
 }  // namespace
 
-// a (m, K) f32, bf16 or e4m3, contiguous, any start; b (K, N) f32 or bf16,
-// contiguous; c (m, N) in c_dtype (f32 or bf16: an e4m3 C is cast by the
+// a (m, K) f32, bf16, e4m3 or e5m2, contiguous, any start; b (K, N) f32 or
+// bf16, contiguous; c (m, N) in c_dtype (f32 or bf16: an fp8 C is cast by the
 // wrapper, gemm.py); `nt` the n8 tiles of an output tile (1,
 // 2 or 4; gemm.py:tile_width / 8 unless the autotuner chose another) and
 // `blocks` the persistent grid's size (the card's SMs).
@@ -432,7 +432,8 @@ extern "C" int repro_gemm(int device, const void* a, int a_dtype,
   if (m <= 0 || N <= 0 || K < 0 || blocks <= 0 ||
       (nt != 1 && nt != 2 && nt != 4) ||
       (m + kTileM - 1) / kTileM * ((N + 8 * nt - 1) / (8 * nt)) >= (1LL << 31) ||
-      (a_dtype != DT_F32 && a_dtype != DT_BF16 && a_dtype != DT_F8) ||
+      (a_dtype != DT_F32 && a_dtype != DT_BF16 && a_dtype != DT_F8 &&
+       a_dtype != DT_F8E5) ||
       (b_dtype != DT_F32 && b_dtype != DT_BF16) ||
       (c_dtype != DT_F32 && c_dtype != DT_BF16))
     return cudaErrorInvalidValue;
@@ -444,6 +445,12 @@ extern "C" int repro_gemm(int device, const void* a, int a_dtype,
                                                blocks, s)
                : launch_nt<fp8, float>(a, b, c, c_bf16, m, K, N, nt, blocks,
                                        s);
+  if (a_dtype == DT_F8E5)
+    return b_dtype == DT_BF16
+               ? launch_nt<fp8e5, __nv_bfloat16>(a, b, c, c_bf16, m, K, N,
+                                                 nt, blocks, s)
+               : launch_nt<fp8e5, float>(a, b, c, c_bf16, m, K, N, nt,
+                                         blocks, s);
   if (a_dtype == DT_BF16)
     return b_dtype == DT_BF16
                ? launch_nt<__nv_bfloat16, __nv_bfloat16>(a, b, c, c_bf16, m,

@@ -14,7 +14,13 @@
 // and lo = x - hi (exact in f32; the mma reads its top 19 bits); a*q is
 // a_lo*q_hi + a_hi*q_lo + a_hi*q_hi, which drops a_lo*q_lo (2^-20 of the
 // product) and lo's cut bits (2^-20 of x), and keeps nearly f32's
-// precision.  bf16 A is exact in TF32, so a*q = a*q_lo + a*q_hi.  (bf16 A
+// precision.  bf16 A is exact in TF32, so a*q = a*q_lo + a*q_hi, and so
+// is fp8 A (e4m3 or e5m2: each byte converted to f16 and then f32 as its
+// fragment loads, common.cuh: to_f32), which takes bf16's two products.
+// A Q that the caller stored in bf16 or fp8 (kQExact: the chunked Gram's
+// Q is a column segment of A) has q_lo = 0, so its a*q_lo product, which
+// adds exact zeros, is skipped: one product for bf16 or fp8 A, two for
+// f32 A, the same bits.  (bf16 A
 // on mma.sync.m16n8k16 with Q in three bf16 parts was slower:
 // tools/diagnose_randsketch.py, PERF.md, PR 22.)  Why mma.sync and not wgmma: wgmma takes .tf32 operands K-major
 // only, and here both operands are MN-major (the sum runs down the rows of
@@ -28,7 +34,8 @@
 // SLICE_ROWS rows (randsketch.py:slicing), one block an SM.  Sixteen warps
 // each own 32 x 32 outputs: two m16 by four n8 mma tiles.  A's rows stream
 // through a ring of stages of 32 rows in shared memory (3 in f32, 4 in
-// bf16), filled by every thread with 16-byte cp.async copies, so the next
+// bf16 and fp8), filled by every thread with 16-byte cp.async copies, so
+// the next
 // stages land while this one is multiplied.  A first pass splits Q once
 // into its TF32 high and low parts (randsketch_split_q), in the order a
 // stage holds them: a lane's four B-fragment words in one 16-byte piece.
@@ -42,13 +49,17 @@
 // PR 22).  8 warps and 256-column tiles, 16-row stages, and Q split inside
 // each warp were each slower in development.
 //
-// Any width, any start.  Row k's segment of the tile starts at element
-// p + k*n + j0 counted from the 16-byte boundary at or below A's start (p is
-// A's start in elements past that boundary, j0 the tile's first column).
+// Any width, any start, any row stride.  Row k's segment of the tile starts
+// at element p + k*lda + j0 counted from the 16-byte boundary at or below
+// A's start (p is A's start in elements past that boundary, lda >= n the
+// elements from one row's start to the next's: n for a contiguous A, the
+// parent's width for a column segment A[:, s0:s1], which the chunked
+// fused gradient passes as it is, never copied; j0 the tile's first
+// column).
 // The stage copies the 16-byte pieces from that element rounded down to a
 // piece up to the segment's end rounded up -- at most one piece more than
 // an aligned segment needs -- and keeps the row's shift
-// s_k = (p + k*n + j0) mod (16 / sizeof(T)), computed where it is needed,
+// s_k = (p + k*lda + j0) mod (16 / sizeof(T)), computed where it is needed,
 // never stored.  A fragment reads element (k, j) at smem[slot(k)][s_k + j]
 // (slot() keeps a fragment's loads off shared banks).  An aligned A (every
 // s_k = 0) takes the same code.  Why reading the rounded-out bytes is safe:
@@ -67,8 +78,8 @@
 // its own f32 partial tile; a last pass sums the slices in slice order
 // and casts to the output type (the same bits on every run, no float
 // atomics).  The products and the order of every sum follow from (m, n, r)
-// and the card alone, so an offset view gives the same bits as its aligned
-// copy.
+// and the card alone, so an offset or strided view gives the same bits as
+// its contiguous copy.
 #include "common.cuh"
 
 namespace {
@@ -116,11 +127,12 @@ __device__ __forceinline__ int slot(int k) {
 // (`valid` where they lie inside the tile; read only where kEdge, the
 // tile that holds A's last column).  k-step j multiplies rows
 // j + 4 kk, kk = 0 .. 7, which sit in 8 adjacent slots; a lane reads
-// kk = t and t + 4.
-template <typename T, bool kEdge>
+// kk = t and t + 4.  kQExact skips the products with Q's low parts (all
+// zero).
+template <typename T, bool kEdge, bool kQExact>
 __device__ __forceinline__ void stage_products(
-    const T* as, const uint4* qs, unsigned row0, int p, int n, int col, int t,
-    const bool (&valid)[2][2], float (&acc)[2][4][4]) {
+    const T* as, const uint4* qs, unsigned row0, int p, int lda, int col,
+    int t, const bool (&valid)[2][2], float (&acc)[2][4][4]) {
   using S = Staging<T>;
   const int g = col & 7;
 #pragma unroll
@@ -129,9 +141,9 @@ __device__ __forceinline__ void stage_products(
     // shifts (mod 2^32 keeps the residue: kVec divides 2^32, and j0 is a
     // multiple of kVec).
     const int rowa_k = k8 + 4 * t, rowb_k = rowa_k + 16;
-    const int sa = (int)(((unsigned)p + (row0 + rowa_k) * (unsigned)n) &
+    const int sa = (int)(((unsigned)p + (row0 + rowa_k) * (unsigned)lda) &
                          (S::kVec - 1));
-    const int sb = (int)(((unsigned)p + (row0 + rowb_k) * (unsigned)n) &
+    const int sb = (int)(((unsigned)p + (row0 + rowb_k) * (unsigned)lda) &
                          (S::kVec - 1));
     const T* rowa = as + slot(rowa_k) * S::kStride + sa + col;
     const T* rowb = as + slot(rowb_k) * S::kStride + sb + col;
@@ -152,7 +164,7 @@ __device__ __forceinline__ void stage_products(
         if constexpr (std::is_same<T, float>::value) {
           split_tf32(v[i], ahi[mt][i], alo[mt][i]);
         } else {
-          ahi[mt][i] = __float_as_uint(v[i]);   // bf16 is exact in TF32
+          ahi[mt][i] = __float_as_uint(v[i]);   // bf16, fp8: exact in TF32
         }
       }
     }
@@ -165,17 +177,17 @@ __device__ __forceinline__ void stage_products(
       for (int mt = 0; mt < 2; ++mt) {
         if constexpr (std::is_same<T, float>::value)
           mma_tf32(acc[mt][nt], alo[mt], b.x, b.y);
-        mma_tf32(acc[mt][nt], ahi[mt], b.z, b.w);
+        if constexpr (!kQExact) mma_tf32(acc[mt][nt], ahi[mt], b.z, b.w);
         mma_tf32(acc[mt][nt], ahi[mt], b.x, b.y);
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kQExact>
 __global__ void __launch_bounds__(kThreads, 1)
 randsketch_tc(const T* __restrict__ a, const uint4* __restrict__ q,
-              long long m, int n, int r, long long rows_per_slice,
+              long long m, int n, int lda, int r, long long rows_per_slice,
               float* __restrict__ part) {
   using S = Staging<T>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -186,7 +198,7 @@ randsketch_tc(const T* __restrict__ a, const uint4* __restrict__ q,
   const int nchunks =
       r_end > r_begin ? (int)((r_end - r_begin + kRows - 1) / kRows) : 0;
   // A's start in elements past the 16-byte boundary at or below it, and
-  // that boundary: element e of A's storage order lies at a16 + (p + e).
+  // that boundary: element (row, j) lies at a16 + (p + row * lda + j).
   const int p = (int)((reinterpret_cast<uintptr_t>(a) & 15) / sizeof(T));
   const T* a16 = a - p;
 
@@ -206,7 +218,7 @@ randsketch_tc(const T* __restrict__ a, const uint4* __restrict__ q,
     const long long row0 = r_begin + (long long)chunk * kRows;
     {
       const long long row = row0 + crow;
-      const long long first = p + row * n + j0;
+      const long long first = p + row * lda + j0;
       const int shift = (int)(first & (S::kVec - 1));
       const int pieces = (shift + len + S::kVec - 1) / S::kVec;
       const bool live = row < r_end;
@@ -266,9 +278,11 @@ randsketch_tc(const T* __restrict__ a, const uint4* __restrict__ q,
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
     if (len == kTileN)
-      stage_products<T, false>(as, qs, row0, p, n, jw + g, t, valid, acc);
+      stage_products<T, false, kQExact>(as, qs, row0, p, lda, jw + g, t,
+                                        valid, acc);
     else
-      stage_products<T, true>(as, qs, row0, p, n, jw + g, t, valid, acc);
+      stage_products<T, true, kQExact>(as, qs, row0, p, lda, jw + g, t,
+                                       valid, acc);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -339,19 +353,30 @@ cudaError_t split_q(const float* q, long long m, int r, uint4* qs,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* a, const uint4* qs, long long m, int n, int r,
-                   int slices, long long rows_per_slice, float* part,
-                   cudaStream_t s) {
+template <typename T, bool kQExact>
+cudaError_t launch_q(const void* a, const uint4* qs, long long m, int n,
+                     int lda, int r, int slices, long long rows_per_slice,
+                     float* part, cudaStream_t s) {
   constexpr int smem = Staging<T>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      randsketch_tc<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      randsketch_tc<T, kQExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kTileN - 1) / kTileN, (r + kTileR - 1) / kTileR,
                   slices);
-  randsketch_tc<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(a), qs, m, n, r, rows_per_slice, part);
+  randsketch_tc<T, kQExact><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(a), qs, m, n, lda, r, rows_per_slice, part);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* a, const uint4* qs, long long m, int n,
+                   int lda, int r, int q_exact, int slices,
+                   long long rows_per_slice, float* part, cudaStream_t s) {
+  return q_exact ? launch_q<T, true>(a, qs, m, n, lda, r, slices,
+                                     rows_per_slice, part, s)
+                 : launch_q<T, false>(a, qs, m, n, lda, r, slices,
+                                      rows_per_slice, part, s);
 }
 
 // The slices' sum, in slice order, cast to out_dtype.
@@ -370,29 +395,48 @@ cudaError_t reduce(const float* part, int slices, long long nr, void* out,
 
 }  // namespace
 
-// a (m, n) f32 or bf16, any start; q (m, r) f32, contiguous; qs scratch
-// for Q's split (ceil(m / 32) ceil(r / 32) kQPieces 16-byte pieces, on a
-// 16-byte boundary); part (slices, n, r) f32 scratch, slices of whole
-// stages; out (n, r) in out_dtype.
+// a (m, n) f32, bf16, e4m3 or e5m2, any start, rows lda >= n elements
+// apart (unit column stride); q (m, r) f32, contiguous, whose values are
+// exact in TF32 where q_exact (the caller stored them in bf16 or fp8); qs
+// scratch for Q's split (ceil(m / 32) ceil(r / 32) kQPieces 16-byte
+// pieces, on a 16-byte boundary); part (slices, n, r) f32 scratch, slices
+// of whole stages; out (n, r) in out_dtype (f32 or bf16: an fp8 B is cast
+// by the wrapper, randsketch.py).
 extern "C" int repro_randsketch(int device, const void* a, int dtype,
-                                const void* q, long long m, int n, int r,
-                                void* qs, int slices,
-                                long long rows_per_slice, void* part,
-                                void* out, int out_dtype, void* stream) {
+                                int lda, const void* q, int q_exact,
+                                long long m, int n, int r, void* qs,
+                                int slices, long long rows_per_slice,
+                                void* part, void* out, int out_dtype,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (rows_per_slice % kRows || reinterpret_cast<uintptr_t>(qs) % 16 ||
-      (dtype != DT_F32 && dtype != DT_BF16))
+      lda < n || (out_dtype != DT_F32 && out_dtype != DT_BF16) ||
+      (dtype != DT_F32 && dtype != DT_BF16 && dtype != DT_F8 &&
+       dtype != DT_F8E5))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint4* qsu = static_cast<uint4*>(qs);
   float* pf = static_cast<float*>(part);
   err = split_q(static_cast<const float*>(q), m, r, qsu, s);
   if (err != cudaSuccess) return err;
-  err = dtype == DT_BF16 ? launch<__nv_bfloat16>(a, qsu, m, n, r, slices,
-                                                 rows_per_slice, pf, s)
-                         : launch<float>(a, qsu, m, n, r, slices,
-                                         rows_per_slice, pf, s);
+  switch (dtype) {
+    case DT_BF16:
+      err = launch<__nv_bfloat16>(a, qsu, m, n, lda, r, q_exact, slices,
+                                  rows_per_slice, pf, s);
+      break;
+    case DT_F8:
+      err = launch<fp8>(a, qsu, m, n, lda, r, q_exact, slices,
+                        rows_per_slice, pf, s);
+      break;
+    case DT_F8E5:
+      err = launch<fp8e5>(a, qsu, m, n, lda, r, q_exact, slices,
+                          rows_per_slice, pf, s);
+      break;
+    default:
+      err = launch<float>(a, qsu, m, n, lda, r, q_exact, slices,
+                          rows_per_slice, pf, s);
+  }
   if (err != cudaSuccess) return err;
   return reduce(pf, slices, (long long)n * r, out, out_dtype, s);
 }

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel src/repro/kernels/tsgram.py:tsgram
 // (_tsgram_kernel).  Bound by operations on the H100: m*n*(n+1) flops for
 // the distinct entries against one read of A.  Products run on the tensor
-// cores, f32 as 3xTF32 on wgmma, bf16 as bf16 on mma.sync, e4m3 as f16 on
-// mma.sync.
+// cores, f32 as 3xTF32 on wgmma, bf16 as bf16 on mma.sync, fp8 (e4m3 and
+// e5m2) as f16 on mma.sync.
 //
 // Products.  f32: each operand x splits into hi, x with its low 13 bits
 // cleared, and lo = x - hi (exact in f32), and a*b is a_lo*b_hi +
@@ -28,12 +28,12 @@
 // wgmmas are in flight.  bf16 keeps mma.sync: its operands would need the
 // same pass, and it is not the main path's type.
 //
-// e4m3 storage takes the bf16 route's staging, K order and mma.sync
+// fp8 storage takes the bf16 route's staging, K order and mma.sync
 // products, with 16 values a 16-byte piece: each pair of staged bytes a
 // fragment packs is converted to f16x2 as it is packed (cvt.rn.f16x2.
-// e4m3x2, exact: every e4m3 value is an f16 value) and multiplied by
-// mma.sync.m16n8k16 in f16 with f32 accumulators, the same rate and
-// fragment layout as bf16's.  f16 rather than bf16: the conversion is one
+// e4m3x2 or .e5m2x2, exact: every fp8 value is an f16 value) and
+// multiplied by mma.sync.m16n8k16 in f16 with f32 accumulators, the same
+// rate and fragment layout as bf16's.  f16 rather than bf16: the conversion is one
 // instruction, where bf16 would take a round trip through f32.  Not the
 // fp8 tensor-core products: their accumulators keep about 14 bits on this
 // card, short of the f32 sums the Gram needs over 2^21 rows, and their
@@ -56,7 +56,7 @@
 // j multiplies, at K index 2t + b + 8h, row 8t + b + 2h + 4j (rows 8
 // apart: 8n = 0 mod 8).  slot() places those rows in adjacent slots, 8
 // banks apart, so a fragment's loads never share a bank, whatever the
-// shifts.  A and B take the same K order, so the sum is unchanged.  e4m3
+// shifts.  A and B take the same K order, so the sum is unchanged.  fp8
 // takes bf16's order and slots (its rows 8 apart share a shift when n is
 // even; each row's shift is computed apart, so any n gives the same sums).
 //
@@ -176,7 +176,7 @@ __device__ __forceinline__ uint32_t pack_bf16(unsigned short lo,
 
 // The 16-bit routes' operand: what a staged element is read as (U), how
 // two of them become one 32-bit fragment register (`lo` in the low half)
-// and the mma that multiplies them.  bf16 as it is; e4m3 converted to f16
+// and the mma that multiplies them.  bf16 as it is; fp8 converted to f16
 // as it is packed.
 template <typename T>
 struct Route16;
@@ -192,12 +192,14 @@ struct Route16<__nv_bfloat16> {
     mma_bf16(d, a, b0, b1);
   }
 };
-template <>
-struct Route16<fp8> {
+// fp8 (e4m3 or e5m2): each pair converted to f16x2 by one cvt as it is
+// packed, multiplied in f16.
+template <typename T>
+struct Route16Fp8 {
   using U = unsigned char;
   static __device__ __forceinline__ uint32_t pack(U lo, U hi) {
     const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        (__nv_fp8x2_storage_t)(lo | (hi << 8)), __NV_E4M3);
+        (__nv_fp8x2_storage_t)(lo | (hi << 8)), Fp8<T>::kKind);
     return (uint32_t)h.x | ((uint32_t)h.y << 16);
   }
   static __device__ __forceinline__ void mma(float (&d)[4],
@@ -206,6 +208,10 @@ struct Route16<fp8> {
     mma_f16(d, a, b0, b1);
   }
 };
+template <>
+struct Route16<fp8> : Route16Fp8<fp8> {};
+template <>
+struct Route16<fp8e5> : Route16Fp8<fp8e5> {};
 
 // A block's tile pair, its slice of rows and its ring of stages, and the
 // copies that fill the ring (both product routes share them).
@@ -420,7 +426,7 @@ tsgram_f32(const float* __restrict__ a, long long m, int n, int tiles,
   }
 }
 
-// bf16 or e4m3, one stage's products: stage rows row0 .. row0 + 31 of the
+// bf16 or fp8, one stage's products: stage rows row0 .. row0 + 31 of the
 // I columns (`si`) against the J columns (`sj`), for the 64 x 32 outputs
 // of a warp whose lane reads I columns ci + 16 mt + 8 h and J columns
 // cj + 8 nt of the tile.
@@ -560,7 +566,8 @@ cudaError_t launch(K kernel, const void* a, long long m, int n, int slices,
 
 }  // namespace
 
-// a (m, n) f32, bf16 or e4m3, any start, contiguous; part (slices, n, n)
+// a (m, n) f32, bf16, e4m3 or e5m2, any start, contiguous; part
+// (slices, n, n)
 // f32 scratch, slices of whole stages; out (n, n) in out_dtype (f32 or
 // bf16).
 extern "C" int repro_tsgram(int device, const void* a, int dtype, long long m,
@@ -570,7 +577,8 @@ extern "C" int repro_tsgram(int device, const void* a, int dtype, long long m,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (rows_per_slice % kRows || slices < 1 || slices > 65535 || n < 1 ||
-      (dtype != DT_F32 && dtype != DT_BF16 && dtype != DT_F8) ||
+      (dtype != DT_F32 && dtype != DT_BF16 && dtype != DT_F8 &&
+       dtype != DT_F8E5) ||
       (out_dtype != DT_F32 && out_dtype != DT_BF16))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -581,6 +589,9 @@ extern "C" int repro_tsgram(int device, const void* a, int dtype, long long m,
         : dtype == DT_F8
             ? launch<fp8>(tsgram_16<fp8>, a, m, n, slices, rows_per_slice,
                           pf, s)
+        : dtype == DT_F8E5
+            ? launch<fp8e5>(tsgram_16<fp8e5>, a, m, n, slices,
+                            rows_per_slice, pf, s)
             : launch<float>(tsgram_f32, a, m, n, slices, rows_per_slice, pf,
                             s);
   if (err != cudaSuccess) return err;

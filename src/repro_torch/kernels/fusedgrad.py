@@ -88,7 +88,7 @@ def fused_grad_plain(a: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
                      w: torch.Tensor, *, loss: str, param: float = 1.0
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(f, g, z) in plain torch, with the kernel's arithmetic: f32 math on
-    the upcast operand (f32, bf16 or e4m3), g as the row-vector product
+    the upcast operand (f32, bf16 or fp8), g as the row-vector product
     r·A."""
     af = a.float()
     z = af @ x.float()
@@ -101,7 +101,7 @@ def fused_grad_multi_plain(a: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(f (k,), g (k × n), z (k × m)) for k right-hand sides in plain torch,
     with the kernel's arithmetic: z = X Aᵀ on the upcast operand, the row
-    residual in f32 (for bf16 and e4m3 storage too), then g = R·A."""
+    residual in f32 (for bf16 and fp8 storage too), then g = R·A."""
     af = a.float()
     z = x.float() @ af.T
     le, r = row_loss_elem(z, t, w, loss, param)
@@ -219,8 +219,8 @@ fused_grad_bsr_multi.launches = 0
 
 
 def _launch(a, x, t, w, loss, param):
-    """Run csrc/fused_grad_multi.cu once: a (m × n) f32, bf16 or
-    float8_e4m3fn, row-major;
+    """Run csrc/fused_grad_multi.cu once: a (m × n) f32, bf16,
+    float8_e4m3fn or float8_e5m2, row-major;
     x (k × n); t, w (k × m), any k ≥ 1.  Returns f32 f (k,), g (k × n),
     z (k × m)."""
     dev = _build.check_device(a, x, t, w)
@@ -263,7 +263,8 @@ def fused_grad(a: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
                w: torch.Tensor, *, loss: str, param: float = 1.0
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/fused_grad_multi.cu with one slot on a CUDA operand:
-    a (m × n) f32, bf16 or float8_e4m3fn, row-major; x (n,); t, w (m,).
+    a (m × n) f32, bf16, float8_e4m3fn or float8_e5m2, row-major; x (n,);
+    t, w (m,).
     Returns f32 f (scalar), g (n,), z (m,)."""
     if x.dim() != 1 or t.dim() != 1 or w.dim() != 1:
         raise ValueError(f"shapes x {tuple(x.shape)}, t {tuple(t.shape)}, "
@@ -280,8 +281,8 @@ def fused_grad_multi(a: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
                      w: torch.Tensor, *, loss: str, param: float = 1.0
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/fused_grad_multi.cu on a CUDA operand: a (m × n) f32,
-    bf16 or float8_e4m3fn, row-major; x (k × n); t, w (k × m), any k ≥ 1
-    in one launch.
+    bf16, float8_e4m3fn or float8_e5m2, row-major; x (k × n); t, w
+    (k × m), any k ≥ 1 in one launch.
     Returns f32 f (k,), g (k × n), z (k × m).  Replaces the TPU kernel
     ``src/repro/kernels/fusedgrad.py:fused_grad_multi``: one read of A
     serves every slot, and each slot's outputs are sums in an order fixed

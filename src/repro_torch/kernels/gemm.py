@@ -4,10 +4,11 @@ randomized SVD's Y = AZ, and TSQR's Q).
 Replaces the TPU kernel ``src/repro/kernels/gemm.py:gemm``
 (``_gemm_kernel``).  On the paths it runs skinny, (m × K) @ (K × N) with
 N ≤ 32, where it is bound by the bytes of A.  ``csrc/gemm.cu`` is one
-kernel for every operand the wrapper takes (A f32, bf16 or
-float8_e4m3fn, B f32 or bf16, any K, A starting anywhere): products on
+kernel for every operand the wrapper takes (A f32, bf16, float8_e4m3fn
+or float8_e5m2, B f32 or bf16, any K, A starting anywhere): products on
 the tensor cores (TF32 ``wgmma`` in exact splits: 3xTF32 for f32 × f32,
-two products where one operand is bf16 or e4m3, one for bf16 × bf16; A
+two products where one operand is bf16 or fp8 and the other f32, one for
+bf16 or fp8 A × bf16 B; A
 from registers, B's k-slice split by each block once a
 stage into the K-major layout the wgmmas read), output tiles of 256 rows by
 ``tile_width(N)`` columns owned by one block across all of K (a persistent
@@ -16,9 +17,9 @@ grid, one block an SM), A's rows streamed through a ring of 16-byte
 row's shift.  Two runs give the same bits, and a row's bits do not depend
 on m or on where A starts.
 
-``gemm_plain`` is the same function in plain torch.  An e4m3 C (the
-reference's multiply_local keeps A's type) is the f32 C cast by
-dtypes.to_e4m3, on both routes.
+``gemm_plain`` is the same function in plain torch.  An fp8 C (the
+reference's multiply_local and sketch keep A's type) is the f32 C cast by
+dtypes.cast, on both routes.
 """
 from __future__ import annotations
 
@@ -41,10 +42,11 @@ def tile_width(n: int) -> int:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
          bn: int | None = None) -> torch.Tensor:
-    """Launch csrc/gemm.cu on CUDA operands a (m × K), f32, bf16 or
-    float8_e4m3fn, contiguous and starting anywhere, and b (K × N), f32 or
-    bf16; returns (m × N) in `out_dtype` (default a.dtype): the kernel
-    writes f32 or bf16, and an e4m3 C is its f32 C through dtypes.cast.  `bn`
+    """Launch csrc/gemm.cu on CUDA operands a (m × K), f32, bf16,
+    float8_e4m3fn or float8_e5m2, contiguous and starting anywhere, and b
+    (K × N), f32 or bf16; returns (m × N) in `out_dtype` (default
+    a.dtype): the kernel writes f32 or bf16, and an fp8 C is its f32 C
+    through dtypes.cast.  `bn`
     is the output tile's width (8, 16 or 32; default ``tile_width(N)``),
     the autotuner's choice (kernels/autotune.py)."""
     dev = _build.check_device(a, b)
@@ -55,7 +57,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     b = b.contiguous()
     code = _build.dense_code(a, "a")
     out_dtype = out_dtype or a.dtype
-    if out_dtype == torch.float8_e4m3fn:
+    if out_dtype in dtypes.FP8:
         return dtypes.cast(gemm(a, b, out_dtype=torch.float32, bn=bn),
                         out_dtype)
     (m, k), n = a.shape, b.shape[1]

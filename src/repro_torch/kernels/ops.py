@@ -7,13 +7,11 @@ fallback from the kernel to the plain version.  The kernels mask ragged
 edges themselves, so nothing is padded here (the TPU wrappers padded only
 for the (8, 128) tiling).
 
-float8_e4m3fn storage takes fused_grad, fused_grad_multi, tsgram and gemm
-(A), the kernels the reference's e4m3 paths reach (the CPU's plain
-versions upcast); randsketch and the block-sparse kernels raise TypeError
-on it on either device: the reference's randomized SVD raises at TSQR of
-its e4m3 sketch, and its BlockELL stores f32, bf16 or int8 (its lone
-`project` and a mesh's chunked Gram do run on e4m3: ROADMAP's port-side
-differences).
+fp8 storage (float8_e4m3fn and float8_e5m2) takes fused_grad,
+fused_grad_multi, tsgram, gemm and randsketch (A), the kernels the
+reference's fp8 paths reach (the CPU's plain versions upcast); the
+block-sparse kernels raise TypeError on it on either device: the
+reference's BlockELL stores f32, bf16 or int8.
 
 gemm is the one kernel with a launch choice the autotuner tunes, its
 output tile width: ``tune="auto"`` resolves it per (backend, dtype,
@@ -32,6 +30,7 @@ import torch
 
 from . import autotune as _tune
 from . import bsr as _bsr
+from . import dtypes
 from . import flash_attention as _fa
 from . import fusedgrad as _fg
 from . import gemm as _gemm
@@ -57,11 +56,11 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return devs.pop().type == "cpu"
 
 
-def _no_e4m3(kernel: str, t: torch.Tensor) -> None:
-    if t.dtype == torch.float8_e4m3fn:
-        raise TypeError(f"{kernel} takes no float8_e4m3fn operand: e4m3 "
-                        "storage runs through fused_grad, fused_grad_multi, "
-                        "tsgram and gemm alone (ROADMAP queue 2 item 3)")
+def _no_fp8(kernel: str, t: torch.Tensor) -> None:
+    if t.dtype in dtypes.FP8:
+        raise TypeError(f"{kernel} takes no float8_e4m3fn or float8_e5m2 "
+                        "operand: the reference's block-sparse storage is "
+                        "float32, bfloat16 or int8")
 
 
 def launch_counts() -> dict[str, int]:
@@ -106,8 +105,8 @@ def randsketch(a: torch.Tensor, q: torch.Tensor, *,
                out_dtype=None) -> torch.Tensor:
     """B = AᵀQ for conforming tall-skinny A (m × n), Q (m × r), f32
     accumulation, in `out_dtype` (default a.dtype): the randomized SVD's
-    projection."""
-    _no_e4m3("randsketch", a)
+    projection, the chunked Gram's segments and the chunked gradient's.
+    A may be a column segment of a wider matrix (its rows strided)."""
     if _on_cpu(a, q):
         return _randsketch.randsketch_plain(a, q, out_dtype)
     return _randsketch.randsketch(a, q, out_dtype=out_dtype)
@@ -149,7 +148,7 @@ def fused_grad_multi(a: torch.Tensor, x: torch.Tensor, target: torch.Tensor,
 
 def bsr_matvec(a: "_bsr.BlockELL", x: torch.Tensor) -> torch.Tensor:
     """y = A x for a BlockELL A and x (n,), f32 sums, in x.dtype."""
-    _no_e4m3("bsr_matvec", a.data)
+    _no_fp8("bsr_matvec", a.data)
     if _on_cpu(a.data, x):
         return _bsr.bsr_matvec_plain(a, x)
     return _bsr.bsr_matvec(a, x).to(x.dtype)
@@ -157,7 +156,7 @@ def bsr_matvec(a: "_bsr.BlockELL", x: torch.Tensor) -> torch.Tensor:
 
 def bsr_matmul(a: "_bsr.BlockELL", x: torch.Tensor) -> torch.Tensor:
     """Y = A X for a BlockELL A and X (n, nx), f32 sums, in x.dtype."""
-    _no_e4m3("bsr_matmul", a.data)
+    _no_fp8("bsr_matmul", a.data)
     if _on_cpu(a.data, x):
         return _bsr.bsr_matmul_plain(a, x)
     return _bsr.bsr_matmul(a, x).to(x.dtype)
@@ -165,7 +164,7 @@ def bsr_matmul(a: "_bsr.BlockELL", x: torch.Tensor) -> torch.Tensor:
 
 def bsr_rmatmul(a: "_bsr.BlockELL", x: torch.Tensor) -> torch.Tensor:
     """Y = AᵀX for a BlockELL A and X (m, nx), f32 sums, in x.dtype."""
-    _no_e4m3("bsr_rmatmul", a.data)
+    _no_fp8("bsr_rmatmul", a.data)
     if _on_cpu(a.data, x):
         return _bsr.bsr_rmatmul_plain(a, x)
     return _bsr.bsr_rmatmul(a, x).to(x.dtype)
@@ -183,7 +182,7 @@ def fused_grad_bsr(a: "_bsr.BlockELL", x: torch.Tensor, target: torch.Tensor,
     g (n,) in x.dtype, f32 z (m,)."""
     if loss not in _fg.LOSSES:
         raise ValueError(f"loss must be one of {_fg.LOSSES}, got {loss!r}")
-    _no_e4m3("fused_grad_bsr", a.data)
+    _no_fp8("fused_grad_bsr", a.data)
     if _on_cpu(a.data, x, target, weights):
         f, g, z = _fg.fused_grad_bsr_plain(a, x, target, weights, loss=loss,
                                            param=param)
@@ -210,7 +209,7 @@ def fused_grad_bsr_multi(a: "_bsr.BlockELL", x: torch.Tensor,
     the reference's VMEM-budget fallback has no counterpart."""
     if loss not in _fg.LOSSES:
         raise ValueError(f"loss must be one of {_fg.LOSSES}, got {loss!r}")
-    _no_e4m3("fused_grad_bsr_multi", a.data)
+    _no_fp8("fused_grad_bsr_multi", a.data)
     if _on_cpu(a.data, x, target, weights):
         f, g, z = _fg.fused_grad_bsr_multi_plain(a, x, target, weights,
                                                  loss=loss, param=param)

@@ -4,19 +4,25 @@ randomized SVD's projection).
 Replaces the TPU kernel ``src/repro/kernels/randsketch.py:randsketch``
 (``_randsketch_kernel``).  On the H100 it is bound by the bytes of A at the
 main path's r = k + p ≤ 32 (2mnr flops against one read of A).
-``csrc/randsketch.cu`` is one kernel for every A the wrapper takes (f32 or
-bf16, any width, any start): 3xTF32 products on the tensor cores
+``csrc/randsketch.cu`` is one kernel for every A the wrapper takes (f32,
+bf16, float8_e4m3fn or float8_e5m2, any width, any start, any row stride
+with unit column stride): 3xTF32 products on the tensor cores
 (``mma.sync``; Q split once into TF32 high and low parts by a first pass,
-in the order the kernel stages it, ``split_q_plain``), 512 × 32 output
-tiles (A is read once while r ≤ 32),
+in the order the kernel stages it, ``split_q_plain``; bf16 and fp8 A are
+exact in TF32 and take two products, one where Q was stored in bf16 or
+fp8), 512 × 32 output tiles (A is read once while r ≤ 32),
 A's rows streamed through a ring of 16-byte ``cp.async`` copies of each
 row's 16-byte-aligned window, read back with the row's shift
 (``window``); the rows cut into slices of at most SLICE_ROWS rows
 (``slicing``), whose partial tiles a last pass sums in slice order (the
-same bits on every run, and for an offset view the same bits as for its
-aligned copy).
+same bits on every run, and for an offset or strided view the same bits
+as for its contiguous copy).  The chunked fused gradient passes its
+column segments A[:, s0:s1] as they are: the kernel reads each row at its
+stride.
 
-``randsketch_plain`` is the same function in plain torch.
+``randsketch_plain`` is the same function in plain torch, which widens
+bf16 and fp8 exactly.  An fp8 B is the f32 B cast by dtypes.cast, on both
+routes.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, dtypes
 
 TILE_N, TILE_R = 512, 32       # columns of A and of Q a tile (randsketch.cu)
 STAGE_ROWS = 32                # rows of A a staged chunk
@@ -38,21 +44,26 @@ SLICE_ROWS = 1 << 16
 MIN_SLICE_ROWS = 512
 
 
+# Q types exact in TF32: the kernel skips the products with Q's low parts.
+Q_EXACT = (torch.bfloat16, torch.float16, *dtypes.FP8)
+
+
 def randsketch_plain(a: torch.Tensor, q: torch.Tensor,
                      out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or a.dtype
-    return (a.float().T @ q.float()).to(out_dtype)
+    return dtypes.cast(a.float().T @ q.float(), out_dtype)
 
 
-def window(p: int, n: int, vec: int, row: int, j0: int
-           ) -> tuple[int, int, int]:
+def window(p: int, n: int, vec: int, row: int, j0: int,
+           lda: int | None = None) -> tuple[int, int, int]:
     """The kernel's staging of row `row`'s segment A[row, j0 : j0 + TILE_N]
     (cut at n) for an A whose element 0 lies `p` elements past a 16-byte
-    boundary, with `vec` elements a 16-byte piece: (first piece, pieces,
-    shift).  The stage copies pieces first .. first + pieces - 1, counted
-    from that boundary, and element (row, j0 + j) is element shift + j of
-    the copy."""
-    first = p + row * n + j0
+    boundary and whose rows lie `lda` elements apart (default n), with
+    `vec` elements a 16-byte piece: (first piece, pieces, shift).  The
+    stage copies pieces first .. first + pieces - 1, counted from that
+    boundary, and element (row, j0 + j) is element shift + j of the
+    copy."""
+    first = p + row * (n if lda is None else lda) + j0
     shift = first % vec
     return first // vec, -(-(shift + min(TILE_N, n - j0)) // vec), shift
 
@@ -111,20 +122,32 @@ def slicing(m: int, n: int, r: int, blocks: int) -> tuple[int, int]:
 
 def randsketch(a: torch.Tensor, q: torch.Tensor, *,
                out_dtype=None) -> torch.Tensor:
-    """Launch csrc/randsketch.cu on a contiguous CUDA a (m × n), f32 or
-    bf16, starting anywhere, and q (m × r); q is read as f32.  Returns
-    (n × r) in `out_dtype` (default a.dtype)."""
+    """Launch csrc/randsketch.cu on a CUDA a (m × n), f32, bf16,
+    float8_e4m3fn or float8_e5m2, starting anywhere, its rows any stride
+    apart and its columns adjacent (a column segment of a wider matrix as
+    it is), and q (m × r); q is read as f32 (a copy, m·r·4 bytes, unless
+    it is f32 and contiguous).  Returns (n × r) in `out_dtype` (default
+    a.dtype): the kernel writes f32 or bf16, and an fp8 B is its f32 B
+    through dtypes.cast."""
     dev = _build.check_device(a, q)
     if a.dim() != 2 or q.dim() != 2 or a.shape[0] != q.shape[0]:
         raise ValueError(f"shapes a {tuple(a.shape)}, q {tuple(q.shape)}")
-    if not a.is_contiguous():
-        raise ValueError("a must be a contiguous (m, n) matrix")
-    code = _build.dtype_code(a, "a")
-    out_dtype = out_dtype or a.dtype
     (m, n), r = a.shape, q.shape[1]
+    if n > 1 and a.stride(1) != 1:
+        raise ValueError("a's columns must be adjacent (unit column stride)")
+    lda = a.stride(0) if m > 1 else n
+    if not n <= lda < 1 << 31:
+        raise ValueError(f"a's row stride {lda} for {n} columns: the "
+                         "kernel takes n <= stride < 2^31")
+    code = _build.dense_code(a, "a")
+    out_dtype = out_dtype or a.dtype
+    if out_dtype in dtypes.FP8:
+        return dtypes.cast(randsketch(a, q, out_dtype=torch.float32),
+                           out_dtype)
     out = torch.empty((n, r), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
+    q_exact = q.dtype in Q_EXACT
     q = q.float().contiguous()
     qs = torch.empty((max(-(-m // STAGE_ROWS), 1), -(-r // TILE_R),
                       STAGE_ROWS // 8, TILE_R, 4, 4), dtype=torch.float32,
@@ -135,8 +158,8 @@ def randsketch(a: torch.Tensor, q: torch.Tensor, *,
         m, n, r, torch.cuda.get_device_properties(dev).multi_processor_count)
     part = torch.empty((slices, n, r), dtype=torch.float32, device=dev)
     _build.check(_build.lib().repro_randsketch(
-        dev.index, a.data_ptr(), code, q.data_ptr(), m, n, r, qs.data_ptr(),
-        slices, rows, part.data_ptr(), out.data_ptr(),
+        dev.index, a.data_ptr(), code, lda, q.data_ptr(), int(q_exact), m, n,
+        r, qs.data_ptr(), slices, rows, part.data_ptr(), out.data_ptr(),
         _build.dtype_code(out, "out"), _build.stream(dev)),
         "randsketch launch")
     randsketch.launches += 1

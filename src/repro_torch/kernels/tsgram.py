@@ -4,10 +4,11 @@ Gram-mode SVD and PCA, exact DIMSUM).
 Replaces the TPU kernel ``src/repro/kernels/tsgram.py:tsgram``
 (``_tsgram_kernel``).  On the H100 it is bound by operations: m·n·(n+1)
 flops for the distinct entries against one read of A.  ``csrc/tsgram.cu``
-takes every A the wrapper takes (f32, bf16 or float8_e4m3fn, any width,
-any start): products on the tensor cores (f32 as 3xTF32 on ``wgmma``, B's
-TF32 split written K-major into shared memory by a register pass; bf16 in
-one bf16 ``mma.sync`` product; e4m3 on the bf16 route's staging, each
+takes every A the wrapper takes (f32, bf16, float8_e4m3fn or float8_e5m2,
+any width, any start): products on the tensor cores (f32 as 3xTF32 on
+``wgmma``, B's TF32 split written K-major into shared memory by a register
+pass; bf16 in one bf16 ``mma.sync`` product; fp8 on the bf16 route's
+staging, each
 fragment pair converted to f16 as it is packed, one f16 ``mma.sync``
 product), only the upper triangle of 128 × 128 output tiles,
 A's rows streamed through a ring of 16-byte ``cp.async`` copies of each
@@ -18,9 +19,9 @@ tiles a last pass sums in slice order, mirroring the lower triangle (the
 same bits on every run, and for an offset view the same bits as for its
 aligned copy).
 
-``tsgram_plain`` is the same function in plain torch.  An e4m3 G (the
-reference's default out_dtype for e4m3 A) is the f32 G cast by
-dtypes.to_e4m3, on both routes.
+``tsgram_plain`` is the same function in plain torch.  An fp8 G (the
+reference's default out_dtype for fp8 A) is the f32 G cast by
+dtypes.cast, on both routes.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def tsgram_plain(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
     slices' Grams added in order, as the kernel sums its slices: one f32
     product over all of A's rows drops the small terms once the running
     diagonal is large (1e-3 of the diagonal at 2²¹ e4m3 rows, where the
-    kernel is within 1e-7 of float64)."""
+    kernel is within 1e-7 of float64; e5m2 alike)."""
     out_dtype = out_dtype or a.dtype
     g = None
     for i in range(0, max(a.shape[0], 1), SLICE_ROWS):
@@ -125,16 +126,16 @@ def slicing(m: int, n: int, blocks: int) -> tuple[int, int]:
 
 
 def tsgram(a: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """Launch csrc/tsgram.cu on a contiguous CUDA (m × n) f32, bf16 or
-    float8_e4m3fn operand starting anywhere; returns (n × n) in
-    `out_dtype` (default a.dtype; the kernel writes f32 or bf16, and an
-    e4m3 G is its f32 G through dtypes.cast)."""
+    """Launch csrc/tsgram.cu on a contiguous CUDA (m × n) f32, bf16,
+    float8_e4m3fn or float8_e5m2 operand starting anywhere; returns
+    (n × n) in `out_dtype` (default a.dtype; the kernel writes f32 or
+    bf16, and an fp8 G is its f32 G through dtypes.cast)."""
     dev = _build.check_device(a)
     if a.dim() != 2 or not a.is_contiguous():
         raise ValueError("a must be a contiguous (m, n) matrix")
     code = _build.dense_code(a, "a")
     out_dtype = out_dtype or a.dtype
-    if out_dtype == torch.float8_e4m3fn:
+    if out_dtype in dtypes.FP8:
         return dtypes.cast(tsgram(a, out_dtype=torch.float32), out_dtype)
     m, n = a.shape
     out = torch.empty((n, n), dtype=out_dtype, device=dev)

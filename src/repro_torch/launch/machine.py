@@ -49,7 +49,8 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
            "float64": torch.float64,
-           "float8_e4m3fn": torch.float8_e4m3fn}
+           "float8_e4m3fn": torch.float8_e4m3fn,
+           "float8_e5m2": torch.float8_e5m2}
 
 
 def dtype_name(dtype) -> str:
@@ -355,7 +356,7 @@ F32_FMA_FLOPS = 67e12                    # f32 FMA on the CUDA cores
 TF32_FLOPS = 495e12                      # TF32 tensor cores, dense
 BF16_FLOPS = 989e12                      # bf16 tensor cores, dense
 INT8_FLOPS = 1979e12                     # int8 tensor cores, dense
-FP8_FLOPS = 1979e12                      # fp8 (e4m3) tensor cores, dense
+FP8_FLOPS = 1979e12                      # fp8 (e4m3, e5m2) tensor cores
 # Exponentials: the special-function units issue 16 a clock an SM against
 # 128 f32 FMA lanes (256 flops), so a sixteenth of the f32 rate.
 EXP_PER_S = F32_FMA_FLOPS / 16

@@ -59,6 +59,7 @@ from dataclasses import dataclass, field
 from typing import Mapping
 
 from repro_torch.kernels import autotune as at
+from repro_torch.kernels import dtypes
 from repro_torch.launch import machine as _machine
 from repro_torch.launch.machine import CostTerms, MachineModel
 
@@ -70,9 +71,8 @@ DECISION_OPS = ("sparse_matmul", "grad", "bsr_bs", "svd", "gram", "matvec")
 # never win.
 CHUNK_CANDIDATES = (1, 2, 4, 8)
 MIN_SEGMENT = 128
-# The storage type whose grad and gram run one route alone (the fused
-# kernel, the eager tsgram): its other routes raise.
-E4M3 = "float8_e4m3fn"
+# The storage types whose unfused gradient (apply + adjoint) raises.
+FP8 = tuple(_machine.dtype_name(t) for t in dtypes.FP8)
 
 # BSR block-size candidates: the one definition (SparseRowMatrix's
 # bs="auto" constructors and plan("bsr_bs") both sweep it; the block-sparse
@@ -431,12 +431,12 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     With context {"axes": ...} the (f, g) psum is priced too, and a
     column-chunked overlapped schedule competes with the eager body.
 
-    On float8_e4m3fn storage the fused kernel is the one route: apply,
-    adjoint and the chunked gradient's plain products raise there, as in
-    the reference (types.refuse_e4m3), so they are priced but never
-    chosen."""
+    On fp8 storage (float8_e4m3fn, float8_e5m2) apply and adjoint raise,
+    as in the reference (types.refuse_fp8), so the unfused route is
+    priced but never chosen; the chunked schedules (their segments
+    randsketch launches on the fp8 strip) compete as on any storage."""
     m, n = int(d["m"]), int(d["n"])
-    e4m3 = dtype_name == E4M3
+    fp8 = dtype_name in FP8
     gdims = {"m": m, "n": n}
     fused_s, fused_blocks = at.rank("fused_grad", gdims, dtype_name,
                                     machine=machine)[0]
@@ -449,7 +449,7 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
                                 dtype_name)
     axes = _axes(ctx)
     if not axes:
-        use_fused = e4m3 or fused_s <= unfused_s
+        use_fused = fp8 or fused_s <= unfused_s
         chosen_terms = fused_terms if use_fused else two_passes
         return ExecutionPlan(
             op="grad", choice="fused" if use_fused else "unfused",
@@ -486,7 +486,7 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     cands.append(("unfused", 1, unfused_s + coll["comm_s"],
                   _with_comm(two_passes, coll)))
     label, chunks, best_s, chosen_terms = min(
-        cands[:1] if e4m3 else cands, key=lambda t: t[2])
+        cands[:-1] if fp8 else cands, key=lambda t: t[2])
     use_fused = label != "unfused"
     notes = [f"psum({n}·4B) over axes={axes}: {coll['algorithm']} "
              f"all-reduce, {_us(coll['comm_s'])}"]
@@ -507,9 +507,9 @@ def _decide_grad(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
 def _decide_gram(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     """AᵀA for an (m × n) shard: tsgram and one n×n psum, against C
     column-segment cross-grams Aᵀ·A[:, seg] (randsketch at r = n/C) whose
-    partial psums pipeline behind the next segment's compute.  On
-    float8_e4m3fn storage the eager tsgram is the one route (randsketch
-    takes no e4m3)."""
+    partial psums pipeline behind the next segment's compute.  The
+    segment Q = A[:, seg] is stored as A is: on bf16 and fp8 storage it is
+    exact in TF32 and randsketch skips its low products."""
     m, n = int(d["m"]), int(d["n"])
     gram_s, gram_blocks = at.rank("tsgram", {"m": m, "n": n},
                                   dtype_name, machine=machine)[0]
@@ -521,10 +521,11 @@ def _decide_gram(d, dtype_name, machine, ctx, kw) -> ExecutionPlan:
     cands = [("eager", 1, gram_s + coll["comm_s"],
               _with_comm(gram_terms, coll))]
     for c in _chunk_counts(n):
-        if c == 1 or not axes or dtype_name == E4M3:
+        if c == 1 or not axes:
             continue
         seg = -(-n // c)
-        sk_dims = {"m": m, "n": n, "r": seg}
+        sk_dims = {"m": m, "n": n, "r": seg,
+                   "q_itemsize": _machine.itemsize(dtype_name)}
         sk_s, sk_blocks = at.rank("randsketch", sk_dims, dtype_name,
                                   machine=machine)[0]
         cc = _psum_cost(machine, float(n) * seg, axes, dtype_name, wire)

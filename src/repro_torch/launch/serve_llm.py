@@ -18,7 +18,7 @@ import time
 import torch
 
 from repro_torch import configs
-from repro_torch.core.distmat.types import resolve_device
+from repro_torch.core.distmat.types import MULTI_GPU_ITEM, resolve_device
 from repro_torch.models import build, smoke_config
 
 
@@ -65,7 +65,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.data != 1 or args.model != 1:
         raise NotImplementedError("the port serves on one device; a mesh "
-                                  "waits for ROADMAP.md queue 1 item 13")
+                                  f"waits for {MULTI_GPU_ITEM}")
 
     cfg = configs.get(args.arch)
     if args.smoke:

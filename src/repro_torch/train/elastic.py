@@ -8,7 +8,8 @@ train/straggler.ShardMonitor (or a DeviceLostError), `remesh_distmat`
 re-shards a RowMatrix / SparseRowMatrix onto the survivors, and
 `remesh_linop` rebuilds a possibly wrapped LinopMatrix around it; the
 elastic executor (core/optim/elastic.ElasticGroup) then continues from the
-same iterate without restarting.
+same iterate without restarting.  BlockMatrix and CoordinateMatrix are
+made on a survivor mesh as on any other (their ``create``).
 
 On a mesh of several ranks every rank, the dropped one included, calls
 each of these in the same order: `survivor_mesh` creates the survivors'

@@ -37,7 +37,8 @@ from repro.core.tfocs.linop import LinopMatrix as JLinopMatrix
 from repro.core.tfocs.smooth import (SmoothHuber, SmoothLogLoss,
                                      SmoothPoisson, SmoothQuad)
 from repro.launch import serve as jserve
-from repro_torch.core.distmat import BlockMatrix, RowMatrix, SparseRowMatrix
+from repro_torch.core.distmat import (BlockMatrix, CoordinateMatrix,
+                                      RowMatrix, SparseRowMatrix)
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.serve import SolverServer
 
@@ -198,8 +199,15 @@ def one_rank():
     """The port on one device (no mesh): the BlockMatrix product and the
     served answers the meshes are held to."""
     d, out = DATA, {}
-    out["blk_multiply"] = BlockMatrix.create(d["Ab"], device="cpu").multiply(
+    blk = BlockMatrix.create(d["Ab"], device="cpu")
+    out["blk_multiply"] = blk.multiply(
         BlockMatrix.create(d["Bb"], device="cpu")).to_local()
+    out["blk_matvec"] = blk.matvec(torch.as_tensor(d["vb"]))
+    out["blk_rmatvec"] = blk.rmatvec(torch.as_tensor(d["ub"]))
+    coo = CoordinateMatrix.create(d["ri"], d["ci"], d["va"], (20, 13),
+                                  device="cpu")
+    out["coo_matvec"] = coo.matvec(torch.as_tensor(d["xc"]))
+    out["coo_rmatvec"] = coo.rmatvec(torch.as_tensor(d["yc"]))
     rm = RowMatrix.create(d["As"], device="cpu")
     S = SparseRowMatrix.from_dense(d["D"], bs=8, device="cpu")
     for name, A, method, sparse in (
@@ -549,13 +557,55 @@ def test_coordinate_matrix_shards_its_entries(ranks, ref, name):
     _close(got, (u[:, :k] * s[:k]) @ vt[:k], 1e-3)
 
 
+# The survivors of each mesh once row shard 1 is dropped: (4, 1) leaves
+# ranks 0, 2 and 3 on a (3, 1) grid, (2, 2) ranks 0 and 1 on (1, 2).
+SURVIVORS = {"4x1": ([[0], [2], [3]], [3, 1]), "2x2": ([[0, 1]], [1, 2])}
+
+
 @pytest.mark.parametrize("name", MESHES)
-@pytest.mark.parametrize("what", ["block", "coordinate"])
-def test_types_on_a_survivor_mesh_wait_for_item_13(ranks, name, what):
-    """A mesh from types.mesh_from_grid (an elastic re-mesh's survivors)
-    is refused by the types sharded over both axes or by entry, naming
-    ROADMAP queue 1 item 13."""
-    assert "item 13" in _rank0(ranks, name)[f"grid_{what}"]
+def test_survivor_mesh_keeps_the_other_row_shards(ranks, name):
+    """survivor_mesh drops row shard 1's ranks: the rest make the
+    survivor grid and are its members, the dropped ranks are not."""
+    grid, shape = SURVIVORS[name]
+    for rank, r in enumerate(ranks[name]):
+        assert r["surv_grid"] == grid
+        member = any(rank in row for row in grid)
+        assert r["surv_member"] == member
+        if member:
+            assert r["surv_shape"] == shape
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("key,tol", BLOCK + COORDINATE)
+def test_types_on_a_survivor_mesh_match_reference(ranks, ref, name, key,
+                                                  tol):
+    """BlockMatrix (SUMMA, the vector products, transpose, the norm,
+    to_local, Lanczos) and CoordinateMatrix (products, conversions,
+    Lanczos of it and of its transpose) on the survivor mesh, within the
+    tolerances the full mesh is held to, against the reference on one
+    device; the same bits on every surviving rank."""
+    grid, _ = SURVIVORS[name]
+    members = [ranks[name][rk] for row in grid for rk in row]
+    got, want = members[0][f"surv_{key}"], ref[key]
+    if key in ("coo_matvec", "coo_rmatvec"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-3, atol=1e-4)
+    elif key == "coo_irm_local":
+        _close(got, np.asarray(want)[: got.shape[0]], tol)
+    else:
+        _close(got, want, tol)
+    for r in members[1:]:
+        assert torch.equal(r[f"surv_{key}"], got), key
+
+
+@pytest.mark.parametrize("name", MESHES)
+@pytest.mark.parametrize("key", ["blk_multiply", "blk_matvec", "blk_rmatvec",
+                                 "coo_matvec", "coo_rmatvec"])
+def test_types_on_a_survivor_mesh_match_one_rank(ranks, one_rank, name,
+                                                 key):
+    """The survivor mesh's SUMMA product and vector products within 1e-5
+    of the port's one-device matrices (the same sums, in other groups)."""
+    _close(_rank0(ranks, name)[f"surv_{key}"], one_rank[key], 1e-5)
 
 
 # -- the server over row-sharded matrices ---------------------------------------

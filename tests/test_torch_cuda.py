@@ -37,7 +37,12 @@ S of 1 to 2049 on both sides of its 16-step tile, from a nonzero state,
 with its final state, and the same bits twice; BlockMatrix.multiply (one
 gemm launch) at square and ragged shapes in f32 and bf16, the same bits
 twice; CoordinateMatrix products and its block-sparse conversion against
-the CPU's; make_problem's L on the card against the CPU's.
+the CPU's; make_problem's L on the card against the CPU's.  The dense
+kernels' storage types take e4m3 and e5m2 beside f32 and bf16 (STORE);
+randsketch also on column segments of a wider A at its row stride (the
+same bits as contiguous copies), on fp8 A with Q in A's type (the
+products with Q's zero low parts skipped, the same bits), with an fp8 B,
+and through the chunked products of a RowMatrix.
 Skips where there is no CUDA device.  Run on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -73,14 +78,15 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-# The dense kernels' storage types: e4m3 reaches fused_grad(_multi),
-# tsgram and gemm's A.
-STORE = [torch.float32, torch.bfloat16, torch.float8_e4m3fn]
+# The dense kernels' storage types: fp8 (e4m3 and e5m2) reaches
+# fused_grad(_multi), tsgram, gemm's A and randsketch's A.
+FP8 = [torch.float8_e4m3fn, torch.float8_e5m2]
+STORE = [torch.float32, torch.bfloat16, *FP8]
 
 
 def _nan_buffer(numel, dtype, dev):
-    """`numel` NaNs of `dtype` (e4m3's NaN code is 0x7F)."""
-    if dtype == torch.float8_e4m3fn:
+    """`numel` NaNs of `dtype` (0x7F is a NaN code of both fp8 types)."""
+    if dtype in FP8:
         return torch.full((numel,), 0x7F, dtype=torch.uint8,
                           device=dev).view(dtype)
     return torch.full((numel,), float("nan"), device=dev, dtype=dtype)
@@ -243,7 +249,7 @@ def test_fused_grad_multi_slot_bits_do_not_depend_on_the_slot_count(
             assert torch.equal(u[0], v[0]), k
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("r", [3, 26, 32, 40, 64])
 @pytest.mark.parametrize("m,n", [(1000, 7), (4099, 70), (33, 255),
                                  (70000, 257), (300, 6000), (140000, 70)])
@@ -253,7 +259,7 @@ def test_randsketch_matches_plain(dev, dtype, m, n, r):
     132 SMs): within TOL of plain, the same bits twice, and the output in
     a's type by default."""
     g = _gen(dev, m + n + r)
-    a = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    a = cast(torch.randn(m, n, generator=g, device=dev), dtype)
     q = torch.randn(m, r, generator=g, device=dev)
     got = randsketch.randsketch(a, q, out_dtype=torch.float32)
     want = randsketch.randsketch_plain(a, q, torch.float32)
@@ -268,7 +274,7 @@ def test_randsketch_matches_plain(dev, dtype, m, n, r):
         assert randsketch.slicing(m, n, r, sms)[0] > 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", STORE)
 @pytest.mark.parametrize("m,n,r", [(1000, 7, 5), (4099, 257, 26),
                                    (70000, 300, 26), (300, 6001, 40)])
 def test_randsketch_offset_views_match_their_aligned_copies(dev, dtype, m,
@@ -279,7 +285,7 @@ def test_randsketch_offset_views_match_their_aligned_copies(dev, dtype, m,
     window and
     selects the ragged edge to 0, never multiplying the NaNs."""
     g = _gen(dev, 7 * m + n)
-    a = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    a = cast(torch.randn(m, n, generator=g, device=dev), dtype)
     q = torch.randn(m, r, generator=g, device=dev)
     want = randsketch.randsketch(a, q, out_dtype=torch.float32)
     assert _rel(want, randsketch.randsketch_plain(a, q, torch.float32)) <= TOL
@@ -291,6 +297,90 @@ def test_randsketch_offset_views_match_their_aligned_copies(dev, dtype, m,
         got = randsketch.randsketch(view, q, out_dtype=torch.float32)
         torch.cuda.synchronize()
         assert torch.equal(got, want), off
+
+
+@pytest.mark.parametrize("dtype", STORE)
+@pytest.mark.parametrize("width,s0,s1,r", [(1024, 0, 512, 1),
+                                           (1024, 512, 1024, 1),
+                                           (1001, 3, 700, 26),
+                                           (16384, 4096, 8192, 1),
+                                           (300, 150, 300, 512)])
+def test_randsketch_column_segments_match_their_copies(dev, dtype, width,
+                                                       s0, s1, r):
+    """A[:, s0:s1] of a wider A, read at A's row stride (the chunked
+    gradient's segments at r = 1, the chunked Gram's Q = A[:, seg] at r =
+    its width), with NaNs past A's end: the same bits as its contiguous
+    copy, within TOL of plain; one launch each."""
+    m = 5000
+    g = _gen(dev, width + s0 + r)
+    buf = _nan_buffer(m * width + 64, dtype, dev)
+    a = buf[:m * width].view(m, width)
+    a.copy_(cast(torch.randn(m, width, generator=g, device=dev), dtype))
+    q = torch.randn(m, r, generator=g, device=dev)
+    seg = a[:, s0:s1]
+    assert not seg.is_contiguous() or s1 - s0 == width
+    launches = randsketch.randsketch.launches
+    got = randsketch.randsketch(seg, q, out_dtype=torch.float32)
+    assert randsketch.randsketch.launches == launches + 1
+    want = randsketch.randsketch(seg.contiguous(), q, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _rel(got, randsketch.randsketch_plain(seg, q, torch.float32)) \
+        <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, *FP8])
+def test_randsketch_q_in_a_narrow_type_skips_its_low_products(dev, dtype):
+    """Q stored in bf16 or fp8 (the chunked Gram's Q = A[:, seg]) is exact
+    in TF32: the kernel skips the products with its zero low parts and
+    gives the same bits as for the same Q in f32."""
+    g = _gen(dev, 11)
+    a = cast(torch.randn(70000, 300, generator=g, device=dev), dtype)
+    q = a[:, 40:72]
+    got = randsketch.randsketch(a, q, out_dtype=torch.float32)
+    want = randsketch.randsketch(a, q.float(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _rel(got, randsketch.randsketch_plain(a, q, torch.float32)) <= TOL
+
+
+@pytest.mark.parametrize("dtype", FP8)
+def test_randsketch_fp8_out(dev, dtype):
+    """An fp8 B (the output in A's type by default): the kernel's f32 B
+    through dtypes.cast, one launch."""
+    g = _gen(dev, 13)
+    a = cast(torch.randn(3000, 70, generator=g, device=dev) / 8, dtype)
+    q = torch.randn(3000, 5, generator=g, device=dev) / 8
+    launches = randsketch.randsketch.launches
+    got = randsketch.randsketch(a, q)
+    assert randsketch.randsketch.launches == launches + 1
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.uint8), cast(randsketch.randsketch(
+        a, q, out_dtype=torch.float32), dtype).view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", STORE)
+def test_chunked_products_launch_randsketch(dev, dtype):
+    """A one-shard RowMatrix at chunks=4: the Gram's four segments are
+    randsketch launches on the card, and so are the fused gradient's
+    where A is narrower than f32 (no torch product takes an fp8 or bf16
+    operand beside the f32 residual; f32 A takes a plain product), within
+    TOL_SUM of eager."""
+    from repro_torch.core.distmat import RowMatrix
+    from repro_torch.core.tfocs.smooth import SmoothQuad
+    g = _gen(dev, 17)
+    rm = RowMatrix.create(torch.randn(6000, 256, generator=g, device=dev),
+                          device=dev, store_dtype=dtype)
+    x = torch.randn(256, generator=g, device=dev) / 16
+    sep = SmoothQuad(torch.randn(6000, generator=g, device=dev))
+    ops.reset_launch_counts()
+    gram = rm.gram(chunks=4)
+    _, grad, _ = rm.fused_grad(x, sep, chunks=4)
+    counts = ops.launch_counts()
+    segments = 4 if dtype == torch.float32 else 8
+    assert counts["randsketch"] == segments and counts["fused_grad"] == 1
+    assert _rel(gram, rm.gram()) <= TOL_SUM
+    assert _rel(grad, rm.fused_grad(x, sep)[1]) <= TOL_SUM
 
 
 def test_randsketch_row_slice_of_a_matrix(dev):
@@ -522,33 +612,34 @@ def test_tsgram_e4m3_out(dev):
     assert _within_one_e4m3_step(got.float(), want.float())
 
 
-def test_e4m3_reaches_four_kernels_alone(dev):
-    """ops routes e4m3 CUDA operands to fused_grad, fused_grad_multi,
-    tsgram and gemm; randsketch and the block-sparse kernels raise
-    TypeError before any launch."""
+@pytest.mark.parametrize("dtype", FP8)
+def test_e4m3_reaches_four_kernels_alone(dev, dtype):
+    """ops routes fp8 CUDA operands (e4m3 and e5m2) to fused_grad,
+    fused_grad_multi, tsgram, gemm and randsketch; the block-sparse
+    kernels raise TypeError before any launch."""
     ops.reset_launch_counts()
-    a = to_e4m3(torch.randn(200, 32, device=dev))
+    a = cast(torch.randn(200, 32, device=dev), dtype)
     x = torch.randn(32, device=dev)
     t, w = torch.randn(200, device=dev), torch.ones(200, device=dev)
     ops.fused_grad(a, x, t, w, loss="quad")
     ops.fused_grad_multi(a, x[None], t[None], w[None], loss="quad")
     ops.tsgram(a, out_dtype=torch.float32)
     ops.gemm(a, x[:, None])
-    with pytest.raises(TypeError, match="float8_e4m3fn"):
-        ops.randsketch(a, a[:, :3].float())
+    ops.randsketch(a, a[:, :3])
     bell = _random_bell(dev, 5, 4, 2, 8, "f32", 1)
-    e4m3 = bsr.BlockELL(to_e4m3(bell.data), bell.cols, bell.shape)
+    e4m3 = bsr.BlockELL(cast(bell.data, dtype), bell.cols, bell.shape)
     xb, ub = torch.randn(32, device=dev), torch.randn(40, device=dev)
     for call in (lambda: ops.bsr_matvec(e4m3, xb),
                  lambda: ops.bsr_matmul(e4m3, xb[:, None]),
                  lambda: ops.bsr_rmatmul(e4m3, ub[:, None]),
                  lambda: ops.fused_grad_bsr(e4m3, xb, ub, torch.ones_like(ub),
                                             loss="quad")):
-        with pytest.raises(TypeError, match="float8_e4m3fn"):
+        with pytest.raises(TypeError, match=str(dtype).split(".")[1]):
             call()
     counts = ops.launch_counts()
     assert {k: v for k, v in counts.items() if v} == {
-        "fused_grad": 1, "fused_grad_multi": 1, "tsgram": 1, "gemm": 1}
+        "fused_grad": 1, "fused_grad_multi": 1, "tsgram": 1, "gemm": 1,
+        "randsketch": 1}
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(dev):

@@ -89,19 +89,19 @@ class TestF32BitCompat:
             lo.rows.float().numpy(), np.asarray(ref.rows.astype(jnp.float32)))
 
     def test_fp8_storage_waits_for_its_item(self):
-        """e4m3 storage runs (tests/test_torch_fp8.py); e5m2, the other
-        fp8 type the reference casts to, still waits for item 12 and
-        raises TypeError naming it."""
+        """Both fp8 types the reference casts to are storage types now
+        (tests/test_torch_fp8.py, tests/test_torch_e5m2.py): e4m3 and
+        e5m2 through create and astype_store; a type the reference's
+        kernels do not take (float16) still raises TypeError."""
         A, _ = _problem()
-        with pytest.raises(TypeError, match="item 12"):
-            RowMatrix.create(A, device="cpu",
-                             store_dtype=torch.float8_e5m2)
-        with pytest.raises(TypeError, match="item 12"):
-            RowMatrix.create(A, device="cpu").astype_store(
-                torch.float8_e5m2)
-        e4m3 = RowMatrix.create(A, device="cpu",
-                                store_dtype=torch.float8_e4m3fn)
-        assert e4m3.rows.dtype == torch.float8_e4m3fn
+        for dt in (torch.float8_e4m3fn, torch.float8_e5m2):
+            made = RowMatrix.create(A, device="cpu", store_dtype=dt)
+            assert made.rows.dtype == dt and made.out_dtype == torch.float32
+            cast = RowMatrix.create(A, device="cpu").astype_store(dt)
+            assert torch.equal(cast.rows.view(torch.uint8),
+                               made.rows.view(torch.uint8))
+        with pytest.raises(TypeError, match="float8_e5m2"):
+            RowMatrix.create(A, device="cpu", store_dtype=torch.float16)
 
     def test_unquantized_sparse_unchanged(self):
         dense = _block_sparse()

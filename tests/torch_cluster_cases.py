@@ -331,24 +331,23 @@ def _coordinate_cases(mesh, data: dict) -> dict:
     return out
 
 
-def _survivor_mesh_cases() -> dict:
-    """BlockMatrix and CoordinateMatrix on a mesh that mesh_from_grid
-    made (an elastic re-mesh's survivors, no "model" group) raise naming
-    ROADMAP queue 1 item 13; every rank makes the mesh's groups."""
-    from repro_torch.core.distmat import BlockMatrix, CoordinateMatrix
-    pair = T.mesh_from_grid(torch.tensor([[0], [1]]), ("data", "model"),
-                            torch.device("cpu"))
-    calls = {"block": lambda: BlockMatrix.create(
-                 np.eye(4, dtype=np.float32), mesh=pair),
-             "coordinate": lambda: CoordinateMatrix.create(
-                 [0], [0], [1.0], (2, 2), mesh=pair)}
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[f"grid_{name}"] = "ran"
-        except NotImplementedError as e:
-            out[f"grid_{name}"] = str(e)
+SURVIVOR_DROP = 1               # the row shard the survivor mesh drops
+
+
+def _survivor_mesh_cases(mesh, data: dict) -> dict:
+    """BlockMatrix and CoordinateMatrix on the survivors of `mesh` once
+    row shard SURVIVOR_DROP is dropped (train/elastic.survivor_mesh, whose
+    process groups every rank makes): on each surviving rank every case
+    of _block_cases and _coordinate_cases, keyed "surv_"; the dropped
+    ranks take part in nothing after the mesh is made."""
+    from repro_torch.train.elastic import survivor_mesh
+    surv = survivor_mesh(mesh, SURVIVOR_DROP)
+    out = {"surv_grid": surv.grid.tolist(), "surv_member": surv.member}
+    if surv.member:
+        out["surv_shape"] = [surv.shape["data"], surv.shape["model"]]
+        for key, val in {**_block_cases(surv, data),
+                         **_coordinate_cases(surv, data)}.items():
+            out[f"surv_{key}"] = val
     return out
 
 
@@ -454,7 +453,7 @@ def cluster_rank(rank: int, name: str, data: dict) -> dict:
     out.update(_telemetry_cases(rm, data))
     out.update(_block_cases(mesh, data))
     out.update(_coordinate_cases(mesh, data))
-    out.update(_survivor_mesh_cases())
+    out.update(_survivor_mesh_cases(mesh, data))
     out.update(_serve_cases(mesh, data))
     out.update(_elastic_cases(mesh, data))
     from repro_torch.core.distmat import IndexedRowMatrix
@@ -537,7 +536,7 @@ def cluster_rank_keys() -> list[str]:
         "wide_svd_U", "wide_transposed")]
     for name in (*SERVE_METHODS, "sparse", "deadline", "budget"):
         keys += [f"serve_{name}_x", f"serve_{name}_info"]
-    keys += ["serve_exported", "grid_block", "grid_coordinate"]
+    keys += ["serve_exported", "surv_grid"]
     for method in ELASTIC_METHODS:
         keys += [f"el_{method}_{p}" for p in (
             "x", "info", "loss_x", "loss_info", "loss_casualties")]
@@ -559,14 +558,44 @@ def cluster_rank_keys() -> list[str]:
     return keys
 
 
-def fp8_rank(rank: int, A, b, x) -> dict:
-    """tests/test_torch_fp8.py's mesh case: A's rows in e4m3 over a (2, 1)
-    mesh, each rank casting its own strip; the strip's codes, the fused
-    pass at x against the quad smooth of b, and the Gram."""
+def fp8_rank(rank: int, A, b, x, name: str) -> dict:
+    """tests/test_torch_fp8.py's mesh case: A's rows in the fp8 type
+    `name` over a (2, 1) mesh, each rank casting its own strip; the
+    strip's codes, the fused pass at x against the quad smooth of b, and
+    the Gram."""
     mesh = T.make_mesh((2, 1), ("data", "model"), device="cpu")
-    rm = RowMatrix.create(A, mesh=mesh, store_dtype=torch.float8_e4m3fn)
+    rm = RowMatrix.create(A, mesh=mesh, store_dtype=getattr(torch, name))
     f, g, z = rm.fused_grad(torch.as_tensor(x),
                             SmoothQuad(torch.as_tensor(b)))
     return {"strip": rm.rows.view(torch.uint8).clone(),
             "dtype": str(rm.rows.dtype), "f": f, "g": g, "z": z,
             "gram": rm.gram()}
+
+
+CHUNKED_STORE = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+CHUNKED_LOSSES = ("quad", "logistic")
+
+
+def chunked_rank(rank: int, A, b, y, x, F, bF, xF) -> dict:
+    """tests/test_torch_sketch_fp8.py's mesh cases on a (2, 1) mesh: for
+    each storage type of CHUNKED_STORE, A's rows cast on each rank, the
+    Gram and the fused gradient (quad on b, logistic on y) at chunks=2 and
+    eager; then the bf16 fault case: F's rows in bf16, quad on bF at xF,
+    chunks=2 and eager."""
+    mesh = T.make_mesh((2, 1), ("data", "model"), device="cpu")
+    out = {}
+    for name in CHUNKED_STORE:
+        rm = RowMatrix.create(A, mesh=mesh, store_dtype=getattr(torch, name))
+        out[f"{name}_dtype"] = str(rm.rows.dtype)
+        for c in (1, 2):
+            out[f"{name}_gram_{c}"] = rm.gram(chunks=c)
+            for loss in CHUNKED_LOSSES:
+                sep = smooth_for(loss, torch.as_tensor(
+                    targets(loss, b, y)))
+                f, g, z = rm.fused_grad(torch.as_tensor(x), sep, chunks=c)
+                out[f"{name}_{loss}_{c}"] = (f, g, z)
+    rm = RowMatrix.create(F, mesh=mesh, store_dtype=torch.bfloat16)
+    for c in (1, 2):
+        out[f"fault_{c}"] = rm.fused_grad(
+            torch.as_tensor(xF), SmoothQuad(torch.as_tensor(bF)), chunks=c)
+    return out

@@ -71,7 +71,7 @@ _BF16_PRODUCTS = r'''
 #pragma unroll
       for (int d = 0; d < 4; ++d) {
         const int row = d + 4 * t + 16 * j;
-        const int sh = (int)(((unsigned)p + (row0 + row) * (unsigned)n) &
+        const int sh = (int)(((unsigned)p + (row0 + row) * (unsigned)lda) &
                              (S::kVec - 1));
         rp[d] = ab + slot(row) * S::kStride + sh + col;
       }
@@ -146,7 +146,8 @@ cudaError_t split_q_bf16(const float* q, long long m, int r, uint4* qs,
 
 '''
 
-_PRODUCTS_CALL = ("    if (len == kTileN)\n", "    else\n      stage_products<T, true>")
+_PRODUCTS_CALL = ("    if (len == kTileN)\n",
+                  "    else\n      stage_products<T, true, kQExact>")
 _COPY_LOOP = "      for (int pc = csub; pc < pieces; pc += kRowThreads)"
 _COPY_BODY = ("      for (int pc = csub; pc < pieces; pc += kRowThreads)\n"
               "        cp_async16_zfill(dst + pc * S::kVec, live ? src + pc * S::kVec : a16,\n"
@@ -156,12 +157,12 @@ PATCHES = {
     "kernel": [],
     "copies_only": [(_PRODUCTS_CALL[0], "    if (n < 0 && len == kTileN)\n"),
                     (_PRODUCTS_CALL[1],
-                     "    else if (n < 0)\n      stage_products<T, true>")],
+                     "    else if (n < 0)\n"
+                     "      stage_products<T, true, kQExact>")],
     "products_only": [(_COPY_LOOP, "      for (int pc = csub; n < 0 && pc < pieces;"
                                    " pc += kRowThreads)")],
     "bf16_mma": [
-        ("// One 16-byte piece from global to shared memory",
-         _BF16_HELPERS + "// One 16-byte piece from global to shared memory"),
+        ('#include "common.cuh"\n', '#include "common.cuh"\n' + _BF16_HELPERS),
         ("  using S = Staging<T>;\n  const int g = col & 7;\n",
          "  using S = Staging<T>;\n  const int g = col & 7;\n" + _BF16_PRODUCTS),
         ("// The slices' sum, in slice order", _BF16_SPLIT
