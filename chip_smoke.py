@@ -115,6 +115,34 @@ with nvcc, then:
               against decode: the last-position logits of a prefill of
               S + 1 tokens against a prefill of S and one decode step, at
               full size in bf16 and at full width and 4 layers in f32.
+              Then the moe family (MLA + MoE) at full width, depth cut
+              to 4 (LM_MOE_LAYERS): deepseek-v2-236b (1 dense + 3 MoE
+              layers) and deepseek-v3-671b (3 dense + 1 MoE, its MTP
+              block's weights made), each alone: generate as above with
+              the share of token-expert pairs dropped past capacity
+              (capacity_factor 1.25), flash_attention once a layer at
+              head dim 192 (the materialized q·k width) and a decode step
+              launching none, the kernel against its plain version on
+              layer 0's real materialized q, k and zero-padded v (bf16
+              and f32 at S = 2048, bf16 at 2049, 2048 queries against
+              2049 keys), timed beside SDPA (its longest device kernel
+              named) and the bound; prefill against decode in both MLA
+              decode modes, where no pair can be dropped (PVD_CAPACITY_
+              FACTOR: capacity is sized over B·S tokens in prefill and B
+              in decode, so drops part the two; the reading at 1.25 is
+              recorded): bf16 on 4 prompts at capacity factor 8 with no
+              pair dropped, held on the rows whose last token went to
+              the same experts in both at every MoE layer (a router gap
+              of 1e-5 flips under bf16 rounding; every row recorded), f32
+              at 4 layers (MTP left out) on one prompt of 1025 tokens at
+              a capacity of every token, held on every row; and on v2 a
+              second generate in materialize decode mode, row 0's tokens
+              printed beside the absorbed run's.  Last, qwen3-4b (36
+              layers), qwen2.5-32b, deepseek-coder-33b and
+              llava-next-34b (4 layers each; llava with its 2880 patch
+              embeddings through generate's frontend_embeds in a prompt
+              of 4096), one generate each, flash_attention once a
+              layer.
   10. planner (after phase 8, every earlier path done; about 10 s):
               with an empty autotune cache (REPRO_TORCH_AUTOTUNE_CACHE, a
               fresh temporary directory for the run) and the built-in H100
@@ -158,9 +186,10 @@ the int8 composition at k = 8, its slot bits too) on S, just before
 phase 6.  After the build it prints each multi-slot kernel's,
 flash_attention's, randsketch's, tsgram's, bsr_matmul's, bsr_rmatmul's,
 gemm's and selective_scan's registers and spill bytes from ptxas, and
-fails if flash_attention's tensor-core variant spills or has its wgmmas
-serialized by ptxas, or if a randsketch, tsgram, bsr_matmul, bsr_rmatmul,
-gemm or selective_scan kernel spills or has them serialized.  fused_grad is
+fails if a flash_attention kernel (both variants, every head dim, 192
+included) spills or has its wgmmas serialized by ptxas, or if a
+randsketch, tsgram, bsr_matmul, bsr_rmatmul, gemm or selective_scan kernel
+spills or has them serialized.  fused_grad is
 fused_grad_multi's kernel with one slot, and fused_grad_bsr
 fused_grad_bsr_multi's.  Phase 5 also serves an exact SimilarityRequest on
 A, held to the float64 cosines of phase 3's Gram.
@@ -349,6 +378,45 @@ LM_MODELS = {"llama3.2-3b": "flash_attention",
              "falcon-mamba-7b": "selective_scan"}
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_F32_LAYERS = 4              # depth of the f32 prefill-against-decode check
+# Then the moe family (MLA attention, MoE FFN) at full width, each model's
+# depth cut so that one card holds its bf16 weights: deepseek-v2-236b 1
+# dense + 3 MoE layers (13.3 B parameters), deepseek-v3-671b 3 dense + 1
+# MoE layer and its MTP block's weights (26.7 B).  flash_attention at head
+# dim 192 (the materialized q·k width, 128 + 64 rotary), one a layer.
+LM_MOE_LAYERS = {"deepseek-v2-236b": 4, "deepseek-v3-671b": 4}
+# Prefill against decode of a MoE model holds only where no token-expert
+# pair is dropped: prefill sizes capacity over B·S tokens, a decode step
+# over B, so a pair dropped in one is kept in the other (the reference's
+# semantics; random weights route unevenly, and at the configs' 1.25 a
+# tenth to a fifth of the prefill's pairs are dropped).  The bf16 checks
+# run at the capacity factor the reference's smoke_config sets for the
+# same reason and require that nothing was dropped; the reading at 1.25
+# is recorded beside them.  In bf16 the decoded token's hidden state parts
+# from the same token's in the long prefill by about 1% (bf16 roundings
+# in another order, in either decode mode), and a router gap between the
+# k-th and (k+1)-th expert as small as 1e-5 then sends the token to
+# another expert set (tools/diagnose_moe_pvd.py): a discrete choice, not
+# rounding.  So bf16 holds TOL_LM on the rows whose last token was routed
+# alike at every MoE layer (one at least) and records every row; f32
+# holds every row.  Both decode modes, in both types.
+PVD_CAPACITY_FACTOR = 8.0
+# The f32 checks take one prompt of LM_F32_MOE_PROMPT + 1 tokens at a
+# capacity of every token (capacity_factor E / top_k, rounded up), which
+# no routing can overflow: within one prompt the load is more skewed than
+# over four, and deepseek-v3-671b's 60 GB of f32 weights at 4 layers
+# leave room for no larger dispatch buffer (256 experts x 1025 slots x
+# 7168 f32, 7.5 GB).
+LM_F32_MOE_PROMPT = 1024
+# Plain attention over 512 heads at S = 2049 would hold 8.6 GB of f32
+# scores (three times over) beside the weights: it runs this many heads a
+# call.
+PLAIN_HEADS = 64
+# Last, the four registered dense/vlm configurations at full width, one
+# generate each (None: full depth); llava-next-34b with its 2880 patch
+# embeddings in a prompt of LM_VLM_PROMPT tokens.
+LM_CONFIGS = {"qwen3-4b": None, "qwen2.5-32b": 4, "deepseek-coder-33b": 4,
+              "llava-next-34b": 4}
+LM_VLM_PROMPT = 4096
 # Phase 8's limits, normwise relative.  flash_attention in bf16: the kernel
 # rounds the softmax weights to bf16 before the PV product (2^-9 each), as
 # the reference kernel does, and the plain version does not.  Prefill
@@ -2726,16 +2794,24 @@ def run_phase9(api, ops, dev, sigma3) -> tuple[dict, dict, dict]:
 
 def attn_inputs(params, cfg, tokens):
     """Layer 0's real q (B·Hq, S, D) and k, v (B·Hkv, S, D) for `tokens`,
-    as the prefill gives them to flash_attention."""
+    as the prefill gives them to flash_attention (MLA: the materialized
+    form, D = 192, v zero-padded), the scale (None: 1/√D) and the q heads
+    a KV head."""
     from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
 
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device).expand(B, S)
-    lp = params["blocks"][0]
+    lp = params["dense_prefix" if cfg.moe else "blocks"][0]
     h = L.apply_norm(lp["norm1"], L.embed(params["embed"], tokens, cfg), cfg)
-    q, k, v = L._qkv(lp["attn"], h, pos, cfg)
-    return [t.transpose(1, 2).reshape(-1, S, t.shape[-1]).contiguous()
-            for t in (q, k, v)]
+    if cfg.mla:
+        *qkv, scale = MLA.flash_inputs(lp["attn"], h, pos, cfg)
+        group = 1
+    else:
+        qkv = [t.transpose(1, 2) for t in L._qkv(lp["attn"], h, pos, cfg)]
+        scale, group = None, cfg.num_heads // cfg.num_kv_heads
+    return ([t.reshape(-1, S, t.shape[-1]).contiguous() for t in qkv]
+            + [scale, group])
 
 
 def scan_inputs(params, cfg, tokens):
@@ -2759,61 +2835,69 @@ def check_flash(params, cfg, tokens) -> dict:
     """flash_attention against its plain version on layer 0's real q, k,
     v: bf16 (the path's type) and f32 at the path's S, bf16 at S + 1
     (ragged), and bf16 causal with S queries against S + 1 keys; times at
-    the path's shape beside SDPA and the bound."""
+    the path's shape beside SDPA (its longest device kernel named) and
+    the bound.  At MLA's D = 192 the output's padded columns must be 0."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    g = cfg.num_heads // cfg.num_kv_heads
     out = {}
     for key, toks, dtype in (("bf16", tokens[:, :LM_PROMPT], None),
                              ("f32", tokens[:, :LM_PROMPT], torch.float32),
                              ("bf16_ragged", tokens, None),
                              ("bf16_sq_ne_sk", tokens, None)):
-        q, k, v = attn_inputs(params, cfg, toks)
+        q, k, v, scale, g = attn_inputs(params, cfg, toks)
         if dtype is not None:
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         if key == "bf16_sq_ne_sk":
             # 2048 queries against 2049 keys (causal, top-left): layer 0's
             # real q for the first S positions, k and v for all S + 1.
             q = q[:, :LM_PROMPT].contiguous()
-        got = fa.flash_attention(q, k, v, q_heads_per_kv=g)
-        want = fa.flash_attention_plain(q, k, v, q_heads_per_kv=g)
+        got = fa.flash_attention(q, k, v, scale=scale, q_heads_per_kv=g)
+        want = plain_by_heads(q, k, v, scale, g)
         torch.cuda.synchronize()
         e = rel_err(got, want)
         lim = TOL_LM["flash_f32" if dtype else "flash_bf16"]
-        require(bool(torch.isfinite(got).all()) and e <= lim,
-                f"flash_attention {key}: relative error {e:.3e} > {lim}")
+        padded = bool(cfg.mla) and bool(got[..., cfg.mla.v_head_dim:].any())
+        D = q.shape[-1]
+        require(bool(torch.isfinite(got).all()) and e <= lim and not padded,
+                f"{cfg.name} flash_attention D = {D} {key}: relative error "
+                f"{e:.3e} > {lim} (or padded columns nonzero)")
         rec = {"rel_err": e, "max_abs_err": max_abs(got, want),
                "shape": list(q.shape), "group": g,
                "variant": fa.VARIANTS[q.dtype]}
         if key == "bf16_sq_ne_sk":
             rec["kv_shape"] = list(k.shape)
         del got, want
-        if key not in ("bf16_ragged", "bf16_sq_ne_sk"):
-            bhq, S, D = q.shape
+        if key in ("bf16", "f32"):
+            bhq, S, _ = q.shape
             pairs = bhq * S * (S + 1) / 2
             rec["bound_ms"], rec["bound_by"] = bound(
                 (2 * q.numel() + 2 * k.numel()) * q.element_size(),
                 4.0 * D * pairs, q.dtype)
             rec["ms"] = time_ms(lambda: fa.flash_attention(
-                q, k, v, q_heads_per_kv=g))
-            rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, q_heads_per_kv=g), reps=3)
+                q, k, v, scale=scale, q_heads_per_kv=g))
+            rec["plain_ms"] = time_ms(lambda: plain_by_heads(q, k, v, scale,
+                                                             g), reps=3)
             B = toks.shape[0]
             q4, k4, v4 = (t.reshape(B, -1, S, D) for t in (q, k, v))
-            rec["library_ms"], rec["library_error"] = library_time(
-                lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, enable_gqa=True))
-            sdpa = (f"{rec['library_ms']:.3f}" if rec["library_ms"]
-                    else rec["library_error"])
-            print(f"[lm] flash_attention {key} ({rec['variant']}): kernel "
-                  f"{rec['ms']:.3f} ms | "
-                  f"plain {rec['plain_ms']:.3f} | SDPA {sdpa} | bound "
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, scale=scale, enable_gqa=True)
+            rec["library_ms"], rec["library_error"] = library_time(sdpa)
+            rec["library_kernel"] = (sdpa_kernel_name(sdpa)
+                                     if rec["library_ms"] else None)
+            sdpa_s = (f"{rec['library_ms']:.3f} ({rec['library_kernel']})"
+                      if rec["library_ms"] else rec["library_error"])
+            print(f"[lm] {cfg.name} flash_attention D = {D} {key} "
+                  f"({rec['variant']}): kernel {rec['ms']:.3f} ms | plain "
+                  f"{rec['plain_ms']:.3f} | SDPA {sdpa_s} | bound "
                   f"{rec['bound_ms']:.3f} ({rec['bound_by']}), share "
                   f"{rec['bound_ms'] / rec['ms']:.3f} | rel err {e:.2e}")
         else:
-            print(f"[lm] flash_attention {key} ({rec['variant']}; Sq = "
-                  f"{q.shape[1]}, Sk = {k.shape[1]}): rel err {e:.2e}")
+            print(f"[lm] {cfg.name} flash_attention D = {D} {key} "
+                  f"({rec['variant']}; Sq = {q.shape[1]}, Sk = "
+                  f"{k.shape[1]}): rel err {e:.2e}")
         out[key] = rec
         del q, k, v
     return out
@@ -2867,10 +2951,11 @@ def check_scan(params, cfg, tokens) -> dict:
     return out
 
 
-def prefill_vs_decode(model, params, tokens) -> float:
-    """Normwise relative difference of the last-position logits of
-    prefill(tokens[:, :S+1]) (the kernel path) and prefill(tokens[:, :S])
-    then decode_step(tokens[:, S]) (the plain one-token path)."""
+def pvd_logits(model, params, tokens):
+    """The last-position logits (over the real vocabulary) of
+    prefill(tokens[:, :S]) then decode_step(tokens[:, S]) (the plain
+    one-token path) and of prefill(tokens[:, :S+1]) (the kernel path), in
+    that order; the calls run long prefill, short prefill, decode."""
     B, S1 = tokens.shape
     with torch.inference_mode():
         want, _ = model.prefill(params, {"tokens": tokens},
@@ -2879,7 +2964,12 @@ def prefill_vs_decode(model, params, tokens) -> float:
                                   model.init_caches(B, S1))
         got, _ = model.decode_step(params, tokens[:, -1:], caches, S1 - 1)
     V = model.cfg.vocab_size
-    return rel_err(got[..., :V], want[..., :V])
+    return got[..., :V], want[..., :V]
+
+
+def prefill_vs_decode(model, params, tokens) -> float:
+    """Normwise relative difference of pvd_logits' two logits."""
+    return rel_err(*pvd_logits(model, params, tokens))
 
 
 def run_lm(dev) -> dict:
@@ -2887,10 +2977,10 @@ def run_lm(dev) -> dict:
     full width and depth in bf16 (random weights from a seed), each model
     alone on the card; then each kernel against its plain version on
     layer 0's real inputs, and prefill against decode at full size (bf16)
-    and at full width and LM_F32_LAYERS layers in f32."""
+    and at full width and LM_F32_LAYERS layers in f32.  Then the moe
+    family (run_lm_moe) and the registered dense/vlm configurations
+    (run_lm_configs)."""
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve_llm import generate
     from repro_torch.models import build
 
@@ -2906,43 +2996,9 @@ def run_lm(dev) -> dict:
         tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
                                generator=gen, device=dev)
         prompt = tokens[:, :LM_PROMPT]
-
-        # -- the main path: counts zeroed just before, read just after ----
-        ops.reset_launch_counts()
-        toks, times = generate(model, params, prompt, LM_GEN)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        variants = dict(fa.flash_attention.variant_launches)
-        # ------------------------------------------------------------------
-        print(f"[main path] {arch}: launches {counts}; flash_attention by "
-              f"variant {variants}")
-        for name, c in counts.items():
-            want = cfg.num_layers if name == kernel else 0
-            require(c == want, f"{arch}: {name} launched {c} times in one "
-                    f"generate, want {want} (one a layer, in prefill only)")
-        # The bf16 prefill runs the tensor-core variant alone.
-        tc = fa.VARIANTS[torch.bfloat16]
-        for name, c in variants.items():
-            want = counts["flash_attention"] if name == tc else 0
-            require(c == want, f"{arch}: flash_attention variant {name} "
-                    f"launched {c} times in one generate, want {want}")
-        require(toks.shape == (LM_BATCH, LM_GEN)
-                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                f"{arch}: greedy tokens outside the vocabulary")
-        # A decode step alone launches no kernel.
-        with torch.inference_mode():
-            caches = model.init_caches(LM_BATCH, 65)
-            logits, caches = model.prefill(params, {"tokens": prompt[:, :64]},
-                                           caches)
-            ops.reset_launch_counts()
-            logits, _ = model.decode_step(
-                params, logits[:, -1].argmax(-1, keepdim=True), caches, 64)
-            torch.cuda.synchronize()
-        require(not any(ops.launch_counts().values()),
-                f"{arch}: a decode step launched {ops.launch_counts()}")
-        require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
-                f"{arch}: decode logits not finite")
-        del caches, logits
+        toks, times, counts, variants = lm_path(model, params, prompt, arch,
+                                                kernel)
+        decode_launches_nothing(model, params, prompt, arch)
         warm = generate(model, params, prompt, LM_GEN)[1]
         rec = {"init_s": init_s, "launches": counts,
                "flash_attention_variant_launches": variants, "cold": times,
@@ -2989,8 +3045,300 @@ def run_lm(dev) -> dict:
         out["models"][arch] = rec
         del model, params, tokens
         torch.cuda.empty_cache()
+    run_lm_moe(dev, out)
+    run_lm_configs(dev, out)
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+def plain_by_heads(q, k, v, scale=None, group=1):
+    """flash_attention_plain on PLAIN_HEADS KV heads (and their q heads) a
+    call, so its f32 scores stay small beside the weights."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return torch.cat([fa.flash_attention_plain(
+        q[h * group:(h + PLAIN_HEADS) * group], k[h:h + PLAIN_HEADS],
+        v[h:h + PLAIN_HEADS], scale=scale, q_heads_per_kv=group)
+        for h in range(0, k.shape[0], PLAIN_HEADS)])
+
+
+def sdpa_kernel_name(fn) -> str:
+    """The longest device kernel of one call of `fn` under torch.profiler
+    (which SDPA backend ran), or "not measured" when the trace shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type != torch.autograd.DeviceType.CPU]
+    except (RuntimeError, AssertionError):
+        return "not measured"
+    if not rows:
+        return "not measured"
+    return max(rows, key=lambda e: e.device_time_total).key[:160]
+
+
+def lm_path(model, params, prompt, arch, kernel, fe=None):
+    """generate on the main path: counts zeroed just before and read just
+    after; `kernel` launched once a layer (in prefill only; flash_attention
+    on its tensor-core variant) and no other kernel; greedy tokens inside
+    the vocabulary.  Returns (tokens, times, counts, variants)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_llm import generate
+
+    cfg = model.cfg
+    # -- the main path: counts zeroed just before, read just after --------
+    ops.reset_launch_counts()
+    toks, times = generate(model, params, prompt, LM_GEN, fe)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    variants = dict(fa.flash_attention.variant_launches)
+    # ----------------------------------------------------------------------
+    print(f"[main path] {arch}: launches {counts}; flash_attention by "
+          f"variant {variants}")
+    for name, c in counts.items():
+        want = cfg.num_layers if name == kernel else 0
+        require(c == want, f"{arch}: {name} launched {c} times in one "
+                f"generate, want {want} (one a layer, in prefill only)")
+    # The bf16 prefill runs the tensor-core variant alone.
+    tc = fa.VARIANTS[torch.bfloat16]
+    for name, c in variants.items():
+        want = counts["flash_attention"] if name == tc else 0
+        require(c == want, f"{arch}: flash_attention variant {name} "
+                f"launched {c} times in one generate, want {want}")
+    require(toks.shape == (prompt.shape[0], LM_GEN)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{arch}: greedy tokens outside the vocabulary")
+    return toks, times, counts, variants
+
+
+def decode_launches_nothing(model, params, prompt, arch) -> None:
+    """A decode step alone (after a 64-token prefill) launches no kernel
+    and gives finite logits."""
+    from repro_torch.kernels import ops
+
+    with torch.inference_mode():
+        caches = model.init_caches(prompt.shape[0], 65)
+        logits, caches = model.prefill(params, {"tokens": prompt[:, :64]},
+                                       caches)
+        ops.reset_launch_counts()
+        logits, _ = model.decode_step(
+            params, logits[:, -1].argmax(-1, keepdim=True), caches, 64)
+        torch.cuda.synchronize()
+    require(not any(ops.launch_counts().values()),
+            f"{arch}: a decode step launched {ops.launch_counts()}")
+    require(bool(torch.isfinite(logits[..., :model.cfg.vocab_size]).all()),
+            f"{arch}: decode logits not finite")
+
+
+def pvd_moe(model, params, tokens, mode: str, capacity_factor: float) -> dict:
+    """Prefill against decode of a MoE model at `capacity_factor` with MLA
+    decode mode `mode` (the same weights): the logits' normwise
+    difference over every row ("all") and over the rows whose last token
+    went to the same experts in the long prefill and in the decode step at
+    every MoE layer ("agreeing", None where there is none), those rows,
+    and the token-expert pairs the three calls dropped."""
+    import dataclasses
+    from repro_torch.models import build
+    from repro_torch.models import moe as MOE
+
+    cfg = model.cfg
+    wide = build(cfg.scaled(mla_decode_mode=mode, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor)), device=model.device)
+    B, S1 = tokens.shape
+    with MOE.RoutingTally() as tally:
+        got, want = pvd_logits(wide, params, tokens)
+    n = len(tally.calls) // 3
+    same = torch.ones(B, dtype=torch.bool, device=tokens.device)
+    for long, step in zip(tally.calls[:n], tally.calls[2 * n:]):
+        last = long["experts"].reshape(B, S1, -1)[:, -1]
+        same &= (last == step["experts"]).all(-1)
+    rows = same.nonzero().flatten().tolist()
+    return {"all": rel_err(got, want),
+            "agreeing": rel_err(got[rows], want[rows]) if rows else None,
+            "agreeing_rows": rows, "dropped": tally.dropped}
+
+
+def hold_pvd(arch: str, what: str, r: dict, limit: float,
+             every_row: bool) -> None:
+    """Print a pvd_moe reading and hold it: nothing dropped, and within
+    `limit` over every row (every_row) or over the agreeing rows, of
+    which there must be one."""
+    agree = ("none" if r["agreeing"] is None else
+             f"{r['agreeing']:.3e} on rows {r['agreeing_rows']}")
+    print(f"[lm] {arch}: prefill against {what}: all rows {r['all']:.3e}, "
+          f"rows routed alike {agree} (limit {limit} on "
+          f"{'every row' if every_row else 'the rows routed alike'}; "
+          f"{r['dropped']} pairs dropped)")
+    e = r["all"] if every_row else r["agreeing"]
+    require(r["dropped"] == 0 and e is not None and e <= limit,
+            f"{arch}: prefill against {what}: {e} > {limit}, or "
+            f"{r['dropped']} pairs dropped")
+
+
+def run_lm_moe(dev, out: dict) -> None:
+    """Phase 8, the moe family: deepseek-v2-236b and deepseek-v3-671b at
+    full width and LM_MOE_LAYERS layers in bf16 (random weights from a
+    seed), each alone on the card: generate with the MoE drop share,
+    flash_attention at D = 192 against its plain version on layer 0's
+    real inputs, prefill against decode in bf16 and in f32 at
+    LM_F32_LAYERS layers, and (v2) a second generate in materialize decode
+    mode."""
+    from repro_torch import configs
+    from repro_torch.launch.serve_llm import generate
+    from repro_torch.models import build
+    from repro_torch.models import moe as MOE
+
+    for arch, layers in LM_MOE_LAYERS.items():
+        t_model = time.perf_counter()
+        cfg = configs.get(arch).scaled(num_layers=layers)
+        model = build(cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        t0 = time.perf_counter()
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                               generator=gen, device=dev)
+        prompt = tokens[:, :LM_PROMPT]
+        with MOE.RoutingTally() as tally:
+            toks, times, counts, variants = lm_path(model, params, prompt,
+                                                    arch, "flash_attention")
+        n_moe = cfg.num_layers - cfg.moe.first_k_dense
+        pre, dec = tally.calls[:n_moe], tally.calls[n_moe:]
+        drops = {"prefill_pairs": sum(c["pairs"] for c in pre),
+                 "prefill_dropped": sum(c["dropped"] for c in pre),
+                 "prefill_max_load": [c["max_load"] for c in pre],
+                 "prefill_capacity": pre[0]["capacity"],
+                 "decode_pairs": sum(c["pairs"] for c in dec),
+                 "decode_dropped": sum(c["dropped"] for c in dec)}
+        del tally
+        drops["prefill_share"] = (drops["prefill_dropped"]
+                                  / drops["prefill_pairs"])
+        decode_launches_nothing(model, params, prompt, arch)
+        warm = generate(model, params, prompt, LM_GEN)[1]
+        rec = {"layers": cfg.num_layers, "init_s": init_s,
+               "launches": counts,
+               "flash_attention_variant_launches": variants, "cold": times,
+               "warm": warm, "moe_drops": drops,
+               "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+               / (warm["prefill_ms"] / 1e3),
+               "decode_tokens_per_s": LM_BATCH
+               / (warm["decode_ms_per_token"] / 1e3),
+               "tokens_row0": toks[0].tolist()}
+        print(f"[lm] {arch} ({cfg.num_layers} layers, "
+              f"{cfg.moe.first_k_dense} dense): {rec['params_b']:.2f} B "
+              f"parameters (init {init_s:.1f} s); prefill "
+              f"{warm['prefill_ms']:.1f} ms for {LM_BATCH}x{LM_PROMPT} "
+              f"({rec['prefill_tokens_per_s']:.0f} tokens/s), decode "
+              f"{warm['decode_ms_per_token']:.2f} ms/token; cold prefill "
+              f"{times['prefill_ms']:.1f} ms; dropped token-expert pairs: "
+              f"prefill {drops['prefill_dropped']} of "
+              f"{drops['prefill_pairs']} ({drops['prefill_share']:.5f}; "
+              f"largest expert load a layer {drops['prefill_max_load']} "
+              f"against capacity {drops['prefill_capacity']}), decode "
+              f"{drops['decode_dropped']} of {drops['decode_pairs']}")
+        if arch == "deepseek-v2-236b":
+            mat = build(cfg.scaled(mla_decode_mode="materialize"),
+                        device=dev)
+            toks_m = generate(mat, params, prompt, LM_GEN)[0]
+            same = int((toks_m[0] == toks[0]).sum())
+            rec["materialize_tokens_row0"] = toks_m[0].tolist()
+            rec["materialize_same_row0"] = same
+            require(bool(((toks_m >= 0) & (toks_m < cfg.vocab_size)).all()),
+                    f"{arch}: materialize-mode tokens outside the vocabulary")
+            print(f"[lm] {arch} greedy tokens of row 0, absorbed decode: "
+                  f"{toks[0].tolist()}")
+            print(f"[lm] {arch} greedy tokens of row 0, materialize decode: "
+                  f"{toks_m[0].tolist()} ({same} of {LM_GEN} the same)")
+            del mat, toks_m
+        d192 = check_flash(params, cfg, tokens)
+        d192["launches"] = counts["flash_attention"]
+        out["kernels"]["flash_attention"].setdefault("d192", {})[arch] = d192
+        with MOE.RoutingTally() as t_pvd:
+            e = prefill_vs_decode(model, params, tokens)
+        rec["prefill_vs_decode_bf16_cf1.25"] = {"rel": e,
+                                                "dropped": t_pvd.dropped}
+        print(f"[lm] {arch}: prefill against decode at capacity_factor "
+              f"{cfg.moe.capacity_factor}, bf16 {e:.3e} ({t_pvd.dropped} "
+              "pairs dropped in the three calls; recorded, not held)")
+        del t_pvd
+        for mode in ("absorbed", "materialize"):
+            r = pvd_moe(model, params, tokens, mode, PVD_CAPACITY_FACTOR)
+            rec[f"prefill_vs_decode_bf16_{mode}"] = r
+            hold_pvd(arch, f"{mode} decode at capacity_factor "
+                     f"{PVD_CAPACITY_FACTOR}, bf16", r, TOL_LM["pvd_bf16"],
+                     every_row=False)
+        del model, params, tokens, prompt, toks
+        torch.cuda.empty_cache()
+
+        # f32 at LM_F32_LAYERS layers: the MTP block is left out (serving
+        # never runs it, and v3's in f32 would not fit beside the rest).
+        cfg32 = cfg.scaled(num_layers=LM_F32_LAYERS, dtype="float32",
+                           mtp_depth=0)
+        model = build(cfg32, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED + 9))
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                               generator=gen, device=dev)
+        tokens = tokens[:1, :LM_F32_MOE_PROMPT + 1]
+        every = math.ceil(cfg.moe.num_experts / cfg.moe.top_k)
+        for mode in ("absorbed", "materialize"):
+            r = pvd_moe(model, params, tokens, mode, every)
+            rec[f"prefill_vs_decode_f32_{mode}"] = r
+            hold_pvd(arch, f"{mode} decode at capacity_factor {every} "
+                     f"(every token), f32 at {LM_F32_LAYERS} layers, one "
+                     f"prompt of {tokens.shape[1]}", r, TOL_LM["pvd_f32"],
+                     every_row=True)
+        rec["s"] = time.perf_counter() - t_model
+        out["models"][arch] = rec
+        del model, params, tokens
+        torch.cuda.empty_cache()
+
+
+def run_lm_configs(dev, out: dict) -> None:
+    """Phase 8, the registered dense/vlm configurations at full width
+    (LM_CONFIGS' depths): one generate each, flash_attention once a
+    layer; llava-next-34b with its frontend_len patch embeddings (the
+    serving entry's frontend_embeds) in a prompt of LM_VLM_PROMPT."""
+    from repro_torch import configs
+    from repro_torch.launch.serve_llm import frontend_embeds
+    from repro_torch.models import build
+
+    for arch, layers in LM_CONFIGS.items():
+        t_model = time.perf_counter()
+        cfg = configs.get(arch)
+        if layers is not None:
+            cfg = cfg.scaled(num_layers=layers)
+        model = build(cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        params = model.init(gen)
+        S = LM_VLM_PROMPT if cfg.frontend else LM_PROMPT
+        prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, S),
+                               generator=gen, device=dev)
+        fe = frontend_embeds(cfg, LM_BATCH, S, gen)
+        toks, times, counts, _ = lm_path(model, params, prompt, arch,
+                                         "flash_attention", fe)
+        rec = {"layers": cfg.num_layers, "prompt": S, "launches": counts,
+               "frontend_positions": None if fe is None else fe.shape[1],
+               "cold": times,
+               "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+               "tokens_row0": toks[0].tolist(),
+               "s": time.perf_counter() - t_model}
+        print(f"[lm] {arch} ({cfg.num_layers} layers, {rec['params_b']:.2f} "
+              f"B parameters, prompt {S}"
+              + (f", {fe.shape[1]} frontend positions" if fe is not None
+                 else "") + f"): prefill {times['prefill_ms']:.1f} ms, "
+              f"decode {times['decode_ms_per_token']:.2f} ms/token (cold)")
+        out["models"][arch] = rec
+        del model, params, prompt, fe
+        torch.cuda.empty_cache()
 
 
 # -- phase 10: the planner ----------------------------------------------------
@@ -3002,6 +3350,8 @@ PLAN_ITERS = 200
 PLAN_TOL = {"bf16": 1e-5, "auto_loose": 1e-4, "auto_tight": 1e-9}
 LLAMA_ATTN = {"bh": LM_BATCH * 24, "bkv": LM_BATCH * 8, "sq": LM_PROMPT,
               "sk": LM_PROMPT, "d": 128, "causal": 1}
+MLA_ATTN = {"bh": LM_BATCH * 128, "bkv": LM_BATCH * 128, "sq": LM_PROMPT,
+            "sk": LM_PROMPT, "d": 192, "causal": 1}
 MAMBA_SCAN = {"bt": LM_BATCH, "s": LM_PROMPT, "d": 8192, "n": 16}
 
 
@@ -3035,6 +3385,7 @@ def planner_shapes() -> list:
             ("bsr_rmatmul", dict(S, nx=512), f32),
             ("bsr_rmatmul", dict(SIM, nx=512), f32),
             ("flash_attention", LLAMA_ATTN, bf16),
+            ("flash_attention", MLA_ATTN, bf16),
             ("selective_scan", MAMBA_SCAN, f32)]
     # Phase 13's e4m3 launches: rows 1-4 on A, its ragged view, U.
     e4m3 = "float8_e4m3fn"
@@ -5886,11 +6237,12 @@ def run() -> int:
               f"{r['spill_store_bytes']} bytes spill stores, "
               f"{r['spill_load_bytes']} bytes spill loads"
               + (", wgmma serialized" if r["wgmma_serialized"] else ""))
-    tc = [r for r in ptxas if "flash_fwd_tc" in r["kernel"]]
-    require(len(tc) == 3 and all(
+    flash = [r for r in ptxas if "flash_fwd" in r["kernel"]]
+    require(len(flash) == 2 * 4 and all(
         r["spill_store_bytes"] == r["spill_load_bytes"] == 0
-        and not r["wgmma_serialized"] for r in tc),
-        f"flash_attention's tensor-core variant spills or serializes: {tc}")
+        and not r["wgmma_serialized"] for r in flash),
+        f"flash_attention (both variants, D = 32, 64, 128, 192) spills or "
+        f"serializes its wgmmas: {flash}")
     for source, count in (("randsketch.cu", 3), ("tsgram.cu", 5),
                           ("bsr_spmm.cu", 15), ("bsr_rmatmul.cu", 28),
                           ("gemm.cu", 18), ("selective_scan.cu", 2)):

@@ -1,9 +1,11 @@
 """Architecture registry: `get(name)` → ModelConfig; `ARCHES` lists all ids.
 
-Counterpart of src/repro/configs/__init__.py.  Two configurations are
-ported so far (llama3.2-3b, dense; falcon-mamba-7b, Mamba1); `get` raises
-NotImplementedError for the other eight, which wait on the model families
-ROADMAP.md queue 1 item 15 lists.
+Counterpart of src/repro/configs/__init__.py.  Eight configurations are
+ported: the dense llama3.2-3b, qwen3-4b, qwen2.5-32b and
+deepseek-coder-33b, the vlm backbone llava-next-34b, the moe (MLA + MoE)
+deepseek-v2-236b and deepseek-v3-671b, and the Mamba1 falcon-mamba-7b.
+`get` raises NotImplementedError for seamless-m4t-large-v2 (encdec) and
+zamba2-1.2b (Mamba2 hybrid), which wait on ROADMAP.md queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -25,7 +27,13 @@ ARCHES = [
 ]
 
 _MODULES = {
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen3-4b": "qwen3_4b",
     "llama3.2-3b": "llama3_2_3b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "llava-next-34b": "llava_next_34b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 

@@ -60,7 +60,8 @@ def lm_params_from_numpy(params, cfg, *, device):
     reference's parameter pytree as numpy arrays
     (`jax.tree.map(np.asarray, model.init(key))`).  Each layer stack's
     leading layer axis (the reference's vmap-stacked init) is unstacked
-    into one module a layer."""
+    into one module a layer (a MoE layer's experts stay stacked, (E, d, f)
+    tensors); the MTP subtree, one block, crosses as it is."""
     from repro_torch.models import transformer as TF
 
     def tensors(tree):
@@ -77,6 +78,8 @@ def lm_params_from_numpy(params, cfg, *, device):
            "final_norm": tensors(params["final_norm"])}
     for name, n, _ in TF.lm_structure(cfg):
         out[name] = [tensors(layer(params[name], i)) for i in range(n)]
+    if cfg.mtp_depth:
+        out["mtp"] = tensors(params["mtp"])
     extra = sorted(set(params) - set(out))
     if extra:
         raise NotImplementedError(f"parameters {extra} belong to parts of "

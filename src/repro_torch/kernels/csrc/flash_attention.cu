@@ -24,7 +24,7 @@
 // wgmma.m64nNk16.f32.bf16.bf16 (bf16 at 989 TFLOP/s against 67 for f32 FMA).
 // A block is two consumer warpgroups, each owning 64 query rows of a 128-row
 // Q tile, and a producer warpgroup, one thread of which loads the Q tile
-// once and then the 128-key K and V tiles by TMA into two rings of two
+// once and then the K and V key tiles by TMA into two rings of two
 // stages (3-D tensor maps over (D, S, B*H), so a tile past Sk or Sq arrives
 // as zeros, never as the next head's rows).  Each stage is announced and
 // released by mbarriers, K and V apart, so the next tiles land while the
@@ -35,15 +35,21 @@
 // (keys x D) with D contiguous, is read MN-major with wgmma's transpose bit.
 // A consumer starts S_j and then P_{j-1} V_{j-1}, and runs tile j's softmax
 // while the PV product is in flight; O is rescaled and P_j packed once it
-// has landed.  Tiles are 128 keys wide: the S accumulator is then 64
-// registers a thread (m64n128), the O accumulator 64 at D = 128 and P 32:
-// more than the 168 a thread that 384 threads leave (ptxas then serializes
-// the wgmmas), so the producer warpgroup drops to 40 registers a thread and
-// the consumers rise to 232 (setmaxnreg).  The causal diagonal falls on one
-// key tile per query tile; at D = 128 the Q tile and two stages of K and V
-// take 160 KB of shared memory.  Rows of D * 2 bytes are cut into column
-// blocks of 64 bf16 (128 bytes, the 128-byte swizzle) or, at D = 32, one of
-// 32 (the 64-byte swizzle); TMA writes each block in the swizzle that the
+// has landed.  Tiles are 128 keys wide up to D = 128: the S accumulator is
+// then 64 registers a thread (m64n128), the O accumulator 64 at D = 128 and
+// P 32: more than the 168 a thread that 384 threads leave (ptxas then
+// serializes the wgmmas), so the producer warpgroup drops to 40 registers a
+// thread and the consumers rise to 232 (setmaxnreg).  The causal diagonal
+// falls on one key tile per query tile (two at 64-key tiles); at D = 128
+// the Q tile and two stages of K and V take 160 KB of shared memory.  At
+// D = 192 (DeepSeek's MLA prefill: 128 + 64 rotary columns) a 128-key ring
+// would take 240 KB, over the 227 KB a block may have, and O alone is 96
+// registers a thread, so the key tile is 64 (a template parameter of this
+// path): Q 48 KB plus two stages of K and V at 24 KB each, 145 KB; S is 32
+// registers, P 16, O 96; QK^T is 12 k-steps of m64n64k16 and PV one
+// m64n192k16 a 16-key step.  Rows of D * 2 bytes are cut into column blocks
+// of 64 bf16 (128 bytes, the 128-byte swizzle) or, at D = 32, one of 32
+// (the 64-byte swizzle); TMA writes each block in the swizzle that the
 // wgmma descriptors name.  Each thread of the accumulator layout holds
 // pieces of two rows; the row max reduces over the 4 lanes of a quad by
 // shuffles, and the row sums stay per thread until the end.  The softmax
@@ -70,29 +76,48 @@ namespace {
 // -- bf16: the tensor cores --------------------------------------------
 
 constexpr int kTcBQ = 128;                      // query rows a block
-constexpr int kTcBK = 128;                      // keys a tile
 constexpr int kTcStages = 2;                    // K/V tiles in the ring
 constexpr int kTcConsumers = 256;               // two warpgroups of 64 rows
 constexpr int kTcThreads = kTcConsumers + 128;  // and the producer's
 // Registers a thread: the producer's few against the consumers' S (64),
-// O (up to 64) and P (32) accumulators; 128 * 40 + 256 * 232 <= 65536.
+// O (up to 64) and P (32) accumulators at 128-key tiles, S 32, O 96 and P 16
+// at D = 192; 128 * 40 + 256 * 232 <= 65536.
 constexpr int kTcProducerRegs = 40;
 constexpr int kTcConsumerRegs = 232;
 
-// A 128-row tile of a (S, D) bf16 matrix in shared memory, as TMA writes it:
-// column blocks of kCols, each 128 rows of kRowBytes, swizzled.
+// Keys a K or V tile at head dim D: 128, or 64 at D = 192, where two stages
+// of 128-key K and V tiles do not fit beside Q.
 template <int D>
+constexpr int tc_keys() { return D > 128 ? 64 : 128; }
+
+// A Rows-row tile of a (S, D) bf16 matrix in shared memory, as TMA writes
+// it: column blocks of kCols, each Rows rows of kRowBytes, swizzled.
+template <int D, int Rows>
 struct TcTile {
   static constexpr int kCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = 2 * kCols;
   static constexpr int kSwizzle = kRowBytes == 128 ? kSwizzle128 : kSwizzle64;
   static constexpr int kBlocks = D / kCols;
-  static constexpr int kBlockBytes = 128 * kRowBytes;
+  static constexpr int kBlockBytes = Rows * kRowBytes;
   static constexpr int kBytes = kBlocks * kBlockBytes;
   static constexpr int kGroupBytes = 8 * kRowBytes;  // the swizzle period
-  // Q, the K and V rings, the barriers, and room to align the start.
-  static constexpr int kSmem =
-      (1 + 2 * kTcStages) * kBytes + 8 * (4 * kTcStages + 1) + 1024;
+};
+
+// The block's shared memory at head dim D: the Q tile, then the K ring,
+// then the V ring, then the barriers, and room to align the start.
+template <int D>
+struct TcSmem {
+  static constexpr int kKeys = tc_keys<D>();
+  using Q = TcTile<D, kTcBQ>;
+  using KV = TcTile<D, kKeys>;
+  __device__ static uint8_t* k_tile(uint8_t* qs, int s) {
+    return qs + Q::kBytes + s * KV::kBytes;
+  }
+  __device__ static uint8_t* v_tile(uint8_t* qs, int s) {
+    return qs + Q::kBytes + (kTcStages + s) * KV::kBytes;
+  }
+  static constexpr int kBarriers = Q::kBytes + 2 * kTcStages * KV::kBytes;
+  static constexpr int kBytes = kBarriers + 8 * (4 * kTcStages + 1) + 1024;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -110,32 +135,32 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // O += P V_j (V_j has landed): 16 keys a step, V MN-major, started after a
 // wgmma fence of its own with its registers pinned.
-template <int D>
+template <int D, int BK>
 __device__ __forceinline__ void tc_start_pv(float (&acc)[D / 2],
-                                            uint32_t (&pa)[kTcBK / 16][4],
+                                            uint32_t (&pa)[BK / 16][4],
                                             uint8_t* qs, int j) {
-  using L = TcTile<D>;
-  const uint64_t vdesc = smem_desc(
-      qs + (1 + kTcStages + j % kTcStages) * L::kBytes, L::kBlockBytes,
-      L::kGroupBytes, L::kSwizzle);
+  using L = typename TcSmem<D>::KV;
+  const uint64_t vdesc =
+      smem_desc(TcSmem<D>::v_tile(qs, j % kTcStages), L::kBlockBytes,
+                L::kGroupBytes, L::kSwizzle);
   fence_regs(acc);
 #pragma unroll
-  for (int kk = 0; kk < kTcBK / 16; ++kk) fence_regs(pa[kk]);
+  for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTcBK / 16; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
     wgmma_rs_tb(acc, pa[kk], vdesc + ((kk * 16 * L::kRowBytes) >> 4));
   wgmma_commit();
 }
 
 // After wgmma_wait: PV_j has landed in acc, and this warp is done with V_j.
-template <int D>
+template <int D, int BK>
 __device__ __forceinline__ void tc_pv_landed(float (&acc)[D / 2],
-                                             uint32_t (&pa)[kTcBK / 16][4],
+                                             uint32_t (&pa)[BK / 16][4],
                                              uint64_t* vempty, int j) {
   fence_regs(acc);
 #pragma unroll
-  for (int kk = 0; kk < kTcBK / 16; ++kk) fence_regs(pa[kk]);
+  for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
   if (threadIdx.x % 32 == 0) mbar_arrive(&vempty[j % kTcStages]);
 }
 
@@ -143,17 +168,18 @@ __device__ __forceinline__ void tc_pv_landed(float (&acc)[D / 2],
 // scores scaled, keys past Sk or the causal diagonal masked (only on an
 // edge tile), the running max m and sum l updated, corr the factor for O,
 // and sc left holding p.
-__device__ __forceinline__ void tc_softmax(float (&sc)[kTcBK / 2],
+template <int BK>
+__device__ __forceinline__ void tc_softmax(float (&sc)[BK / 2],
                                            float (&m)[2], float (&l)[2],
                                            float (&corr)[2], bool edge,
                                            int k0, int row0, int col0,
                                            int Sk, float scale_log2,
                                            int causal) {
 #pragma unroll
-  for (int i = 0; i < kTcBK / 2; ++i) sc[i] *= scale_log2;
+  for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < kTcBK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int key = k0 + 8 * (i / 4) + col0 + (i & 1);
       const int row = row0 + 8 * ((i >> 1) & 1);
       if (key >= Sk || (causal && key > row)) sc[i] = -INFINITY;
@@ -161,7 +187,7 @@ __device__ __forceinline__ void tc_softmax(float (&sc)[kTcBK / 2],
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < kTcBK / 2; ++i)
+  for (int i = 0; i < BK / 2; ++i)
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   float mb[2];
 #pragma unroll
@@ -174,7 +200,7 @@ __device__ __forceinline__ void tc_softmax(float (&sc)[kTcBK / 2],
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kTcBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const float p = fast_exp2(sc[i] - mb[(i >> 1) & 1]);
     sc[i] = p;
     rs[(i >> 1) & 1] += p;
@@ -184,29 +210,32 @@ __device__ __forceinline__ void tc_softmax(float (&sc)[kTcBK / 2],
 }
 
 // p rounded to bf16, pairwise along keys: the PV product's A fragment.
-__device__ __forceinline__ void tc_pack(const float (&sc)[kTcBK / 2],
-                                        uint32_t (&pa)[kTcBK / 16][4]) {
+template <int BK>
+__device__ __forceinline__ void tc_pack(const float (&sc)[BK / 2],
+                                        uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kTcBK / 16; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
 // S = Q K^T for the K tile at `kt`: D / 16 steps along D, 32 bytes of a
-// swizzled row each, after a wgmma fence of its own.
-template <int D>
-__device__ __forceinline__ void tc_start_s(float (&sc)[kTcBK / 2],
+// swizzled row each (Q's and K's column blocks apart by their own rows),
+// after a wgmma fence of its own.
+template <int D, int BK>
+__device__ __forceinline__ void tc_start_s(float (&sc)[BK / 2],
                                            uint64_t qdesc, uint8_t* kt) {
-  using L = TcTile<D>;
-  const uint64_t kdesc = smem_desc(kt, 16, L::kGroupBytes, L::kSwizzle);
+  using Q = typename TcSmem<D>::Q;
+  using K = typename TcSmem<D>::KV;
+  const uint64_t kdesc = smem_desc(kt, 16, K::kGroupBytes, K::kSwizzle);
   fence_regs(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = ((kk / (L::kCols / 16)) * L::kBlockBytes
-                     + (kk % (L::kCols / 16)) * 32) >> 4;
-    wgmma_ss(sc, qdesc + off, kdesc + off, kk > 0);
+    const int blk = kk / (Q::kCols / 16), col = (kk % (Q::kCols / 16)) * 32;
+    wgmma_ss(sc, qdesc + ((blk * Q::kBlockBytes + col) >> 4),
+             kdesc + ((blk * K::kBlockBytes + col) >> 4), kk > 0);
   }
   wgmma_commit();
 }
@@ -224,7 +253,8 @@ __device__ __forceinline__ void tc_consume(
     uint8_t* qs, uint64_t* kfull, uint64_t* vfull, uint64_t* kempty,
     uint64_t* vempty, uint64_t* qbar, __nv_bfloat16* __restrict__ o, int q0,
     int bh, int nk, int Sq, int Sk, float scale_log2, int causal) {
-  using L = TcTile<D>;
+  using L = typename TcSmem<D>::Q;
+  constexpr int BK = TcSmem<D>::kKeys;
   // This thread: rows row0 and row0 + 8, columns col0, col0 + 1 of each 8.
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
@@ -233,49 +263,50 @@ __device__ __forceinline__ void tc_consume(
   const int col0 = 2 * (lane % 4);
   // Keys past Sk or the causal diagonal fall in the tile at k0.
   auto edge = [&](int k0) {
-    return k0 + kTcBK > Sk || (causal && k0 + kTcBK - 1 > wg_row0);
+    return k0 + BK > Sk || (causal && k0 + BK - 1 > wg_row0);
   };
 
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
-  float sc[kTcBK / 2];
-  uint32_t pa[kTcBK / 16][4];  // P of the previous tile in bf16
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];  // P of the previous tile in bf16
 
   const uint64_t qdesc = smem_desc(qs + 64 * wg * L::kRowBytes, 16,
                                    L::kGroupBytes, L::kSwizzle);
   mbar_wait(qbar, 0);
 
   mbar_wait(&kfull[0], 0);
-  tc_start_s<D>(sc, qdesc, qs + L::kBytes);
+  tc_start_s<D, BK>(sc, qdesc, TcSmem<D>::k_tile(qs, 0));
   wgmma_wait<0>();
   fence_regs(sc);
   if (lane == 0) mbar_arrive(&kempty[0]);
-  tc_softmax(sc, m, l, corr, edge(0), 0, row0, col0, Sk, scale_log2, causal);
-  tc_pack(sc, pa);
+  tc_softmax<BK>(sc, m, l, corr, edge(0), 0, row0, col0, Sk, scale_log2,
+                 causal);
+  tc_pack<BK>(sc, pa);
 
   for (int j = 1; j < nk; ++j) {
     const int s = j % kTcStages;
     mbar_wait(&kfull[s], (j / kTcStages) & 1);
     mbar_wait(&vfull[(j - 1) % kTcStages], ((j - 1) / kTcStages) & 1);
-    tc_start_s<D>(sc, qdesc, qs + (1 + s) * L::kBytes);
-    tc_start_pv<D>(acc, pa, qs, j - 1);
+    tc_start_s<D, BK>(sc, qdesc, TcSmem<D>::k_tile(qs, s));
+    tc_start_pv<D, BK>(acc, pa, qs, j - 1);
     wgmma_wait<1>();  // S_j has landed; PV_{j-1} may still run
     fence_regs(sc);
     if (lane == 0) mbar_arrive(&kempty[s]);  // this warp is done with K_j
-    tc_softmax(sc, m, l, corr, edge(j * kTcBK), j * kTcBK, row0, col0, Sk,
-               scale_log2, causal);
+    tc_softmax<BK>(sc, m, l, corr, edge(j * BK), j * BK, row0, col0, Sk,
+                   scale_log2, causal);
     wgmma_wait<0>();
-    tc_pv_landed<D>(acc, pa, vempty, j - 1);
+    tc_pv_landed<D, BK>(acc, pa, vempty, j - 1);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
-    tc_pack(sc, pa);
+    tc_pack<BK>(sc, pa);
   }
   mbar_wait(&vfull[(nk - 1) % kTcStages], ((nk - 1) / kTcStages) & 1);
-  tc_start_pv<D>(acc, pa, qs, nk - 1);
+  tc_start_pv<D, BK>(acc, pa, qs, nk - 1);
   wgmma_wait<0>();
-  tc_pv_landed<D>(acc, pa, vempty, nk - 1);
+  tc_pv_landed<D, BK>(acc, pa, vempty, nk - 1);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -299,12 +330,14 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap vmap,
              __nv_bfloat16* __restrict__ o, int Sq, int Sk, int group,
              float scale_log2, int causal) {
-  using L = TcTile<D>;
+  using Q = typename TcSmem<D>::Q;
+  using KV = typename TcSmem<D>::KV;
+  constexpr int BK = TcSmem<D>::kKeys;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = base;  // then the K ring, then the V ring
-  uint64_t* kfull = reinterpret_cast<uint64_t*>(
-      base + (1 + 2 * kTcStages) * L::kBytes);
+  uint64_t* kfull =
+      reinterpret_cast<uint64_t*>(base + TcSmem<D>::kBarriers);
   uint64_t* vfull = kfull + kTcStages;
   uint64_t* kempty = vfull + kTcStages;
   uint64_t* vempty = kempty + kTcStages;
@@ -314,7 +347,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   const int q0 = (nq - 1 - (int)blockIdx.x) * kTcBQ;
   const int bh = blockIdx.y;
   const int last_key = causal ? min(min(q0 + kTcBQ, Sq), Sk) - 1 : Sk - 1;
-  const int nk = last_key / kTcBK + 1;
+  const int nk = last_key / BK + 1;
 
   if (threadIdx.x == kTcConsumers) {
     for (int s = 0; s < kTcStages; ++s) {
@@ -335,26 +368,26 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     // tile j - kTcStages.
     setmaxnreg_dec<kTcProducerRegs>();
     if (threadIdx.x == kTcConsumers) {
-      mbar_expect_tx(qbar, L::kBytes);
-      for (int b = 0; b < L::kBlocks; ++b)
-        tma_load_3d(qs + b * L::kBlockBytes, &qmap, qbar, b * L::kCols, q0,
+      mbar_expect_tx(qbar, Q::kBytes);
+      for (int b = 0; b < Q::kBlocks; ++b)
+        tma_load_3d(qs + b * Q::kBlockBytes, &qmap, qbar, b * Q::kCols, q0,
                     bh);
       const int bkv = bh / group;
       for (int j = 0; j < nk; ++j) {
         const int s = j % kTcStages;
         const unsigned parity = (j / kTcStages - 1) & 1;
-        uint8_t* kt = qs + (1 + s) * L::kBytes;
-        uint8_t* vt = qs + (1 + kTcStages + s) * L::kBytes;
+        uint8_t* kt = TcSmem<D>::k_tile(qs, s);
+        uint8_t* vt = TcSmem<D>::v_tile(qs, s);
         if (j >= kTcStages) mbar_wait(&kempty[s], parity);
-        mbar_expect_tx(&kfull[s], L::kBytes);
-        for (int b = 0; b < L::kBlocks; ++b)
-          tma_load_3d(kt + b * L::kBlockBytes, &kmap, &kfull[s],
-                      b * L::kCols, j * kTcBK, bkv);
+        mbar_expect_tx(&kfull[s], KV::kBytes);
+        for (int b = 0; b < KV::kBlocks; ++b)
+          tma_load_3d(kt + b * KV::kBlockBytes, &kmap, &kfull[s],
+                      b * KV::kCols, j * BK, bkv);
         if (j >= kTcStages) mbar_wait(&vempty[s], parity);
-        mbar_expect_tx(&vfull[s], L::kBytes);
-        for (int b = 0; b < L::kBlocks; ++b)
-          tma_load_3d(vt + b * L::kBlockBytes, &vmap, &vfull[s],
-                      b * L::kCols, j * kTcBK, bkv);
+        mbar_expect_tx(&vfull[s], KV::kBytes);
+        for (int b = 0; b < KV::kBlocks; ++b)
+          tma_load_3d(vt + b * KV::kBlockBytes, &vmap, &vfull[s],
+                      b * KV::kCols, j * BK, bkv);
       }
     }
   } else {
@@ -391,15 +424,15 @@ EncodeTiled encode_tiled() {
 }
 
 // The tensor map of a (bh, S, D) bf16 tensor, in boxes of (one column
-// block, 128 rows, one head).
-template <int D>
+// block, Rows rows, one head).
+template <int D, int Rows>
 cudaError_t tile_map(CUtensorMap* map, const void* p, int bh, int S) {
-  using L = TcTile<D>;
+  using L = TcTile<D, Rows>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)L::kCols, 128, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)L::kCols, (cuuint32_t)Rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
@@ -414,13 +447,14 @@ template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int bhq, int Sq, int Sk, int group, float scale,
                       int causal, cudaStream_t stream) {
+  constexpr int BK = TcSmem<D>::kKeys;
   CUtensorMap qm, km, vm;
-  cudaError_t err = tile_map<D>(&qm, q, bhq, Sq);
-  if (err == cudaSuccess) err = tile_map<D>(&km, k, bhq / group, Sk);
-  if (err == cudaSuccess) err = tile_map<D>(&vm, v, bhq / group, Sk);
+  cudaError_t err = tile_map<D, kTcBQ>(&qm, q, bhq, Sq);
+  if (err == cudaSuccess) err = tile_map<D, BK>(&km, k, bhq / group, Sk);
+  if (err == cudaSuccess) err = tile_map<D, BK>(&vm, v, bhq / group, Sk);
   if (err != cudaSuccess) return err;
   auto fn = flash_fwd_tc<D>;
-  constexpr int bytes = TcTile<D>::kSmem;
+  constexpr int bytes = TcSmem<D>::kBytes;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
@@ -647,6 +681,7 @@ extern "C" int repro_flash_attention(int device, const void* q, const void* k,
     case 32: return launch<32>(dtype, q, k, v, o, bhq, Sq, Sk, group, scale, causal, s);
     case 64: return launch<64>(dtype, q, k, v, o, bhq, Sq, Sk, group, scale, causal, s);
     case 128: return launch<128>(dtype, q, k, v, o, bhq, Sq, Sk, group, scale, causal, s);
+    case 192: return launch<192>(dtype, q, k, v, o, bhq, Sq, Sk, group, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

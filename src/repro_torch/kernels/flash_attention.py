@@ -6,11 +6,14 @@ path.  On the H100 it is bound by operations (4·D flops a live query–key
 pair against one read of q, k, v and one write of o).
 ``csrc/flash_attention.cu`` has two variants, chosen by dtype.  bf16 (the
 prefill's type) runs on the tensor cores: a block of two consumer
-warpgroups owns a (b·hq, 128-query tile) and walks the 128-key tiles
+warpgroups owns a (b·hq, 128-query tile) and walks the key tiles
 (skipping those past the causal diagonal), which one producer warp brings
 in by TMA through a two-stage ring; QKᵀ and PV are both ``wgmma``, with p
 rounded to bf16 as the A fragment of PV, and the online-softmax state and
-the output tile stay in registers.  f32 runs on the CUDA cores (f32 FMA,
+the output tile stay in registers.  Key tiles are 128 keys up to D = 128
+and 64 at D = 192 (DeepSeek's MLA prefill), where a 128-key ring would not
+fit in shared memory beside Q and the output tile takes 96 registers a
+thread.  f32 runs on the CUDA cores (f32 FMA,
 64-query blocks), as the tensor cores have no f32 product at f32
 precision.  The KV row of a query row is bh // group, so repeated KV heads
 are never materialized; query and key lengths may differ (Sq against Sk,
@@ -29,7 +32,7 @@ import torch
 from . import _build
 from . import ref as _ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)
 # The kernel variant each dtype launches.
 VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
 

@@ -266,9 +266,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     = q head // (Hq / Hkv).  The causal mask is top-left, as the
     reference's default dispatch defines it (``tril`` of (Sq, Sk)): query
     row i sees keys 0..i, so rows ≥ Sk see every key."""
-    _no_tiles("flash_attention", "bf16: 128 queries by 128 keys, what two "
-              "consumer warpgroups' registers hold; f32: 64 by 64", bq=bq,
-              bk=bk)
+    _no_tiles("flash_attention", "bf16: 128 queries by 128 keys (64 keys at "
+              "head dim 192), what two consumer warpgroups' registers and "
+              "the block's shared memory hold; f32: 64 by 64", bq=bq, bk=bk)
     B, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv:

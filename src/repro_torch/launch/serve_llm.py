@@ -6,9 +6,12 @@ Counterpart of examples/serve_llm.py, on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --arch llama3.2-3b \
         --batch 4 --prompt-len 2048 --gen 32
 
-The prefill runs the hand-written flash_attention (dense) or selective_scan
-(Mamba1) kernel once a layer; decode steps take the plain one-token paths.
-Weights are drawn from a seeded generator (no checkpoint is read).
+The prefill runs the hand-written flash_attention (dense, vlm, and the moe
+family's MLA at head dim 192) or selective_scan (Mamba1) kernel once a
+layer; decode steps take the plain one-token paths.  Weights are drawn
+from a seeded generator (no checkpoint is read); a configuration with a
+frontend stub (vlm patches) gets `frontend_len` positions of precomputed
+embeddings, normal × 0.02, as examples/serve_llm.py draws them.
 """
 from __future__ import annotations
 
@@ -28,16 +31,22 @@ def _sync(dev: torch.device) -> None:
 
 
 @torch.inference_mode()
-def generate(model, params, tokens: torch.Tensor, gen: int):
+def generate(model, params, tokens: torch.Tensor, gen: int,
+             frontend_embeds: torch.Tensor | None = None):
     """Prefill `tokens` (B, S) into fresh caches, then decode `gen` − 1
-    steps, each feeding back the argmax of the last logits.  Returns (the
-    `gen` greedy tokens (B, gen), {"prefill_ms", "decode_ms_per_token"} on
-    the host clock around synchronized work)."""
+    steps, each feeding back the argmax of the last logits.  The prefill
+    batch carries `frontend_embeds` (B, n, d) when given (the first n
+    positions' embeddings); decode steps take none, as in the reference.
+    Returns (the `gen` greedy tokens (B, gen), {"prefill_ms",
+    "decode_ms_per_token"} on the host clock around synchronized work)."""
     B, S = tokens.shape
     caches = model.init_caches(B, S + gen)
+    batch = {"tokens": tokens}
+    if frontend_embeds is not None:
+        batch["frontend_embeds"] = frontend_embeds
     _sync(model.device)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": tokens}, caches)
+    logits, caches = model.prefill(params, batch, caches)
     out = [logits[:, -1].argmax(-1, keepdim=True)]
     _sync(model.device)
     t_prefill = time.perf_counter() - t0
@@ -50,6 +59,18 @@ def generate(model, params, tokens: torch.Tensor, gen: int):
     return torch.cat(out, 1), {
         "prefill_ms": t_prefill * 1e3,
         "decode_ms_per_token": t_decode / max(gen - 1, 1) * 1e3}
+
+
+def frontend_embeds(cfg, batch: int, prompt_len: int,
+                    gen: torch.Generator) -> torch.Tensor | None:
+    """The frontend stub's embeddings for `cfg` (None without a frontend):
+    `frontend_len` positions (the prompt's length for encdec), normal ×
+    0.02, f32, drawn on gen's device."""
+    if not cfg.frontend:
+        return None
+    flen = prompt_len if cfg.family == "encdec" else cfg.frontend_len
+    return torch.randn(batch, flen, cfg.d_model, generator=gen,
+                       device=gen.device) * 0.02
 
 
 def main(argv=None) -> None:
@@ -77,7 +98,8 @@ def main(argv=None) -> None:
     B, S = args.batch, args.prompt_len
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=dev)
-    out, times = generate(model, params, tokens, args.gen)
+    out, times = generate(model, params, tokens, args.gen,
+                          frontend_embeds(cfg, B, S, gen))
     print(f"prefill: {times['prefill_ms']:.1f}ms for {B}x{S} tokens")
     print(f"decode : {times['decode_ms_per_token']:.1f}ms/token "
           f"(batch {B})")

@@ -1,9 +1,10 @@
 """Uniform model interface over the ported decoder-only families.
 
 Counterpart of src/repro/models/registry.py.  `build(cfg, device=...)`
-binds the functions of `transformer` to one configuration and one device;
-the reference's `specs` and `train_loss` wait for sharding and training,
-and the encdec family raises (ROADMAP.md queue 1 item 15).
+binds the functions of `transformer` to one configuration and one device
+(the dense, vlm, moe and Mamba1 families); the reference's `specs` and
+`train_loss` wait for sharding and training, and the encdec and hybrid
+families raise (ROADMAP.md queue 1 item 15).
 """
 from __future__ import annotations
 

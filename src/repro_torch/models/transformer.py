@@ -1,13 +1,17 @@
 """Decoder-only LM assembly: per-layer blocks, caches, prefill and decode.
 
-Counterpart of src/repro/models/transformer.py for the dense, vlm and ssm
-(Mamba1) families; moe, hybrid, MLA and MTP raise NotImplementedError
-(ROADMAP.md queue 1 item 15).  The reference stacks the layers and drives
-them with `lax.scan` under remat; here each layer is its own module in an
-`nn.ModuleList` and a Python loop applies them (remat has no meaning in
-inference).  Caches are one dict a layer, updated in place and returned.
-`forward` returns (hidden, caches): the reference's third value, the MoE
-auxiliary loss, is always 0 without MoE.
+Counterpart of src/repro/models/transformer.py for the dense, vlm, moe
+(DeepSeek: MLA attention, a dense prefix then MoE FFN layers, MTP
+weights) and ssm (Mamba1) families; hybrid, encdec and Mamba2 raise
+NotImplementedError (ROADMAP.md queue 1 item 15).  The reference stacks
+the layers and drives them with `lax.scan` under remat; here each layer is
+its own module in an `nn.ModuleList` and a Python loop applies them (remat
+has no meaning in inference).  Caches are one dict a layer, updated in
+place and returned.  `forward` returns (hidden, caches) and drops the
+reference's third value, the MoE auxiliary loss (`moe.apply_moe` returns
+it; serving never reads it).  The MTP block's weights are made and carried
+(`init_lm`); the reference runs them only in `train_loss`, which waits for
+training.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from torch import nn
 
 from .config import ModelConfig
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
 from . import ssm as SSM
 
 
@@ -40,27 +46,50 @@ class Params(nn.Module):
 
 
 def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "ssm"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 15); ported: dense, vlm, ssm")
-    if cfg.mla or cfg.moe or cfg.mtp_depth:
-        raise NotImplementedError("MLA, MoE and MTP are not ported yet "
-                                  "(ROADMAP.md queue 1 item 15)")
+            "item 15); ported: dense, vlm, moe, ssm")
+    if cfg.family == "moe" and cfg.moe is None:
+        raise ValueError("family 'moe' needs cfg.moe")
     if cfg.family == "ssm" and cfg.ssm.version != 1:
         raise NotImplementedError("Mamba2 is not ported yet (ROADMAP.md "
                                   "queue 1 item 15)")
 
 
 # ---------------------------------------------------------- layer kinds ----
+def _init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    if cfg.mla:
+        return MLA.init_mla(gen, cfg)
+    return L.init_attention(gen, cfg)
+
+
+def _apply_attn(p, x, pos, cfg: ModelConfig, cache=None, cache_pos: int = 0):
+    if cfg.mla:
+        return MLA.mla_attention(p, x, pos, cfg, cache=cache,
+                                 cache_pos=cache_pos,
+                                 decode_mode=cfg.mla_decode_mode)
+    return L.attention(p, x, pos, cfg, cache=cache, cache_pos=cache_pos)
+
+
+def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    if cfg.mla:
+        return MLA.init_mla_cache(cfg, batch, max_len, device)
+    return L.init_attention_cache(cfg, batch, max_len, device)
+
+
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
-    """kind ∈ {dense, mamba1}."""
+    """kind ∈ {dense, moe_ffn, mamba1}."""
     dev = gen.device
-    if kind == "dense":
-        return {"norm1": L.init_norm(cfg, dev),
-                "attn": L.init_attention(gen, cfg),
-                "norm2": L.init_norm(cfg, dev),
-                "ffn": L.init_mlp(gen, cfg)}
+    if kind in ("dense", "moe_ffn"):
+        p = {"norm1": L.init_norm(cfg, dev), "attn": _init_attn(gen, cfg),
+             "norm2": L.init_norm(cfg, dev)}
+        if kind == "moe_ffn":
+            p["ffn"] = MOE.init_moe(gen, cfg)
+        else:
+            d_ff = (cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
+            p["ffn"] = L.init_mlp(gen, cfg, d_ff=d_ff)
+        return p
     if kind == "mamba1":
         return {"norm1": L.init_norm(cfg, dev),
                 "mixer": SSM.init_mamba1(gen, cfg)}
@@ -69,13 +98,15 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
 
 def apply_block(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
                 kind: str, *, cache=None, cache_pos: int = 0):
-    """Returns (x, cache)."""
-    if kind == "dense":
-        a, cache = L.attention(p["attn"], L.apply_norm(p["norm1"], x, cfg),
+    """Returns (x, cache); a moe_ffn block's auxiliary loss is dropped."""
+    if kind in ("dense", "moe_ffn"):
+        a, cache = _apply_attn(p["attn"], L.apply_norm(p["norm1"], x, cfg),
                                pos, cfg, cache=cache, cache_pos=cache_pos)
         x = x + a
-        return x + L.apply_mlp(p["ffn"], L.apply_norm(p["norm2"], x, cfg),
-                               cfg), cache
+        h = L.apply_norm(p["norm2"], x, cfg)
+        if kind == "moe_ffn":
+            return x + MOE.apply_moe(p["ffn"], h, cfg)[0], cache
+        return x + L.apply_mlp(p["ffn"], h, cfg), cache
     if kind == "mamba1":
         a, cache = SSM.mamba1_block(p["mixer"],
                                     L.apply_norm(p["norm1"], x, cfg), cfg,
@@ -86,8 +117,8 @@ def apply_block(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 device) -> dict:
-    if kind == "dense":
-        return L.init_attention_cache(cfg, batch, max_len, device)
+    if kind in ("dense", "moe_ffn"):
+        return _attn_cache(cfg, batch, max_len, device)
     if kind == "mamba1":
         return SSM.init_mamba1_cache(cfg, batch, device)
     raise ValueError(kind)
@@ -97,17 +128,28 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def lm_structure(cfg: ModelConfig) -> list[tuple[str, int, str]]:
     """[(stack_name, n_layers, kind)] per family."""
     _unsupported(cfg)
+    if cfg.family == "moe":
+        fk = cfg.moe.first_k_dense
+        return [("dense_prefix", fk, "dense"),
+                ("moe_blocks", cfg.num_layers - fk, "moe_ffn")]
     kind = "mamba1" if cfg.family == "ssm" else "dense"
     return [("blocks", cfg.num_layers, kind)]
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters on gen's device, drawn from `gen` with the reference's
-    initial distributions."""
+    initial distributions; with mtp_depth, the MTP block ("mtp": proj
+    (2d, d), block, norm) as well."""
     tree = {"embed": L.init_embedding(gen, cfg),
             "final_norm": L.init_norm(cfg, gen.device)}
     for name, n, kind in lm_structure(cfg):
         tree[name] = [init_block(gen, cfg, kind) for _ in range(n)]
+    if cfg.mtp_depth:
+        block = init_block(gen, cfg, "moe_ffn" if cfg.moe else "dense")
+        tree["mtp"] = {"proj": L._dense_init(gen, (2 * cfg.d_model,
+                                                   cfg.d_model),
+                                             L.pdtype(cfg)),
+                       "block": block, "norm": L.init_norm(cfg, gen.device)}
     return Params(tree)
 
 

@@ -24,13 +24,17 @@ fused_grad_bsr_multi at every block size, 1 to 100 slots, staged
 and unstaged, with its slot independence and repeatability bit for bit;
 blocks that start off a 16-byte boundary through every sparse kernel;
 a SolverServer group of 40 slots on a dense and on a sparse matrix, one
-launch per A-pass; flash_attention at head dims 32, 64 and 128, 1, 3 and 4
-q heads a KV head, causal and not, query and key lengths of 1, 63 and 2049
+launch per A-pass; flash_attention at head dims 32, 64, 128 and 192, 1, 3
+and 4 q heads a KV head, causal and not, query and key lengths of 1, 63 and 2049
 and unequal ones both ways (2048 against 2049 among them), f32 and bf16,
 q, k and v that start off a 16-byte boundary,
-key lengths off the bf16 kernel's 128-key tile, scores near 50, four KV
-heads each read by the right q heads, the same bits twice and a launch
-count for each variant (bf16 on the tensor cores, f32 on the CUDA cores);
+key lengths off the bf16 kernel's 128-key tile (64 at D = 192), scores
+near 50, four KV heads each read by the right q heads, the same bits twice
+and a launch count for each variant (bf16 on the tensor cores, f32 on the
+CUDA cores); MLA's prefill shape at D = 192 (one q head a KV head, the
+rotary key shared by the heads, v zero-padded from 128) at S = 2048, 2049
+and 2048 queries against 2049 keys, and the smoke MLA's head of 48
+refused on the card;
 the selective scan at
 channel counts of 1 and off its 32- and 64-channel blocks, N = 8 and 16,
 S of 1 to 2049 on both sides of its 16-step tile, from a nonzero state,
@@ -1322,6 +1326,47 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
     q = torch.randn(4, 16, 64, device=dev)
     with pytest.raises(ValueError, match="conform"):
         flash_attention.flash_attention(q, q[:3], q[:3], q_heads_per_kv=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(2048, 2048), (2049, 2049), (2048, 2049),
+                                   (65, 63)])
+def test_flash_attention_mla_prefill_shape(dev, sq, sk, dtype):
+    """DeepSeek's MLA prefill: D = 192 (128 + 64 rotary columns), one q
+    head a KV head, the rotary key's columns the same in every head and v
+    zero past column 128, scale 1/sqrt(192): the padded output columns are
+    exactly 0 and the rest within the limits of plain."""
+    H = 8
+    g = _gen(dev, sq + 3 * sk)
+    q = torch.randn(H, sq, 192, generator=g, device=dev)
+    k = torch.randn(H, sk, 192, generator=g, device=dev)
+    k[:, :, 128:] = k[:1, :, 128:]
+    v = torch.zeros(H, sk, 192, device=dev)
+    v[:, :, :128] = torch.randn(H, sk, 128, generator=g, device=dev)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    scale = 1.0 / 192 ** 0.5
+    got = flash_attention.flash_attention(q, k, v, scale=scale)
+    want = flash_attention.flash_attention_plain(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert not got[..., 128:].any()
+    assert _rel(got, want) <= (TOL if dtype == torch.float32
+                               else TOL_ATTN_BF16)
+
+
+def test_mla_prefill_refuses_the_smoke_head_on_the_card(dev):
+    """The smoke MLA's materialized head (32 + 16 = 48) is not one of
+    HEAD_DIMS: its prefill raises on the card, with no plain fallback."""
+    from repro_torch import configs
+    from repro_torch.models import build, smoke_config
+
+    cfg = smoke_config(configs.get("deepseek-v2-236b"))
+    model = build(cfg, device=dev)
+    params = model.init(_gen(dev, 0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim 48"):
+        model.prefill(params, {"tokens": toks}, model.init_caches(2, 10))
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 def _scan_args(dev, Bt, S, d, N, seed):

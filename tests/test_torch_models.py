@@ -2,8 +2,12 @@
 
 Smoke configurations of llama3.2-3b (dense, with num_kv_heads=2 so that
 GQA 2:1 is exercised, and once at vocab_size=500 for the padded-vocab
-mask) and falcon-mamba-7b (Mamba1) in f32, with the reference's weights
-carried across by ``convert.lm_params_from_numpy``.  Each layer function is
+mask), falcon-mamba-7b (Mamba1), deepseek-v2-236b and deepseek-v3-671b
+(moe: MLA attention, a dense prefix then MoE FFN layers, v3 with MTP
+weights; capacity_factor 8, so no token is dropped) and llava-next-34b
+(vlm, with numpy frontend embeddings in its first positions) in f32,
+with the reference's weights carried across by
+``convert.lm_params_from_numpy``.  Each layer function is
 held against its JAX twin, then the whole model: prefill logits and caches
 and 4 decode steps (dense within 1e-4 of the largest logit, Mamba within
 1e-3: the reference's prefill scan is a chunked associative scan, the
@@ -44,8 +48,16 @@ CASES = {
     "dense_v500": ("llama3.2-3b", dict(num_kv_heads=2, vocab_size=500)),
     "ssm": ("falcon-mamba-7b", {}),
     "dense_bf16": ("llama3.2-3b", dict(num_kv_heads=2, dtype="bfloat16")),
+    "moe_v2": ("deepseek-v2-236b", {}),
+    "moe_v3": ("deepseek-v3-671b", {}),
+    "vlm": ("llava-next-34b", {}),
 }
-TOL = {"dense": 1e-4, "dense_v500": 1e-4, "ssm": 1e-3, "dense_bf16": 4e-2}
+TOL = {"dense": 1e-4, "dense_v500": 1e-4, "ssm": 1e-3, "dense_bf16": 4e-2,
+       "moe_v2": 1e-4, "moe_v3": 1e-4, "vlm": 1e-4}
+# The configurations the port registers (the other two raise).
+PORTED = ("deepseek-coder-33b", "qwen3-4b", "llama3.2-3b", "qwen2.5-32b",
+          "llava-next-34b", "deepseek-v2-236b", "deepseek-v3-671b",
+          "falcon-mamba-7b")
 
 
 @pytest.fixture(autouse=True)
@@ -94,7 +106,22 @@ class Case:
         rng = np.random.default_rng(len(name))
         self.tokens = rng.integers(0, self.cfg.vocab_size,
                                    (B, S + STEPS)).astype(np.int32)
+        # The frontend stub's embeddings (vlm), as examples/serve_llm.py
+        # draws them: frontend_len positions, normal x 0.02.
+        self.fe = (rng.normal(size=(B, self.cfg.frontend_len,
+                                    self.cfg.d_model)) * 0.02
+                   ).astype(np.float32) if self.cfg.frontend else None
         self._ref = None
+
+    def batch(self, n=S):
+        """The port's prefill batch of the first n tokens."""
+        out = {"tokens": torch.from_numpy(self.tokens[:, :n]).long()}
+        if self.fe is not None:
+            out["frontend_embeds"] = _t(self.fe)
+        return out
+
+    def fe_t(self):
+        return None if self.fe is None else _t(self.fe)
 
     def ref(self):
         """The reference's prefill logits and caches, then its decode
@@ -104,8 +131,10 @@ class Case:
             decode = jax.jit(self.jmodel.decode_step)
             caches, _ = self.jmodel.init_caches(B, S + STEPS)
             toks = jnp.asarray(self.tokens)
-            logits, caches = prefill(self.jparams, {"tokens": toks[:, :S]},
-                                     caches)
+            batch = {"tokens": toks[:, :S]}
+            if self.fe is not None:
+                batch["frontend_embeds"] = jnp.asarray(self.fe)
+            logits, caches = prefill(self.jparams, batch, caches)
             steps = [(np.asarray(logits), jax.tree.map(np.asarray, caches))]
             for i in range(STEPS):
                 logits, caches = decode(self.jparams, toks[:, S + i:S + i + 1],
@@ -132,7 +161,7 @@ def cases():
 @pytest.mark.parametrize("arch", jconfigs.ARCHES)
 def test_configs_copy_the_reference(arch):
     want = jconfigs.get(arch)
-    if arch not in ("llama3.2-3b", "falcon-mamba-7b"):
+    if arch not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.get(arch)
         return
@@ -144,18 +173,37 @@ def test_configs_copy_the_reference(arch):
 
 def test_unported_families_raise():
     cfg = smoke_config(configs.get("llama3.2-3b"))
-    for kw in (dict(family="moe"), dict(family="hybrid"),
-               dict(mtp_depth=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg.scaled(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(cfg.scaled(family="hybrid"), device="cpu")
     with pytest.raises(NotImplementedError, match="encdec"):
         build(cfg.scaled(family="encdec"), device="cpu")
+    ssm = smoke_config(configs.get("falcon-mamba-7b"))
+    with pytest.raises(NotImplementedError, match="Mamba2"):
+        build(ssm.scaled(ssm=dataclasses.replace(ssm.ssm, version=2)),
+              device="cpu")
+    # What this slice ports builds: the moe family and MTP's weights.
+    build(smoke_config(configs.get("deepseek-v3-671b")), device="cpu")
+    model = build(cfg.scaled(mtp_depth=1), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert set(params["mtp"]._modules) == {"block", "norm"}
+    assert params["mtp"]["proj"].shape == (2 * cfg.d_model, cfg.d_model)
 
 
 def test_build_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build(smoke_config(configs.get("llama3.2-3b")))
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_every_ported_arch_builds_on_the_card_by_default(monkeypatch, arch):
+    """build's default device is the card for every registered config; it
+    raises without one and builds with device="cpu"."""
+    cfg = smoke_config(configs.get(arch))
+    assert build(cfg, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(cfg)
 
 
 # --------------------------------------------------------------- layers ----
@@ -350,10 +398,12 @@ def test_mamba1_block(cases):
 
 # ---------------------------------------------------------- whole model ----
 def _caches_close(got, want, tol):
-    for i, layer in enumerate(got["blocks"]):
-        for key, t in layer.items():
-            w = want["blocks"][key][i]
-            assert _rel(t, w) <= tol, (i, key, _rel(t, w))
+    assert set(got) == set(want)
+    for name, layers in got.items():
+        for i, layer in enumerate(layers):
+            for key, t in layer.items():
+                w = want[name][key][i]
+                assert _rel(t, w) <= tol, (name, i, key, _rel(t, w))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -364,8 +414,7 @@ def test_prefill_and_decode_match_reference(cases, name):
     toks = torch.from_numpy(case.tokens).long()
     caches = case.model.init_caches(B, S + STEPS)
     V = case.cfg.vocab_size
-    logits, caches = case.model.prefill(case.params,
-                                        {"tokens": toks[:, :S]}, caches)
+    logits, caches = case.model.prefill(case.params, case.batch(), caches)
     assert logits.shape == (B, 1, L.padded_vocab(case.cfg))
     for i in range(STEPS + 1):
         if i:
@@ -379,7 +428,7 @@ def test_prefill_and_decode_match_reference(cases, name):
                                       want_logits[..., V:])
 
 
-@pytest.mark.parametrize("name", ["dense", "ssm"])
+@pytest.mark.parametrize("name", ["dense", "ssm", "moe_v2", "moe_v3", "vlm"])
 def test_decode_matches_forward(cases, name):
     """The port's own prefill + decode steps against its cache-free
     forward (tests/test_models.py's decode_matches_forward)."""
@@ -387,20 +436,20 @@ def test_decode_matches_forward(cases, name):
     toks = torch.from_numpy(case.tokens).long()
     total = S + 3
     caches = case.model.init_caches(B, total)
-    logits, caches = case.model.prefill(case.params,
-                                        {"tokens": toks[:, :S]}, caches)
+    logits, caches = case.model.prefill(case.params, case.batch(), caches)
     dec = [logits]
     for i in range(2):
         lg, caches = case.model.decode_step(
             case.params, toks[:, S + i:S + i + 1], caches, S + i)
         dec.append(lg)
     dec = torch.cat(dec, 1)
-    h, _ = TF.forward(case.params, toks[:, :total - 1], case.cfg)
+    h, _ = TF.forward(case.params, toks[:, :total - 1], case.cfg,
+                      frontend_embeds=case.fe_t())
     want = L.lm_logits(case.params["embed"], h, case.cfg)[:, S - 1:]
     assert _rel(dec, want) < 2e-2
 
 
-@pytest.mark.parametrize("name", ["dense", "ssm"])
+@pytest.mark.parametrize("name", ["dense", "ssm", "moe_v2", "moe_v3", "vlm"])
 def test_generate_matches_reference_loop(cases, name):
     """Greedy tokens of `generate` against examples/serve_llm.py's loop."""
     case = cases(name)
@@ -408,9 +457,10 @@ def test_generate_matches_reference_loop(cases, name):
     prefill = jax.jit(case.jmodel.prefill)
     decode = jax.jit(case.jmodel.decode_step)
     caches, _ = case.jmodel.init_caches(B, S + gen)
-    logits, caches = prefill(case.jparams,
-                             {"tokens": jnp.asarray(case.tokens[:, :S])},
-                             caches)
+    batch = {"tokens": jnp.asarray(case.tokens[:, :S])}
+    if case.fe is not None:
+        batch["frontend_embeds"] = jnp.asarray(case.fe)
+    logits, caches = prefill(case.jparams, batch, caches)
     out = [jnp.argmax(logits[:, -1], -1)[:, None]]
     pos = jnp.int32(S)
     for _ in range(gen - 1):
@@ -419,6 +469,83 @@ def test_generate_matches_reference_loop(cases, name):
         pos = pos + 1
     want = np.asarray(jnp.concatenate(out, 1))
     got, times = generate(case.model, case.params,
-                          torch.from_numpy(case.tokens[:, :S]).long(), gen)
+                          torch.from_numpy(case.tokens[:, :S]).long(), gen,
+                          frontend_embeds=case.fe_t())
     np.testing.assert_array_equal(got.numpy(), want)
     assert set(times) == {"prefill_ms", "decode_ms_per_token"}
+
+
+def test_generate_forwards_frontend_embeds(cases):
+    """generate's prefill sees frontend_embeds: its logits are a direct
+    prefill's with them and differ from one without them; decode steps
+    take none."""
+    case = cases("vlm")
+    seen = []
+
+    def prefill(params, batch, caches):
+        logits, caches = case.model.prefill(params, batch, caches)
+        seen.append((dict(batch), logits))
+        return logits, caches
+
+    def decode_step(params, tokens, caches, pos):
+        seen.append(("decode", tokens.shape))
+        return case.model.decode_step(params, tokens, caches, pos)
+
+    spy = dataclasses.replace(case.model, prefill=prefill,
+                              decode_step=decode_step)
+    toks = torch.from_numpy(case.tokens[:, :S]).long()
+    generate(spy, case.params, toks, 3, frontend_embeds=case.fe_t())
+    (batch, logits), *decodes = seen
+    assert torch.equal(batch["frontend_embeds"], case.fe_t())
+    assert decodes == [("decode", (B, 1))] * 2
+    with torch.inference_mode():
+        with_fe, _ = case.model.prefill(case.params, case.batch(),
+                                        case.model.init_caches(B, S + 3))
+        without, _ = case.model.prefill(case.params, {"tokens": toks},
+                                        case.model.init_caches(B, S + 3))
+    assert torch.equal(logits, with_fe)
+    assert _rel(logits, without) > 1e-3
+
+
+def test_serve_llm_main_draws_frontend_embeds(monkeypatch):
+    """serve_llm.main gives a vlm configuration frontend_len positions of
+    f32 embeddings, normal x 0.02, and a dense one none."""
+    from repro_torch.launch import serve_llm
+
+    seen = []
+
+    def spy(model, params, tokens, gen, frontend_embeds=None):
+        seen.append(frontend_embeds)
+        return torch.zeros(tokens.shape[0], gen, dtype=torch.long), {
+            "prefill_ms": 0.0, "decode_ms_per_token": 0.0}
+
+    monkeypatch.setattr(serve_llm, "generate", spy)
+    for arch in ("llava-next-34b", "qwen3-4b"):
+        serve_llm.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--batch", "3", "--prompt-len", "16", "--gen", "2"])
+    fe, none = seen
+    cfg = smoke_config(configs.get("llava-next-34b"))
+    assert none is None
+    assert fe.shape == (3, cfg.frontend_len, cfg.d_model)
+    assert fe.dtype == torch.float32
+    assert 0.015 < float(fe.std()) < 0.025
+
+
+def test_convert_carries_every_leaf(cases):
+    """Every leaf of the reference's tree (v3: the dense prefix, the MoE
+    blocks with their stacked experts, and the MTP block) crosses to the
+    port's parameters bit for bit."""
+    case = cases("moe_v3")
+    stacks = {name: n for name, n, _ in TF.lm_structure(case.cfg)}
+    leaves = jax.tree_util.tree_flatten_with_path(case.np_params)[0]
+    assert any(p[0].key == "mtp" for p, _ in leaves)
+    port = dict(case.params.named_parameters())
+    for path, want in leaves:
+        keys = [k.key for k in path]
+        rows = range(stacks[keys[0]]) if keys[0] in stacks else [None]
+        for i in rows:
+            name = ".".join(keys[:1] + ([str(i)] if i is not None else [])
+                            + keys[1:])
+            w = want if i is None else want[i]
+            np.testing.assert_array_equal(_np32(port.pop(name)), _np32(w))
+    assert not port, sorted(port)
