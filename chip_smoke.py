@@ -142,7 +142,26 @@ with nvcc, then:
               llava-next-34b (4 layers each; llava with its 2880 patch
               embeddings through generate's frontend_embeds in a prompt
               of 4096), one generate each, flash_attention once a
-              layer.
+              layer.  Then the last two families at full width and
+              depth (run_lm_families): zamba2-1.2b (38 Mamba2 layers in
+              6 groups led by the shared attention block, and a tail of
+              2; bf16) launches selective_scan at N = 64 once a Mamba2
+              layer and flash_attention (D = 64, causal) once a group a
+              prefill; seamless-m4t-large-v2 (24 encoder + 24 decoder
+              layers, bf16, 2048 frames) launches flash_attention three
+              times a layer pair (the encoder's self-attention and the
+              cross-attention non-causal, 48 of the 72); decode steps
+              launch none.  selective_scan at N = 64 against plain on
+              zamba2's layer-0 inputs (S = 2048, from a nonzero state,
+              S = 2049), timed beside its bound and the reference's
+              chunked SSD form in plain torch at the same shape;
+              flash_attention at D = 64 causal (the shared block) and
+              non-causal (the encoder's layer 0, and the cross-attention
+              of 2048 queries against 1500 encoder frames) against plain
+              in bf16 and f32, timed beside SDPA; prefill against decode
+              in bf16 at full size and in f32 (zamba2 at 8 layers, one
+              group and the tail; seamless at full depth on 1500 frames
+              against a prompt of 2049).
   10. planner (after phase 8, every earlier path done; about 10 s):
               with an empty autotune cache (REPRO_TORCH_AUTOTUNE_CACHE, a
               fresh temporary directory for the run) and the built-in H100
@@ -417,13 +436,27 @@ PLAIN_HEADS = 64
 LM_CONFIGS = {"qwen3-4b": None, "qwen2.5-32b": 4, "deepseek-coder-33b": 4,
               "llava-next-34b": 4}
 LM_VLM_PROMPT = 4096
+# Then the last two families at full width and full depth in bf16:
+# zamba2-1.2b (hybrid) and seamless-m4t-large-v2 (encdec, its encoder on
+# LM_PROMPT frames, the prompt's length, as serve_llm draws them); the
+# launches each prefill makes are family_launches'.
+LM_FAMILIES = ("zamba2-1.2b", "seamless-m4t-large-v2")
+# Their f32 prefill-against-decode checks: zamba2 at one group of 6 and
+# the tail of 2 (LM_F32_LAYERS = 4 would hold no group), seamless at full
+# depth with LM_ENC_FRAMES frames against a prompt of LM_PROMPT + 1, the
+# length its cross-attention check also takes.
+LM_HYBRID_F32_LAYERS = 8
+LM_ENC_FRAMES = 1500
 # Phase 8's limits, normwise relative.  flash_attention in bf16: the kernel
 # rounds the softmax weights to bf16 before the PV product (2^-9 each), as
 # the reference kernel does, and the plain version does not.  Prefill
 # against decode in bf16: the two paths round the residual stream to bf16
 # (2^-8) at different places in each of 28 (64) layers.
+# The reference's chunked SSD form of Mamba2 (timed beside the kernel)
+# against the kernel: the same recurrence summed in chunks, 1e-3 as in
+# the CPU tests (tests/test_torch_mamba2.py).
 TOL_LM = {"flash_f32": 1e-4, "flash_bf16": 1e-2, "scan": 1e-4,
-          "pvd_f32": 1e-4, "pvd_bf16": 5e-2}
+          "pvd_f32": 1e-4, "pvd_bf16": 5e-2, "ssd": 1e-3}
 # Phase 9: the paper's front doors.  (a) the four Figure-1 problems at
 # make_problem's sizes through every method (the default caps), each final
 # objective within FIG1_CPU_TOL of the same call on the CPU, relative; a
@@ -2795,14 +2828,17 @@ def run_phase9(api, ops, dev, sigma3) -> tuple[dict, dict, dict]:
 def attn_inputs(params, cfg, tokens):
     """Layer 0's real q (B·Hq, S, D) and k, v (B·Hkv, S, D) for `tokens`,
     as the prefill gives them to flash_attention (MLA: the materialized
-    form, D = 192, v zero-padded), the scale (None: 1/√D) and the q heads
-    a KV head."""
+    form, D = 192, v zero-padded; hybrid: the shared block's first
+    application), the scale (None: 1/√D) and the q heads a KV head."""
     from repro_torch.models import layers as L
     from repro_torch.models import mla as MLA
 
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device).expand(B, S)
-    lp = params["dense_prefix" if cfg.moe else "blocks"][0]
+    if cfg.family == "hybrid":       # group 0's shared attention block
+        lp = params["shared_attn"]
+    else:
+        lp = params["dense_prefix" if cfg.moe else "blocks"][0]
     h = L.apply_norm(lp["norm1"], L.embed(params["embed"], tokens, cfg), cfg)
     if cfg.mla:
         *qkv, scale = MLA.flash_inputs(lp["attn"], h, pos, cfg)
@@ -2837,7 +2873,6 @@ def check_flash(params, cfg, tokens) -> dict:
     (ragged), and bf16 causal with S queries against S + 1 keys; times at
     the path's shape beside SDPA (its longest device kernel named) and
     the bound.  At MLA's D = 192 the output's padded columns must be 0."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     out = {}
@@ -2869,31 +2904,10 @@ def check_flash(params, cfg, tokens) -> dict:
             rec["kv_shape"] = list(k.shape)
         del got, want
         if key in ("bf16", "f32"):
-            bhq, S, _ = q.shape
-            pairs = bhq * S * (S + 1) / 2
-            rec["bound_ms"], rec["bound_by"] = bound(
-                (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                4.0 * D * pairs, q.dtype)
-            rec["ms"] = time_ms(lambda: fa.flash_attention(
-                q, k, v, scale=scale, q_heads_per_kv=g))
-            rec["plain_ms"] = time_ms(lambda: plain_by_heads(q, k, v, scale,
-                                                             g), reps=3)
-            B = toks.shape[0]
-            q4, k4, v4 = (t.reshape(B, -1, S, D) for t in (q, k, v))
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, scale=scale, enable_gqa=True)
-            rec["library_ms"], rec["library_error"] = library_time(sdpa)
-            rec["library_kernel"] = (sdpa_kernel_name(sdpa)
-                                     if rec["library_ms"] else None)
-            sdpa_s = (f"{rec['library_ms']:.3f} ({rec['library_kernel']})"
-                      if rec["library_ms"] else rec["library_error"])
+            time_flash(rec, q, k, v, scale, g, True, toks.shape[0])
             print(f"[lm] {cfg.name} flash_attention D = {D} {key} "
-                  f"({rec['variant']}): kernel {rec['ms']:.3f} ms | plain "
-                  f"{rec['plain_ms']:.3f} | SDPA {sdpa_s} | bound "
-                  f"{rec['bound_ms']:.3f} ({rec['bound_by']}), share "
-                  f"{rec['bound_ms'] / rec['ms']:.3f} | rel err {e:.2e}")
+                  f"({rec['variant']}): {flash_times(rec)} | rel err "
+                  f"{e:.2e}")
         else:
             print(f"[lm] {cfg.name} flash_attention D = {D} {key} "
                   f"({rec['variant']}; Sq = {q.shape[1]}, Sk = "
@@ -2903,29 +2917,142 @@ def check_flash(params, cfg, tokens) -> dict:
     return out
 
 
+def time_flash(rec: dict, q, k, v, scale, g: int, causal: bool,
+               B: int) -> None:
+    """Into rec: flash_attention's median ms on (q, k, v), its plain
+    version's, SDPA's (with the longest device kernel it ran) and the
+    bound (4·D flops a live query-key pair; q and o, k and v once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    bhq, sq, D = q.shape
+    sk = k.shape[1]
+    pairs = bhq * (sq * (sq + 1) / 2 if causal else sq * sk)   # Sq <= Sk
+    rec["bound_ms"], rec["bound_by"] = bound(
+        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+        4.0 * D * pairs, q.dtype)
+    rec["ms"] = time_ms(lambda: fa.flash_attention(
+        q, k, v, scale=scale, causal=causal, q_heads_per_kv=g))
+    rec["plain_ms"] = time_ms(lambda: plain_by_heads(q, k, v, scale, g,
+                                                     causal), reps=3)
+    q4 = q.reshape(B, -1, sq, D)
+    k4, v4 = (t.reshape(B, -1, sk, D) for t in (k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale, enable_gqa=True)
+    rec["library_ms"], rec["library_error"] = library_time(sdpa)
+    rec["library_kernel"] = (sdpa_kernel_name(sdpa) if rec["library_ms"]
+                             else None)
+
+
+def flash_times(rec: dict) -> str:
+    """time_flash's numbers as one line of text."""
+    sdpa_s = (f"{rec['library_ms']:.3f} ({rec['library_kernel']})"
+              if rec["library_ms"] else rec["library_error"])
+    return (f"kernel {rec['ms']:.3f} ms | plain {rec['plain_ms']:.3f} | "
+            f"SDPA {sdpa_s} | bound {rec['bound_ms']:.3f} "
+            f"({rec['bound_by']}), share {rec['bound_ms'] / rec['ms']:.3f}")
+
+
+def mamba2_inputs(params, cfg, tokens):
+    """zamba2's first Mamba2 layer's real (x, dt, A, B, C, D) for
+    `tokens`, as the prefill gives them to selective_scan: its input is
+    the shared attention block's output (flash launches outside any
+    counted window)."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TF
+
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    x, _ = TF.apply_block(params["shared_attn"],
+                          L.embed(params["embed"], tokens, cfg), pos, cfg,
+                          "dense")
+    lp = params["groups"][0]["mamba"][0]
+    p = lp["mixer"]
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    conv = [F.silu(SSM._causal_conv((h @ p[w]).float(), p[c], p[b]))
+            for w, c, b in (("w_x", "conv_w", "conv_b"),
+                            ("w_B", "convB_w", "convB_b"),
+                            ("w_C", "convC_w", "convC_b"))]
+    dt = F.softplus(h.float() @ p["w_dt"] + p["dt_bias"])
+    return SSM.mamba2_scan_inputs(p, *conv, dt, cfg)
+
+
+def ssd_chunked(x, dt, A, B, C, D, Pd: int, chunk: int) -> torch.Tensor:
+    """The reference's chunked SSD form of Mamba2's prefill (src/repro/
+    models/ssm.py:279-326, from a zero state) in plain torch, on
+    selective_scan's per-channel arguments (dt, A and D repeated over each
+    head's Pd channels): y (Bt, S, d).  Timed beside the kernel for the
+    later redesign; not on any path."""
+    Bt, S, d = x.shape
+    H, N = d // Pd, B.shape[-1]
+    Q = chunk if S % chunk == 0 else max(
+        q for q in range(1, min(chunk, S) + 1) if S % q == 0)
+    nc = S // Q
+    xh = x.reshape(Bt, nc, Q, H, Pd)
+    dtc = dt[..., ::Pd].reshape(Bt, nc, Q, H)
+    Bch, Cch = B.reshape(Bt, nc, Q, N), C.reshape(Bt, nc, Q, N)
+    cs = torch.cumsum(dtc * A[::Pd, 0], 2)
+    x_disc = xh * dtc[..., None]
+    csh = cs.transpose(2, 3)
+    diff = csh[..., :, None] - csh[..., None, :]
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    Lm = torch.where(tri, torch.exp(diff), 0.0)
+    M = torch.einsum("bcqn,bckn->bcqk", Cch, Bch)[:, :, None] * Lm
+    y = torch.einsum("bchqk,bckhp->bcqhp", M, x_disc)
+    del diff, Lm, M
+    last = cs[:, :, -1:, :]
+    S_c = torch.einsum("bcqn,bcqh,bcqhp->bchnp", Bch, torch.exp(last - cs),
+                       x_disc)
+    decay = torch.exp(last[:, :, 0])
+    h = torch.zeros(Bt, H, N, Pd, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = decay[:, c, :, None, None] * h + S_c[:, c]
+    y = y + torch.einsum("bcqn,bcqh,bchnp->bcqhp", Cch, torch.exp(cs),
+                         torch.stack(prev, 1))
+    return y.reshape(Bt, S, d) + D * x
+
+
 def check_scan(params, cfg, tokens) -> dict:
-    """selective_scan against its plain version on layer 0's real inputs
-    at the path's S and at S + 1 (ragged): y and the final state; times at
-    the path's shape beside the bound."""
+    """selective_scan against its plain version on the first SSM layer's
+    real inputs at the path's S and at S + 1 (ragged), and for Mamba2
+    (N = 64) from a nonzero state too: y and the final state; times at
+    the path's shape beside the bound, and for Mamba2 beside the
+    reference's chunked SSD form in plain torch (which must agree)."""
     from repro_torch.kernels import selective_scan as ss
 
+    mamba2 = cfg.family == "hybrid"
+    inputs = mamba2_inputs if mamba2 else scan_inputs
+    cases = [("f32", tokens[:, :LM_PROMPT], False)]
+    if mamba2:
+        cases.append(("f32_h0", tokens[:, :LM_PROMPT], True))
+    cases.append(("f32_ragged", tokens, False))
     out = {}
-    for key, toks in (("f32", tokens[:, :LM_PROMPT]), ("f32_ragged", tokens)):
-        args = scan_inputs(params, cfg, toks)
-        y, h = ss.selective_scan(*args)
-        y0, h0 = ss.selective_scan_plain(*args)
-        torch.cuda.synchronize()
-        e_y, e_h = rel_err(y, y0), rel_err(h, h0)
-        require(bool(torch.isfinite(y).all()) and e_y <= TOL_LM["scan"]
-                and e_h <= TOL_LM["scan"],
-                f"selective_scan {key}: relative error y {e_y:.3e}, final "
-                f"state {e_h:.3e} > {TOL_LM['scan']}")
+    for key, toks, with_h0 in cases:
+        args = inputs(params, cfg, toks)
         Bt, S, d = args[0].shape
         N = args[2].shape[1]
+        h0 = (torch.randn(Bt, d, N, device=toks.device,
+                          generator=torch.Generator(device=toks.device)
+                          .manual_seed(SEED + 10)) * 0.5
+              if with_h0 else None)
+        y, h = ss.selective_scan(*args, h0=h0)
+        y0, h0_ = ss.selective_scan_plain(*args, h0=h0)
+        torch.cuda.synchronize()
+        e_y, e_h = rel_err(y, y0), rel_err(h, h0_)
+        require(bool(torch.isfinite(y).all()) and e_y <= TOL_LM["scan"]
+                and e_h <= TOL_LM["scan"],
+                f"selective_scan N = {N} {key}: relative error y {e_y:.3e}, "
+                f"final state {e_h:.3e} > {TOL_LM['scan']}")
         rec = {"rel_err": {"y": e_y, "h": e_h},
-               "max_abs_err": max(max_abs(y, y0), max_abs(h, h0)),
+               "max_abs_err": max(max_abs(y, y0), max_abs(h, h0_)),
                "shape": [Bt, S, d, N]}
-        del y, h, y0, h0
+        del y0, h0_
         if key == "f32":
             t_bytes = (3 * Bt * S * d + 2 * Bt * S * N + d * N + d
                        + Bt * d * N) * 4 / HBM_BYTES_PER_S * 1e3
@@ -2937,39 +3064,119 @@ def check_scan(params, cfg, tokens) -> dict:
             rec["plain_ms"] = time_ms(lambda: ss.selective_scan_plain(*args),
                                       reps=3)
             rec["library_ms"] = None   # no one torch call runs the scan
-            print(f"[lm] selective_scan {key}: kernel {rec['ms']:.3f} ms | "
-                  f"plain {rec['plain_ms']:.3f} | bound "
-                  f"{rec['bound_ms']:.3f} ({rec['bound_by']}; bytes "
-                  f"{t_bytes:.3f}, exp {t_exp:.3f}), share "
-                  f"{rec['bound_ms'] / rec['ms']:.3f} | rel err y {e_y:.2e}, "
-                  f"h {e_h:.2e}")
+            extra = ""
+            if mamba2:
+                def ssd():
+                    return ssd_chunked(*args, cfg.ssm.head_dim,
+                                       cfg.ssm.chunk)
+                e_ssd = rel_err(ssd(), y)
+                require(e_ssd <= TOL_LM["ssd"], f"the chunked SSD form is "
+                        f"{e_ssd:.3e} from selective_scan N = {N}")
+                rec["ssd_chunked_ms"] = time_ms(ssd, reps=3)
+                rec["ssd_rel_err"] = e_ssd
+                extra = (f" | chunked SSD (plain torch, chunk "
+                         f"{cfg.ssm.chunk}) {rec['ssd_chunked_ms']:.3f}, "
+                         f"{e_ssd:.2e} from the kernel")
+            print(f"[lm] selective_scan N = {N} {key} ({Bt} x {S} x {d}): "
+                  f"kernel {rec['ms']:.3f} ms | plain {rec['plain_ms']:.3f}"
+                  f"{extra} | bound {rec['bound_ms']:.3f} "
+                  f"({rec['bound_by']}; bytes {t_bytes:.3f}, exp "
+                  f"{t_exp:.3f}), share {rec['bound_ms'] / rec['ms']:.3f} | "
+                  f"rel err y {e_y:.2e}, h {e_h:.2e}")
         else:
-            print(f"[lm] selective_scan {key} (S = {S}): rel err y "
-                  f"{e_y:.2e}, h {e_h:.2e}")
+            print(f"[lm] selective_scan N = {N} {key} (S = {S}"
+                  f"{', from a nonzero state' if with_h0 else ''}): rel err "
+                  f"y {e_y:.2e}, h {e_h:.2e}")
         out[key] = rec
-        del args
+        del args, y, h
     return out
 
 
-def pvd_logits(model, params, tokens):
+def check_flash_noncausal(params, cfg, tokens, frames) -> dict:
+    """flash_attention non-causal against its plain version on
+    seamless's real inputs, bf16 (the path's type) and f32: the encoder's
+    layer-0 self-attention over `frames` (Sq = Sk) and the decoder's
+    layer-0 cross-attention, LM_PROMPT queries against the memory of
+    LM_ENC_FRAMES frames; each timed beside SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+
+    B, S = tokens.shape[0], LM_PROMPT
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    enc, dec = params["encoder"][0], params["decoder"][0]
+    x = frames[:, :S].to(L.pdtype(cfg))
+    q, k, v = L._qkv(enc["attn"], L.apply_norm(enc["norm1"], x, cfg), pos,
+                     cfg)
+    memory = ED.encode(params, frames[:, :LM_ENC_FRAMES], cfg)
+    ck, cv = ED._cross_kv(dec, memory, cfg)
+    x = L.embed(params["embed"], tokens[:, :S], cfg)
+    a, _ = L.attention(dec["self_attn"], L.apply_norm(dec["norm1"], x, cfg),
+                       pos, cfg)
+    xq = L.apply_norm(dec["norm_x"], x + a, cfg) @ dec["cross_attn"]["wq"]
+    flat = [t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
+            for t in (q, k, v, xq.reshape(B, S, H, hd), ck, cv)]
+    del q, k, v, memory, ck, cv, x, a, xq
+    out = {}
+    for key, (q, k, v) in (("self", flat[:3]), ("cross", flat[3:])):
+        for dt in ("bf16", "f32"):
+            qd, kd, vd = ((t.float() for t in (q, k, v)) if dt == "f32"
+                          else (q, k, v))
+            g = qd.shape[0] // kd.shape[0]
+            got = fa.flash_attention(qd, kd, vd, causal=False,
+                                     q_heads_per_kv=g)
+            want = plain_by_heads(qd, kd, vd, None, g, causal=False)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            lim = TOL_LM[f"flash_{dt}"]
+            require(bool(torch.isfinite(got).all()) and e <= lim,
+                    f"{cfg.name} flash_attention non-causal {key} {dt}: "
+                    f"relative error {e:.3e} > {lim}")
+            rec = {"rel_err": e, "max_abs_err": max_abs(got, want),
+                   "shape": list(qd.shape), "kv_shape": list(kd.shape),
+                   "group": g, "variant": fa.VARIANTS[qd.dtype]}
+            del got, want
+            time_flash(rec, qd, kd, vd, None, g, False, B)
+            print(f"[lm] {cfg.name} flash_attention D = {hd} non-causal "
+                  f"{key} {dt} (Sq = {qd.shape[1]}, Sk = {kd.shape[1]}; "
+                  f"{rec['variant']}): {flash_times(rec)} | rel err {e:.2e}")
+            out[f"{dt}_{key}"] = rec
+            del qd, kd, vd
+    return out
+
+
+def new_caches(model, batch: int, max_len: int, fe=None):
+    """Empty caches for `max_len` positions; an encdec model's cross K/V
+    sized by its frames `fe`."""
+    if model.cfg.family == "encdec":
+        return model.init_caches(batch, max_len, fe.shape[1])
+    return model.init_caches(batch, max_len)
+
+
+def pvd_logits(model, params, tokens, fe=None):
     """The last-position logits (over the real vocabulary) of
     prefill(tokens[:, :S]) then decode_step(tokens[:, S]) (the plain
     one-token path) and of prefill(tokens[:, :S+1]) (the kernel path), in
-    that order; the calls run long prefill, short prefill, decode."""
+    that order; the calls run long prefill, short prefill, decode.  Both
+    prefills take the frontend stub's `fe` (encdec: the encoder's
+    frames)."""
     B, S1 = tokens.shape
+    extra = {} if fe is None else {"frontend_embeds": fe}
     with torch.inference_mode():
-        want, _ = model.prefill(params, {"tokens": tokens},
-                                model.init_caches(B, S1))
-        _, caches = model.prefill(params, {"tokens": tokens[:, :-1]},
-                                  model.init_caches(B, S1))
+        want, _ = model.prefill(params, {"tokens": tokens, **extra},
+                                new_caches(model, B, S1, fe))
+        _, caches = model.prefill(params, {"tokens": tokens[:, :-1],
+                                           **extra},
+                                  new_caches(model, B, S1, fe))
         got, _ = model.decode_step(params, tokens[:, -1:], caches, S1 - 1)
     V = model.cfg.vocab_size
     return got[..., :V], want[..., :V]
 
 
-def prefill_vs_decode(model, params, tokens) -> float:
+def prefill_vs_decode(model, params, tokens, fe=None) -> float:
     """Normwise relative difference of pvd_logits' two logits."""
-    return rel_err(*pvd_logits(model, params, tokens))
+    return rel_err(*pvd_logits(model, params, tokens, fe))
 
 
 def run_lm(dev) -> dict:
@@ -2978,8 +3185,9 @@ def run_lm(dev) -> dict:
     alone on the card; then each kernel against its plain version on
     layer 0's real inputs, and prefill against decode at full size (bf16)
     and at full width and LM_F32_LAYERS layers in f32.  Then the moe
-    family (run_lm_moe) and the registered dense/vlm configurations
-    (run_lm_configs)."""
+    family (run_lm_moe), the registered dense/vlm configurations
+    (run_lm_configs) and the hybrid and encdec families
+    (run_lm_families)."""
     from repro_torch import configs
     from repro_torch.launch.serve_llm import generate
     from repro_torch.models import build
@@ -2996,8 +3204,8 @@ def run_lm(dev) -> dict:
         tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
                                generator=gen, device=dev)
         prompt = tokens[:, :LM_PROMPT]
-        toks, times, counts, variants = lm_path(model, params, prompt, arch,
-                                                kernel)
+        toks, times, counts, variants, _ = lm_path(
+            model, params, prompt, arch, {kernel: cfg.num_layers})
         decode_launches_nothing(model, params, prompt, arch)
         warm = generate(model, params, prompt, LM_GEN)[1]
         rec = {"init_s": init_s, "launches": counts,
@@ -3047,18 +3255,20 @@ def run_lm(dev) -> dict:
         torch.cuda.empty_cache()
     run_lm_moe(dev, out)
     run_lm_configs(dev, out)
+    run_lm_families(dev, out)
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
 
 
-def plain_by_heads(q, k, v, scale=None, group=1):
+def plain_by_heads(q, k, v, scale=None, group=1, causal=True):
     """flash_attention_plain on PLAIN_HEADS KV heads (and their q heads) a
     call, so its f32 scores stay small beside the weights."""
     from repro_torch.kernels import flash_attention as fa
 
     return torch.cat([fa.flash_attention_plain(
         q[h * group:(h + PLAIN_HEADS) * group], k[h:h + PLAIN_HEADS],
-        v[h:h + PLAIN_HEADS], scale=scale, q_heads_per_kv=group)
+        v[h:h + PLAIN_HEADS], scale=scale, causal=causal,
+        q_heads_per_kv=group)
         for h in range(0, k.shape[0], PLAIN_HEADS)])
 
 
@@ -3083,11 +3293,13 @@ def sdpa_kernel_name(fn) -> str:
     return max(rows, key=lambda e: e.device_time_total).key[:160]
 
 
-def lm_path(model, params, prompt, arch, kernel, fe=None):
+def lm_path(model, params, prompt, arch, want: dict, fe=None):
     """generate on the main path: counts zeroed just before and read just
-    after; `kernel` launched once a layer (in prefill only; flash_attention
-    on its tensor-core variant) and no other kernel; greedy tokens inside
-    the vocabulary.  Returns (tokens, times, counts, variants)."""
+    after; each kernel of `want` launched as often as it says (in prefill
+    only; flash_attention on its tensor-core variant) and no other kernel;
+    greedy tokens inside the vocabulary.  Returns (tokens, times, counts,
+    variants, masks): flash_attention's launches by variant and by
+    mask."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_llm import generate
@@ -3099,13 +3311,14 @@ def lm_path(model, params, prompt, arch, kernel, fe=None):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     variants = dict(fa.flash_attention.variant_launches)
+    masks = dict(fa.flash_attention.mask_launches)
     # ----------------------------------------------------------------------
     print(f"[main path] {arch}: launches {counts}; flash_attention by "
-          f"variant {variants}")
+          f"variant {variants}, by mask {masks}")
     for name, c in counts.items():
-        want = cfg.num_layers if name == kernel else 0
-        require(c == want, f"{arch}: {name} launched {c} times in one "
-                f"generate, want {want} (one a layer, in prefill only)")
+        require(c == want.get(name, 0), f"{arch}: {name} launched {c} "
+                f"times in one generate, want {want.get(name, 0)} (in "
+                "prefill only)")
     # The bf16 prefill runs the tensor-core variant alone.
     tc = fa.VARIANTS[torch.bfloat16]
     for name, c in variants.items():
@@ -3115,18 +3328,20 @@ def lm_path(model, params, prompt, arch, kernel, fe=None):
     require(toks.shape == (prompt.shape[0], LM_GEN)
             and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
             f"{arch}: greedy tokens outside the vocabulary")
-    return toks, times, counts, variants
+    return toks, times, counts, variants, masks
 
 
-def decode_launches_nothing(model, params, prompt, arch) -> None:
-    """A decode step alone (after a 64-token prefill) launches no kernel
-    and gives finite logits."""
+def decode_launches_nothing(model, params, prompt, arch, fe=None) -> None:
+    """A decode step alone (after a 64-token prefill, with the frontend
+    stub's `fe`) launches no kernel and gives finite logits."""
     from repro_torch.kernels import ops
 
+    batch = {"tokens": prompt[:, :64]}
+    if fe is not None:
+        batch["frontend_embeds"] = fe
     with torch.inference_mode():
-        caches = model.init_caches(prompt.shape[0], 65)
-        logits, caches = model.prefill(params, {"tokens": prompt[:, :64]},
-                                       caches)
+        caches = new_caches(model, prompt.shape[0], 65, fe)
+        logits, caches = model.prefill(params, batch, caches)
         ops.reset_launch_counts()
         logits, _ = model.decode_step(
             params, logits[:, -1].argmax(-1, keepdim=True), caches, 64)
@@ -3208,8 +3423,9 @@ def run_lm_moe(dev, out: dict) -> None:
                                generator=gen, device=dev)
         prompt = tokens[:, :LM_PROMPT]
         with MOE.RoutingTally() as tally:
-            toks, times, counts, variants = lm_path(model, params, prompt,
-                                                    arch, "flash_attention")
+            toks, times, counts, variants, _ = lm_path(
+                model, params, prompt, arch,
+                {"flash_attention": cfg.num_layers})
         n_moe = cfg.num_layers - cfg.moe.first_k_dense
         pre, dec = tally.calls[:n_moe], tally.calls[n_moe:]
         drops = {"prefill_pairs": sum(c["pairs"] for c in pre),
@@ -3323,8 +3539,9 @@ def run_lm_configs(dev, out: dict) -> None:
         prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, S),
                                generator=gen, device=dev)
         fe = frontend_embeds(cfg, LM_BATCH, S, gen)
-        toks, times, counts, _ = lm_path(model, params, prompt, arch,
-                                         "flash_attention", fe)
+        toks, times, counts, _, _ = lm_path(
+            model, params, prompt, arch, {"flash_attention": cfg.num_layers},
+            fe)
         rec = {"layers": cfg.num_layers, "prompt": S, "launches": counts,
                "frontend_positions": None if fe is None else fe.shape[1],
                "cold": times,
@@ -3341,6 +3558,120 @@ def run_lm_configs(dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def family_launches(cfg) -> tuple[dict, int]:
+    """The kernel launches one prefill of a hybrid or encdec model makes,
+    by kernel, and how many of its flash_attention launches are
+    non-causal: zamba2 runs selective_scan once a Mamba2 layer and the
+    shared attention block (causal) once a group; seamless runs
+    flash_attention for the encoder's self-attention (non-causal), the
+    decoder's (causal) and the cross-attention (non-causal)."""
+    if cfg.family == "hybrid":
+        return {"selective_scan": cfg.num_layers,
+                "flash_attention": cfg.num_layers // cfg.ssm.attn_every}, 0
+    return ({"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers},
+            cfg.encoder_layers + cfg.num_layers)
+
+
+def run_lm_families(dev, out: dict) -> None:
+    """Phase 8, the hybrid and encdec families (LM_FAMILIES) at full width
+    and depth in bf16 (random weights from a seed), each alone on the
+    card: generate with family_launches' launches (seamless on LM_PROMPT
+    frames), a decode step launching none, the path's kernels against
+    their plain versions on the real inputs (zamba2: selective_scan at
+    N = 64 and the shared block's causal flash_attention at D = 64;
+    seamless: non-causal flash_attention at D = 64), and prefill against
+    decode in bf16 and in f32 (zamba2 at LM_HYBRID_F32_LAYERS layers,
+    seamless at full depth on LM_ENC_FRAMES frames)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve_llm import frontend_embeds, generate
+    from repro_torch.models import build
+
+    for arch in LM_FAMILIES:
+        t_model = time.perf_counter()
+        cfg = configs.get(arch)
+        model = build(cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        t0 = time.perf_counter()
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                               generator=gen, device=dev)
+        prompt = tokens[:, :LM_PROMPT]
+        fe = frontend_embeds(cfg, LM_BATCH, LM_PROMPT, gen)
+        want, non_causal = family_launches(cfg)
+        toks, times, counts, variants, masks = lm_path(
+            model, params, prompt, arch, want, fe)
+        require(masks["non_causal"] == non_causal,
+                f"{arch}: {masks['non_causal']} non-causal flash_attention "
+                f"launches in one generate, want {non_causal}")
+        decode_launches_nothing(model, params, prompt, arch, fe)
+        warm = generate(model, params, prompt, LM_GEN, fe)[1]
+        rec = {"layers": cfg.num_layers,
+               "encoder_layers": cfg.encoder_layers, "init_s": init_s,
+               "launches": counts,
+               "flash_attention_variant_launches": variants,
+               "flash_attention_mask_launches": masks, "cold": times,
+               "warm": warm,
+               "frontend_positions": None if fe is None else fe.shape[1],
+               "params_b": sum(p.numel() for p in params.parameters()) / 1e9,
+               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+               / (warm["prefill_ms"] / 1e3),
+               "decode_tokens_per_s": LM_BATCH
+               / (warm["decode_ms_per_token"] / 1e3),
+               "tokens_row0": toks[0].tolist()}
+        print(f"[lm] {arch} ({cfg.num_layers} layers"
+              + (f" + {cfg.encoder_layers} encoder layers on "
+                 f"{fe.shape[1]} frames" if fe is not None else "")
+              + f"): {rec['params_b']:.2f} B parameters (init {init_s:.1f} "
+              f"s); prefill {warm['prefill_ms']:.1f} ms for "
+              f"{LM_BATCH}x{LM_PROMPT} ({rec['prefill_tokens_per_s']:.0f} "
+              f"tokens/s), decode {warm['decode_ms_per_token']:.2f} "
+              f"ms/token ({rec['decode_tokens_per_s']:.1f} tokens/s at batch "
+              f"{LM_BATCH}); cold prefill {times['prefill_ms']:.1f} ms")
+        kern = out["kernels"]
+        if cfg.family == "hybrid":
+            n64 = check_scan(params, cfg, tokens)
+            n64["launches"] = counts["selective_scan"]
+            kern["selective_scan"]["n64"] = {arch: n64}
+            d64 = check_flash(params, cfg, tokens)
+        else:
+            d64 = check_flash_noncausal(params, cfg, tokens, fe)
+        d64["launches"] = counts["flash_attention"]
+        d64["non_causal_launches"] = masks["non_causal"]
+        kern["flash_attention"].setdefault("d64", {})[arch] = d64
+        e = prefill_vs_decode(model, params, tokens, fe)
+        rec["prefill_vs_decode_bf16"] = e
+        require(e <= TOL_LM["pvd_bf16"], f"{arch}: bf16 prefill against "
+                f"decode {e:.3e} > {TOL_LM['pvd_bf16']}")
+        del model, params, tokens, prompt, fe, toks
+        torch.cuda.empty_cache()
+
+        layers = (LM_HYBRID_F32_LAYERS if cfg.family == "hybrid"
+                  else cfg.num_layers)
+        cfg32 = cfg.scaled(num_layers=layers, dtype="float32")
+        model = build(cfg32, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED + 9))
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                               generator=gen, device=dev)
+        fe = frontend_embeds(cfg, LM_BATCH, LM_ENC_FRAMES, gen)
+        e = prefill_vs_decode(model, params, tokens, fe)
+        rec["prefill_vs_decode_f32"] = e
+        where = (f"{layers} layers" if fe is None else
+                 f"{fe.shape[1]} frames against {LM_PROMPT + 1} tokens")
+        rec["prefill_vs_decode_f32_at"] = where
+        require(e <= TOL_LM["pvd_f32"], f"{arch}: f32 prefill against "
+                f"decode ({where}) {e:.3e} > {TOL_LM['pvd_f32']}")
+        print(f"[lm] {arch}: prefill against decode, last-position logits: "
+              f"bf16 {rec['prefill_vs_decode_bf16']:.3e} (limit "
+              f"{TOL_LM['pvd_bf16']}), f32 at {where} {e:.3e} (limit "
+              f"{TOL_LM['pvd_f32']})")
+        rec["s"] = time.perf_counter() - t_model
+        out["models"][arch] = rec
+        del model, params, tokens, fe
+        torch.cuda.empty_cache()
+
+
 # -- phase 10: the planner ----------------------------------------------------
 
 # quad/gra on A three ways: bf16 forced at bf16's guard, "auto" at a
@@ -3353,6 +3684,11 @@ LLAMA_ATTN = {"bh": LM_BATCH * 24, "bkv": LM_BATCH * 8, "sq": LM_PROMPT,
 MLA_ATTN = {"bh": LM_BATCH * 128, "bkv": LM_BATCH * 128, "sq": LM_PROMPT,
             "sk": LM_PROMPT, "d": 192, "causal": 1}
 MAMBA_SCAN = {"bt": LM_BATCH, "s": LM_PROMPT, "d": 8192, "n": 16}
+ZAMBA_ATTN = {"bh": LM_BATCH * 32, "bkv": LM_BATCH * 32, "sq": LM_PROMPT,
+              "sk": LM_PROMPT, "d": 64, "causal": 1}
+ZAMBA_SCAN = {"bt": LM_BATCH, "s": LM_PROMPT, "d": 4096, "n": 64}
+SEAMLESS_ATTN = {"bh": LM_BATCH * 16, "bkv": LM_BATCH * 16, "sq": LM_PROMPT,
+                 "sk": LM_PROMPT, "d": 64, "causal": 0}
 
 
 def planner_shapes() -> list:
@@ -3386,7 +3722,11 @@ def planner_shapes() -> list:
             ("bsr_rmatmul", dict(SIM, nx=512), f32),
             ("flash_attention", LLAMA_ATTN, bf16),
             ("flash_attention", MLA_ATTN, bf16),
-            ("selective_scan", MAMBA_SCAN, f32)]
+            ("flash_attention", ZAMBA_ATTN, bf16),
+            ("flash_attention", SEAMLESS_ATTN, bf16),
+            ("flash_attention", dict(SEAMLESS_ATTN, causal=1), bf16),
+            ("selective_scan", MAMBA_SCAN, f32),
+            ("selective_scan", ZAMBA_SCAN, f32)]
     # Phase 13's e4m3 launches: rows 1-4 on A, its ragged view, U.
     e4m3 = "float8_e4m3fn"
     out += [("gemm", {"m": M, "k": N, "n": K_GEMM}, e4m3),
@@ -6245,7 +6585,7 @@ def run() -> int:
         f"serializes its wgmmas: {flash}")
     for source, count in (("randsketch.cu", 3), ("tsgram.cu", 5),
                           ("bsr_spmm.cu", 15), ("bsr_rmatmul.cu", 28),
-                          ("gemm.cu", 18), ("selective_scan.cu", 2)):
+                          ("gemm.cu", 18), ("selective_scan.cu", 4)):
         rows = [r for r in ptxas if r["source"] == source]
         require(len(rows) >= count and all(
             r["spill_store_bytes"] == r["spill_load_bytes"] == 0

@@ -1,11 +1,10 @@
 """Architecture registry: `get(name)` → ModelConfig; `ARCHES` lists all ids.
 
-Counterpart of src/repro/configs/__init__.py.  Eight configurations are
+Counterpart of src/repro/configs/__init__.py.  All ten configurations are
 ported: the dense llama3.2-3b, qwen3-4b, qwen2.5-32b and
 deepseek-coder-33b, the vlm backbone llava-next-34b, the moe (MLA + MoE)
-deepseek-v2-236b and deepseek-v3-671b, and the Mamba1 falcon-mamba-7b.
-`get` raises NotImplementedError for seamless-m4t-large-v2 (encdec) and
-zamba2-1.2b (Mamba2 hybrid), which wait on ROADMAP.md queue 1 item 15.
+deepseek-v2-236b and deepseek-v3-671b, the Mamba1 falcon-mamba-7b, the
+Mamba2 hybrid zamba2-1.2b and the encoder-decoder seamless-m4t-large-v2.
 """
 from __future__ import annotations
 
@@ -35,15 +34,13 @@ _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 
 def get(name: str) -> ModelConfig:
     if name not in ARCHES:
         raise KeyError(f"unknown arch {name!r}; have {ARCHES}")
-    if name not in _MODULES:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md queue 1 item 15); "
-            f"ported: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

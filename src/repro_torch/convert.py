@@ -61,7 +61,11 @@ def lm_params_from_numpy(params, cfg, *, device):
     (`jax.tree.map(np.asarray, model.init(key))`).  Each layer stack's
     leading layer axis (the reference's vmap-stacked init) is unstacked
     into one module a layer (a MoE layer's experts stay stacked, (E, d, f)
-    tensors); the MTP subtree, one block, crosses as it is."""
+    tensors); a hybrid model's groups are stacked twice, (G, per, ...),
+    and unstacked twice.  The MTP subtree and the hybrid's shared
+    attention block, one block each, cross as they are.  An encdec tree
+    (embed, the encoder and decoder stacks, enc_norm, final_norm) crosses
+    the same way."""
     from repro_torch.models import transformer as TF
 
     def tensors(tree):
@@ -74,12 +78,30 @@ def lm_params_from_numpy(params, cfg, *, device):
             return {k: layer(v, i) for k, v in tree.items()}
         return tree[i]
 
+    def unstack(tree, n):
+        return [tensors(layer(tree, i)) for i in range(n)]
+
     out = {"embed": tensors(params["embed"]),
            "final_norm": tensors(params["final_norm"])}
-    for name, n, _ in TF.lm_structure(cfg):
-        out[name] = [tensors(layer(params[name], i)) for i in range(n)]
+    if cfg.family == "encdec":
+        out["enc_norm"] = tensors(params["enc_norm"])
+        out["encoder"] = unstack(params["encoder"], cfg.encoder_layers)
+        out["decoder"] = unstack(params["decoder"], cfg.num_layers)
+        stacks = []
+    else:
+        stacks = TF.lm_structure(cfg)
+    for name, n, kind in stacks:
+        if kind == "hybrid_group":
+            mamba = params[name]["mamba"]
+            out[name] = [{"mamba": unstack(layer(mamba, g),
+                                           cfg.ssm.attn_every)}
+                         for g in range(n)]
+        else:
+            out[name] = unstack(params[name], n)
     if cfg.mtp_depth:
         out["mtp"] = tensors(params["mtp"])
+    if cfg.family == "hybrid":
+        out["shared_attn"] = tensors(params["shared_attn"])
     extra = sorted(set(params) - set(out))
     if extra:
         raise NotImplementedError(f"parameters {extra} belong to parts of "

@@ -13,19 +13,27 @@
 //
 // Design.  The TPU kernel keeps an (N, bd) state tile in VMEM and walks S in
 // chunks on a sequential grid axis.  Here a channel's states are split over
-// N / 8 adjacent lanes of a warp (two at N = 16, one at N = 8), 8 states a
-// lane in registers for the whole walk with A[c, those states] and D[c]: at
-// the path's shape (4 x 2048 x 8192, N = 16) 2048 warps, about 16 an SM,
-// where one thread a channel gave 8.  Each step a lane computes dt*A' and
-// its exponentials as ex2.approx of A pre-scaled by log2(e) (one multiply
-// and one MUFU op each, no range reduction), its states and its part of
-// C_t . h_t + D x_t.  Every 4 steps the lanes of a channel sum their parts
-// by reduce_scatter (common.cuh), each lane ending with whole sums of its
-// own steps.  S is walked in order, not split into chunks with a second
-// pass: that needs cumulative decays, a second exponential a state and
-// step.
+// N / 8 adjacent lanes of a warp (8 at N = 64, 4 at 32, 2 at 16, one at
+// 8), 8 states a lane in registers for the whole walk with A[c, those
+// states] and D[c]: at the Mamba1 path's shape (4 x 2048 x 8192, N = 16)
+// 2048 warps, about 16 an SM, where one thread a channel gave 8.  Each step
+// a lane computes dt*A' and its exponentials as ex2.approx of A pre-scaled
+// by log2(e) (one multiply and one MUFU op each, no range reduction), its
+// states and its part of C_t . h_t + D x_t.  Every 4 steps the lanes of a
+// channel sum their parts by reduce_scatter (common.cuh): with 4 lanes or
+// fewer each lane ends with whole sums of its own steps; with 8 (N = 64)
+// each step's sum ends on two lanes alike, and only the first of them
+// (ScatterOut's writer) stores it.  S is walked in order, not split into
+// chunks with a second pass: that needs cumulative decays, a second
+// exponential a state and step.
 //
-// Staging.  Tiles of 16 steps of x and dt (the block's 64 or 128 channels)
+// Mamba2 (zamba2's prefill, N = 64) runs this same recurrence: its head h
+// of Pd channels shares one dt and one decay, so the model passes dt and A
+// repeated over the head's channels (A[c, n] = A_h for every n), and this
+// kernel computes Pd * N exponentials where the head needs one (a later
+// redesign's saving, ROADMAP.md).
+//
+// Staging.  Tiles of 16 steps of x and dt (the block's 16 to 128 channels)
 // and of B_t and C_t (shared by every channel) stream through a ring of 3
 // stages of 16-byte cp.async copies, so the next tiles land while this one
 // is walked.  A step's row of x (and of dt) is staged from the 16-byte
@@ -205,8 +213,10 @@ scan_fwd(const float* __restrict__ x, const float* __restrict__ dt,
       for (int u = 0; u < kGroup; ++u)
         yg[u] = step(buf, t + u, (int)((sh0 + (unsigned)(t + u) * d) & 3u));
       reduce_scatter<kLanes, kGroup>(yg, q);
+      if (out.writer) {
 #pragma unroll
-      for (int v = 0; v < Out::NQ; ++v) ys[t + out.first + v][cl] = yg[v];
+        for (int v = 0; v < Out::NQ; ++v) ys[t + out.first + v][cl] = yg[v];
+      }
     }
     // The tile's last steps (S off the group): one at a time.
     for (; t < steps; ++t) {
@@ -260,6 +270,8 @@ extern "C" int repro_selective_scan(int device, const void* x, const void* dt,
   switch (N) {
     case 8: return launch<8>(x, dt, A, B, C, D, h0, y, h_out, Bt, S, d, s);
     case 16: return launch<16>(x, dt, A, B, C, D, h0, y, h_out, Bt, S, d, s);
+    case 32: return launch<32>(x, dt, A, B, C, D, h0, y, h_out, Bt, S, d, s);
+    case 64: return launch<64>(x, dt, A, B, C, D, h0, y, h_out, Bt, S, d, s);
     default: return cudaErrorInvalidValue;
   }
 }

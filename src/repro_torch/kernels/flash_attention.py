@@ -54,8 +54,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B·Hq = B·Hkv · q_heads_per_kv (a view that starts off a 16-byte
     boundary is copied to one that does); returns o (B·Hq, Sq, D) in
     q.dtype.  Counts the launch in
-    ``flash_attention.launches`` and in ``flash_attention.variant_launches``
-    under its variant (``VARIANTS``)."""
+    ``flash_attention.launches``, in ``flash_attention.variant_launches``
+    under its variant (``VARIANTS``) and in ``flash_attention.mask_launches``
+    under "causal" or "non_causal"."""
     dev = _build.check_device(q, k, v)
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
         raise ValueError(f"q, k, v must be (BH, S, D); got {tuple(q.shape)}, "
@@ -83,8 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.stream(dev)), "flash_attention launch")
     flash_attention.launches += 1
     flash_attention.variant_launches[VARIANTS[q.dtype]] += 1
+    flash_attention.mask_launches["causal" if causal else "non_causal"] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+flash_attention.mask_launches = {"causal": 0, "non_causal": 0}

@@ -69,12 +69,14 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count, and its per-variant counts where
-    it has variants (flash_attention)."""
+    """Zero every kernel's launch count, and its counts by variant and by
+    mask where it keeps them (flash_attention)."""
     for fn in KERNELS.values():
         fn.launches = 0
-        for variant in getattr(fn, "variant_launches", {}):
-            fn.variant_launches[variant] = 0
+        for counts in (getattr(fn, "variant_launches", {}),
+                       getattr(fn, "mask_launches", {})):
+            for key in counts:
+                counts[key] = 0
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, bn: int | None = None,

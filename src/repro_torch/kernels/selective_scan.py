@@ -2,20 +2,23 @@
 dt_t·x_t·B_t, y_t = C_t·h_t + D·x_t, with its final state.
 
 Replaces the TPU kernel ``src/repro/kernels/selective_scan.py:
-selective_scan`` (``_scan_kernel``): the prefill scan of the Mamba1 serving
-path.  On the H100 it is bound by operations, Bt·S·d·N exponentials on the
-special-function units, against one read of x and dt and one write of y,
-which take about as long.  ``csrc/selective_scan.cu`` splits each (batch,
-channel)'s N states over N/8 adjacent lanes of a warp (8 states a lane in
-registers: two lanes a channel at N = 16, one at N = 8), so that enough
-warps are in flight to hide each step's latency; each exponential is one
-``ex2.approx`` of dt times A pre-scaled by log2(e), and every 4 steps the
-lanes of a channel sum their parts of y by a ``reduce_scatter``, each lane
-ending with whole sums of its own steps.  The walk over S runs in order.
-16-step tiles of x and dt (the block's 64 or 128 channels: 128 threads
-over the lanes of a channel) and of B_t and C_t stream through a 3-stage
-ring of 16-byte ``cp.async`` copies, each step's row of x and dt from its
-16-byte-aligned window, and y leaves through a staged tile, coalesced.  It
+selective_scan`` (``_scan_kernel``): the prefill scan of the Mamba1
+serving path, and of Mamba2's (zamba2, N = 64), whose per-head recurrence
+is this one with dt and A repeated over a head's channels.  On the H100 it
+is bound by operations, Bt·S·d·N exponentials on the special-function
+units, against one read of x and dt and one write of y, which take about
+as long.  ``csrc/selective_scan.cu`` splits each (batch, channel)'s N
+states over N/8 adjacent lanes of a warp (8 states a lane in registers:
+eight lanes a channel at N = 64, four at 32, two at 16, one at 8), so that
+enough warps are in flight to hide each step's latency; each exponential
+is one ``ex2.approx`` of dt times A pre-scaled by log2(e), and every 4
+steps the lanes of a channel sum their parts of y by a ``reduce_scatter``
+(at N = 64 two lanes end with each step's sum, and one stores it).  The
+walk over S runs in order.  16-step tiles of x and dt (the block's 16 to
+128 channels: 128 threads over the lanes of a channel) and of B_t and C_t
+stream through a 3-stage ring of 16-byte ``cp.async`` copies, each step's
+row of x and dt from its 16-byte-aligned window, and y leaves through a
+staged tile, coalesced.  It
 starts from an optional h0 and writes the final state, which the reference
 kernel lists as optional but does not write; prefill into a cache needs
 it.
@@ -30,7 +33,7 @@ import torch
 from . import _build
 from . import ref as _ref
 
-STATE_DIMS = (8, 16)
+STATE_DIMS = (8, 16, 32, 64)
 
 
 def selective_scan_plain(x, dt, A, B, C, D, h0=None

@@ -6,12 +6,18 @@ Counterpart of examples/serve_llm.py, on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --arch llama3.2-3b \
         --batch 4 --prompt-len 2048 --gen 32
 
-The prefill runs the hand-written flash_attention (dense, vlm, and the moe
-family's MLA at head dim 192) or selective_scan (Mamba1) kernel once a
-layer; decode steps take the plain one-token paths.  Weights are drawn
-from a seeded generator (no checkpoint is read); a configuration with a
-frontend stub (vlm patches) gets `frontend_len` positions of precomputed
-embeddings, normal × 0.02, as examples/serve_llm.py draws them.
+The prefill runs the hand-written kernels: flash_attention once a layer
+(dense, vlm, and the moe family's MLA at head dim 192), selective_scan
+once a layer (Mamba1 at N = 16), for zamba2 (hybrid) selective_scan once
+a Mamba2 layer (N = 64) and flash_attention once a group (the shared
+attention block), and for seamless (encdec) flash_attention three times a
+layer pair (the encoder's non-causal self-attention, the decoder's causal
+self-attention and its non-causal cross-attention); decode steps take the
+plain one-token paths.  Weights are drawn from a seeded generator (no
+checkpoint is read); a configuration with a frontend stub gets
+precomputed embeddings, normal × 0.02, as examples/serve_llm.py draws
+them: `frontend_len` positions of vlm patches, or the prompt's length of
+encdec frames, which size the encoder and its cross K/V caches.
 """
 from __future__ import annotations
 
@@ -36,11 +42,16 @@ def generate(model, params, tokens: torch.Tensor, gen: int,
     """Prefill `tokens` (B, S) into fresh caches, then decode `gen` − 1
     steps, each feeding back the argmax of the last logits.  The prefill
     batch carries `frontend_embeds` (B, n, d) when given (the first n
-    positions' embeddings); decode steps take none, as in the reference.
+    positions' embeddings; for encdec the encoder's n frames, and its
+    cross K/V caches hold n positions); decode steps take none, as in the
+    reference.
     Returns (the `gen` greedy tokens (B, gen), {"prefill_ms",
     "decode_ms_per_token"} on the host clock around synchronized work)."""
     B, S = tokens.shape
-    caches = model.init_caches(B, S + gen)
+    if model.cfg.family == "encdec":
+        caches = model.init_caches(B, S + gen, frontend_embeds.shape[1])
+    else:
+        caches = model.init_caches(B, S + gen)
     batch = {"tokens": tokens}
     if frontend_embeds is not None:
         batch["frontend_embeds"] = frontend_embeds

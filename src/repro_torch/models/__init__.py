@@ -1,4 +1,5 @@
-"""LM models of the port: configuration, layers, Mamba1, assembly."""
+"""LM models of the port: configuration, layers, MLA and MoE, Mamba1 and
+Mamba2, decoder-only and encoder-decoder assembly."""
 from .config import ModelConfig, MoEConfig, MLAConfig, SSMConfig, smoke_config
 from .registry import build, Model
 

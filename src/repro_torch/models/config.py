@@ -1,9 +1,9 @@
 """Model configuration — one dataclass family covers all 10 assigned
 architectures (dense GQA / enc-dec / hybrid / MoE+MLA / SSM / VLM-backbone).
 
-Copy of src/repro/models/config.py.  The port reads the fields of the
-families it runs (dense, vlm, ssm with Mamba1); the sharding, remat and
-scan levers have no effect in it.
+Copy of src/repro/models/config.py.  The port runs all six families; the
+sharding, remat and scan levers (and `ssm.chunk`: the port's scan walks S
+in order) have no effect in it.
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ prefill that `transformer.prefill` starts at cache position 0) goes to
 whole cache with its validity mask, since at offset 0 the causal mask
 already hides every cache slot at or past S.  Decode steps, and prompts
 continued at an offset > 0, take the plain masked attention `mha`, as in
-the reference.  `softmax_xent` waits for training.
+the reference.  Non-causal self-attention without a cache (the encdec
+encoder) and cross-attention (keys and values from `xattn_kv`, no RoPE,
+any Sq and Sk) go to `ops.flash_attention(causal=False)`.
+`softmax_xent` waits for training.
 """
 from __future__ import annotations
 
@@ -160,21 +163,43 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         for c in range(0, S, q_chunk)], 1)
 
 
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool) -> torch.Tensor:
+    """`ops.flash_attention` on the (B, S, H, hd) layout: q (B, Sq, H, hd),
+    k and v (B, Sk, KV, hd); returns (B, Sq, H, hd)."""
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal
+                               ).transpose(1, 2)
+
+
 def attention(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
-              cache: dict | None = None, cache_pos: int = 0):
-    """Causal self-attention with an optional KV cache.
+              cache: dict | None = None, cache_pos: int = 0,
+              xattn_kv: torch.Tensor | None = None, causal: bool = True):
+    """Self-attention with an optional KV cache, or cross-attention.
 
     cache: {"k": (B, Smax, KV, hd), "v": ...}; the new keys and values are
-    written into it at cache_pos in place.  Returns (out, cache)."""
+    written into it at cache_pos in place (a cached call is causal, as in
+    the reference).  xattn_kv: (B, Sk, D) memory whose projections are the
+    keys and values (no RoPE, no cache).  Returns (out, cache), cache None
+    for cross-attention."""
     B, S, _ = x.shape
+    if xattn_kv is not None:
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        Sk = xattn_kv.shape[1]
+        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        k = (xattn_kv @ p["wk"]).reshape(B, Sk, KV, hd)
+        v = (xattn_kv @ p["wv"]).reshape(B, Sk, KV, hd)
+        out = flash(q, k, v, causal=False)
+        return out.reshape(B, S, -1) @ p["wo"], None
     q, k, v = _qkv(p, x, pos, cfg)
+    if cache is None and not causal:
+        out = flash(q, k, v, causal=False)
+        return out.reshape(B, S, -1) @ p["wo"], None
     if cache is not None:
         cache["k"][:, cache_pos:cache_pos + S] = k
         cache["v"][:, cache_pos:cache_pos + S] = v
     if cache_pos == 0:
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True
-                                  ).transpose(1, 2)
+        out = flash(q, k, v, causal=True)
     else:
         T = cache["k"].shape[1]
         kv_mask = (torch.arange(T, device=x.device) < cache_pos + S

@@ -2,11 +2,14 @@
 
 Counterpart of src/repro/models/transformer.py for the dense, vlm, moe
 (DeepSeek: MLA attention, a dense prefix then MoE FFN layers, MTP
-weights) and ssm (Mamba1) families; hybrid, encdec and Mamba2 raise
-NotImplementedError (ROADMAP.md queue 1 item 15).  The reference stacks
-the layers and drives them with `lax.scan` under remat; here each layer is
-its own module in an `nn.ModuleList` and a Python loop applies them (remat
-has no meaning in inference).  Caches are one dict a layer, updated in
+weights), ssm (Mamba1) and hybrid (zamba2: Mamba2 layers in groups of
+`attn_every`, each group led by one shared-weight attention block with
+its own KV cache, then a tail of the remaining Mamba2 layers) families;
+the encdec family is models/encdec.py.  The reference stacks the layers
+and drives them with `lax.scan` under remat; here each layer is its own
+module in an `nn.ModuleList` and a Python loop applies them (remat has no
+meaning in inference).  Caches are one dict a layer (a hybrid group's:
+{"attn": its attention cache, "mamba": [one a Mamba2 layer]}), updated in
 place and returned.  `forward` returns (hidden, caches) and drops the
 reference's third value, the MoE auxiliary loss (`moe.apply_moe` returns
 it; serving never reads it).  The MTP block's weights are made and carried
@@ -45,16 +48,14 @@ class Params(nn.Module):
         return getattr(self, name)
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 15); ported: dense, vlm, moe, ssm")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only "
+                         "family (encdec: models/encdec.py)")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError("family 'moe' needs cfg.moe")
-    if cfg.family == "ssm" and cfg.ssm.version != 1:
-        raise NotImplementedError("Mamba2 is not ported yet (ROADMAP.md "
-                                  "queue 1 item 15)")
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(f"family {cfg.family!r} needs cfg.ssm")
 
 
 # ---------------------------------------------------------- layer kinds ----
@@ -79,7 +80,7 @@ def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
-    """kind ∈ {dense, moe_ffn, mamba1}."""
+    """kind ∈ {dense, moe_ffn, mamba1, mamba2}."""
     dev = gen.device
     if kind in ("dense", "moe_ffn"):
         p = {"norm1": L.init_norm(cfg, dev), "attn": _init_attn(gen, cfg),
@@ -90,9 +91,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
             d_ff = (cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe else cfg.d_ff
             p["ffn"] = L.init_mlp(gen, cfg, d_ff=d_ff)
         return p
-    if kind == "mamba1":
-        return {"norm1": L.init_norm(cfg, dev),
-                "mixer": SSM.init_mamba1(gen, cfg)}
+    if kind in ("mamba1", "mamba2"):
+        init = SSM.init_mamba1 if kind == "mamba1" else SSM.init_mamba2
+        return {"norm1": L.init_norm(cfg, dev), "mixer": init(gen, cfg)}
     raise ValueError(kind)
 
 
@@ -107,10 +108,10 @@ def apply_block(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
         if kind == "moe_ffn":
             return x + MOE.apply_moe(p["ffn"], h, cfg)[0], cache
         return x + L.apply_mlp(p["ffn"], h, cfg), cache
-    if kind == "mamba1":
-        a, cache = SSM.mamba1_block(p["mixer"],
-                                    L.apply_norm(p["norm1"], x, cfg), cfg,
-                                    cache=cache)
+    if kind in ("mamba1", "mamba2"):
+        fn = SSM.mamba1_block if kind == "mamba1" else SSM.mamba2_block
+        a, cache = fn(p["mixer"], L.apply_norm(p["norm1"], x, cfg), cfg,
+                      cache=cache)
         return x + a, cache
     raise ValueError(kind)
 
@@ -121,29 +122,54 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return _attn_cache(cfg, batch, max_len, device)
     if kind == "mamba1":
         return SSM.init_mamba1_cache(cfg, batch, device)
+    if kind == "mamba2":
+        return SSM.init_mamba2_cache(cfg, batch, device)
+    if kind == "hybrid_group":
+        return {"attn": block_cache(cfg, "dense", batch, max_len, device),
+                "mamba": [SSM.init_mamba2_cache(cfg, batch, device)
+                          for _ in range(cfg.ssm.attn_every)]}
     raise ValueError(kind)
 
 
 # ------------------------------------------------------------ structure ----
 def lm_structure(cfg: ModelConfig) -> list[tuple[str, int, str]]:
-    """[(stack_name, n_layers, kind)] per family."""
-    _unsupported(cfg)
+    """[(stack_name, n_layers, kind)] per family; a hybrid_group entry
+    counts groups of `attn_every` Mamba2 layers."""
+    _check_family(cfg)
     if cfg.family == "moe":
         fk = cfg.moe.first_k_dense
         return [("dense_prefix", fk, "dense"),
                 ("moe_blocks", cfg.num_layers - fk, "moe_ffn")]
+    if cfg.family == "hybrid":
+        per = cfg.ssm.attn_every or cfg.num_layers
+        out = [("groups", cfg.num_layers // per, "hybrid_group")]
+        if cfg.num_layers % per:
+            out.append(("tail", cfg.num_layers % per, "mamba2"))
+        return out
     kind = "mamba1" if cfg.family == "ssm" else "dense"
     return [("blocks", cfg.num_layers, kind)]
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+    """One entry of a stack: a block, or a hybrid group's Mamba2 layers
+    (the shared attention block lives outside the groups)."""
+    if kind == "hybrid_group":
+        return {"mamba": [init_block(gen, cfg, "mamba2")
+                          for _ in range(cfg.ssm.attn_every)]}
+    return init_block(gen, cfg, kind)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters on gen's device, drawn from `gen` with the reference's
     initial distributions; with mtp_depth, the MTP block ("mtp": proj
-    (2d, d), block, norm) as well."""
+    (2d, d), block, norm) as well, and for hybrid the shared attention
+    block ("shared_attn", one dense block)."""
     tree = {"embed": L.init_embedding(gen, cfg),
             "final_norm": L.init_norm(cfg, gen.device)}
     for name, n, kind in lm_structure(cfg):
-        tree[name] = [init_block(gen, cfg, kind) for _ in range(n)]
+        tree[name] = [_init_layer(gen, cfg, kind) for _ in range(n)]
+    if cfg.family == "hybrid":
+        tree["shared_attn"] = init_block(gen, cfg, "dense")
     if cfg.mtp_depth:
         block = init_block(gen, cfg, "moe_ffn" if cfg.moe else "dense")
         tree["mtp"] = {"proj": L._dense_init(gen, (2 * cfg.d_model,
@@ -164,10 +190,26 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for name, _, kind in lm_structure(cfg):
         layer_caches = caches[name] if caches is not None else None
         for i, lp in enumerate(params[name]):
-            x, _ = apply_block(
-                lp, x, pos, cfg, kind, cache_pos=cache_pos,
-                cache=None if layer_caches is None else layer_caches[i])
+            c = None if layer_caches is None else layer_caches[i]
+            if kind == "hybrid_group":
+                x = _apply_group(lp, params["shared_attn"], x, pos, cfg, c,
+                                 cache_pos)
+            else:
+                x, _ = apply_block(lp, x, pos, cfg, kind, cache=c,
+                                   cache_pos=cache_pos)
     return L.apply_norm(params["final_norm"], x, cfg), caches
+
+
+def _apply_group(gp, shared, x, pos, cfg: ModelConfig, cache, cache_pos):
+    """One zamba2 group (the reference's _scan_hybrid body): the shared
+    attention block with this group's attention cache, then the group's
+    Mamba2 layers."""
+    x, _ = apply_block(shared, x, pos, cfg, "dense", cache_pos=cache_pos,
+                       cache=None if cache is None else cache["attn"])
+    for j, lp in enumerate(gp["mamba"]):
+        x, _ = apply_block(lp, x, pos, cfg, "mamba2",
+                           cache=None if cache is None else cache["mamba"][j])
+    return x
 
 
 # ------------------------------------------------------------- serving -----

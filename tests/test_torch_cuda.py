@@ -31,12 +31,13 @@ q, k and v that start off a 16-byte boundary,
 key lengths off the bf16 kernel's 128-key tile (64 at D = 192), scores
 near 50, four KV heads each read by the right q heads, the same bits twice
 and a launch count for each variant (bf16 on the tensor cores, f32 on the
-CUDA cores); MLA's prefill shape at D = 192 (one q head a KV head, the
+CUDA cores) and each mask (causal, non-causal); MLA's prefill shape at D = 192 (one q head a KV head, the
 rotary key shared by the heads, v zero-padded from 128) at S = 2048, 2049
 and 2048 queries against 2049 keys, and the smoke MLA's head of 48
 refused on the card;
 the selective scan at
-channel counts of 1 and off its 32- and 64-channel blocks, N = 8 and 16,
+channel counts of 1 and off its 16- to 128-channel blocks, N = 8, 16,
+32 and 64 (Mamba2's),
 S of 1 to 2049 on both sides of its 16-step tile, from a nonzero state,
 with its final state, and the same bits twice; BlockMatrix.multiply (one
 gemm launch) at square and ragged shapes in f32 and bf16, the same bits
@@ -1279,6 +1280,19 @@ def test_flash_attention_counts_its_variant(dev, dtype):
     assert ops.launch_counts()["flash_attention"] == 1
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_counts_its_mask(dev, causal):
+    """A launch counts under "causal" or "non_causal";
+    ops.reset_launch_counts zeroes both."""
+    q, k, v = _attn_inputs(dev, 1, 2, 70, 50, 64, torch.bfloat16, seed=2)
+    ops.reset_launch_counts()
+    assert set(flash_attention.flash_attention.mask_launches.values()) == {0}
+    flash_attention.flash_attention(q, k, v, causal=causal,
+                                    q_heads_per_kv=2)
+    assert flash_attention.flash_attention.mask_launches == {
+        "causal": int(causal), "non_causal": int(not causal)}
+
+
 def test_flash_attention_dispatch_counts_launches(dev):
     g = _gen(dev, 3)
     q = torch.randn(2, 6, 100, 64, generator=g, device=dev)
@@ -1369,6 +1383,56 @@ def test_mla_prefill_refuses_the_smoke_head_on_the_card(dev):
     assert ops.launch_counts()["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("arch,counts,non_causal", [
+    ("zamba2-1.2b", {"selective_scan": 4, "flash_attention": 2}, 0),
+    ("seamless-m4t-large-v2", {"flash_attention": 6}, 4)])
+def test_smoke_hybrid_and_encdec_on_the_card(dev, arch, counts, non_causal):
+    """The smoke zamba2 (4 Mamba2 layers in 2 groups) and seamless (2 + 2
+    layers, 8 frames) with the CPU's weights: prefill (its kernel
+    launches, by mask) and 2 decode steps (no launch) within TOL of the
+    CPU's plain path."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import build, smoke_config
+
+    cfg = smoke_config(configs.get(arch))
+    cpu, card = build(cfg, device="cpu"), build(cfg, device=dev)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_card = copy.deepcopy(p_cpu).to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 19),
+                         generator=torch.Generator().manual_seed(1))
+    frames = torch.randn(2, 8, cfg.d_model,
+                         generator=torch.Generator().manual_seed(2)) * 0.02
+    outs = []
+    for model, params, d in ((cpu, p_cpu, "cpu"), (card, p_card, dev)):
+        batch = {"tokens": toks[:, :17].to(d)}
+        if cfg.family == "encdec":
+            batch["frontend_embeds"] = frames.to(d)
+            caches = model.init_caches(2, 19, 8)
+        else:
+            caches = model.init_caches(2, 19)
+        ops.reset_launch_counts()
+        logits, caches = model.prefill(params, batch, caches)
+        got = [logits]
+        if d != "cpu":
+            torch.cuda.synchronize()
+            want = dict.fromkeys(ops.launch_counts(), 0) | counts
+            assert ops.launch_counts() == want
+            mask = flash_attention.flash_attention.mask_launches
+            assert mask["non_causal"] == non_causal
+            ops.reset_launch_counts()
+        for i in range(2):
+            logits, caches = model.decode_step(
+                params, toks[:, 17 + i:18 + i].to(d), caches, 17 + i)
+            got.append(logits)
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert not any(ops.launch_counts().values())
+        outs.append(torch.cat(got, 1)[..., :cfg.vocab_size].cpu())
+    assert _rel(outs[1], outs[0]) <= TOL
+
+
 def _scan_args(dev, Bt, S, d, N, seed):
     g = _gen(dev, seed)
     return (torch.randn(Bt, S, d, generator=g, device=dev),
@@ -1401,7 +1465,7 @@ def test_selective_scan_matches_plain(dev, Bt, d, N, S, with_h0):
 @pytest.mark.parametrize("N", selective_scan.STATE_DIMS)
 def test_selective_scan_edges_match_plain(dev, N, S, d, with_h0):
     """S on both sides of the 16-step tile and the 3-stage ring (1, 31, 32,
-    33, 300, 2049), d of one channel, off the 32- and 64-channel block
+    33, 300, 2049), d of one channel, off the 16- to 128-channel block
     (100, 200, 1000), from zero and from a nonzero state: y and the final
     state within TOL of plain, and the same bits twice."""
     args = _scan_args(dev, 2, S, d, N, seed=7 * S + d + N)

@@ -54,10 +54,10 @@ CASES = {
 }
 TOL = {"dense": 1e-4, "dense_v500": 1e-4, "ssm": 1e-3, "dense_bf16": 4e-2,
        "moe_v2": 1e-4, "moe_v3": 1e-4, "vlm": 1e-4}
-# The configurations the port registers (the other two raise).
+# The configurations the port registers: all ten.
 PORTED = ("deepseek-coder-33b", "qwen3-4b", "llama3.2-3b", "qwen2.5-32b",
           "llava-next-34b", "deepseek-v2-236b", "deepseek-v3-671b",
-          "falcon-mamba-7b")
+          "falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-large-v2")
 
 
 @pytest.fixture(autouse=True)
@@ -160,11 +160,8 @@ def cases():
 # -------------------------------------------------------------- configs ----
 @pytest.mark.parametrize("arch", jconfigs.ARCHES)
 def test_configs_copy_the_reference(arch):
+    assert set(PORTED) == set(jconfigs.ARCHES) == set(configs.ARCHES)
     want = jconfigs.get(arch)
-    if arch not in PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get(arch)
-        return
     got = configs.get(arch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert dataclasses.asdict(smoke_config(got)) == \
@@ -172,16 +169,30 @@ def test_configs_copy_the_reference(arch):
 
 
 def test_unported_families_raise():
+    """Every family builds now: zamba2's hybrid (Mamba2 groups led by the
+    shared attention block) and seamless's encdec on the CPU, beside the
+    moe family with MTP's weights.  What still raises is encdec's
+    train_loss, which waits for training (ROADMAP.md queue 1 item 15),
+    and a family the port does not know."""
+    from repro_torch.models import encdec as ED
+
+    hybrid = build(smoke_config(configs.get("zamba2-1.2b")), device="cpu")
+    params = hybrid.init(torch.Generator().manual_seed(0))
+    assert {"groups", "shared_attn"} <= set(params._modules)
+    assert set(params["shared_attn"]._modules) == {"norm1", "attn", "norm2",
+                                                   "ffn"}
+    encdec = build(smoke_config(configs.get("seamless-m4t-large-v2")),
+                   device="cpu")
+    params = encdec.init(torch.Generator().manual_seed(0))
+    assert set(params._modules) == {"embed", "encoder", "decoder",
+                                    "enc_norm", "final_norm"}
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ED.train_loss(params, {}, encdec.cfg)
     cfg = smoke_config(configs.get("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="family"):
+        build(cfg.scaled(family="audio"), device="cpu")
+    with pytest.raises(ValueError, match="needs cfg.ssm"):
         build(cfg.scaled(family="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        build(cfg.scaled(family="encdec"), device="cpu")
-    ssm = smoke_config(configs.get("falcon-mamba-7b"))
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        build(ssm.scaled(ssm=dataclasses.replace(ssm.ssm, version=2)),
-              device="cpu")
-    # What this slice ports builds: the moe family and MTP's weights.
     build(smoke_config(configs.get("deepseek-v3-671b")), device="cpu")
     model = build(cfg.scaled(mtp_depth=1), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
